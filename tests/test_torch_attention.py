@@ -1,0 +1,163 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+The plain versions are held against ``edl_tpu``'s ``dense_attention`` and
+against the real splash Pallas kernel run in interpret mode (built as
+``edl_tpu/ops/attention.py`` builds it, with q pre-scaled as ``_splash``
+does).  The CUDA kernels themselves are checked on the card by
+``chip_smoke.py``; here a wrapper given CPU tensors computes its plain
+version.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from edl_tpu.ops import attention as jattn
+from edl_tpu_torch.ops import attention as tattn
+
+
+def _qkv(shape_q, shape_kv, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=shape_q).astype(np.float32)
+    k = rng.normal(size=shape_kv).astype(np.float32)
+    v = rng.normal(size=shape_kv).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", ["causal", "noncausal", "gqa_causal", "mask", "cross_len_causal"])
+def test_dense_matches_jax(case):
+    B, L, H, D = 2, 24, 4, 16
+    Lk, Hk, mask = L, H, None
+    causal = case in ("causal", "gqa_causal", "cross_len_causal")
+    if case == "gqa_causal":
+        Hk = 2
+    if case == "cross_len_causal":
+        Lk = 40
+    if case == "mask":
+        mask = np.random.default_rng(9).random((B, 1, L, Lk)) < 0.7
+        mask[..., 0] = True  # no fully masked row
+    q, k, v = _qkv((B, L, H, D), (B, Lk, Hk, D), seed=len(case))
+    want = jattn.dense_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 causal=causal, mask=None if mask is None else jnp.asarray(mask))
+    got = tattn.dense_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                causal=causal,
+                                mask=None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def _splash_interpret(L, H, blk):
+    """The splash kernel exactly as edl_tpu/ops/attention.py:_splash_kernel
+    builds it, but in Pallas interpret mode."""
+    from jax.experimental.pallas.ops.tpu.splash_attention import (
+        splash_attention_kernel as sk, splash_attention_mask as sm,
+    )
+    mask = sm.MultiHeadMask(masks=[sm.CausalMask(shape=(L, L)) for _ in range(H)])
+    sizes = sk.BlockSizes(
+        block_q=blk, block_kv=blk, block_kv_compute=blk,
+        block_q_dkv=blk, block_kv_dkv=blk, block_kv_dkv_compute=blk,
+        block_q_dq=blk, block_kv_dq=blk)
+    return sk.make_splash_mha(mask=mask, head_shards=1, q_seq_shards=1,
+                              block_sizes=sizes, interpret=True)
+
+
+def test_plain_matches_splash_interpret():
+    B, L, H, D, blk = 1, 256, 2, 64, 128
+    scale = D ** -0.5
+    q, k, v = _qkv((B, L, H, D), (B, L, H, D), seed=3)
+    do = np.random.default_rng(4).normal(size=(B, L, H, D)).astype(np.float32)
+    kernel = _splash_interpret(L, H, blk)
+
+    def splash(q, k, v):
+        # as _splash: [B, L, H, D] -> per-example [H, L, D], q pre-scaled
+        qt, kt, vt = (x.swapaxes(1, 2) for x in (q, k, v))
+        return jax.vmap(kernel)((qt * scale).astype(q.dtype), kt, vt).swapaxes(1, 2)
+
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    want, vjp = jax.vjp(splash, jq, jk, jv)
+    want_grads = vjp(jdo)
+
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = tattn.SplashAttention.apply(tq, tk, tv, scale)
+    got_grads = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(do))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    for g, w in zip(got_grads, want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0)
+
+    # the forward's plain version alone, and its logsumexp
+    o, lse = tattn.attention_fwd_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                       torch.from_numpy(v), scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    s = np.einsum("bqhd,bkhd->bhqk", q, k).astype(np.float64) * scale
+    s = np.where(np.tril(np.ones((L, L), bool)), s, -np.inf)
+    lse_ref = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 3, 64), (1, 70, 2, 128)])
+def test_kernel_parts_compose_to_dense_grads(shape):
+    """The plain forward and the three plain backward parts (the kernels'
+    reference functions) give dense attention's autograd gradients,
+    at ragged lengths."""
+    rng = np.random.default_rng(sum(shape))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   for _ in range(4))
+    scale = shape[-1] ** -0.5
+    o, lse = tattn.attention_fwd(q, k, v, scale)
+    delta = tattn.attention_bwd_delta(o, do)
+    dk, dv = tattn.attention_bwd_dkdv(q, k, v, do, lse, delta, scale)
+    dq = tattn.attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = tattn.dense_attention(qa, ka, va, causal=True)
+    rq, rk, rv = torch.autograd.grad(ref, (qa, ka, va), do)
+    torch.testing.assert_close(o, ref.detach(), atol=1e-5, rtol=0)
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_auto_on_cpu_is_dense_and_launches_nothing():
+    q, k, v = (torch.from_numpy(x) for x in _qkv((2, 128, 2, 64), (2, 128, 2, 64), seed=5))
+    tattn.reset_launch_counts()
+    got = tattn.dot_product_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got, tattn.dense_attention(q, k, v, causal=True),
+                               atol=0, rtol=0)
+    assert set(tattn.launch_counts().values()) == {0}
+
+
+def test_splash_impl_on_cpu_runs_the_plain_versions():
+    """impl='splash' on CPU tensors goes through the kernel wrappers, which
+    compute their plain versions (no launch), with GQA expanded first."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv((2, 64, 4, 64), (2, 64, 2, 64), seed=6))
+    tattn.reset_launch_counts()
+    got = tattn.dot_product_attention(q, k, v, causal=True, impl="splash")
+    want = tattn.dense_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert set(tattn.launch_counts().values()) == {0}
+
+
+def test_impl_names_rejected_like_jax():
+    q = torch.zeros(1, 128, 2, 64)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tattn.dot_product_attention(q, q, q, impl="bogus")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        jattn.dot_product_attention(jnp.zeros((1, 128, 2, 64)), jnp.zeros((1, 128, 2, 64)),
+                                    jnp.zeros((1, 128, 2, 64)), impl="bogus")
+    with pytest.raises(ValueError, match="causal-only"):
+        tattn.dot_product_attention(q, q, q, causal=False, impl="splash")
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        tattn.dot_product_attention(q, q, q, impl="flash")
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        tattn.dot_product_attention(q, q, q, impl="ring")
+
+
+def test_kernel_gate():
+    """The shapes and types the CUDA kernels take (checked without a card)."""
+    bf = torch.bfloat16
+    ok = torch.zeros(1, 200, 2, 64, dtype=bf)
+    assert tattn._splash_ok(ok, ok, causal=True)          # ragged L is fine
+    assert not tattn._splash_ok(ok, ok, causal=False)
+    assert not tattn._splash_ok(ok.float(), ok.float(), causal=True)
+    d32 = torch.zeros(1, 128, 2, 32, dtype=bf)
+    assert not tattn._splash_ok(d32, d32, causal=True)
+    assert not tattn._splash_ok(ok, torch.zeros(1, 100, 2, 64, dtype=bf), causal=True)
