@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py                 # every phase, as a check runs it
-    python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels,flash
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
 
-1. ``build``: compile the CUDA kernels from ``edl_tpu_torch/csrc`` with nvcc.
+1. ``build``: compile the CUDA kernels from ``edl_tpu_torch/csrc`` with nvcc
+   (every instantiation: 4 head dims x causal/non-causal x 3 kernels, and
+   the delta kernel per head dim).
 2. ``kernels``: each kernel against its plain PyTorch version (f32 from the
-   same bf16 inputs) at the flagship shape and ragged ones, with device
-   times (``torch.profiler``) of the kernel, of its plain version and of
-   one PyTorch library call as a yardstick only, and the least time the
-   card could take (the bound).
-3. ``parity``: one training step of a small bf16 config on the card (with
-   the kernels) and on the CPU (plain path) from the same weights.
+   same bf16 inputs) at the flagship shape and at ragged, cross-length and
+   wide-head (D = 192, 256) ones, with device times (``torch.profiler``) of
+   the kernel, of its plain version and of one PyTorch library call as a
+   yardstick only, and the least time the card could take (the bound).
+3. ``parity``: one training step of small bf16 configs on the card (with
+   the kernels) and on the CPU (plain path) from the same weights: the
+   splash path, and the flash path with grouped-query attention at head
+   dim 64.
 4. ``flagship``: the 124M-parameter LM at batch 8 x seq 1024 with the fused
    cross-entropy, through ``edl_tpu_torch.train_lm``'s trainer: 2 warm-up
    steps and 10 timed steps on a fixed batch; tokens/s, MFU and peak memory;
-   the kernels' launch counters must equal 12 per step each.
-5. ``resume``: save at an epoch's end, drop the trainer, restore a new one
+   the splash kernels' launch counters must equal 12 per step each.
+5. ``flash``: the same run with ``--attention flash``: the flash kernels
+   launch 12 times per step each and splash's forward, dK/dV and dQ none,
+   the loss falls, and the first loss equals the splash path's.
+6. ``resume``: save at an epoch's end, drop the trainer, restore a new one
    with ``restore_or_create`` and check that step, epoch and the next loss
    continue the uninterrupted run.
 
@@ -31,13 +38,13 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import sys
-import tempfile
 import time
 
-PHASES = ("build", "kernels", "parity", "flagship", "resume")
+PHASES = ("build", "kernels", "parity", "flagship", "flash", "resume")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -46,18 +53,32 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP_SHAPE = (8, 1024, 6, 128)     # [B, L, H, D]
-RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64))
+RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64),
+                 (2, 256, 4, 192), (2, 256, 4, 256))
+# flash: (q's [B, Lq, H, D], Lk, causal), untimed
+FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
+               ((1, 300, 2, 64), 1100, False),
+               ((2, 256, 4, 192), 256, True), ((2, 256, 4, 192), 256, False),
+               ((2, 256, 4, 256), 256, True), ((2, 256, 4, 256), 256, False))
 REL_TOL = 1e-2                          # ||kernel - plain|| / ||plain||
 
 SOURCE = "edl_tpu_torch/csrc/attention.cu"
 SPLASH = "edl_tpu/ops/attention.py:112 -> jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
+FLASH = "edl_tpu/ops/attention.py:81 -> jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNELS = {
     # wrapper name -> (kernel name, TPU code it replaces)
     "attention_fwd": ("edl_attn_fwd", f"{SPLASH}:1137"),
     "attention_bwd_delta": ("edl_attn_bwd_delta", f"{SPLASH}:2285"),
     "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", f"{SPLASH}:2196"),
     "attention_bwd_dq": ("edl_attn_bwd_dq", f"{SPLASH}:1635"),
+    "flash_fwd": ("edl_flash_fwd", f"{FLASH}:758"),
+    "flash_bwd_dkdv": ("edl_flash_bwd_dkdv", f"{FLASH}:1121"),
+    "flash_bwd_dq": ("edl_flash_bwd_dq", f"{FLASH}:1456"),
 }
+SPLASH_WRAPPERS = ("attention_fwd", "attention_bwd_delta", "attention_bwd_dkdv", "attention_bwd_dq")
+FLASH_WRAPPERS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+# 4 head dims x (causal, non-causal) x (forward, dK/dV, dQ), and delta per head dim
+KERNEL_INSTANTIATIONS = 4 * 2 * 3 + 4
 
 
 def log(phase: str, **nums) -> None:
@@ -103,30 +124,54 @@ def max_abs(got, want) -> float:
 # -- phase 1 ---------------------------------------------------------------------
 
 def phase_build(ctx) -> None:
+    """Build, and print each kernel instantiation's registers and spill
+    bytes from ``ptxas -v`` (``fwd<128,1>``: forward, D = 128, causal)."""
+    import re
+
     from edl_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build(extra_flags=["-Xptxas", "-v"])
-    for name, out in logs.items():
+    seconds = time.perf_counter() - t0
+    kernels, name = {}, None
+    for out in logs.values():
         for line in out.splitlines():
-            if any(tag in line for tag in ("Compiling entry", "registers", "spill", "error")):
-                print(f"[build] {name}: {line.strip()}", flush=True)
-    log("build", seconds=time.perf_counter() - t0, libraries=sorted(logs))
+            m = re.search(r"Compiling entry function '.*?attn_(\w+?)_kernelILi(\d+)E(?:Lb(\d)E)?", line)
+            if m:
+                name = f"{m.group(1)}<{m.group(2)}" + (f",{m.group(3)}>" if m.group(3) else ">")
+                kernels[name] = {}
+            elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+                kernels[name]["spill_bytes"] = int(m.group(1))
+            elif name and (m := re.search(r"Used (\d+) registers", line)):
+                kernels[name]["registers"] = int(m.group(1))
+            elif "error" in line:
+                print(f"[build] {line.strip()}", flush=True)
+    log("build", seconds=seconds, libraries=sorted(logs), kernel_instantiations=len(kernels),
+        kernels=kernels)
+    if len(kernels) != KERNEL_INSTANTIATIONS:
+        raise AssertionError(f"compiled {len(kernels)} attention kernels, want "
+                             f"{KERNEL_INSTANTIATIONS}")
 
 
 # -- phase 2 ---------------------------------------------------------------------
 
-def _attention_work(B, L, H, D) -> dict:
-    """Operations and bytes each kernel needs at this shape: the causal
-    pairs (k <= q) are what the data needs; each input read once, each
-    output written once."""
-    pairs = B * H * L * (L + 1) // 2
-    t = B * L * H * D * 2            # one bf16 [B, L, H, D] tensor
-    s = B * H * L * 4                # one f32 [B, H, L] statistic
+def _attention_work(B, Lq, Lk, H, D, causal) -> dict:
+    """Operations and bytes each kernel needs at this shape: the unmasked
+    pairs (causal, top-left: key j <= query i) are what the data needs;
+    each input read once, each output written once."""
+    if causal:
+        pairs = B * H * sum(min(i + 1, Lk) for i in range(Lq))
+    else:
+        pairs = B * H * Lq * Lk
+    tq, tk = B * Lq * H * D * 2, B * Lk * H * D * 2   # bf16 [B, L, H, D] tensors
+    s = B * H * Lq * 4                                 # one f32 [B, H, Lq] statistic
+    fwd = (4 * pairs * D, PEAK_BF16_FLOPS, 2 * tq + 2 * tk + s)
+    dkdv = (8 * pairs * D, PEAK_BF16_FLOPS, 2 * tq + 4 * tk + 2 * s)
+    dq = (6 * pairs * D, PEAK_BF16_FLOPS, 3 * tq + 2 * tk + 2 * s)
     return {
-        "attention_fwd": (4 * pairs * D, PEAK_BF16_FLOPS, 4 * t + s),
-        "attention_bwd_delta": (2 * B * L * H * D, PEAK_F32_FLOPS, 2 * t + s),
-        "attention_bwd_dkdv": (8 * pairs * D, PEAK_BF16_FLOPS, 6 * t + 2 * s),
-        "attention_bwd_dq": (6 * pairs * D, PEAK_BF16_FLOPS, 5 * t + 2 * s),
+        "attention_fwd": fwd, "flash_fwd": fwd,
+        "attention_bwd_delta": (2 * B * Lq * H * D, PEAK_F32_FLOPS, 2 * tq + s),
+        "attention_bwd_dkdv": dkdv, "flash_bwd_dkdv": dkdv,
+        "attention_bwd_dq": dq, "flash_bwd_dq": dq,
     }
 
 
@@ -135,40 +180,59 @@ def _bound(ops, peak, nbytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _inputs(shape, seed):
+def _randn(shape, g):
     import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
-                   for _ in range(4))
-    return q, k, v, do
+    return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
 
 
-def check_kernels(shape, seed, timed: bool) -> dict:
-    """Each kernel against its plain version at ``shape``; with ``timed``,
-    also the times and bounds.  Returns per-wrapper numbers."""
+def _kernel_set(flash: bool, causal: bool) -> dict:
+    """wrapper name -> (kernel wrapper, plain version) of one path; the
+    delta kernel serves both."""
+    from edl_tpu_torch.ops import attention as A
+    delta = (A.attention_bwd_delta, A.attention_bwd_delta_plain)
+    if not flash:
+        return {"attention_fwd": (A.attention_fwd, A.attention_fwd_plain),
+                "attention_bwd_delta": delta,
+                "attention_bwd_dkdv": (A.attention_bwd_dkdv, A.attention_bwd_dkdv_plain),
+                "attention_bwd_dq": (A.attention_bwd_dq, A.attention_bwd_dq_plain)}
+    c = functools.partial
+    return {"flash_fwd": (c(A.flash_fwd, causal=causal), c(A.flash_fwd_plain, causal=causal)),
+            "attention_bwd_delta": delta,
+            "flash_bwd_dkdv": (c(A.flash_bwd_dkdv, causal=causal),
+                               c(A.flash_bwd_dkdv_plain, causal=causal)),
+            "flash_bwd_dq": (c(A.flash_bwd_dq, causal=causal),
+                             c(A.flash_bwd_dq_plain, causal=causal))}
+
+
+def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False) -> dict:
+    """Each kernel of one path (splash: causal self-attention; flash: ``Lk``
+    keys, ``causal`` or not) against its plain version at q's ``shape``;
+    with ``timed``, also the times and bounds.  Returns per-wrapper
+    numbers."""
     import torch
     import torch.nn.functional as F
 
     from edl_tpu_torch.ops import attention as A
 
-    q, k, v, do = _inputs(shape, seed)
-    B, L, H, D = shape
+    B, Lq, H, D = shape
+    Lk = Lq if Lk is None else Lk
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (_randn(s, g) for s in (shape, (B, Lk, H, D), (B, Lk, H, D), shape))
     scale = D ** -0.5
-    o, lse = A.attention_fwd(q, k, v, scale)
-    o_p, lse_p = A.attention_fwd_plain(q, k, v, scale)
-    delta = A.attention_bwd_delta(o, do)
-    delta_p = A.attention_bwd_delta_plain(o, do)
-    dk, dv = A.attention_bwd_dkdv(q, k, v, do, lse, delta, scale)
-    dk_p, dv_p = A.attention_bwd_dkdv_plain(q, k, v, do, lse, delta, scale)
-    dq = A.attention_bwd_dq(q, k, v, do, lse, delta, scale)
-    dq_p = A.attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    ks = _kernel_set(flash, causal)
+    (fwd, fwd_p), (dlt, dlt_p), (dkdv, dkdv_p), (dq_k, dq_p) = ks.values()
+    o, lse = fwd(q, k, v, scale)
+    o_p, lse_p = fwd_p(q, k, v, scale)
+    delta = dlt(o, do)
+    delta_p = dlt_p(o, do)
+    dk, dv = dkdv(q, k, v, do, lse, delta, scale)
+    dk_p, dv_p = dkdv_p(q, k, v, do, lse, delta, scale)
+    dq = dq_k(q, k, v, do, lse, delta, scale)
+    dq_pl = dq_p(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
-    pairs = {
-        "attention_fwd": [(o, o_p), (lse, lse_p)],
-        "attention_bwd_delta": [(delta, delta_p)],
-        "attention_bwd_dkdv": [(dk, dk_p), (dv, dv_p)],
-        "attention_bwd_dq": [(dq, dq_p)],
-    }
+    names = list(ks)
+    pairs = {names[0]: [(o, o_p), (lse, lse_p)], names[1]: [(delta, delta_p)],
+             names[2]: [(dk, dk_p), (dv, dv_p)], names[3]: [(dq, dq_pl)]}
     out = {}
     for name, outs in pairs.items():
         errs = [rel_err(a, b) for a, b in outs]
@@ -176,61 +240,86 @@ def check_kernels(shape, seed, timed: bool) -> dict:
         out[name] = {"rel_err": max(errs), "max_abs_err": max(max_abs(a, b) for a, b in outs),
                      "finite": finite}
         if not finite or max(errs) > REL_TOL:
-            raise AssertionError(f"{name} at {shape}: rel err {errs} (tol {REL_TOL}), "
-                                 f"finite={finite}")
-    # the autograd function end to end against dense attention's autograd
+            raise AssertionError(f"{name} at {shape}, Lk={Lk}, causal={causal}: rel err "
+                                 f"{errs} (tol {REL_TOL}), finite={finite}")
+    if causal and Lk > Lq:
+        # keys that no query sees (top-left: j >= Lq) get exactly zero
+        unseen = max(float(dk[:, Lq:].abs().max()), float(dv[:, Lq:].abs().max()))
+        out["unseen_keys_max_abs_grad"] = unseen
+        if unseen != 0.0:
+            raise AssertionError(f"dk/dv of unseen keys are not zero: {unseen}")
+    # the autograd function end to end against dense attention's autograd,
+    # with the top-left causal mask as an explicit mask
     qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
-    ya = A.SplashAttention.apply(qa, ka, va, scale)
+    if flash:
+        ya = A.FlashAttention.apply(qa, ka, va, scale, causal)
+    else:
+        ya = A.SplashAttention.apply(qa, ka, va, scale)
     ga = torch.autograd.grad(ya, (qa, ka, va), do)
     qd, kd, vd = (t.detach().float().requires_grad_() for t in (q, k, v))
-    yd = A.dense_attention(qd, kd, vd, causal=True)
+    keep = torch.ones(Lq, Lk, dtype=torch.bool, device="cuda").tril() if causal else None
+    yd = A.dense_attention(qd, kd, vd, mask=keep)
     gd = torch.autograd.grad(yd, (qd, kd, vd), do.float())
     e2e = [rel_err(ya, yd)] + [rel_err(a, b) for a, b in zip(ga, gd)]
     if max(e2e) > REL_TOL:
-        raise AssertionError(f"autograd vs dense at {shape}: rel errs {e2e}")
+        raise AssertionError(f"autograd vs dense at {shape}, Lk={Lk}: rel errs {e2e}")
     out["autograd_vs_dense_rel_err"] = max(e2e)
     if not timed:
         return out
 
-    work = _attention_work(*shape)
-    fns = {
-        "attention_fwd": (lambda: A.attention_fwd(q, k, v, scale),
-                          lambda: A.attention_fwd_plain(q, k, v, scale)),
-        "attention_bwd_delta": (lambda: A.attention_bwd_delta(o, do),
-                                lambda: A.attention_bwd_delta_plain(o, do)),
-        "attention_bwd_dkdv": (lambda: A.attention_bwd_dkdv(q, k, v, do, lse, delta, scale),
-                               lambda: A.attention_bwd_dkdv_plain(q, k, v, do, lse, delta, scale)),
-        "attention_bwd_dq": (lambda: A.attention_bwd_dq(q, k, v, do, lse, delta, scale),
-                             lambda: A.attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)),
-    }
+    work = _attention_work(B, Lq, Lk, H, D, causal)
+    args = {names[0]: (q, k, v, scale), names[1]: (o, do),
+            names[2]: (q, k, v, do, lse, delta, scale), names[3]: (q, k, v, do, lse, delta, scale)}
     # the library yardstick: PyTorch's fused attention, forward and backward
-    # (its backward computes dq, dk and dv in one call)
+    # (its backward computes dq, dk and dv in one call; its is_causal is
+    # top-left too)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    yt = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+    yt = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     lib_bwd = device_ms(lambda: torch.autograd.grad(yt, (qt, kt, vt), dot, retain_graph=True))
-    library = {"attention_fwd": lib_fwd, "attention_bwd_delta": None,
-               "attention_bwd_dkdv": lib_bwd, "attention_bwd_dq": lib_bwd}
-    for name, (kernel_fn, plain_fn) in fns.items():
+    library = {names[0]: lib_fwd, names[1]: None, names[2]: lib_bwd, names[3]: lib_bwd}
+    for name, (kernel_fn, plain_fn) in ks.items():
+        if flash and name == "attention_bwd_delta":
+            continue  # the same kernel at the same shape as the splash path's
         bound, by = _bound(*work[name])
-        out[name].update(ms=device_ms(kernel_fn), plain_ms=device_ms(plain_fn, reps=5),
+        a = args[name]
+        out[name].update(ms=device_ms(lambda: kernel_fn(*a)),
+                         plain_ms=device_ms(lambda: plain_fn(*a), reps=5),
                          library_ms=library[name], bound_ms=bound, bound_by=by)
     return out
 
 
 def phase_kernels(ctx) -> None:
     import torch
+    worst: dict[str, float] = {}
+
+    def record(res, **where):
+        for name, r in res.items():
+            if isinstance(r, dict):
+                worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
+        log("kernels", **where, **res)
+
     for i, shape in enumerate(RAGGED_SHAPES):
-        res = check_kernels(shape, seed=10 + i, timed=False)
-        log("kernels", shape=list(shape), **{n: r for n, r in res.items()})
+        record(check_kernels(shape, seed=10 + i, timed=False), path="splash", shape=list(shape))
+    for i, (shape, Lk, causal) in enumerate(FLASH_CASES):
+        record(check_kernels(shape, seed=20 + i, timed=False, Lk=Lk, causal=causal, flash=True),
+             path="flash", shape=list(shape), Lk=Lk, causal=causal)
     res = check_kernels(FLAGSHIP_SHAPE, seed=1, timed=True)
-    for name, r in res.items():
-        if name in KERNELS:
-            log("kernels", shape=list(FLAGSHIP_SHAPE), kernel=name, **r)
-    log("kernels", shape=list(FLAGSHIP_SHAPE),
-        autograd_vs_dense_rel_err=res["autograd_vs_dense_rel_err"])
-    ctx["kernels"] = res
+    flash = check_kernels(FLAGSHIP_SHAPE, seed=2, timed=True, causal=False, flash=True)
+    for path, r, causal in (("splash", res, True), ("flash", flash, False)):
+        for name, nums in r.items():
+            if name in KERNELS:
+                worst[name] = max(worst[name], nums["max_abs_err"])
+                if "ms" in nums:
+                    log("kernels", path=path, shape=list(FLAGSHIP_SHAPE), causal=causal,
+                        kernel=name, **nums)
+        log("kernels", path=path, shape=list(FLAGSHIP_SHAPE), causal=causal,
+            autograd_vs_dense_rel_err=r["autograd_vs_dense_rel_err"])
+    timed = {**res, **{n: flash[n] for n in FLASH_WRAPPERS}}
+    for name in KERNELS:
+        timed[name]["max_abs_err"] = worst[name]
+    ctx["kernels"] = timed
     torch.cuda.synchronize()
 
 
@@ -238,10 +327,13 @@ def phase_kernels(ctx) -> None:
 
 PARITY_LOSS_RTOL = 2e-2    # bf16 compute rounds to ~0.4% at every layer output
 PARITY_GRAD_RTOL = 5e-2    # per-parameter gradient norms, same reason
+# (attention impl, heads, kv heads): the splash path at head dim 128, and the
+# flash path with grouped-query attention at head dim 64
+PARITY_CONFIGS = (("auto", 2, 0), ("flash", 4, 2))
 
 
 def phase_parity(ctx) -> None:
-    """One training step of a 2-layer bf16 config on the card (kernels) and
+    """One training step of 2-layer bf16 configs on the card (kernels) and
     on the CPU (plain path), from the same weights and the same batch."""
     import numpy as np
     import torch
@@ -252,51 +344,60 @@ def phase_parity(ctx) -> None:
     from edl_tpu_torch.train.state import adamw
     from edl_tpu_torch.train.trainer import ElasticTrainer
 
-    cfg = TransformerConfig(vocab_size=1000, num_layers=2, embed_dim=256, num_heads=2,
-                            mlp_dim=512, max_len=256, dtype=torch.bfloat16, remat=False)
-    args = train_lm.parse_args(["--fused_ce", "--ce_block", "256"])
-    ids = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 257)).astype(np.int32)
-    weights = TransformerLM(cfg, torch.Generator().manual_seed(0)).state_dict()
-    out = {}
-    for dev in ("cuda", "cpu"):
-        tr = ElasticTrainer(train_lm.make_loss_fn(args), device=dev)
+    for impl, heads, kv_heads in PARITY_CONFIGS:
+        cfg = TransformerConfig(vocab_size=1000, num_layers=2, embed_dim=256, num_heads=heads,
+                                num_kv_heads=kv_heads, mlp_dim=512, max_len=256,
+                                dtype=torch.bfloat16, remat=False, attention_impl=impl)
+        args = train_lm.parse_args(["--fused_ce", "--ce_block", "256"])
+        ids = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 257)).astype(np.int32)
+        weights = TransformerLM(cfg, torch.Generator().manual_seed(0)).state_dict()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            tr = ElasticTrainer(train_lm.make_loss_fn(args), device=dev)
 
-        def init():
-            model = TransformerLM(cfg)
-            model.load_state_dict(weights)
-            return model, None
+            def init():
+                model = TransformerLM(cfg)
+                model.load_state_dict(weights)
+                return model, None
 
-        state = tr.create_state(init, adamw(3e-4))
-        A.reset_launch_counts()
-        state, metrics = tr.step_fn(state, tr.to_device({"ids": ids}),
-                                    torch.Generator(device=dev).manual_seed(0))
-        out[dev] = (float(metrics["loss"]),
-                    {n: float(p.grad.float().norm()) for n, p in state.model.named_parameters()},
-                    A.launch_counts())
-    (loss_c, g_c, n_c), (loss_h, g_h, n_h) = out["cuda"], out["cpu"]
-    grad_rel = max(abs(g_c[n] - g_h[n]) / max(g_h[n], 1e-30) for n in g_h)
-    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
-    log("parity", loss_card=loss_c, loss_cpu=loss_h, loss_rel=loss_rel,
-        grad_norm_max_rel=grad_rel, launches_card=n_c, launches_cpu=n_h,
-        loss_rtol=PARITY_LOSS_RTOL, grad_rtol=PARITY_GRAD_RTOL)
-    if not (math.isfinite(loss_c) and loss_rel <= PARITY_LOSS_RTOL
-            and grad_rel <= PARITY_GRAD_RTOL):
-        raise AssertionError("card and CPU disagree on the 2-layer step")
-    if min(n_c.values()) != cfg.num_layers or max(n_h.values()) != 0:
-        raise AssertionError(f"the card step must launch every kernel once per layer "
-                             f"and the CPU step none: {n_c} / {n_h}")
+            state = tr.create_state(init, adamw(3e-4))
+            A.reset_launch_counts()
+            state, metrics = tr.step_fn(state, tr.to_device({"ids": ids}),
+                                        torch.Generator(device=dev).manual_seed(0))
+            out[dev] = (float(metrics["loss"]),
+                        {n: float(p.grad.float().norm()) for n, p in state.model.named_parameters()},
+                        A.launch_counts())
+        (loss_c, g_c, n_c), (loss_h, g_h, n_h) = out["cuda"], out["cpu"]
+        grad_rel = max(abs(g_c[n] - g_h[n]) / max(g_h[n], 1e-30) for n in g_h)
+        loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+        log("parity", attention=impl, head_dim=cfg.head_dim, kv_heads=cfg.kv_heads,
+            loss_card=loss_c, loss_cpu=loss_h, loss_rel=loss_rel, grad_norm_max_rel=grad_rel,
+            launches_card=n_c, launches_cpu=n_h, loss_rtol=PARITY_LOSS_RTOL,
+            grad_rtol=PARITY_GRAD_RTOL)
+        if not (math.isfinite(loss_c) and loss_rel <= PARITY_LOSS_RTOL
+                and grad_rel <= PARITY_GRAD_RTOL):
+            raise AssertionError(f"card and CPU disagree on the 2-layer {impl} step")
+        used = FLASH_WRAPPERS + ("attention_bwd_delta",) if impl == "flash" else SPLASH_WRAPPERS
+        want = {n: cfg.num_layers if n in used else 0 for n in n_c}
+        if n_c != want or max(n_h.values()) != 0:
+            raise AssertionError(f"the card's {impl} step must launch its path's kernels once "
+                                 f"per layer and no others, the CPU step none: {n_c} / {n_h}")
 
 
-# -- phase 4 ---------------------------------------------------------------------
+# -- phases 4 and 5 ----------------------------------------------------------------
 
 FLAGSHIP_ARGS = ["--layers", "12", "--embed", "768", "--heads", "6", "--mlp", "3072",
                  "--vocab", "32000", "--seq_len", "1024", "--batch_size", "8",
                  "--fused_ce", "--lr", "3e-4"]
 WARMUP_STEPS, TIMED_STEPS = 2, 10
+FIRST_LOSS_RTOL = 1e-3   # splash and flash: one function, other kernels' rounding
 
 
-def phase_flagship(ctx) -> None:
-    """The 124M LM through train_lm's trainer on a fixed batch."""
+def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
+    """The 124M LM through train_lm's trainer on a fixed batch: 2 warm-up
+    and 10 timed steps; ``path_wrappers`` must launch 12 times a step each
+    and every other attention kernel but delta none.  Returns the losses
+    and the launch counts of the timed steps."""
     import numpy as np
     import torch
 
@@ -305,7 +406,7 @@ def phase_flagship(ctx) -> None:
     from edl_tpu_torch.obs.flops import analytic_lm_flops_per_token, peak_tflops
     from edl_tpu_torch.ops import attention as A
 
-    args = train_lm.parse_args(FLAGSHIP_ARGS)
+    args = train_lm.parse_args(FLAGSHIP_ARGS + extra_args)
     device = torch.device("cuda")
     cfg, trainer, init_fn, tx = train_lm.build_trainer(args, device)
     state = trainer.create_state(init_fn, tx)
@@ -332,9 +433,9 @@ def phase_flagship(ctx) -> None:
     flops_tok = analytic_lm_flops_per_token(cfg.num_layers, cfg.embed_dim, cfg.mlp_dim,
                                             cfg.vocab_size, args.seq_len)
     peak = peak_tflops(torch.cuda.get_device_name(0))
-    log("flagship", params=param_count(cfg), remat=cfg.remat, dtype=str(cfg.dtype),
-        steps=TIMED_STEPS, step_ms=dt / TIMED_STEPS * 1e3, tokens_per_s=tok_s,
-        tflops=tok_s * flops_tok / 1e12,
+    log(phase, attention=args.attention, params=param_count(cfg), remat=cfg.remat,
+        dtype=str(cfg.dtype), steps=TIMED_STEPS, step_ms=dt / TIMED_STEPS * 1e3,
+        tokens_per_s=tok_s, tflops=tok_s * flops_tok / 1e12,
         mfu=(tok_s * flops_tok / 1e12 / peak) if peak else None,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         losses=losses, launches=launches)
@@ -345,10 +446,12 @@ def phase_flagship(ctx) -> None:
         raise AssertionError(f"first loss {losses[0]} is not near ln V = {math.log(args.vocab)}")
     if not losses[-1] < losses[0] - 0.1:
         raise AssertionError(f"loss did not fall: {losses}")
-    want = cfg.num_layers * TIMED_STEPS
-    if any(n != want for n in launches.values()):
-        raise AssertionError(f"launch counts {launches} != {want} (12 layers x {TIMED_STEPS} steps)")
-    ctx["launches"] = launches
+    per_step = cfg.num_layers * TIMED_STEPS
+    want = {n: per_step if n in path_wrappers or n == "attention_bwd_delta" else 0
+            for n in launches}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want} "
+                             f"(12 layers x {TIMED_STEPS} steps on the path's kernels)")
 
     # where the step's device time goes, by kernel, over two steps
     rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=2)
@@ -356,13 +459,60 @@ def phase_flagship(ctx) -> None:
     groups: dict[str, float] = {}
     for us, key, _ in rows:
         groups[_kernel_group(key)] = groups.get(_kernel_group(key), 0.0) + us / 2 / 1e3
-    log("flagship_profile", device_busy_ms_per_step=total / 2 / 1e3,
+    log(f"{phase}_profile", device_busy_ms_per_step=total / 2 / 1e3,
         wall_ms_per_step=dt / TIMED_STEPS * 1e3, ms_per_step_by_group=groups)
     for rank, (us, key, count) in enumerate(rows):
         if rank < 15 or "attn_" in key:
-            log("flagship_profile", kernel=key[:100], ms_per_step=us / 2 / 1e3,
+            log(f"{phase}_profile", kernel=key[:100], ms_per_step=us / 2 / 1e3,
                 share=us / total, calls_per_step=count / 2)
     A.reset_launch_counts()
+    del trainer, state
+    torch.cuda.empty_cache()
+    return losses, launches
+
+
+def phase_flagship(ctx) -> None:
+    """The 124M LM on the default (splash) path."""
+    losses, launches = _drive_flagship("flagship", [], SPLASH_WRAPPERS)
+    ctx["first_loss"] = losses[0]
+    ctx["launches"] = {n: launches[n] for n in SPLASH_WRAPPERS}
+
+
+def phase_flash(ctx) -> None:
+    """The 124M LM with ``--attention flash``; its first loss against the
+    splash path's (one step of it here if the flagship phase did not run)."""
+    losses, launches = _drive_flagship("flash", ["--attention", "flash"], FLASH_WRAPPERS)
+    splash_first = ctx.get("first_loss")
+    if splash_first is None:
+        splash_first = _first_loss(["--attention", "splash"])
+    rel = abs(losses[0] - splash_first) / abs(splash_first)
+    log("flash", first_loss=losses[0], splash_first_loss=splash_first, first_loss_rel=rel,
+        rtol=FIRST_LOSS_RTOL)
+    if rel > FIRST_LOSS_RTOL:
+        raise AssertionError(f"flash path's first loss {losses[0]} != splash path's "
+                             f"{splash_first} (rel {rel}, tol {FIRST_LOSS_RTOL})")
+    ctx.setdefault("launches", {}).update({n: launches[n] for n in FLASH_WRAPPERS})
+
+
+def _first_loss(extra_args: list[str]) -> float:
+    """The flagship's first training-step loss on another path."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch import train_lm
+
+    args = train_lm.parse_args(FLAGSHIP_ARGS + extra_args)
+    device = torch.device("cuda")
+    _, trainer, init_fn, tx = train_lm.build_trainer(args, device)
+    state = trainer.create_state(init_fn, tx)
+    ids = np.random.default_rng(2).integers(0, args.vocab, (args.batch_size,
+                                                           args.seq_len + 1)).astype(np.int32)
+    gen = torch.Generator(device=device).manual_seed(3)
+    _, metrics = trainer.step_fn(state, trainer.to_device({"ids": ids}), gen)
+    loss = float(metrics["loss"])
+    del trainer, state
+    torch.cuda.empty_cache()
+    return loss
 
 
 def _kernel_group(name: str) -> str:
@@ -375,7 +525,7 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-# -- phase 5 ---------------------------------------------------------------------
+# -- phase 6 ---------------------------------------------------------------------
 
 RESUME_RTOL = 1e-4   # the same card, deterministic kernels, a bit-exact restore
 
@@ -462,7 +612,7 @@ def main(argv=None) -> int:
 
     ctx: dict = {}
     runners = {"build": phase_build, "kernels": phase_kernels, "parity": phase_parity,
-               "flagship": phase_flagship, "resume": phase_resume}
+               "flagship": phase_flagship, "flash": phase_flash, "resume": phase_resume}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

@@ -1,12 +1,20 @@
-// Causal flash attention for Hopper (sm_90a): forward, and the backward as
-// three kernels (delta = rowsum(dO * O), dK/dV, dQ).
+// Flash attention for Hopper (sm_90a): forward, and the backward as three
+// kernels (delta = rowsum(dO * O), dK/dV, dQ); causal (top-left: key j is
+// visible to query i iff j <= i) or not, with Lq and Lk free.
 //
-// Replaces the splash-attention Pallas TPU kernels that
-// edl_tpu/ops/attention.py:_splash (lines 112-125) reaches:
-//   - forward   : splash_attention_kernel.py:1137 (_splash_attention_forward)
-//   - dq        : splash_attention_kernel.py:1635 (_splash_attention_bwd_dq)
-//   - dk / dv   : splash_attention_kernel.py:2196 (_splash_attention_bwd_dkv)
-// The TPU kernel walks a sequential grid and carries its softmax statistics
+// Replaces the Pallas TPU kernels that edl_tpu/ops/attention.py reaches
+// (jax/experimental/pallas/ops/tpu/...):
+//   _splash (lines 112-125), causal self-attention, the CAUSAL, Lq == Lk
+//   instantiation behind the edl_attn_* entry points:
+//   - forward   : splash_attention/splash_attention_kernel.py:1137
+//   - dq        : splash_attention/splash_attention_kernel.py:1635
+//   - dk / dv   : splash_attention/splash_attention_kernel.py:2196
+//   _flash (lines 81-87), causal or not, Lq != Lk, behind edl_flash_*:
+//   - forward   : flash_attention.py:758
+//   - dk / dv   : flash_attention.py:1121
+//   - dq        : flash_attention.py:1456
+//   and, for both, the backward's XLA rowsum(dO * O) (edl_attn_bwd_delta).
+// The TPU kernels walk a sequential grid and carry their softmax statistics
 // in scratch from one grid step to the next.  Here every thread block owns
 // one (batch, head, 64-row tile) and walks its loop dimension itself; blocks
 // never talk to each other, so the backward needs no atomics and is
@@ -15,19 +23,27 @@
 // What bounds it on an H100: at the model's shape ([8, 1024, 6, 128] bf16)
 // the causal forward is ~13 GFLOP against ~50 MB of q/k/v/o, so it sits
 // slightly on the operations side of the card's ridge (~295 FLOP/byte in
-// bf16).  The design keeps every score tile in registers (the [L, L]
-// matrix never touches device memory), skips the key tiles above the
-// diagonal, and runs both products of each tile on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, f32 accumulate), fed by ldmatrix from
-// shared memory.  The tiles that a block walks over are double-buffered:
-// cp.async brings the next one in while the tensor cores work on this one.
-// No TMA and no wgmma yet; those are later work.
+// bf16), and the non-causal one twice as far.  The design keeps every score
+// tile in registers (the [Lq, Lk] matrix never touches device memory),
+// skips the key tiles that causal masking hides, and runs both products of
+// each tile on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
+// accumulate), fed by ldmatrix from shared memory.  The tiles that a block
+// walks over are double-buffered: cp.async brings the next one in while the
+// tensor cores work on this one.  No TMA and no wgmma yet; those are later
+// work.
+//
+// Head dims: D is 64, 128, 192 or 256.  A warp holds a 16 x (output
+// columns) f32 accumulator (two in dK/dV); above D = 128 that would not fit
+// in the 255 registers a thread has, so a block then owns half of the
+// output columns (kCols) and the grid's z dimension covers the two halves.
+// Each half recomputes the scores, which costs 1.5x the forward's and
+// dK/dV's products and 1.33x dQ's at D > 128; D <= 128 is unchanged.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, L, H, D] with D contiguous and
 // read through their (batch, row, head) strides, so neither the model nor the
-// wrapper transposes.  The logsumexp and delta are f32 [B, H, L].
-// Types: bf16 in and out, f32 inside.  D is 64 or 128; any L >= 1 (the
-// ragged last tile is masked).  sm_scale is applied in f32 to the f32 scores.
+// wrapper transposes.  The logsumexp and delta are f32 [B, H, Lq].
+// Types: bf16 in and out, f32 inside.  Any Lq, Lk >= 1 (the ragged last
+// tiles are masked).  sm_scale is applied in f32 to the f32 scores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -144,32 +160,43 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---------------------------------------------------------------------------
-// Forward (replaces splash_attention_kernel.py:1137).  Grid (ceil(L / 64),
-// B * H); 4 warps, each owning 16 query rows.
-// Shared memory: the Q tile, then two stages of (K tile, V tile).
+// Output columns a block accumulates: all of D up to 128, half above it.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kCols = D > 128 ? D / 2 : D;
+
+// ---------------------------------------------------------------------------
+// Forward (replaces splash_attention_kernel.py:1137 and flash_attention.py:758).
+// Grid (ceil(Lq / 64), B * H, D / kCols); 4 warps, each owning 16 query rows.
+// Shared memory: the Q tile, then two stages of (K tile, V tile), which
+// leaves room for 2 blocks per SM up to D = 128.  Naming those 2 blocks in
+// __launch_bounds__ changes nothing they may use (256 registers a thread)
+// but steers ptxas to a schedule that keeps more loads in flight: more
+// registers, and a faster causal forward at D = 128 on an H100.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 2)
     attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                    Strides sq, Strides sk, Strides sv, Strides so, int H, int L, float scale) {
-  constexpr int LD = D + kPad, TILE = kTile * LD;
+                    Strides sq, Strides sk, Strides sv, Strides so, int H, int Lq, int Lk,
+                    float scale) {
+  constexpr int DV = kCols<D>, LD = D + kPad, TILE = kTile * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* KVs = Qs + TILE;  // stage i: K at KVs + 2i TILE, V right after it
 
-  const int n_tiles = (L + kTile - 1) / kTile;
-  const int q0 = (n_tiles - 1 - blockIdx.x) * kTile;  // longest rows first
+  const int n_tiles = (Lq + kTile - 1) / kTile;
+  // causal: the last query tiles see the most keys, so they launch first
+  const int q0 = (CAUSAL ? n_tiles - 1 - (int)blockIdx.x : (int)blockIdx.x) * kTile;
+  const int c0 = D == DV ? 0 : blockIdx.z * DV;  // this block's output columns
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
 
-  load_tile<kTile, D>(Qs, qb, sq.l, q0, L);
+  load_tile<kTile, D>(Qs, qb, sq.l, q0, Lq);
   commit_group();
-  load_tile<kTile, D>(KVs, kb, sk.l, 0, L);
-  load_tile<kTile, D>(KVs + TILE, vb, sv.l, 0, L);
+  load_tile<kTile, D>(KVs, kb, sk.l, 0, Lk);
+  load_tile<kTile, D>(KVs + TILE, vb, sv.l, 0, Lk);
   commit_group();
   wait_group<1>();  // the Q tile
   __syncthreads();
@@ -177,20 +204,22 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], Qs, LD, warp * 16, kk * 16, lane);
 
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const float sl2 = scale * kLog2e;  // scores in the log2 domain
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const int last = min(q0 + kTile - 1, L - 1) / kTile;  // tiles above the diagonal are skipped
+  // causal: the key tiles right of the tile's last row are skipped; key 0 is
+  // visible to every row, so no row is ever fully masked
+  const int last = (CAUSAL ? min(q0 + kTile - 1, Lk - 1) : Lk - 1) / kTile;
 
   for (int j = 0; j <= last; ++j) {
     const int k0 = j * kTile;
     if (j < last) {  // the next tiles load while this one computes
       bf16* next = KVs + 2 * ((j + 1) & 1) * TILE;
-      load_tile<kTile, D>(next, kb, sk.l, k0 + kTile, L);
-      load_tile<kTile, D>(next + TILE, vb, sv.l, k0 + kTile, L);
+      load_tile<kTile, D>(next, kb, sk.l, k0 + kTile, Lk);
+      load_tile<kTile, D>(next + TILE, vb, sv.l, k0 + kTile, Lk);
       commit_group();
       wait_group<1>();
     } else {
@@ -213,7 +242,7 @@ __global__ void __launch_bounds__(kThreads)
         mma16816(s[n + 1], qf[kk], bf + 2);
       }
     }
-    const bool edge = (k0 + kTile - 1 > q0) || (k0 + kTile > L);
+    const bool edge = (CAUSAL && k0 + kTile - 1 > q0) || (k0 + kTile > Lk);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < kTile / 8; ++n) {
@@ -221,7 +250,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + n * 8 + 2 * t + (e & 1);
         float x = s[n][e] * sl2;
-        if (edge && (col > row[e >> 1] || col >= L)) x = -INFINITY;
+        if (edge && ((CAUSAL && col > row[e >> 1]) || col >= Lk)) x = -INFINITY;
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -247,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       acc[n][0] *= alpha[0];
       acc[n][1] *= alpha[0];
       acc[n][2] *= alpha[1];
@@ -258,9 +287,9 @@ __global__ void __launch_bounds__(kThreads)
       uint32_t af[4];
       acc_to_a(af, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
+      for (int n = 0; n < DV / 8; n += 2) {
         uint32_t bf[4];
-        load_b_n(bf, Vs, LD, kk * 16, n * 8, lane);
+        load_b_n(bf, Vs, LD, kk * 16, c0 + n * 8, lane);
         mma16816(acc[n], af, bf);
         mma16816(acc[n + 1], af, bf + 2);
       }
@@ -268,26 +297,27 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  bf16* ob = o + b * so.b + h * so.h;
+  bf16* ob = o + b * so.b + h * so.h + c0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float tot = quad_sum(l[i]);
-    if (row[i] >= L) continue;
+    if (row[i] >= Lq) continue;
     const float inv = 1.f / tot;
     bf16* orow = ob + (long long)row[i] * so.l;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
           pack_f32(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
     }
-    if (t == 0) lse[(long long)bh * L + row[i]] = m[i] * kLn2 + logf(tot);
+    if (c0 == 0 && t == 0) lse[(long long)bh * Lq + row[i]] = m[i] * kLn2 + logf(tot);
   }
 }
 
 // ---------------------------------------------------------------------------
 // Backward, pass 1: delta[b, h, l] = sum_d dO[b, l, h, d] * O[b, l, h, d]
-// (the XLA einsum of splash_attention_kernel.py:2285).  One warp per (b, h, l)
-// row; it only streams O and dO, so it is bound by their bytes.
+// (the XLA einsums of splash_attention_kernel.py:2285 and
+// flash_attention.py:273).  One warp per (b, h, l) row; it only streams O and
+// dO, so it is bound by their bytes.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -309,63 +339,67 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Backward, pass 2: dK and dV (replaces splash_attention_kernel.py:2196).
-// Grid (ceil(L / 64), B * H); each block owns 64
-// key rows (16 per warp) and walks the query tiles at or below the diagonal,
-// recomputing P^T from q, k and the saved logsumexp.  Shared memory: the K and
-// V tiles, then two stages of (Q step, dO step, their lse and delta).
-template <int D>
+// Backward, pass 2: dK and dV (replaces splash_attention_kernel.py:2196 and
+// flash_attention.py:1121).  Grid (ceil(Lk / 64), B * H, D / kCols); each
+// block owns 64 key rows (16 per warp) and walks the query steps that see
+// them, recomputing P^T from q, k and the saved logsumexp.  A key tile that
+// no query sees (causal, k0 >= Lq) walks nothing and writes zeros.  Shared
+// memory: the K and V tiles, then two stages of (Q step, dO step, their lse
+// and delta).
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq, Strides sk,
-                         Strides sv, Strides sdo, Strides sdk, Strides sdv, int H, int L,
-                         float scale) {
-  constexpr int LD = D + kPad, STEP = kQStep * LD;
+                         Strides sv, Strides sdo, Strides sdk, Strides sdv, int H, int Lq,
+                         int Lk, float scale) {
+  constexpr int DV = kCols<D>, LD = D + kPad, STEP = kQStep * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + kTile * LD;
   bf16* QdOs = Vs + kTile * LD;  // stage i: Q at QdOs + 2i STEP, dO right after it
   float* stats = reinterpret_cast<float*>(QdOs + 4 * STEP);  // stage i: lse, delta at 2i kQStep
 
-  const int k0 = blockIdx.x * kTile;  // tile 0 walks the most query tiles: launched first
+  const int k0 = blockIdx.x * kTile;  // causal: tile 0 walks the most query steps: launched first
+  const int c0 = D == DV ? 0 : blockIdx.z * DV;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lse_b = lse + (long long)bh * L;
-  const float* delta_b = delta + (long long)bh * L;
+  const float* lse_b = lse + (long long)bh * Lq;
+  const float* delta_b = delta + (long long)bh * Lq;
 
   // one query step (Q, dO and their statistics) into a stage
   auto load_step = [&](int q0, int stage) {
     bf16* qs = QdOs + 2 * stage * STEP;
-    load_tile<kQStep, D>(qs, qb, sq.l, q0, L);
-    load_tile<kQStep, D>(qs + STEP, dob, sdo.l, q0, L);
+    load_tile<kQStep, D>(qs, qb, sq.l, q0, Lq);
+    load_tile<kQStep, D>(qs + STEP, dob, sdo.l, q0, Lq);
     if (threadIdx.x < kQStep) {
       const int i = q0 + threadIdx.x;
       float* st = stats + 2 * stage * kQStep;
-      st[threadIdx.x] = i < L ? lse_b[i] * kLog2e : 0.f;
-      st[kQStep + threadIdx.x] = i < L ? delta_b[i] : 0.f;
+      st[threadIdx.x] = i < Lq ? lse_b[i] * kLog2e : 0.f;
+      st[kQStep + threadIdx.x] = i < Lq ? delta_b[i] : 0.f;
     }
   };
-  load_tile<kTile, D>(Ks, k + b * sk.b + h * sk.h, sk.l, k0, L);
-  load_tile<kTile, D>(Vs, v + b * sv.b + h * sv.h, sv.l, k0, L);
-  load_step(k0, 0);
+  // causal: queries before k0 never see these keys
+  const int q_first = CAUSAL ? k0 : 0;
+  load_tile<kTile, D>(Ks, k + b * sk.b + h * sk.h, sk.l, k0, Lk);
+  load_tile<kTile, D>(Vs, v + b * sv.b + h * sv.h, sv.l, k0, Lk);
+  load_step(q_first, 0);
   commit_group();
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[DV / 8][4], dva[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
     dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
   }
   const float sl2 = scale * kLog2e;
   const int kvrow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
 
-  // the query steps at or below the diagonal: queries before k0 never see these keys
-  for (int q0 = k0, j = 0; q0 < L; q0 += kQStep, ++j) {
-    if (q0 + kQStep < L) {  // the next step loads while this one computes
+  for (int q0 = q_first, j = 0; q0 < Lq; q0 += kQStep, ++j) {
+    if (q0 + kQStep < Lq) {  // the next step loads while this one computes
       load_step(q0 + kQStep, (j + 1) & 1);
       commit_group();
       wait_group<1>();
@@ -394,14 +428,14 @@ __global__ void __launch_bounds__(kThreads)
         mma16816(p[n + 1], af, bf + 2);
       }
     }
-    const bool edge = (q0 < k0 + kTile) || (q0 + kQStep > L);
+    const bool edge = (CAUSAL && q0 < k0 + kTile) || (q0 + kQStep > Lq);
 #pragma unroll
     for (int n = 0; n < kQStep / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ql = n * 8 + 2 * t + (e & 1), qi = q0 + ql;
         float x = exp2f(p[n][e] * sl2 - lse_s[ql]);
-        if (edge && (qi < kvrow[e >> 1] || qi >= L)) x = 0.f;
+        if (edge && ((CAUSAL && qi < kvrow[e >> 1]) || qi >= Lq)) x = 0.f;
         p[n][e] = x;
       }
     }
@@ -411,9 +445,9 @@ __global__ void __launch_bounds__(kThreads)
       uint32_t af[4];
       acc_to_a(af, p[2 * kk], p[2 * kk + 1]);
 #pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
+      for (int n = 0; n < DV / 8; n += 2) {
         uint32_t bf[4];
-        load_b_n(bf, dOs, LD, kk * 16, n * 8, lane);
+        load_b_n(bf, dOs, LD, kk * 16, c0 + n * 8, lane);
         mma16816(dva[n], af, bf);
         mma16816(dva[n + 1], af, bf + 2);
       }
@@ -446,25 +480,26 @@ __global__ void __launch_bounds__(kThreads)
       uint32_t af[4];
       acc_to_a(af, ds[2 * kk], ds[2 * kk + 1]);
 #pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
+      for (int n = 0; n < DV / 8; n += 2) {
         uint32_t bf[4];
-        load_b_n(bf, Qs, LD, kk * 16, n * 8, lane);
+        load_b_n(bf, Qs, LD, kk * 16, c0 + n * 8, lane);
         mma16816(dka[n], af, bf);
         mma16816(dka[n + 1], af, bf + 2);
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
+  wait_group<0>();  // the first step's copies, when no query step was walked
 
-  bf16* dkb = dk + b * sdk.b + h * sdk.h;
-  bf16* dvb = dv + b * sdv.b + h * sdv.h;
+  bf16* dkb = dk + b * sdk.b + h * sdk.h + c0;
+  bf16* dvb = dv + b * sdv.b + h * sdv.h + c0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (kvrow[i] >= L) continue;
+    if (kvrow[i] >= Lk) continue;
     bf16* dkrow = dkb + (long long)kvrow[i] * sdk.l;
     bf16* dvrow = dvb + (long long)kvrow[i] * sdv.l;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       *reinterpret_cast<uint32_t*>(dkrow + n * 8 + 2 * t) =
           pack_f32(dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dvrow + n * 8 + 2 * t) =
@@ -474,55 +509,56 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Backward, pass 3: dQ (replaces splash_attention_kernel.py:1635).
-// Grid (ceil(L / 64), B * H); each block owns 64 query
-// rows and walks the key tiles up to the diagonal.  Shared memory: the Q and dO
-// tiles, then two stages of (K tile, V tile).
-template <int D>
+// Backward, pass 3: dQ (replaces splash_attention_kernel.py:1635 and
+// flash_attention.py:1456).  Grid (ceil(Lq / 64), B * H, D / kCols); each
+// block owns 64 query rows and walks the key tiles they see.  Shared memory:
+// the Q and dO tiles, then two stages of (K tile, V tile).
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
-                       Strides sdq, int H, int L, float scale) {
-  constexpr int LD = D + kPad, TILE = kTile * LD;
+                       Strides sdq, int H, int Lq, int Lk, float scale) {
+  constexpr int DV = kCols<D>, LD = D + kPad, TILE = kTile * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + TILE;
   bf16* KVs = dOs + TILE;  // stage i: K at KVs + 2i TILE, V right after it
 
-  const int n_tiles = (L + kTile - 1) / kTile;
-  const int q0 = (n_tiles - 1 - blockIdx.x) * kTile;  // longest rows first
+  const int n_tiles = (Lq + kTile - 1) / kTile;
+  const int q0 = (CAUSAL ? n_tiles - 1 - (int)blockIdx.x : (int)blockIdx.x) * kTile;
+  const int c0 = D == DV ? 0 : blockIdx.z * DV;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
 
-  load_tile<kTile, D>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, L);
-  load_tile<kTile, D>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, L);
-  load_tile<kTile, D>(KVs, kb, sk.l, 0, L);
-  load_tile<kTile, D>(KVs + TILE, vb, sv.l, 0, L);
+  load_tile<kTile, D>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
+  load_tile<kTile, D>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, Lq);
+  load_tile<kTile, D>(KVs, kb, sk.l, 0, Lk);
+  load_tile<kTile, D>(KVs + TILE, vb, sv.l, 0, Lk);
   commit_group();
 
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   float lse2[2], dlt[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    lse2[i] = row[i] < L ? lse[(long long)bh * L + row[i]] * kLog2e : 0.f;
-    dlt[i] = row[i] < L ? delta[(long long)bh * L + row[i]] : 0.f;
+    lse2[i] = row[i] < Lq ? lse[(long long)bh * Lq + row[i]] * kLog2e : 0.f;
+    dlt[i] = row[i] < Lq ? delta[(long long)bh * Lq + row[i]] : 0.f;
   }
-  float dqa[D / 8][4];
+  float dqa[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  for (int n = 0; n < DV / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
   const float sl2 = scale * kLog2e;
-  const int last = min(q0 + kTile - 1, L - 1) / kTile;
+  const int last = (CAUSAL ? min(q0 + kTile - 1, Lk - 1) : Lk - 1) / kTile;
 
   for (int j = 0; j <= last; ++j) {
     const int k0 = j * kTile;
     if (j < last) {  // the next tiles load while this one computes
       bf16* next = KVs + 2 * ((j + 1) & 1) * TILE;
-      load_tile<kTile, D>(next, kb, sk.l, k0 + kTile, L);
-      load_tile<kTile, D>(next + TILE, vb, sv.l, k0 + kTile, L);
+      load_tile<kTile, D>(next, kb, sk.l, k0 + kTile, Lk);
+      load_tile<kTile, D>(next + TILE, vb, sv.l, k0 + kTile, Lk);
       commit_group();
       wait_group<1>();
     } else {
@@ -555,14 +591,14 @@ __global__ void __launch_bounds__(kThreads)
         mma16816(ds[n + 1], ado, bv + 2);
       }
     }
-    const bool edge = (k0 + kTile - 1 > q0) || (k0 + kTile > L);
+    const bool edge = (CAUSAL && k0 + kTile - 1 > q0) || (k0 + kTile > Lk);
 #pragma unroll
     for (int n = 0; n < kTile / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + n * 8 + 2 * t + (e & 1), i = e >> 1;
         float x = exp2f(p[n][e] * sl2 - lse2[i]);
-        if (edge && (col > row[i] || col >= L)) x = 0.f;
+        if (edge && ((CAUSAL && col > row[i]) || col >= Lk)) x = 0.f;
         ds[n][e] = x * (ds[n][e] - dlt[i]);
       }
     }
@@ -572,9 +608,9 @@ __global__ void __launch_bounds__(kThreads)
       uint32_t af[4];
       acc_to_a(af, ds[2 * kk], ds[2 * kk + 1]);
 #pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
+      for (int n = 0; n < DV / 8; n += 2) {
         uint32_t bf[4];
-        load_b_n(bf, Ks, LD, kk * 16, n * 8, lane);
+        load_b_n(bf, Ks, LD, kk * 16, c0 + n * 8, lane);
         mma16816(dqa[n], af, bf);
         mma16816(dqa[n + 1], af, bf + 2);
       }
@@ -582,13 +618,13 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  bf16* dqb = dq + b * sdq.b + h * sdq.h;
+  bf16* dqb = dq + b * sdq.b + h * sdq.h + c0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (row[i] >= L) continue;
+    if (row[i] >= Lq) continue;
     bf16* dqrow = dqb + (long long)row[i] * sdq.l;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       *reinterpret_cast<uint32_t*>(dqrow + n * 8 + 2 * t) =
           pack_f32(dqa[n][2 * i] * scale, dqa[n][2 * i + 1] * scale);
     }
@@ -597,65 +633,97 @@ __global__ void __launch_bounds__(kThreads)
 
 Strides strides_at(const long long* st, int i) { return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; }
 
-// Raise the dynamic shared-memory limit once per instantiation, then launch.
+// Raise the dynamic shared-memory limit of an instantiation, then launch.
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <int D>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                const long long* st, int B, int H, int L, float scale, cudaStream_t stream) {
-  const size_t smem = 5 * kTile * (D + kPad) * sizeof(bf16);
-  cudaError_t err = prepare(attn_fwd_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((L + kTile - 1) / kTile, B * H);
-  attn_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, strides_at(st, 0),
-      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), H, L, scale);
-  return cudaGetLastError();
+dim3 grid_of(int L, int B, int H) {
+  return dim3((L + kTile - 1) / kTile, B * H, D / kCols<D>);
 }
 
-template <int D>
-cudaError_t bwd_delta(const void* o, const void* dout, void* delta, const long long* st, int B,
-                      int H, int L, cudaStream_t stream) {
-  const long long rows = (long long)B * H * L;
-  const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-  attn_bwd_delta_kernel<D><<<blocks, kThreads, 0, stream>>>(
-      (const bf16*)o, (const bf16*)dout, (float*)delta, strides_at(st, 0), strides_at(st, 1), H,
-      L, rows);
-  return cudaGetLastError();
-}
+// One launcher per kernel; dispatch() picks the instantiation.
+struct Fwd {
+  template <int D, bool CAUSAL>
+  static cudaError_t run(const void* q, const void* k, const void* v, void* o, void* lse,
+                         const long long* st, int B, int H, int Lq, int Lk, float scale,
+                         cudaStream_t stream) {
+    const size_t smem = 5 * kTile * (D + kPad) * sizeof(bf16);
+    cudaError_t err = prepare(attn_fwd_kernel<D, CAUSAL>, smem);
+    if (err != cudaSuccess) return err;
+    attn_fwd_kernel<D, CAUSAL><<<grid_of<D>(Lq, B, H), kThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), H, Lq, Lk,
+        scale);
+    return cudaGetLastError();
+  }
+};
 
-template <int D>
-cudaError_t bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, void* dk, void* dv, const long long* st,
-                     int B, int H, int L, float scale, cudaStream_t stream) {
-  const size_t smem =
-      (2 * kTile + 4 * kQStep) * (D + kPad) * sizeof(bf16) + 4 * kQStep * sizeof(float);
-  cudaError_t err = prepare(attn_bwd_dkdv_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((L + kTile - 1) / kTile, B * H);
-  attn_bwd_dkdv_kernel<D><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, L, scale);
-  return cudaGetLastError();
-}
+struct BwdDelta {
+  template <int D, bool>
+  static cudaError_t run(const void* o, const void* dout, void* delta, const long long* st,
+                         int B, int H, int L, cudaStream_t stream) {
+    const long long rows = (long long)B * H * L;
+    const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
+    attn_bwd_delta_kernel<D><<<blocks, kThreads, 0, stream>>>(
+        (const bf16*)o, (const bf16*)dout, (float*)delta, strides_at(st, 0), strides_at(st, 1),
+        H, L, rows);
+    return cudaGetLastError();
+  }
+};
 
-template <int D>
-cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, void* dq, const long long* st, int B,
-                   int H, int L, float scale, cudaStream_t stream) {
-  const size_t smem = 6 * kTile * (D + kPad) * sizeof(bf16);
-  cudaError_t err = prepare(attn_bwd_dq_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((L + kTile - 1) / kTile, B * H);
-  attn_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), strides_at(st, 4), H, L, scale);
-  return cudaGetLastError();
+struct BwdDkdv {
+  template <int D, bool CAUSAL>
+  static cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dk, void* dv,
+                         const long long* st, int B, int H, int Lq, int Lk, float scale,
+                         cudaStream_t stream) {
+    const size_t smem =
+        (2 * kTile + 4 * kQStep) * (D + kPad) * sizeof(bf16) + 4 * kQStep * sizeof(float);
+    cudaError_t err = prepare(attn_bwd_dkdv_kernel<D, CAUSAL>, smem);
+    if (err != cudaSuccess) return err;
+    attn_bwd_dkdv_kernel<D, CAUSAL><<<grid_of<D>(Lk, B, H), kThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+        (const float*)delta, (bf16*)dk, (bf16*)dv, strides_at(st, 0), strides_at(st, 1),
+        strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Lq, Lk,
+        scale);
+    return cudaGetLastError();
+  }
+};
+
+struct BwdDq {
+  template <int D, bool CAUSAL>
+  static cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dq, const long long* st,
+                         int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
+    const size_t smem = 6 * kTile * (D + kPad) * sizeof(bf16);
+    cudaError_t err = prepare(attn_bwd_dq_kernel<D, CAUSAL>, smem);
+    if (err != cudaSuccess) return err;
+    attn_bwd_dq_kernel<D, CAUSAL><<<grid_of<D>(Lq, B, H), kThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+        (const float*)delta, (bf16*)dq, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+        strides_at(st, 3), strides_at(st, 4), H, Lq, Lk, scale);
+    return cudaGetLastError();
+  }
+};
+
+// Op::run<D, causal>(args...) for a head dim the kernels take; any other D
+// gives cudaErrorInvalidValue.
+template <typename Op, typename... Args>
+int dispatch(int D, bool causal, Args... args) {
+  switch (D) {
+    case 64:
+      return causal ? Op::template run<64, true>(args...) : Op::template run<64, false>(args...);
+    case 128:
+      return causal ? Op::template run<128, true>(args...) : Op::template run<128, false>(args...);
+    case 192:
+      return causal ? Op::template run<192, true>(args...) : Op::template run<192, false>(args...);
+    case 256:
+      return causal ? Op::template run<256, true>(args...) : Op::template run<256, false>(args...);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -663,42 +731,56 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
 // Plain C entry points (loaded with ctypes).  Each launches one kernel on
 // `stream` and returns cudaGetLastError() (0 on success); an unsupported D
 // returns cudaErrorInvalidValue.  `st` holds (batch, row, head) element
-// strides, three per tensor, in the order the tensors are listed.
+// strides, three per tensor, in the order the tensors are listed.  The
+// edl_attn_* forward, dK/dV and dQ are causal self-attention (L = Lq = Lk);
+// the edl_flash_* ones take Lq, Lk and `causal`.
 extern "C" {
 
 int edl_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                  const long long* st, int B, int H, int L, int D, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64) return fwd<64>(q, k, v, o, lse, st, B, H, L, scale, s);
-  if (D == 128) return fwd<128>(q, k, v, o, lse, st, B, H, L, scale, s);
-  return cudaErrorInvalidValue;
+  return dispatch<Fwd>(D, true, q, k, v, o, lse, st, B, H, L, L, scale, (cudaStream_t)stream);
 }
 
 int edl_attn_bwd_delta(const void* o, const void* dout, void* delta, const long long* st, int B,
                        int H, int L, int D, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64) return bwd_delta<64>(o, dout, delta, st, B, H, L, s);
-  if (D == 128) return bwd_delta<128>(o, dout, delta, st, B, H, L, s);
-  return cudaErrorInvalidValue;
+  return dispatch<BwdDelta>(D, true, o, dout, delta, st, B, H, L, (cudaStream_t)stream);
 }
 
 int edl_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv,
                       const long long* st, int B, int H, int L, int D, float scale,
                       void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64) return bwd_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, st, B, H, L, scale, s);
-  if (D == 128) return bwd_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, st, B, H, L, scale, s);
-  return cudaErrorInvalidValue;
+  return dispatch<BwdDkdv>(D, true, q, k, v, dout, lse, delta, dk, dv, st, B, H, L, L, scale,
+                           (cudaStream_t)stream);
 }
 
 int edl_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dq, const long long* st, int B,
                     int H, int L, int D, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64) return bwd_dq<64>(q, k, v, dout, lse, delta, dq, st, B, H, L, scale, s);
-  if (D == 128) return bwd_dq<128>(q, k, v, dout, lse, delta, dq, st, B, H, L, scale, s);
-  return cudaErrorInvalidValue;
+  return dispatch<BwdDq>(D, true, q, k, v, dout, lse, delta, dq, st, B, H, L, L, scale,
+                         (cudaStream_t)stream);
+}
+
+int edl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                  const long long* st, int B, int H, int Lq, int Lk, int D, int causal,
+                  float scale, void* stream) {
+  return dispatch<Fwd>(D, causal != 0, q, k, v, o, lse, st, B, H, Lq, Lk, scale,
+                       (cudaStream_t)stream);
+}
+
+int edl_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv,
+                       const long long* st, int B, int H, int Lq, int Lk, int D, int causal,
+                       float scale, void* stream) {
+  return dispatch<BwdDkdv>(D, causal != 0, q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk,
+                           scale, (cudaStream_t)stream);
+}
+
+int edl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* dq, const long long* st, int B,
+                     int H, int Lq, int Lk, int D, int causal, float scale, void* stream) {
+  return dispatch<BwdDq>(D, causal != 0, q, k, v, dout, lse, delta, dq, st, B, H, Lq, Lk, scale,
+                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

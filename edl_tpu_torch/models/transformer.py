@@ -43,7 +43,7 @@ class TransformerConfig:
     # grouped-query attention: number of K/V heads (0 = num_heads, MHA)
     num_kv_heads: int = 0
     dtype: Any = torch.bfloat16
-    attention_impl: str = "auto"      # auto | dense | splash (flash, ring: not ported)
+    attention_impl: str = "auto"      # auto | dense | splash | flash (ring: not ported)
     mesh: Any = None                  # for attention_impl="ring" (not ported)
     remat: bool = True                # recompute each layer in the backward
     scan_layers: bool = True          # no effect: layers are a Python loop

@@ -3,15 +3,18 @@
 ``dot_product_attention(q, k, v)`` dispatches:
 
 - ``dense``: plain PyTorch attention with an f32 softmax; grouped-query
-  attention is native (q head h uses kv head h // (H // Hk));
+  attention is native (q head h uses kv head h // (H // Hk)); a causal
+  mask is aligned bottom-right, as the JAX package's ``dense_attention``;
 - ``splash``: causal self-attention through the hand-written CUDA kernels
   in ``edl_tpu_torch/csrc/attention.cu`` (forward, and a backward of three
   kernels), the counterpart of the JAX package's splash path;
-- ``flash`` and ``ring``: not ported yet (``NotImplementedError``);
-- ``auto``: on CUDA tensors, the kernels for causal self-attention with
-  no mask and a shape they take; dense, with a once-per-shape warning,
-  for a mask or a shape they refuse; ``NotImplementedError`` where the
-  JAX package would run its flash kernel.  CPU tensors take dense.
+- ``flash``: attention with ``Lq`` and ``Lk`` free, causal or not, through
+  the same kernels' ``edl_flash_*`` entry points, the counterpart of the
+  JAX package's Pallas flash kernel; its causal mask is aligned top-left
+  (key j is visible to query i iff j <= i), as that kernel's is;
+- ``ring``: not ported yet (``NotImplementedError``);
+- ``auto``: the choice the JAX package makes on its accelerator
+  (:func:`choose_impl`), for CUDA tensors; CPU tensors take dense.
 
 Each kernel has a wrapper with a launch counter (``wrapper.launches``)
 and a plain PyTorch version of the same function beside it.  A wrapper
@@ -28,7 +31,7 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 
 
 # -- the plain versions --------------------------------------------------------
@@ -65,18 +68,19 @@ def dense_attention(q, k, v, *, causal: bool = False,
     return out.reshape(B, Lq, H, D)
 
 
-def _causal_scores(q, k, scale):
-    """f32 scaled causal scores [B, H, L, L] of self-attention."""
-    L = q.shape[1]
+def _scores(q, k, scale, causal):
+    """f32 scaled scores [B, H, Lq, Lk]; causal masks top-left (j > i)."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    keep = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+    if not causal:
+        return s
+    keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool, device=q.device).tril()
     return s.masked_fill(~keep, float("-inf"))
 
 
-def attention_fwd_plain(q, k, v, scale: float):
-    """Causal self-attention in f32: ``(o [B, L, H, D] in q's dtype,
-    lse [B, H, L] f32)``, the logsumexp of the scaled scores."""
-    s = _causal_scores(q, k, scale)
+def flash_fwd_plain(q, k, v, scale: float, causal: bool):
+    """Attention in f32, top-left causal or not: ``(o [B, Lq, H, D] in q's
+    dtype, lse [B, H, Lq] f32)``, the logsumexp of the scaled scores."""
+    s = _scores(q, k, scale, causal)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
@@ -88,24 +92,41 @@ def attention_bwd_delta_plain(o, do):
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _probs_and_dscores(q, k, v, do, lse, delta, scale):
-    p = torch.exp(_causal_scores(q, k, scale) - lse[..., None])
+def _probs_and_dscores(q, k, v, do, lse, delta, scale, causal):
+    p = torch.exp(_scores(q, k, scale, causal) - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     return p, p * (dp - delta[..., None])
 
 
-def attention_bwd_dkdv_plain(q, k, v, do, lse, delta, scale: float):
-    """``(dk, dv)`` of causal self-attention from the saved logsumexp."""
-    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, scale)
+def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """``(dk, dv)`` from the saved logsumexp; keys no query sees get 0."""
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, scale, causal)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """``dq`` from the saved logsumexp."""
+    _, ds = _probs_and_dscores(q, k, v, do, lse, delta, scale, causal)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype)
+
+
+# causal self-attention: the flash functions at Lq == Lk, where top-left
+# and bottom-right alignment agree
+def attention_fwd_plain(q, k, v, scale: float):
+    """Causal self-attention in f32: ``(o, lse)`` as :func:`flash_fwd_plain`."""
+    return flash_fwd_plain(q, k, v, scale, True)
+
+
+def attention_bwd_dkdv_plain(q, k, v, do, lse, delta, scale: float):
+    """``(dk, dv)`` of causal self-attention from the saved logsumexp."""
+    return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale, True)
+
+
 def attention_bwd_dq_plain(q, k, v, do, lse, delta, scale: float):
     """``dq`` of causal self-attention from the saved logsumexp."""
-    _, ds = _probs_and_dscores(q, k, v, do, lse, delta, scale)
-    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype)
+    return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, True)
 
 
 # -- the kernels -----------------------------------------------------------------
@@ -115,13 +136,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # q k v o lse strides B H L D scale stream
-    "edl_attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "edl_attn_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
     # o dout delta strides B H L D stream
-    "edl_attn_bwd_delta": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "edl_attn_bwd_delta": [_P] * 4 + [_I] * 4 + [_P],
     # q k v dout lse delta dk dv strides B H L D scale stream
-    "edl_attn_bwd_dkdv": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    "edl_attn_bwd_dkdv": [_P] * 9 + [_I] * 4 + [_F, _P],
     # q k v dout lse delta dq strides B H L D scale stream
-    "edl_attn_bwd_dq": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
+    "edl_attn_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _P],
+    # as edl_attn_*, with B H Lq Lk D causal in place of B H L D
+    "edl_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "edl_flash_bwd_dkdv": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "edl_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 _lib = None
 
@@ -167,13 +192,29 @@ def _strides(*ts) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _check_shape(q):
-    B, L, H, D = q.shape
+def _check_head_dim(D: int) -> None:
+    if D % 64 == 0 and D > KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"head_dim {D}: the attention kernels take head dims "
+                         f"up to {KERNEL_HEAD_DIMS[-1]} (ROADMAP.md, Queue 3)")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention kernels take head_dim in {KERNEL_HEAD_DIMS}, got {D}")
-    if L < 1 or B * H > 65535:
-        raise ValueError(f"attention kernels need L >= 1 and B*H <= 65535; got {q.shape}")
-    return B, L, H, D
+
+
+def _operands(q, k, v, do=None):
+    """Check the operands of one launch: q (and do) of ``[B, Lq, H, D]``, k
+    and v of ``[B, Lk, H, D]``.  Returns ``(B, H, Lq, Lk, D)`` and the
+    operands, each copied only if the kernels cannot read it as is."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    _check_head_dim(D)
+    if min(Lq, Lk) < 1 or B * H > 65535:
+        raise ValueError(f"attention kernels need Lq, Lk >= 1 and B*H <= 65535; "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    kv = (B, Lk, H, D)
+    ts = [_operand(q, "q", q.shape), _operand(k, "k", kv), _operand(v, "v", kv)]
+    if do is not None:
+        ts.append(_operand(do, "do", q.shape))
+    return (B, H, Lq, Lk, D), ts
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -185,29 +226,83 @@ def _stream(t) -> _P:
     return _P(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _stats(lse, delta, B, H, L):
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, L):
+            raise ValueError(f"{name}: want f32 [{B}, {H}, {L}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return lse.contiguous(), delta.contiguous()
+
+
+def _sizes(dims, causal):
+    """The size arguments of an entry point: ``B H L D`` for the causal
+    self-attention ``edl_attn_*`` ones (``causal is None``), ``B H Lq Lk D
+    causal`` for the ``edl_flash_*`` ones."""
+    B, H, Lq, Lk, D = dims
+    if causal is None:
+        if Lq != Lk:
+            raise ValueError(f"the splash kernels need Lq == Lk; got {Lq}, {Lk}")
+        return (B, H, Lq, D)
+    return (B, H, Lq, Lk, D, int(bool(causal)))
+
+
+def _run_fwd(entry, q, k, v, scale, causal):
+    dims, (q, k, v) = _operands(q, k, v)
+    B, H, Lq, _, D = dims
+    o = torch.empty(B, Lq, H, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
+    err = getattr(_kernels(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        _strides(q, k, v, o), *_sizes(dims, causal), float(scale), _stream(q))
+    _raise_on(err, entry)
+    return o, lse
+
+
+def _run_dkdv(entry, q, k, v, do, lse, delta, scale, causal):
+    dims, (q, k, v, do) = _operands(q, k, v, do)
+    B, H, Lq, _, _ = dims
+    lse, delta = _stats(lse, delta, B, H, Lq)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    err = getattr(_kernels(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(q, k, v, do, dk, dv), *_sizes(dims, causal), float(scale), _stream(q))
+    _raise_on(err, entry)
+    return dk, dv
+
+
+def _run_dq(entry, q, k, v, do, lse, delta, scale, causal):
+    dims, (q, k, v, do) = _operands(q, k, v, do)
+    B, H, Lq, _, _ = dims
+    lse, delta = _stats(lse, delta, B, H, Lq)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = getattr(_kernels(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _strides(q, k, v, do, dq), *_sizes(dims, causal), float(scale), _stream(q))
+    _raise_on(err, entry)
+    return dq
+
+
 def attention_fwd(q, k, v, scale: float):
     """Causal self-attention forward: ``(o, lse)`` as
     :func:`attention_fwd_plain`.  Launches ``edl_attn_fwd`` on CUDA."""
     if _on_cpu(q, k, v):
         return attention_fwd_plain(q, k, v, scale)
-    B, L, H, D = _check_shape(q)
-    q, k, v = (_operand(t, n, q.shape) for t, n in ((q, "q"), (k, "k"), (v, "v")))
-    o = torch.empty(B, L, H, D, dtype=q.dtype, device=q.device)
-    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
-    err = _kernels().edl_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _strides(q, k, v, o), B, H, L, D, float(scale), _stream(q))
-    _raise_on(err, "edl_attn_fwd")
+    out = _run_fwd("edl_attn_fwd", q, k, v, scale, None)
     attention_fwd.launches += 1
-    return o, lse
+    return out
 
 
 def attention_bwd_delta(o, do):
-    """``rowsum(dO * O)`` as :func:`attention_bwd_delta_plain`.  Launches
-    ``edl_attn_bwd_delta`` on CUDA."""
+    """``rowsum(dO * O)`` as :func:`attention_bwd_delta_plain`, for the
+    splash and the flash backward alike.  Launches ``edl_attn_bwd_delta``
+    on CUDA."""
     if _on_cpu(o, do):
         return attention_bwd_delta_plain(o, do)
-    B, L, H, D = _check_shape(o)
+    B, L, H, D = o.shape
+    _check_head_dim(D)
     o, do = _operand(o, "o", o.shape), _operand(do, "do", o.shape)
     delta = torch.empty(B, H, L, dtype=torch.float32, device=o.device)
     err = _kernels().edl_attn_bwd_delta(
@@ -218,32 +313,14 @@ def attention_bwd_delta(o, do):
     return delta
 
 
-def _stats(lse, delta, B, H, L):
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, L):
-            raise ValueError(f"{name}: want f32 [{B}, {H}, {L}], got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    return lse.contiguous(), delta.contiguous()
-
-
 def attention_bwd_dkdv(q, k, v, do, lse, delta, scale: float):
     """``(dk, dv)`` as :func:`attention_bwd_dkdv_plain`.  Launches
     ``edl_attn_bwd_dkdv`` on CUDA."""
     if _on_cpu(q, k, v, do, lse, delta):
         return attention_bwd_dkdv_plain(q, k, v, do, lse, delta, scale)
-    B, L, H, D = _check_shape(q)
-    q, k, v, do = (_operand(t, n, q.shape) for t, n in
-                   ((q, "q"), (k, "k"), (v, "v"), (do, "do")))
-    lse, delta = _stats(lse, delta, B, H, L)
-    dk = torch.empty(B, L, H, D, dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    err = _kernels().edl_attn_bwd_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _strides(q, k, v, do, dk, dv), B, H, L, D, float(scale), _stream(q))
-    _raise_on(err, "edl_attn_bwd_dkdv")
+    out = _run_dkdv("edl_attn_bwd_dkdv", q, k, v, do, lse, delta, scale, None)
     attention_bwd_dkdv.launches += 1
-    return dk, dv
+    return out
 
 
 def attention_bwd_dq(q, k, v, do, lse, delta, scale: float):
@@ -251,22 +328,43 @@ def attention_bwd_dq(q, k, v, do, lse, delta, scale: float):
     ``edl_attn_bwd_dq`` on CUDA."""
     if _on_cpu(q, k, v, do, lse, delta):
         return attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
-    B, L, H, D = _check_shape(q)
-    q, k, v, do = (_operand(t, n, q.shape) for t, n in
-                   ((q, "q"), (k, "k"), (v, "v"), (do, "do")))
-    lse, delta = _stats(lse, delta, B, H, L)
-    dq = torch.empty(B, L, H, D, dtype=q.dtype, device=q.device)
-    err = _kernels().edl_attn_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        _strides(q, k, v, do, dq), B, H, L, D, float(scale), _stream(q))
-    _raise_on(err, "edl_attn_bwd_dq")
+    out = _run_dq("edl_attn_bwd_dq", q, k, v, do, lse, delta, scale, None)
     attention_bwd_dq.launches += 1
-    return dq
+    return out
+
+
+def flash_fwd(q, k, v, scale: float, causal: bool):
+    """Forward, top-left causal or not, ``Lq != Lk`` allowed: ``(o, lse)``
+    as :func:`flash_fwd_plain`.  Launches ``edl_flash_fwd`` on CUDA."""
+    if _on_cpu(q, k, v):
+        return flash_fwd_plain(q, k, v, scale, causal)
+    out = _run_fwd("edl_flash_fwd", q, k, v, scale, causal)
+    flash_fwd.launches += 1
+    return out
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """``(dk, dv)`` as :func:`flash_bwd_dkdv_plain`.  Launches
+    ``edl_flash_bwd_dkdv`` on CUDA."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale, causal)
+    out = _run_dkdv("edl_flash_bwd_dkdv", q, k, v, do, lse, delta, scale, causal)
+    flash_bwd_dkdv.launches += 1
+    return out
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """``dq`` as :func:`flash_bwd_dq_plain`.  Launches ``edl_flash_bwd_dq``
+    on CUDA."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal)
+    out = _run_dq("edl_flash_bwd_dq", q, k, v, do, lse, delta, scale, causal)
+    flash_bwd_dq.launches += 1
+    return out
 
 
 KERNEL_WRAPPERS = (attention_fwd, attention_bwd_delta, attention_bwd_dkdv,
-                   attention_bwd_dq)
+                   attention_bwd_dq, flash_fwd, flash_bwd_dkdv, flash_bwd_dq)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 
@@ -300,23 +398,82 @@ class SplashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention with ``Lq``, ``Lk`` free, top-left causal or not, whose
+    forward and backward are the ``edl_flash_*`` kernels (their plain
+    versions for CPU tensors); K/V carry q's heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool):
+        o, lse = flash_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = attention_bwd_delta(o, do)
+        dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
+
+
 # -- dispatch ----------------------------------------------------------------------
 
-FLASH_TODO = ("the non-causal / cross-length flash attention kernels are not "
-              "ported yet (ROADMAP.md, Queue 2, item 1)")
+def _jax_splash_ok(lq: int, lk: int, d: int, causal: bool) -> bool:
+    """The JAX package's splash gate (``edl_tpu/ops/attention.py``)."""
+    return causal and lq == lk and lq % 128 == 0 and lq >= 128 and d % 64 == 0
+
+
+def _jax_flash_ok(lq: int, lk: int, d: int) -> bool:
+    """The JAX package's flash gate: the shapes it hands its flash kernel."""
+    return lq % 128 == 0 and lk % 128 == 0 and d % 64 == 0
+
+
+def _splash_takes(lq: int, lk: int, d: int, dtype: torch.dtype, causal: bool) -> bool:
+    """Shapes and types the splash kernels take: causal self-attention, D
+    in KERNEL_HEAD_DIMS, bf16 (the JAX gate also wants L % 128 == 0;
+    these kernels mask a ragged last tile)."""
+    return causal and lq == lk and d in KERNEL_HEAD_DIMS and dtype == torch.bfloat16
 
 
 def _splash_ok(q, k, causal: bool) -> bool:
-    """Shapes and types the kernels take: causal self-attention, D in
-    {64, 128}, bf16 (the JAX gate also wants L % 128 == 0; these kernels
-    mask a ragged last tile)."""
-    return (causal and q.shape[1] == k.shape[1] and q.shape[3] in KERNEL_HEAD_DIMS
-            and q.dtype == k.dtype == torch.bfloat16)
+    return (q.dtype == k.dtype
+            and _splash_takes(q.shape[1], k.shape[1], q.shape[3], q.dtype, causal))
 
 
-def _flash_ok(q, k) -> bool:
-    """Shapes the JAX package hands to its flash kernel."""
-    return q.shape[1] % 128 == 0 and k.shape[1] % 128 == 0 and q.shape[3] % 64 == 0
+def choose_impl(lq: int, lk: int, d: int, dtype: torch.dtype, causal: bool,
+                has_mask: bool, device_type: str) -> str:
+    """The implementation ``impl="auto"`` runs: ``"splash"``, ``"flash"``
+    or ``"dense"``.
+
+    For CUDA tensors it computes the function the JAX package computes on
+    its accelerator, where the choice matters: for causal ``Lq != Lk`` its
+    flash kernel masks top-left and its dense path bottom-right.  So:
+    causal self-attention the splash kernels take runs splash; otherwise
+    a mask-free call that passes the JAX flash gate runs flash in bf16,
+    and dense in f32 only where dense computes the same function
+    (non-causal, or ``Lq == Lk``; causal ``Lq != Lk`` in another dtype
+    raises ``TypeError``); every other call runs dense.  A head dim that
+    passes the JAX gates but is above the kernels' 256 raises
+    ``ValueError``.  Other devices take dense, as the JAX package does off
+    its accelerator."""
+    if device_type != "cuda" or has_mask:
+        return "dense"
+    if _jax_splash_ok(lq, lk, d, causal) or _jax_flash_ok(lq, lk, d):
+        _check_head_dim(d)   # the JAX package runs a kernel here
+    if _splash_takes(lq, lk, d, dtype, causal):
+        return "splash"
+    if _jax_flash_ok(lq, lk, d):
+        if dtype == torch.bfloat16:
+            return "flash"
+        if causal and lq != lk:
+            raise TypeError(
+                f"causal attention with Lq={lq} != Lk={lk} needs the bf16 flash "
+                f"kernel (top-left mask, as the JAX package's); got {dtype}, for "
+                f"which dense would mask bottom-right")
+    return "dense"
 
 
 _warned_shapes: set[tuple] = set()
@@ -338,39 +495,33 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
     module docstring).  ``mask`` (dense only) broadcasts against
     ``[B, H, Lq, Lk]``."""
     if impl == "auto":
-        if q.device.type != "cuda":
-            impl = "dense"
-        elif mask is not None:
-            _warn_downgrade(q, k, "a mask is not taken by the kernels")
-            impl = "dense"
-        elif _splash_ok(q, k, causal):
-            impl = "splash"
-        elif _flash_ok(q, k) and q.dtype == torch.bfloat16:
-            raise NotImplementedError(FLASH_TODO)
-        else:
-            _warn_downgrade(q, k, "shape or dtype not taken by the kernels")
-            impl = "dense"
+        impl = choose_impl(q.shape[1], k.shape[1], q.shape[3], q.dtype, causal,
+                           mask is not None, q.device.type)
+        if impl == "dense" and q.device.type == "cuda":
+            _warn_downgrade(q, k, "a mask is not taken by the kernels" if mask is not None
+                            else "shape or dtype not taken by the kernels")
     if impl == "dense":
         return dense_attention(q, k, v, causal=causal, sm_scale=sm_scale, mask=mask)
-    if impl == "splash":
-        if not causal:
-            raise ValueError("impl='splash' is causal-only; use flash/dense")
-        if mask is not None:
-            raise ValueError("impl='splash' takes no mask")
-        if q.shape[1] != k.shape[1]:
-            raise ValueError(f"impl='splash' needs self-attention; got "
-                             f"Lq={q.shape[1]}, Lk={k.shape[1]}")
-        if k.shape[2] != q.shape[2]:
-            # grouped-query attention: the kernels take MHA shapes, so the
-            # K/V groups are expanded here, as the JAX dispatch does
-            groups = q.shape[2] // k.shape[2]
-            k = k.repeat_interleave(groups, dim=2)
-            v = v.repeat_interleave(groups, dim=2)
-        scale = sm_scale if sm_scale is not None else q.shape[3] ** -0.5
-        return SplashAttention.apply(q, k, v, float(scale))
-    if impl == "flash":
-        raise NotImplementedError(FLASH_TODO)
     if impl == "ring":
         raise NotImplementedError("ring attention is not ported yet "
                                   "(ROADMAP.md, Queue 1, item 7)")
-    raise ValueError(f"unknown attention impl {impl!r}")
+    if impl not in ("splash", "flash"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if mask is not None:
+        raise ValueError(f"impl={impl!r} takes no mask")
+    if impl == "splash":
+        if not causal:
+            raise ValueError("impl='splash' is causal-only; use flash/dense")
+        if q.shape[1] != k.shape[1]:
+            raise ValueError(f"impl='splash' needs self-attention; got "
+                             f"Lq={q.shape[1]}, Lk={k.shape[1]}")
+    if k.shape[2] != q.shape[2]:
+        # grouped-query attention: the kernels take MHA shapes, so the
+        # K/V groups are expanded here, as the JAX dispatch does
+        groups = q.shape[2] // k.shape[2]
+        k = k.repeat_interleave(groups, dim=2)
+        v = v.repeat_interleave(groups, dim=2)
+    scale = float(sm_scale if sm_scale is not None else q.shape[3] ** -0.5)
+    if impl == "splash":
+        return SplashAttention.apply(q, k, v, scale)
+    return FlashAttention.apply(q, k, v, scale, bool(causal))

@@ -6,7 +6,7 @@
 
 Same flags as the JAX example minus those for meshes, pipelines and MoE
 and ``--scan_layers`` (layers are a Python loop here), with ``--attention``
-limited to the ported ``auto|dense|splash``, plus ``--device`` (default
+limited to the ported ``auto|dense|splash|flash``, plus ``--device`` (default
 ``cuda``; ``cpu`` only when asked).  The
 checkpoint directory comes from the launcher's ``EDL_TPU_CKPT_DIR``, so a
 stopped run resumes from its last epoch.  Compute is bf16 on the card and
@@ -41,7 +41,7 @@ def parse_args(argv=None):
                    help="grouped-query attention: K/V heads (0 = --heads, i.e. MHA)")
     p.add_argument("--mlp", type=int, default=256)
     p.add_argument("--lr", type=float, default=3e-3)
-    p.add_argument("--attention", default="auto", choices=["auto", "dense", "splash"])
+    p.add_argument("--attention", default="auto", choices=["auto", "dense", "splash", "flash"])
     p.add_argument("--remat", nargs="?", const="on", default="auto",
                    choices=["auto", "on", "off"],
                    help="recompute layers in the backward; auto = off when "

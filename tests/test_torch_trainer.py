@@ -3,6 +3,10 @@ package's: the AdamW loss trajectory of the LM step, stop-resume, and the
 ``State`` sidecar JSON read by either package."""
 
 import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -81,8 +85,8 @@ def test_adamw_trajectory_matches_jax_step():
     assert tlosses[-1] < tlosses[0]
 
 
-def _run(ckpt_dir, epochs, save_every=0):
-    args = train_lm.parse_args(ARGV)
+def _run(ckpt_dir, epochs, save_every=0, extra=()):
+    args = train_lm.parse_args(ARGV + list(extra))
     _, trainer, init_fn, tx = train_lm.build_trainer(args, torch.device("cpu"), ckpt_dir)
     trainer.cfg.save_every_steps = save_every
     losses = []
@@ -117,6 +121,33 @@ def test_stop_resume_reproduces_uninterrupted_run(tmp_path):
     for a, b in zip(resumed.model.parameters(), straight.model.parameters()):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
     assert CheckpointManager(str(tmp_path)).all_steps() == [3, 6]
+
+
+def test_flash_attention_trains_and_resumes(tmp_path):
+    """``python -m edl_tpu_torch.train_lm --attention flash --device cpu``:
+    every layer's attention goes through the flash path (its plain versions
+    on the CPU), the loss falls, and stop-resume reproduces the
+    uninterrupted run."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = {**os.environ, "EDL_TPU_CKPT_DIR": str(tmp_path / "main"), "PYTHONPATH": str(root)}
+    out = subprocess.run([sys.executable, "-m", "edl_tpu_torch.train_lm", *ARGV,
+                          "--attention", "flash", "--epochs", "2"],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "attn=flash" in out.stdout
+    rec = json.loads(out.stdout.strip().splitlines()[-1].split(" ", 1)[1])
+    assert rec["nll_curve"][1] < rec["nll_curve"][0]
+
+    flash = ["--attention", "flash"]
+    _, straight, _, slosses = _run("", epochs=2, extra=flash)
+    # causal self-attention: the same function as the default (dense) path
+    np.testing.assert_allclose(slosses, _run("", epochs=2)[3], rtol=1e-5, atol=0)
+    _, _, _, losses_a = _run(str(tmp_path / "ck"), epochs=1, extra=flash)
+    start_b, resumed, meta_b, losses_b = _run(str(tmp_path / "ck"), epochs=2, extra=flash)
+    assert start_b == (3, 1) and meta_b.next_epoch == 2 and resumed.step == 6
+    np.testing.assert_allclose(losses_a + losses_b, slosses, rtol=1e-6, atol=0)
+    for a, b in zip(resumed.model.parameters(), straight.model.parameters()):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
 
 def test_mid_epoch_save_reenters_the_epoch(tmp_path):
