@@ -7,14 +7,19 @@
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
 
-1. ``build``: compile the CUDA kernels from ``edl_tpu_torch/csrc`` with nvcc
-   (every instantiation: 4 head dims x causal/non-causal x 3 kernels, and
-   the delta kernel per head dim).
+1. ``build``: compile the CUDA kernels from ``edl_tpu_torch/csrc`` with nvcc,
+   one process per source, all at once (every instantiation: the Hopper
+   forward at 4 head dims and dK/dV at 2, the mma.sync dK/dV at 2 and dQ
+   at 4, each causal and not, delta at 4 head dims and a runtime-D one,
+   and the wide kernels for D > 256), and print each one's registers and
+   spills.
 2. ``kernels``: each kernel against its plain PyTorch version (f32 from the
-   same bf16 inputs) at the flagship shape and at ragged, cross-length and
-   wide-head (D = 192, 256) ones, with device times (``torch.profiler``) of
-   the kernel, of its plain version and of one PyTorch library call as a
-   yardstick only, and the least time the card could take (the bound).
+   same bf16 inputs) at the flagship shape and at ragged, cross-length,
+   wide-head (D = 192, 256, and 320, 512 on the wide kernels),
+   many-head (B * H > 65,535) and transposed-layout ones, with device times
+   (``torch.profiler``) of the kernel, of its plain version and of one
+   PyTorch library call as a yardstick only, and the least time the card
+   could take (the bound).
 3. ``parity``: one training step of small bf16 configs on the card (with
    the kernels) and on the CPU (plain path) from the same weights: the
    splash path, and the flash path with grouped-query attention at head
@@ -54,31 +59,39 @@ PEAK_BYTES = 3.35e12
 
 FLAGSHIP_SHAPE = (8, 1024, 6, 128)     # [B, L, H, D]
 RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64),
-                 (2, 256, 4, 192), (2, 256, 4, 256))
+                 (2, 256, 4, 192), (2, 256, 4, 256), (2, 256, 2, 320), (1, 200, 2, 512))
 # flash: (q's [B, Lq, H, D], Lk, causal), untimed
 FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
                ((1, 300, 2, 64), 1100, False),
                ((2, 256, 4, 192), 256, True), ((2, 256, 4, 192), 256, False),
-               ((2, 256, 4, 256), 256, True), ((2, 256, 4, 256), 256, False))
+               ((2, 256, 4, 256), 256, True), ((2, 256, 4, 256), 256, False),
+               ((2, 256, 2, 320), 384, True), ((1, 300, 2, 320), 200, False),
+               ((2, 256, 2, 512), 256, True), ((1, 200, 2, 512), 300, False))
+# B * H = 81,920 > 65,535 (grid y's limit): B * H rides on grid x (splash, untimed)
+MANY_HEADS_SHAPE = (16384, 128, 5, 64)
 REL_TOL = 1e-2                          # ||kernel - plain|| / ||plain||
 
-SOURCE = "edl_tpu_torch/csrc/attention.cu"
+SM90 = "edl_tpu_torch/csrc/attention_sm90.cu"     # the flagship path's forward and dK/dV
+MMA = "edl_tpu_torch/csrc/attention.cu"           # its dQ and delta
 SPLASH = "edl_tpu/ops/attention.py:112 -> jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
 FLASH = "edl_tpu/ops/attention.py:81 -> jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNELS = {
-    # wrapper name -> (kernel name, TPU code it replaces)
-    "attention_fwd": ("edl_attn_fwd", f"{SPLASH}:1137"),
-    "attention_bwd_delta": ("edl_attn_bwd_delta", f"{SPLASH}:2285"),
-    "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", f"{SPLASH}:2196"),
-    "attention_bwd_dq": ("edl_attn_bwd_dq", f"{SPLASH}:1635"),
-    "flash_fwd": ("edl_flash_fwd", f"{FLASH}:758"),
-    "flash_bwd_dkdv": ("edl_flash_bwd_dkdv", f"{FLASH}:1121"),
-    "flash_bwd_dq": ("edl_flash_bwd_dq", f"{FLASH}:1456"),
+    # wrapper name -> (kernel name, source at the flagship shape, TPU code it replaces)
+    "attention_fwd": ("edl_attn_fwd", SM90, f"{SPLASH}:1137"),
+    "attention_bwd_delta": ("edl_attn_bwd_delta", MMA, f"{SPLASH}:2285"),
+    "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", SM90, f"{SPLASH}:2196"),
+    "attention_bwd_dq": ("edl_attn_bwd_dq", MMA, f"{SPLASH}:1635"),
+    "flash_fwd": ("edl_flash_fwd", SM90, f"{FLASH}:758"),
+    "flash_bwd_dkdv": ("edl_flash_bwd_dkdv", SM90, f"{FLASH}:1121"),
+    "flash_bwd_dq": ("edl_flash_bwd_dq", MMA, f"{FLASH}:1456"),
 }
 SPLASH_WRAPPERS = ("attention_fwd", "attention_bwd_delta", "attention_bwd_dkdv", "attention_bwd_dq")
 FLASH_WRAPPERS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
-# 4 head dims x (causal, non-causal) x (forward, dK/dV, dQ), and delta per head dim
-KERNEL_INSTANTIATIONS = 4 * 2 * 3 + 4
+# (causal, non-causal) x (Hopper forward at 4 head dims + Hopper dK/dV at 2 +
+# mma.sync dK/dV at 2 + dQ at 4), delta at 4 head dims and a runtime-D one
+# (bwd_delta<0>), and the wide kernels: (causal, non-causal) x (forward,
+# dK/dV, dQ)
+KERNEL_INSTANTIATIONS = 2 * (4 + 2 + 2 + 4) + 5 + 2 * 3
 
 
 def log(phase: str, **nums) -> None:
@@ -109,7 +122,11 @@ def device_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     shortest kernels' run time, does not count."""
     for _ in range(warmup):
         fn()
-    return sum(us for us, _, _ in kernel_times(fn, reps)) / reps / 1e3
+    for _ in range(3):   # a profile that recorded no kernel is taken again
+        total = sum(us for us, _, _ in kernel_times(fn, reps))
+        if total > 0:
+            return total / reps / 1e3
+    raise RuntimeError("the profiler recorded no kernel time in 3 tries")
 
 
 def rel_err(got, want) -> float:
@@ -125,19 +142,24 @@ def max_abs(got, want) -> float:
 
 def phase_build(ctx) -> None:
     """Build, and print each kernel instantiation's registers and spill
-    bytes from ``ptxas -v`` (``fwd<128,1>``: forward, D = 128, causal)."""
+    bytes from ``ptxas -v`` (``fwd_sm90<128,1>``: Hopper forward, D = 128,
+    causal; ``fwd_wide<1>``: the wide forward, causal).  A kernel that
+    moves registers with setmaxnreg reports its launch-bound count (168);
+    its consumer warpgroups run on 240."""
     import re
 
     from edl_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    logs = _build.build(extra_flags=["-Xptxas", "-v"])
+    logs = _build.build(extra_flags=["-Xptxas", "-v"], force=True)
     seconds = time.perf_counter() - t0
     kernels, name = {}, None
     for out in logs.values():
         for line in out.splitlines():
-            m = re.search(r"Compiling entry function '.*?attn_(\w+?)_kernelILi(\d+)E(?:Lb(\d)E)?", line)
+            m = re.search(r"Compiling entry function '.*?attn_(\w+?)_kernel"
+                          r"(?:I(?:Li(\d+)E)?(?:Lb(\d)E)?E)?", line)
             if m:
-                name = f"{m.group(1)}<{m.group(2)}" + (f",{m.group(3)}>" if m.group(3) else ">")
+                params = ",".join(x for x in m.group(2, 3) if x)
+                name = f"{m.group(1)}<{params}>" if params else m.group(1)
                 kernels[name] = {}
             elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
                 kernels[name]["spill_bytes"] = int(m.group(1))
@@ -180,8 +202,13 @@ def _bound(ops, peak, nbytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _randn(shape, g):
+def _randn(shape, g, transposed=False):
+    """bf16 normal values of ``shape`` ([B, L, H, D]); ``transposed``: a
+    [B, H, L, D] tensor seen as [B, L, H, D] (head stride above row stride)."""
     import torch
+    if transposed:
+        B, L, H, D = shape
+        return _randn((B, H, L, D), g).transpose(1, 2)
     return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
 
 
@@ -204,11 +231,13 @@ def _kernel_set(flash: bool, causal: bool) -> dict:
                              c(A.flash_bwd_dq_plain, causal=causal))}
 
 
-def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False) -> dict:
+def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False,
+                  transposed=False) -> dict:
     """Each kernel of one path (splash: causal self-attention; flash: ``Lk``
     keys, ``causal`` or not) against its plain version at q's ``shape``;
-    with ``timed``, also the times and bounds.  Returns per-wrapper
-    numbers."""
+    with ``timed``, also the times and bounds; with ``transposed``, every
+    operand is a transposed [B, H, L, D] tensor, which the kernels must
+    read in place.  Returns per-wrapper numbers."""
     import torch
     import torch.nn.functional as F
 
@@ -217,7 +246,10 @@ def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False) -
     B, Lq, H, D = shape
     Lk = Lq if Lk is None else Lk
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (_randn(s, g) for s in (shape, (B, Lk, H, D), (B, Lk, H, D), shape))
+    q, k, v, do = (_randn(s, g, transposed)
+                   for s in (shape, (B, Lk, H, D), (B, Lk, H, D), shape))
+    if transposed and any(A._operand(t, "t", t.shape) is not t for t in (q, k, v, do)):
+        raise AssertionError("a transposed operand was copied before the kernels")
     scale = D ** -0.5
     ks = _kernel_set(flash, causal)
     (fwd, fwd_p), (dlt, dlt_p), (dkdv, dkdv_p), (dq_k, dq_p) = ks.values()
@@ -302,6 +334,12 @@ def phase_kernels(ctx) -> None:
 
     for i, shape in enumerate(RAGGED_SHAPES):
         record(check_kernels(shape, seed=10 + i, timed=False), path="splash", shape=list(shape))
+    record(check_kernels(MANY_HEADS_SHAPE, seed=9, timed=False), path="splash",
+           shape=list(MANY_HEADS_SHAPE))
+    record(check_kernels((2, 256, 4, 128), seed=8, timed=False, Lk=384, causal=True, flash=True,
+                         transposed=True), path="flash", shape=[2, 256, 4, 128], Lk=384,
+           causal=True, layout="[B, H, L, D] transposed")
+    torch.cuda.empty_cache()
     for i, (shape, Lk, causal) in enumerate(FLASH_CASES):
         record(check_kernels(shape, seed=20 + i, timed=False, Lk=Lk, causal=causal, flash=True),
              path="flash", shape=list(shape), Lk=Lk, causal=causal)
@@ -622,10 +660,10 @@ def main(argv=None) -> int:
     kern = ctx.get("kernels", {})
     launches = ctx.get("launches", {})
     entries = []
-    for wrapper, (kname, replaces) in KERNELS.items():
+    for wrapper, (kname, source, replaces) in KERNELS.items():
         r = kern.get(wrapper, {})
         entries.append({
-            "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches.get(wrapper), "max_abs_err": r.get("max_abs_err"),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),

@@ -1,11 +1,12 @@
-// Flash attention for Hopper (sm_90a): forward, and the backward as three
-// kernels (delta = rowsum(dO * O), dK/dV, dQ); causal (top-left: key j is
-// visible to query i iff j <= i) or not, with Lq and Lk free.
+// Attention for Hopper (sm_90a): the C entry points, and the mma.sync
+// kernels of the backward: delta = rowsum(dO * O), dK/dV at D = 192 and
+// 256, and dQ up to D = 256.  Causal (top-left: key j is visible to query i
+// iff j <= i) or not, with Lq and Lk free.
 //
-// Replaces the Pallas TPU kernels that edl_tpu/ops/attention.py reaches
-// (jax/experimental/pallas/ops/tpu/...):
+// The kernels replace the Pallas TPU kernels that edl_tpu/ops/attention.py
+// reaches (jax/experimental/pallas/ops/tpu/...):
 //   _splash (lines 112-125), causal self-attention, the CAUSAL, Lq == Lk
-//   instantiation behind the edl_attn_* entry points:
+//   use behind the edl_attn_* entry points:
 //   - forward   : splash_attention/splash_attention_kernel.py:1137
 //   - dq        : splash_attention/splash_attention_kernel.py:1635
 //   - dk / dv   : splash_attention/splash_attention_kernel.py:2196
@@ -14,119 +15,44 @@
 //   - dk / dv   : flash_attention.py:1121
 //   - dq        : flash_attention.py:1456
 //   and, for both, the backward's XLA rowsum(dO * O) (edl_attn_bwd_delta).
-// The TPU kernels walk a sequential grid and carry their softmax statistics
-// in scratch from one grid step to the next.  Here every thread block owns
-// one (batch, head, 64-row tile) and walks its loop dimension itself; blocks
-// never talk to each other, so the backward needs no atomics and is
+// Which kernel runs where:
+//   - forward, D = 64..256 : attention_sm90.cu (TMA, wgmma, warp-specialised)
+//   - dK/dV, D = 64, 128   : attention_sm90.cu
+//   - dK/dV, D = 192, 256  : here (mma.sync; two 64 x D f32 accumulators do
+//                            not fit a wgmma consumer's 240 registers)
+//   - dQ, D = 64..256      : here
+//   - delta, every D       : here (a runtime-D instantiation above 256)
+//   - forward, dK/dV, dQ, D > 256 (any D % 64 == 0): attention_wide.cu
+// Blocks never talk to each other, so the backward needs no atomics and is
 // deterministic.
 //
-// What bounds it on an H100: at the model's shape ([8, 1024, 6, 128] bf16)
-// the causal forward is ~13 GFLOP against ~50 MB of q/k/v/o, so it sits
-// slightly on the operations side of the card's ridge (~295 FLOP/byte in
-// bf16), and the non-causal one twice as far.  The design keeps every score
-// tile in registers (the [Lq, Lk] matrix never touches device memory),
-// skips the key tiles that causal masking hides, and runs both products of
-// each tile on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulate), fed by ldmatrix from shared memory.  The tiles that a block
-// walks over are double-buffered: cp.async brings the next one in while the
-// tensor cores work on this one.  No TMA and no wgmma yet; those are later
-// work.
-//
-// Head dims: D is 64, 128, 192 or 256.  A warp holds a 16 x (output
-// columns) f32 accumulator (two in dK/dV); above D = 128 that would not fit
-// in the 255 registers a thread has, so a block then owns half of the
-// output columns (kCols) and the grid's z dimension covers the two halves.
-// Each half recomputes the scores, which costs 1.5x the forward's and
-// dK/dV's products and 1.33x dQ's at D > 128; D <= 128 is unchanged.
+// The mma.sync kernels here: every thread block owns one (batch, head,
+// 64-row tile) and walks its loop dimension itself; 4 warps of 16 rows, mma
+// m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix, cp.async
+// double-buffered tiles, score tiles kept in registers.  What bounds dQ at
+// the flagship shape: its ~19.5 GFLOP (causal) put it on the operations
+// side of the card's ridge; mma.sync reaches a fraction of wgmma's rate, so
+// it runs at ~18% of that bound (PERF.md).  Above D = 128 a block owns half
+// of the output columns (kCols) and grid z covers the halves; each half
+// recomputes the scores.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, L, H, D] with D contiguous and
 // read through their (batch, row, head) strides, so neither the model nor the
 // wrapper transposes.  The logsumexp and delta are f32 [B, H, Lq].
 // Types: bf16 in and out, f32 inside.  Any Lq, Lk >= 1 (the ragged last
-// tiles are masked).  sm_scale is applied in f32 to the f32 scores.
+// tiles are masked).  sm_scale is applied in f32 to the f32 scores.  B * H
+// rides on grid x (up to 2^31 - 1), the row tiles on grid y.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
+namespace edl_attn {
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-struct Strides {  // element strides of a [B, L, H, D] tensor
-  long long b, l, h;
-};
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;    // query rows per block (16 per warp), key rows per step
 constexpr int kQStep = 32;   // query rows per step of the dK/dV kernel
 constexpr int kPad = 8;      // shared-memory row padding, in bf16 elements
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Fragment layouts of mma.m16n8k16 (PTX ISA), lane = 4 * g + t:
-//   A (16 x 16): {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]}
-//   B (16 k x 8 n): {B[2t..][g], B[2t+8..][g]}
-// Each is gathered from shared memory by one ldmatrix.x4 (four 8 x 8
-// matrices; lanes 8i..8i+7 give the row addresses of matrix i).
-
-// A fragment (16 x 16) of a row-major tile at (r0, c0).
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* s, int ld, int r0, int c0,
-                                       int lane) {
-  const bf16* p = s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + c0 + (lane >> 4) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(smem_u32(p)));
-}
-
-// B fragments of two neighbouring n-tiles (n0 and n0 + 8; b[0..1] and
-// b[2..3]) for k-chunk k0, from a tile stored as s[n][k] (k contiguous).
-__device__ __forceinline__ void load_b_t(uint32_t b[4], const bf16* s, int ld, int n0, int k0,
-                                         int lane) {
-  const bf16* p = s + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(smem_u32(p)));
-}
-
-// The same two B fragments from a tile stored as s[k][n] (n contiguous):
-// ldmatrix.trans transposes each 8 x 8 matrix on the way.
-__device__ __forceinline__ void load_b_n(uint32_t b[4], const bf16* s, int ld, int k0, int n0,
-                                         int lane) {
-  const bf16* p = s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(smem_u32(p)));
-}
-
-// A fragment of a 16 x 16 slice (columns 16kk..16kk+15) of a 16 x N f32
-// accumulator held as N/8 C fragments: the C layout of two neighbouring
-// n-tiles is the A layout of one k-chunk.
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4], const float c1[4]) {
-  a[0] = pack_f32(c0[0], c0[1]);
-  a[1] = pack_f32(c0[2], c0[3]);
-  a[2] = pack_f32(c1[0], c1[1]);
-  a[3] = pack_f32(c1[2], c1[3]);
-}
 
 // Start copying rows [row0, row0 + ROWS) of one (batch, head) slice into
 // shared memory (row stride D + kPad), 16 bytes per cp.async; rows >= L are
@@ -139,25 +65,8 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* src, long long sl
   for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
     const int r = i / kPerRow, c = (i % kPerRow) * kVec;
     const bool in = row0 + r < L;
-    const bf16* from = src + (long long)(in ? row0 + r : 0) * sl + c;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(s + r * (D + kPad) + c)), "l"(from), "r"(in ? 16 : 0));
+    cp_async16(s + r * (D + kPad) + c, src + (long long)(in ? row0 + r : 0) * sl + c, in);
   }
-}
-
-__device__ __forceinline__ void commit_group() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void wait_group() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Output columns a block accumulates: all of D up to 128, half above it.
@@ -165,183 +74,37 @@ template <int D>
 constexpr int kCols = D > 128 ? D / 2 : D;
 
 // ---------------------------------------------------------------------------
-// Forward (replaces splash_attention_kernel.py:1137 and flash_attention.py:758).
-// Grid (ceil(Lq / 64), B * H, D / kCols); 4 warps, each owning 16 query rows.
-// Shared memory: the Q tile, then two stages of (K tile, V tile), which
-// leaves room for 2 blocks per SM up to D = 128.  Naming those 2 blocks in
-// __launch_bounds__ changes nothing they may use (256 registers a thread)
-// but steers ptxas to a schedule that keeps more loads in flight: more
-// registers, and a faster causal forward at D = 128 on an H100.
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 2)
-    attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                    Strides sq, Strides sk, Strides sv, Strides so, int H, int Lq, int Lk,
-                    float scale) {
-  constexpr int DV = kCols<D>, LD = D + kPad, TILE = kTile * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* KVs = Qs + TILE;  // stage i: K at KVs + 2i TILE, V right after it
-
-  const int n_tiles = (Lq + kTile - 1) / kTile;
-  // causal: the last query tiles see the most keys, so they launch first
-  const int q0 = (CAUSAL ? n_tiles - 1 - (int)blockIdx.x : (int)blockIdx.x) * kTile;
-  const int c0 = D == DV ? 0 : blockIdx.z * DV;  // this block's output columns
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-
-  load_tile<kTile, D>(Qs, qb, sq.l, q0, Lq);
-  commit_group();
-  load_tile<kTile, D>(KVs, kb, sk.l, 0, Lk);
-  load_tile<kTile, D>(KVs + TILE, vb, sv.l, 0, Lk);
-  commit_group();
-  wait_group<1>();  // the Q tile
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], Qs, LD, warp * 16, kk * 16, lane);
-
-  float acc[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const float sl2 = scale * kLog2e;  // scores in the log2 domain
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  // causal: the key tiles right of the tile's last row are skipped; key 0 is
-  // visible to every row, so no row is ever fully masked
-  const int last = (CAUSAL ? min(q0 + kTile - 1, Lk - 1) : Lk - 1) / kTile;
-
-  for (int j = 0; j <= last; ++j) {
-    const int k0 = j * kTile;
-    if (j < last) {  // the next tiles load while this one computes
-      bf16* next = KVs + 2 * ((j + 1) & 1) * TILE;
-      load_tile<kTile, D>(next, kb, sk.l, k0 + kTile, Lk);
-      load_tile<kTile, D>(next + TILE, vb, sv.l, k0 + kTile, Lk);
-      commit_group();
-      wait_group<1>();
-    } else {
-      wait_group<0>();
-    }
-    __syncthreads();
-    const bf16* Ks = KVs + 2 * (j & 1) * TILE;
-    const bf16* Vs = Ks + TILE;
-
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kTile / 8; n += 2) {
-        uint32_t bf[4];
-        load_b_t(bf, Ks, LD, n * 8, kk * 16, lane);
-        mma16816(s[n], qf[kk], bf);
-        mma16816(s[n + 1], qf[kk], bf + 2);
-      }
-    }
-    const bool edge = (CAUSAL && k0 + kTile - 1 > q0) || (k0 + kTile > Lk);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        float x = s[n][e] * sl2;
-        if (edge && ((CAUSAL && col > row[e >> 1]) || col >= Lk)) x = -INFINITY;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float base[2], alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
-      alpha[i] = exp2f(m[i] - base[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - base[e >> 1]);
-        s[n][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-    // l stays a per-thread partial sum; alpha is common to the quad
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t af[4];
-      acc_to_a(af, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < DV / 8; n += 2) {
-        uint32_t bf[4];
-        load_b_n(bf, Vs, LD, kk * 16, c0 + n * 8, lane);
-        mma16816(acc[n], af, bf);
-        mma16816(acc[n + 1], af, bf + 2);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  bf16* ob = o + b * so.b + h * so.h + c0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float tot = quad_sum(l[i]);
-    if (row[i] >= Lq) continue;
-    const float inv = 1.f / tot;
-    bf16* orow = ob + (long long)row[i] * so.l;
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          pack_f32(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-    }
-    if (c0 == 0 && t == 0) lse[(long long)bh * Lq + row[i]] = m[i] * kLn2 + logf(tot);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Backward, pass 1: delta[b, h, l] = sum_d dO[b, l, h, d] * O[b, l, h, d]
 // (the XLA einsums of splash_attention_kernel.py:2285 and
 // flash_attention.py:273).  One warp per (b, h, l) row; it only streams O and
-// dO, so it is bound by their bytes.
+// dO, so it is bound by their bytes.  D is a template argument up to 256,
+// so the loop unrolls (a runtime D timed slower at D = 128 on the H100,
+// PERF.md), and the runtime `dr` when D = 0, for the head dims above 256.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                          float* __restrict__ delta, Strides so, Strides sdo, int H, int L,
+                          float* __restrict__ delta, Strides so, Strides sdo, int H, int L, int dr,
                           long long rows) {
   const long long r = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (r >= rows) return;
-  const int lane = threadIdx.x % 32;
+  const int lane = threadIdx.x % 32, dim = D > 0 ? D : dr;
   const long long bh = r / L;
   const int i = (int)(r % L), b = (int)(bh / H), h = (int)(bh % H);
   const bf16* orow = o + b * so.b + (long long)i * so.l + h * so.h;
   const bf16* drow = dout + b * sdo.b + (long long)i * sdo.l + h * sdo.h;
   float acc = 0.f;
 #pragma unroll
-  for (int d = lane; d < D; d += 32) acc += __bfloat162float(orow[d]) * __bfloat162float(drow[d]);
+  for (int d = lane; d < dim; d += 32) acc += __bfloat162float(orow[d]) * __bfloat162float(drow[d]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[r] = acc;
 }
 
 // ---------------------------------------------------------------------------
-// Backward, pass 2: dK and dV (replaces splash_attention_kernel.py:2196 and
-// flash_attention.py:1121).  Grid (ceil(Lk / 64), B * H, D / kCols); each
-// block owns 64 key rows (16 per warp) and walks the query steps that see
+// Backward, pass 2: dK and dV at D = 192 and 256 (replaces
+// splash_attention_kernel.py:2196 and flash_attention.py:1121 there; D = 64
+// and 128 run the wgmma kernel of attention_sm90.cu, D > 256 the wide one).
+// Grid (B * H, ceil(Lk / 64), D / kCols); each block owns 64 key rows (16 per warp) and walks the query steps that see
 // them, recomputing P^T from q, k and the saved logsumexp.  A key tile that
 // no query sees (causal, k0 >= Lq) walks nothing and writes zeros.  Shared
 // memory: the K and V tiles, then two stages of (Q step, dO step, their lse
@@ -361,9 +124,9 @@ __global__ void __launch_bounds__(kThreads)
   bf16* QdOs = Vs + kTile * LD;  // stage i: Q at QdOs + 2i STEP, dO right after it
   float* stats = reinterpret_cast<float*>(QdOs + 4 * STEP);  // stage i: lse, delta at 2i kQStep
 
-  const int k0 = blockIdx.x * kTile;  // causal: tile 0 walks the most query steps: launched first
+  const int k0 = blockIdx.y * kTile;  // causal: tile 0 walks the most query steps: launched first
   const int c0 = D == DV ? 0 : blockIdx.z * DV;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* dob = dout + b * sdo.b + h * sdo.h;
@@ -509,9 +272,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Backward, pass 3: dQ (replaces splash_attention_kernel.py:1635 and
-// flash_attention.py:1456).  Grid (ceil(Lq / 64), B * H, D / kCols); each
-// block owns 64 query rows and walks the key tiles they see.  Shared memory:
+// Backward, pass 3: dQ up to D = 256 (replaces splash_attention_kernel.py:1635
+// and flash_attention.py:1456; D > 256 runs the wide kernel).
+// Grid (B * H, ceil(Lq / 64), D / kCols); each block owns 64 query rows and walks the key tiles they see.  Shared memory:
 // the Q and dO tiles, then two stages of (K tile, V tile).
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
@@ -527,9 +290,9 @@ __global__ void __launch_bounds__(kThreads)
   bf16* KVs = dOs + TILE;  // stage i: K at KVs + 2i TILE, V right after it
 
   const int n_tiles = (Lq + kTile - 1) / kTile;
-  const int q0 = (CAUSAL ? n_tiles - 1 - (int)blockIdx.x : (int)blockIdx.x) * kTile;
+  const int q0 = (CAUSAL ? n_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y) * kTile;
   const int c0 = D == DV ? 0 : blockIdx.z * DV;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
@@ -631,156 +394,155 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-Strides strides_at(const long long* st, int i) { return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; }
-
-// Raise the dynamic shared-memory limit of an instantiation, then launch.
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <int D>
 dim3 grid_of(int L, int B, int H) {
-  return dim3((L + kTile - 1) / kTile, B * H, D / kCols<D>);
+  return dim3((unsigned)B * H, (L + kTile - 1) / kTile, D / kCols<D>);
 }
 
-// One launcher per kernel; dispatch() picks the instantiation.
-struct Fwd {
-  template <int D, bool CAUSAL>
-  static cudaError_t run(const void* q, const void* k, const void* v, void* o, void* lse,
-                         const long long* st, int B, int H, int Lq, int Lk, float scale,
-                         cudaStream_t stream) {
-    const size_t smem = 5 * kTile * (D + kPad) * sizeof(bf16);
-    cudaError_t err = prepare(attn_fwd_kernel<D, CAUSAL>, smem);
-    if (err != cudaSuccess) return err;
-    attn_fwd_kernel<D, CAUSAL><<<grid_of<D>(Lq, B, H), kThreads, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), H, Lq, Lk,
-        scale);
-    return cudaGetLastError();
-  }
-};
+cudaError_t delta(int D, const void* o, const void* dout, void* delta, const long long* st, int B,
+                  int H, int L, cudaStream_t stream) {
+  const long long rows = (long long)B * H * L;
+  const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
+  auto kernel = D == 64    ? &attn_bwd_delta_kernel<64>
+                : D == 128 ? &attn_bwd_delta_kernel<128>
+                : D == 192 ? &attn_bwd_delta_kernel<192>
+                : D == 256 ? &attn_bwd_delta_kernel<256>
+                           : &attn_bwd_delta_kernel<0>;
+  kernel<<<blocks, kThreads, 0, stream>>>((const bf16*)o, (const bf16*)dout, (float*)delta,
+                                          strides_at(st, 0), strides_at(st, 1), H, L, D, rows);
+  return cudaGetLastError();
+}
 
-struct BwdDelta {
-  template <int D, bool>
-  static cudaError_t run(const void* o, const void* dout, void* delta, const long long* st,
-                         int B, int H, int L, cudaStream_t stream) {
-    const long long rows = (long long)B * H * L;
-    const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-    attn_bwd_delta_kernel<D><<<blocks, kThreads, 0, stream>>>(
-        (const bf16*)o, (const bf16*)dout, (float*)delta, strides_at(st, 0), strides_at(st, 1),
-        H, L, rows);
-    return cudaGetLastError();
-  }
-};
+template <int D, bool CAUSAL>
+cudaError_t run_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                     const void* delta, void* dk, void* dv, const long long* st, int B, int H, int Lq,
+                     int Lk, float scale, cudaStream_t stream) {
+  const size_t smem =
+      (2 * kTile + 4 * kQStep) * (D + kPad) * sizeof(bf16) + 4 * kQStep * sizeof(float);
+  cudaError_t err = set_smem(attn_bwd_dkdv_kernel<D, CAUSAL>, smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkdv_kernel<D, CAUSAL><<<grid_of<D>(Lk, B, H), kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dk, (bf16*)dv, strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Lq, Lk, scale);
+  return cudaGetLastError();
+}
 
-struct BwdDkdv {
-  template <int D, bool CAUSAL>
-  static cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* delta, void* dk, void* dv,
-                         const long long* st, int B, int H, int Lq, int Lk, float scale,
-                         cudaStream_t stream) {
-    const size_t smem =
-        (2 * kTile + 4 * kQStep) * (D + kPad) * sizeof(bf16) + 4 * kQStep * sizeof(float);
-    cudaError_t err = prepare(attn_bwd_dkdv_kernel<D, CAUSAL>, smem);
-    if (err != cudaSuccess) return err;
-    attn_bwd_dkdv_kernel<D, CAUSAL><<<grid_of<D>(Lk, B, H), kThreads, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-        (const float*)delta, (bf16*)dk, (bf16*)dv, strides_at(st, 0), strides_at(st, 1),
-        strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Lq, Lk,
-        scale);
-    return cudaGetLastError();
-  }
-};
+template <int D, bool CAUSAL>
+cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                   const void* delta, void* dq, const long long* st, int B, int H, int Lq, int Lk,
+                   float scale, cudaStream_t stream) {
+  const size_t smem = 6 * kTile * (D + kPad) * sizeof(bf16);
+  cudaError_t err = set_smem(attn_bwd_dq_kernel<D, CAUSAL>, smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_kernel<D, CAUSAL><<<grid_of<D>(Lq, B, H), kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dq, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3), strides_at(st, 4), H, Lq, Lk, scale);
+  return cudaGetLastError();
+}
 
-struct BwdDq {
-  template <int D, bool CAUSAL>
-  static cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* delta, void* dq, const long long* st,
-                         int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
-    const size_t smem = 6 * kTile * (D + kPad) * sizeof(bf16);
-    cudaError_t err = prepare(attn_bwd_dq_kernel<D, CAUSAL>, smem);
-    if (err != cudaSuccess) return err;
-    attn_bwd_dq_kernel<D, CAUSAL><<<grid_of<D>(Lq, B, H), kThreads, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-        (const float*)delta, (bf16*)dq, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-        strides_at(st, 3), strides_at(st, 4), H, Lq, Lk, scale);
-    return cudaGetLastError();
-  }
-};
+// Every D % 64 == 0 has a kernel; any other D gives cudaErrorInvalidValue.
+bool head_dim_ok(int D) { return D >= 64 && D % 64 == 0; }
 
-// Op::run<D, causal>(args...) for a head dim the kernels take; any other D
-// gives cudaErrorInvalidValue.
-template <typename Op, typename... Args>
-int dispatch(int D, bool causal, Args... args) {
+cudaError_t fwd(int D, bool causal, const void* q, const void* k, const void* v, void* o, void* lse,
+                const long long* st, int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
+  if (!head_dim_ok(D)) return cudaErrorInvalidValue;
+  if (D <= 256) return fwd_sm90(D, causal, q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream);
+  return fwd_wide(D, causal, q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream);
+}
+
+cudaError_t dkdv(int D, bool causal, const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, void* dk, void* dv, const long long* st, int B,
+                 int H, int Lq, int Lk, float scale, cudaStream_t stream) {
+  if (!head_dim_ok(D)) return cudaErrorInvalidValue;
+  if (D <= 128)
+    return dkdv_sm90(D, causal, q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk, scale, stream);
+  if (D == 192)
+    return causal ? run_dkdv<192, true>(q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk, scale, stream)
+                  : run_dkdv<192, false>(q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk, scale, stream);
+  if (D == 256)
+    return causal ? run_dkdv<256, true>(q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk, scale, stream)
+                  : run_dkdv<256, false>(q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk, scale, stream);
+  return dkdv_wide(D, causal, q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk, scale, stream);
+}
+
+cudaError_t dq(int D, bool causal, const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dqp, const long long* st, int B, int H,
+               int Lq, int Lk, float scale, cudaStream_t stream) {
+#define EDL_DQ(DD)                                                                                \
+  case DD:                                                                                        \
+    return causal ? run_dq<DD, true>(q, k, v, dout, lse, delta, dqp, st, B, H, Lq, Lk, scale, stream) \
+                  : run_dq<DD, false>(q, k, v, dout, lse, delta, dqp, st, B, H, Lq, Lk, scale, stream);
+  if (!head_dim_ok(D)) return cudaErrorInvalidValue;
   switch (D) {
-    case 64:
-      return causal ? Op::template run<64, true>(args...) : Op::template run<64, false>(args...);
-    case 128:
-      return causal ? Op::template run<128, true>(args...) : Op::template run<128, false>(args...);
-    case 192:
-      return causal ? Op::template run<192, true>(args...) : Op::template run<192, false>(args...);
-    case 256:
-      return causal ? Op::template run<256, true>(args...) : Op::template run<256, false>(args...);
+    EDL_DQ(64)
+    EDL_DQ(128)
+    EDL_DQ(192)
+    EDL_DQ(256)
   }
-  return cudaErrorInvalidValue;
+#undef EDL_DQ
+  return dq_wide(D, causal, q, k, v, dout, lse, delta, dqp, st, B, H, Lq, Lk, scale, stream);
 }
 
 }  // namespace
+}  // namespace edl_attn
 
 // Plain C entry points (loaded with ctypes).  Each launches one kernel on
-// `stream` and returns cudaGetLastError() (0 on success); an unsupported D
-// returns cudaErrorInvalidValue.  `st` holds (batch, row, head) element
-// strides, three per tensor, in the order the tensors are listed.  The
-// edl_attn_* forward, dK/dV and dQ are causal self-attention (L = Lq = Lk);
-// the edl_flash_* ones take Lq, Lk and `causal`.
+// `stream` and returns cudaGetLastError() (0 on success), or the error of
+// a refused set-up (a tensor map that does not encode, too much shared
+// memory); a head dim that is not a multiple of 64 returns
+// cudaErrorInvalidValue.  `st` holds (batch, row, head) element strides,
+// three per tensor, in the order the tensors are listed.  The edl_attn_*
+// forward, dK/dV and dQ are causal self-attention (L = Lq = Lk); the
+// edl_flash_* ones take Lq, Lk and `causal`.
 extern "C" {
+
+using namespace edl_attn;
 
 int edl_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                  const long long* st, int B, int H, int L, int D, float scale, void* stream) {
-  return dispatch<Fwd>(D, true, q, k, v, o, lse, st, B, H, L, L, scale, (cudaStream_t)stream);
+  return fwd(D, true, q, k, v, o, lse, st, B, H, L, L, scale, (cudaStream_t)stream);
 }
 
-int edl_attn_bwd_delta(const void* o, const void* dout, void* delta, const long long* st, int B,
+int edl_attn_bwd_delta(const void* o, const void* dout, void* dlt, const long long* st, int B,
                        int H, int L, int D, void* stream) {
-  return dispatch<BwdDelta>(D, true, o, dout, delta, st, B, H, L, (cudaStream_t)stream);
+  if (!head_dim_ok(D)) return cudaErrorInvalidValue;
+  return delta(D, o, dout, dlt, st, B, H, L, (cudaStream_t)stream);
 }
 
 int edl_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dk, void* dv,
+                      const void* lse, const void* dlt, void* dk, void* dv,
                       const long long* st, int B, int H, int L, int D, float scale,
                       void* stream) {
-  return dispatch<BwdDkdv>(D, true, q, k, v, dout, lse, delta, dk, dv, st, B, H, L, L, scale,
-                           (cudaStream_t)stream);
+  return dkdv(D, true, q, k, v, dout, lse, dlt, dk, dv, st, B, H, L, L, scale, (cudaStream_t)stream);
 }
 
 int edl_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* delta, void* dq, const long long* st, int B,
+                    const void* lse, const void* dlt, void* dqp, const long long* st, int B,
                     int H, int L, int D, float scale, void* stream) {
-  return dispatch<BwdDq>(D, true, q, k, v, dout, lse, delta, dq, st, B, H, L, L, scale,
-                         (cudaStream_t)stream);
+  return dq(D, true, q, k, v, dout, lse, dlt, dqp, st, B, H, L, L, scale, (cudaStream_t)stream);
 }
 
 int edl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                   const long long* st, int B, int H, int Lq, int Lk, int D, int causal,
                   float scale, void* stream) {
-  return dispatch<Fwd>(D, causal != 0, q, k, v, o, lse, st, B, H, Lq, Lk, scale,
-                       (cudaStream_t)stream);
+  return fwd(D, causal != 0, q, k, v, o, lse, st, B, H, Lq, Lk, scale, (cudaStream_t)stream);
 }
 
 int edl_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv,
+                       const void* lse, const void* dlt, void* dk, void* dv,
                        const long long* st, int B, int H, int Lq, int Lk, int D, int causal,
                        float scale, void* stream) {
-  return dispatch<BwdDkdv>(D, causal != 0, q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk,
-                           scale, (cudaStream_t)stream);
+  return dkdv(D, causal != 0, q, k, v, dout, lse, dlt, dk, dv, st, B, H, Lq, Lk, scale,
+              (cudaStream_t)stream);
 }
 
 int edl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, void* dq, const long long* st, int B,
+                     const void* lse, const void* dlt, void* dqp, const long long* st, int B,
                      int H, int Lq, int Lk, int D, int causal, float scale, void* stream) {
-  return dispatch<BwdDq>(D, causal != 0, q, k, v, dout, lse, delta, dq, st, B, H, Lq, Lk, scale,
-                         (cudaStream_t)stream);
+  return dq(D, causal != 0, q, k, v, dout, lse, dlt, dqp, st, B, H, Lq, Lk, scale,
+            (cudaStream_t)stream);
 }
 
 }  // extern "C"

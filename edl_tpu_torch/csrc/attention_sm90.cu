@@ -1,0 +1,692 @@
+// The attention forward (D = 64, 128, 192, 256) and dK/dV (D = 64, 128)
+// for Hopper: TMA tile loads into an mbarrier ring, wgmma products, one
+// producer warpgroup and two consumer warpgroups.
+//
+// Replaces, behind the C entry points of attention.cu:
+//   forward (edl_attn_fwd, edl_flash_fwd):
+//     splash_attention/splash_attention_kernel.py:1137 and flash_attention.py:758
+//   dK/dV (edl_attn_bwd_dkdv, edl_flash_bwd_dkdv):
+//     splash_attention/splash_attention_kernel.py:2196 and flash_attention.py:1121
+// (jax/experimental/pallas/ops/tpu/, reached from edl_tpu/ops/attention.py
+// _splash and _flash).  The TPU kernels walk a sequential grid and carry
+// their statistics in scratch; here a block owns one (batch, head, 128-row
+// tile) and walks the other dimension itself, so blocks never talk to each
+// other: no atomics, and the backward is deterministic.
+//
+// What bounds them on an H100: at the flagship shape [8, 1024, 6, 128] bf16
+// the forward does 4 Lq Lk D flops per (b, h) on ~50 MB of q/k/v/o, which
+// puts the non-causal forward and every dK/dV on the operations side of
+// the card's ridge and the causal forward near it.  So the design is about
+// keeping the tensor cores fed:
+//   - wgmma (m64nNk16, bf16 in, f32 accumulate) for every product: the
+//     only instruction that reaches the tensor cores' full rate on sm_90.
+//     The score products read both operands from shared memory (K-major,
+//     as the tensors are stored); P V, P^T dO and dS^T Q take P / P^T /
+//     dS^T from registers and V / dO / Q as transposed (MN-major) B
+//     operands, so nothing is transposed in memory.
+//   - Two consumer warpgroups of 64 rows each share every tile in shared
+//     memory, so each K/V (forward) or Q/dO (dK/dV) byte staged there
+//     feeds 128 rows.
+//   - One producer warpgroup: one thread issues the TMA loads
+//     (cp.async.bulk.tensor, 128-byte swizzle, the layout wgmma reads)
+//     into a ring of stages guarded by full/empty mbarriers, so the next
+//     tiles load while the consumers compute.  setmaxnreg moves registers
+//     from the producer (24) to the consumers (240).
+//   - Tensor maps are 4-D {D, H, L, B} over the [B, L, H, D] tensors with
+//     their byte strides; rows past L arrive zero-filled.  The column
+//     mask (col >= Lk) and the causal mask (top-left: key j is visible to
+//     query i iff j <= i) are applied to the f32 scores.
+//   - The online softmax runs in f32 registers, in the log2 domain, with
+//     the scale applied to the f32 scores.
+//   - Forward ping-pong: in its turn a consumer issues tile j's S = Q K^T
+//     and tile j - 1's O += P V back to back, hands the turn to the other
+//     consumer (an mbarrier pair), and runs tile j's softmax while the
+//     other's products hold the tensor cores.  K and V stages are released
+//     separately (K after S, V after P V), and the producer loads in the
+//     order they are taken (K of tile j, then V of tile j - 1).  On the
+//     H100 this was faster, at every shape timed, than the same kernel
+//     without turns (each consumer S, softmax, P V in order), which was in
+//     turn faster than issuing S with P V without turns.  The wgmma issues
+//     sit outside any branch: ptxas serialises wgmma in a divergent path
+//     (warning C7520), which made a first version slower.
+// Causal: query tiles launch longest first; key tiles right of a
+// warpgroup's last row are skipped (key 0 is visible to every row, so no
+// row is ever fully masked).  dK/dV: a key tile no query sees (k0 >= Lq)
+// writes zeros.
+//
+// Head dims: the forward holds a 64 x D f32 accumulator per warpgroup (D/2
+// registers a thread) beside the 64 x kBlockN scores: kBlockN = 128 up to
+// D = 128 and 64 above it keeps them under 240 registers.  dK/dV holds two
+// 64 x D accumulators (D registers a thread): that fits up to D = 128; at
+// D = 192 and 256 it would be 192 and 256 of the 240, so those head dims
+// keep the mma.sync kernel of attention.cu.
+
+#include <cuda.h>
+
+#include "attention_common.cuh"
+#include "wgmma.cuh"
+
+namespace edl_attn {
+namespace {
+
+// -- mbarrier, TMA, wgmma and setmaxnreg -------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed (a barrier starts
+// in phase 0; waiting on parity 1 then returns at once).  A wait of more
+// than ~2^34 cycles (seconds) can only be a fault: it traps, so the launch
+// fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// One box of a 4-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j]) :: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dealloc() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R)); }
+template <int R>
+__device__ __forceinline__ void regs_alloc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R)); }
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  A tile is stored as
+// 64-column boxes (128-byte rows, 8-row / 1024-byte swizzle atoms), the
+// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B.  K-major operands:
+// sbo = 1024 (next 8 rows), lbo unused; a 16-column k-step inside a box
+// advances the start by 32 bytes.  MN-major operands (rows are k): sbo =
+// 1024 (next 8 k-rows), lbo = the byte distance to the next 64-column box.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+constexpr int kWgThreads = 128;
+constexpr int kThreads = 3 * kWgThreads;  // producer warpgroup + two consumers
+constexpr int kRowBytes = 128;            // one 64-column bf16 box row
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+// K-major descriptor of k-step kk (16 columns) of a tile of `rows` rows,
+// starting `row0` rows into each of its 64-column boxes.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int row0, int kk) {
+  return sw128_desc(tile + (kk / 4) * rows * kRowBytes + row0 * kRowBytes + (kk % 4) * 32, 16, 1024);
+}
+
+// MN-major descriptor of k-step kk (16 rows) of a tile of `rows` rows.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kk) {
+  return sw128_desc(tile + kk * 16 * kRowBytes, rows * kRowBytes, 1024);
+}
+
+// ---------------------------------------------------------------------------
+// Forward.  Grid (B * H, ceil(Lq / 128)); block = producer + 2 consumer
+// warpgroups, consumer c owning query rows q0 + 64c .. + 63.  Shared
+// memory (with 1 KB of alignment slack): Q, then 2 stages of (K tile, V
+// tile), then the barriers: 164,952 bytes at D = 128, 197,720 at D = 256.
+
+template <int D>
+struct FwdCfg {
+  static constexpr int kBlockM = 128, kBlockN = D <= 128 ? 128 : 64, kStages = 2;
+  static constexpr int kQBytes = kBlockM * D * 2, kKVBytes = kBlockN * D * 2;
+  // Q, then per stage K and V, then the barriers; 1 KB of slack to align
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (3 + 4 * kStages);
+};
+
+// One step of the online softmax on a 64 x BN score tile (wgmma layout)
+// whose first key is k0: mask (causal, top-left; col >= Lk), scale into the
+// log2 domain, update the running max m and per-thread partial sum l, and
+// leave P = exp2(S - max) in sc and the rescale factor of the earlier
+// tiles in alpha.
+template <int BN, bool CAUSAL>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 8][4], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, const int (&row)[2], int r0,
+                                             int Lk, float sl2, int t) {
+  const bool edge = (CAUSAL && k0 + BN - 1 > r0) || (k0 + BN > Lk);
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + n * 8 + 2 * t + (e & 1);
+      float x = sc[n][e] * sl2;
+      if (edge && ((CAUSAL && col > row[e >> 1]) || col >= Lk)) x = -INFINITY;
+      sc[n][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float base[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = quad_max(mx[i]);
+    base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+    alpha[i] = exp2f(m[i] - base[i]);
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(sc[n][e] - base[e >> 1]);
+      sc[n][e] = p;
+      sum[e >> 1] += p;
+    }
+  }
+  // l stays a per-thread partial sum; alpha is common to the quad
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                         float* __restrict__ lse, Strides so, int H, int Lq, int Lk, float scale) {
+  using C = FwdCfg<D>;
+  constexpr int BM = C::kBlockM, BN = C::kBlockN, S = C::kStages, KV = C::kKVBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + C::kQBytes;  // stage s: K at sKV + 2 s KV, V after it
+  const uint32_t bars = sKV + 2 * S * KV;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + S + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * S + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * S + s); };
+  auto turn = [&](int c) { return bars + 8 * (1 + 4 * S + c); };  // consumer c may issue
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_qt = (Lq + BM - 1) / BM;
+  // causal: the last query tiles see the most keys, so they launch first
+  const int q0 = (CAUSAL ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y) * BM;
+  const int n_kt = (CAUSAL ? min(q0 + BM - 1, Lk - 1) : Lk - 1) / BN + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 2 * kWgThreads);
+      mbar_init(v_empty(s), 2 * kWgThreads);
+    }
+    mbar_init(turn(0), kWgThreads);
+    mbar_init(turn(1), kWgThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {  // producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, C::kQBytes);
+      for (int c = 0; c < D / 64; ++c) tma_load(sQ + c * BM * kRowBytes, &tq, q_full, c * 64, h, q0, b);
+      // in the order the consumers take them: K of tile j with V of tile j - 1
+      for (int j = 0; j <= n_kt; ++j) {
+        if (j < n_kt) {
+          const int s = j % S;
+          mbar_wait(k_empty(s), ((j / S) & 1) ^ 1);
+          mbar_expect_tx(k_full(s), KV);
+          for (int c = 0; c < D / 64; ++c)
+            tma_load(sKV + 2 * s * KV + c * BN * kRowBytes, &tk, k_full(s), c * 64, h, j * BN, b);
+        }
+        if (j > 0) {
+          const int i = j - 1, s = i % S;
+          mbar_wait(v_empty(s), ((i / S) & 1) ^ 1);
+          mbar_expect_tx(v_full(s), KV);
+          for (int c = 0; c < D / 64; ++c)
+            tma_load(sKV + 2 * s * KV + KV + c * BN * kRowBytes, &tv, v_full(s), c * 64, h, i * BN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_alloc<kConsumerRegs>();
+  const int cw = threadIdx.x / kWgThreads - 1, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + cw * 64;  // this warpgroup's first row
+  const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+  // causal: key tiles right of this warpgroup's last row hold no visible key
+  const int my_kt = CAUSAL ? min(r0 + 63, Lk - 1) / BN + 1 : n_kt;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  const float sl2 = scale * kLog2e;  // scores in the log2 domain
+  float sc[BN / 8][4];               // S of the tile in hand, then its P in f32
+  uint32_t pf[BN / 16][4];           // P in bf16, as A fragments
+  auto kt_of = [&](int j) { return sKV + 2 * (j % S) * KV; };
+  auto ph_of = [&](int j) { return (uint32_t)((j / S) & 1); };
+
+  mbar_wait(q_full, 0);
+  // Turn k issues tile k's S = Q K^T and tile k - 1's O += P V; the two
+  // consumers take turns (turn barriers), so one's softmax runs while the
+  // other's products hold the tensor cores.  Both take n_kt + 1 turns.
+  if (cw == 1) mbar_arrive(turn(0));  // consumer 0 goes first
+  // turn 0: S of tile 0
+  mbar_wait(k_full(0), 0);
+  mbar_wait(turn(cw), 0);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<BN>(sc, kmajor(sQ, BM, cw * 64, kk), kmajor(kt_of(0), BN, 0, kk), kk > 0);
+  wg_commit();
+  mbar_arrive(turn(1 - cw));
+  wg_wait<0>();
+  fence_acc(sc);
+  mbar_arrive(k_empty(0));
+  softmax_tile<BN, CAUSAL>(sc, m, l, alpha, 0, row, r0, Lk, sl2, t);
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) acc_to_a(pf[kk], sc[2 * kk], sc[2 * kk + 1]);
+  // turns 1 .. my_kt - 1: S of tile k, then P V of tile k - 1
+  for (int k = 1; k < my_kt; ++k) {
+    mbar_wait(k_full(k % S), ph_of(k));
+    mbar_wait(v_full((k - 1) % S), ph_of(k - 1));
+    mbar_wait(turn(cw), k & 1);
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BN>(sc, kmajor(sQ, BM, cw * 64, kk), kmajor(kt_of(k), BN, 0, kk), kk > 0);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs_tb<D>(acc, pf[kk], mnmajor(kt_of(k - 1) + KV, BN, kk), 1);
+    wg_commit();
+    mbar_arrive(turn(1 - cw));
+    wg_wait<1>();  // S of tile k
+    fence_acc(sc);
+    mbar_arrive(k_empty(k % S));
+    softmax_tile<BN, CAUSAL>(sc, m, l, alpha, k * BN, row, r0, Lk, sl2, t);
+    wg_wait<0>();  // P V of tile k - 1
+    fence_acc(acc);
+    mbar_arrive(v_empty((k - 1) % S));
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a(pf[kk], sc[2 * kk], sc[2 * kk + 1]);
+  }
+  // turn my_kt: P V of the last tile
+  mbar_wait(v_full((my_kt - 1) % S), ph_of(my_kt - 1));
+  mbar_wait(turn(cw), my_kt & 1);
+  fence_acc(acc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs_tb<D>(acc, pf[kk], mnmajor(kt_of(my_kt - 1) + KV, BN, kk), 1);
+  wg_commit();
+  mbar_arrive(turn(1 - cw));
+  wg_wait<0>();
+  fence_acc(acc);
+  mbar_arrive(v_empty((my_kt - 1) % S));
+  // causal: tiles right of these rows hold no visible key; release them in
+  // order, and take their turns so that both consumers take n_kt + 1
+  for (int k = my_kt; k < n_kt; ++k) {
+    mbar_wait(k_full(k % S), ph_of(k));
+    mbar_arrive(k_empty(k % S));
+    mbar_wait(v_full(k % S), ph_of(k));
+    mbar_arrive(v_empty(k % S));
+    mbar_wait(turn(cw), (k + 1) & 1);
+    mbar_arrive(turn(1 - cw));
+  }
+
+  bf16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float tot = quad_sum(l[i]);
+    if (row[i] >= Lq) continue;
+    const float inv = 1.f / tot;
+    bf16* orow = ob + (long long)row[i] * so.l;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
+          pack_f32(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    }
+    if (t == 0) lse[(long long)bh * Lq + row[i]] = m[i] * kLn2 + logf(tot);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK and dV.  Grid (B * H, ceil(Lk / 128)); consumer c owns key rows k0 +
+// 64c .. + 63 and both walk the query steps (64 rows) that see the block's
+// keys, recomputing P^T from q, k and the saved logsumexp.  The producer
+// loads K and V once, then streams (Q, dO) steps through the ring; its
+// first warp also copies each step's lse (times log2 e; +inf past Lq, which
+// zeroes those rows' P^T) and delta into the stage.  Shared memory: K, V,
+// then 2 stages of (Q step, dO step, lse, delta): 133,160 bytes at D = 128.
+
+template <int D>
+struct DkdvCfg {
+  static constexpr int kBlockN = 128, kBlockM = 64, kStages = 2;
+  static constexpr int kKVBytes = kBlockN * D * 2, kStepBytes = kBlockM * D * 2;
+  static constexpr int kStageBytes = 2 * kStepBytes + 2 * kBlockM * 4;  // Q, dO, lse, delta
+  static constexpr size_t kSmem = 1024 + 2 * kKVBytes + kStages * kStageBytes + 8 * (1 + 2 * kStages);
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk, Strides sdv,
+                          int H, int Lq, int Lk, float scale) {
+  using C = DkdvCfg<D>;
+  constexpr int BN = C::kBlockN, BM = C::kBlockM, S = C::kStages;
+  constexpr int STEP = C::kStepBytes, STAGE = C::kStageBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const aligned = smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
+  const uint32_t sK = smem_u32(aligned), sV = sK + C::kKVBytes;
+  const uint32_t sStage = sV + C::kKVBytes;  // stage s: Q, dO, lse2[BM], delta[BM]
+  const uint32_t bars = sStage + S * STAGE;
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + S + s); };
+  auto stats = [&](int s) {  // generic pointer to stage s's lse2, then delta
+    return reinterpret_cast<float*>(aligned + 2 * C::kKVBytes + s * STAGE + 2 * STEP);
+  };
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BN;  // causal: key tile 0 walks the most steps: launched first
+  const int i0 = CAUSAL ? k0 / BM : 0;  // queries before k0 never see these keys
+  const int n_steps = max(0, (Lq + BM - 1) / BM - i0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1 + 32);  // the TMA thread's expect_tx + the first warp's stats
+      mbar_init(empty(s), 2 * kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {  // producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const float* lse_b = lse + (long long)bh * Lq;
+    const float* delta_b = delta + (long long)bh * Lq;
+    if (lane == 0 && n_steps > 0) {
+      mbar_expect_tx(kv_full, 2 * C::kKVBytes);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sK + c * BN * kRowBytes, &tk, kv_full, c * 64, h, k0, b);
+        tma_load(sV + c * BN * kRowBytes, &tv, kv_full, c * 64, h, k0, b);
+      }
+    }
+    for (int it = 0; it < n_steps; ++it) {
+      const int s = it % S, q0 = (i0 + it) * BM;
+      mbar_wait(empty(s), ((it / S) & 1) ^ 1);
+      const uint32_t sq = sStage + s * STAGE;
+      if (lane == 0) {
+        mbar_expect_tx(full(s), 2 * STEP);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(sq + c * BM * kRowBytes, &tq, full(s), c * 64, h, q0, b);
+          tma_load(sq + STEP + c * BM * kRowBytes, &tdo, full(s), c * 64, h, q0, b);
+        }
+      }
+      float* st = stats(s);
+      for (int i = lane; i < BM; i += 32) {
+        const int qi = q0 + i;
+        st[i] = qi < Lq ? lse_b[qi] * kLog2e : INFINITY;
+        st[BM + i] = qi < Lq ? delta_b[qi] : 0.f;
+      }
+      mbar_arrive(full(s));
+    }
+    return;
+  }
+
+  regs_alloc<kConsumerRegs>();
+  const int cw = threadIdx.x / kWgThreads - 1, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int kr0 = k0 + cw * 64;  // this warpgroup's first key
+  const int kvrow[2] = {kr0 + warp * 16 + g, kr0 + warp * 16 + g + 8};
+  const float sl2 = scale * kLog2e;
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+  if (n_steps > 0) mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_steps; ++it) {
+    const int s = it % S, q0 = (i0 + it) * BM;
+    const uint32_t sq = sStage + s * STAGE, sdo = sq + STEP;
+    mbar_wait(full(s), (it / S) & 1);
+    if (!CAUSAL || q0 + BM - 1 >= kr0) {  // else no query of the step sees these keys
+      const float* lse2 = stats(s);
+      const float* dlt = lse2 + BM;
+      // S^T = K Q^T and dP^T = V dO^T for 64 keys x 64 queries
+      float st[BM / 8][4], dpt[BM / 8][4];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BM>(st, kmajor(sK, BN, cw * 64, kk), kmajor(sq, BM, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BM>(dpt, kmajor(sV, BN, cw * 64, kk), kmajor(sdo, BM, 0, kk), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
+      // P^T = exp2(S^T scale log2 e - lse2), dS^T = P^T (dP^T - delta)
+      const bool edge = CAUSAL && q0 < kr0 + 64;
+      uint32_t pf[BM / 16][4], dsf[BM / 16][4];
+#pragma unroll
+      for (int n = 0; n < BM / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = n * 8 + 2 * t + (e & 1);
+          float x = exp2f(st[n][e] * sl2 - lse2[ql]);
+          if (edge && q0 + ql < kvrow[e >> 1]) x = 0.f;
+          st[n][e] = x;
+          dpt[n][e] = x * (dpt[n][e] - dlt[ql]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        acc_to_a(pf[kk], st[2 * kk], st[2 * kk + 1]);
+        acc_to_a(dsf[kk], dpt[2 * kk], dpt[2 * kk + 1]);
+      }
+      // dV += P^T dO, dK += dS^T Q
+      fence_acc(dva);
+      fence_acc(dka);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) wgmma_rs_tb<D>(dva, pf[kk], mnmajor(sdo, BM, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) wgmma_rs_tb<D>(dka, dsf[kk], mnmajor(sq, BM, kk), 1);
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(dva);
+      fence_acc(dka);
+    }
+    mbar_arrive(empty(s));
+  }
+
+  bf16* dkb = dk + b * sdk.b + h * sdk.h;
+  bf16* dvb = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kvrow[i] >= Lk) continue;
+    bf16* dkrow = dkb + (long long)kvrow[i] * sdk.l;
+    bf16* dvrow = dvb + (long long)kvrow[i] * sdv.l;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dkrow + n * 8 + 2 * t) =
+          pack_f32(dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvrow + n * 8 + 2 * t) = pack_f32(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
+// -- host: tensor maps and launchers ------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime, so that the
+// library needs no -lcuda.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map over one bf16 [B, L, H, D] operand as the 4-D tensor {D, H, L, B}
+// with its byte strides, read in boxes of 64 columns x `rows` rows with the
+// 128-byte swizzle.  Rows past L read as zeros.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, Strides st, int B, int L, int H, int D,
+                     int rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.l * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, bool CAUSAL>
+cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                    const long long* st, int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, q, strides_at(st, 0), B, Lq, H, D, C::kBlockM);
+  if (err == cudaSuccess) err = make_map(&tk, k, strides_at(st, 1), B, Lk, H, D, C::kBlockN);
+  if (err == cudaSuccess) err = make_map(&tv, v, strides_at(st, 2), B, Lk, H, D, C::kBlockN);
+  if (err == cudaSuccess) err = set_smem(attn_fwd_sm90_kernel<D, CAUSAL>, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)B * H, (Lq + C::kBlockM - 1) / C::kBlockM);
+  attn_fwd_sm90_kernel<D, CAUSAL><<<grid, kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, (bf16*)o, (float*)lse, strides_at(st, 3), H, Lq, Lk, scale);
+  return cudaGetLastError();
+}
+
+template <int D, bool CAUSAL>
+cudaError_t run_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                     const void* delta, void* dk, void* dv, const long long* st, int B, int H, int Lq,
+                     int Lk, float scale, cudaStream_t stream) {
+  using C = DkdvCfg<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = make_map(&tq, q, strides_at(st, 0), B, Lq, H, D, C::kBlockM);
+  if (err == cudaSuccess) err = make_map(&tk, k, strides_at(st, 1), B, Lk, H, D, C::kBlockN);
+  if (err == cudaSuccess) err = make_map(&tv, v, strides_at(st, 2), B, Lk, H, D, C::kBlockN);
+  if (err == cudaSuccess) err = make_map(&tdo, dout, strides_at(st, 3), B, Lq, H, D, C::kBlockM);
+  if (err == cudaSuccess) err = set_smem(attn_dkdv_sm90_kernel<D, CAUSAL>, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)B * H, (Lk + C::kBlockN - 1) / C::kBlockN);
+  attn_dkdv_sm90_kernel<D, CAUSAL><<<grid, kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
+      strides_at(st, 4), strides_at(st, 5), H, Lq, Lk, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+cudaError_t fwd_sm90(int D, bool causal, const void* q, const void* k, const void* v, void* o,
+                     void* lse, const long long* st, int B, int H, int Lq, int Lk, float scale,
+                     cudaStream_t stream) {
+#define EDL_FWD(DD)                                                                      \
+  case DD:                                                                               \
+    return causal ? run_fwd<DD, true>(q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream)  \
+                  : run_fwd<DD, false>(q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream);
+  switch (D) {
+    EDL_FWD(64)
+    EDL_FWD(128)
+    EDL_FWD(192)
+    EDL_FWD(256)
+  }
+#undef EDL_FWD
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dkdv_sm90(int D, bool causal, const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                      const long long* st, int B, int H, int Lq, int Lk, float scale,
+                      cudaStream_t stream) {
+#define EDL_DKDV(DD)                                                                          \
+  case DD:                                                                                    \
+    return causal ? run_dkdv<DD, true>(q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk,   \
+                                       scale, stream)                                         \
+                  : run_dkdv<DD, false>(q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk,  \
+                                        scale, stream);
+  switch (D) {
+    EDL_DKDV(64)
+    EDL_DKDV(128)
+  }
+#undef EDL_DKDV
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace edl_attn

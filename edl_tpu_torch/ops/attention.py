@@ -31,7 +31,12 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+
+
+def kernel_takes_head_dim(d: int) -> bool:
+    """Head dims the kernels take: every multiple of 64, as the JAX gates
+    (64 to 256 run specialised kernels, larger ones the wide kernels)."""
+    return d >= 64 and d % 64 == 0
 
 
 # -- the plain versions --------------------------------------------------------
@@ -176,14 +181,16 @@ def _on_cpu(*ts) -> bool:
 
 def _operand(t: torch.Tensor, name: str, shape) -> torch.Tensor:
     """Check a bf16 [B, L, H, D] operand; copy it only if its innermost
-    dim is not contiguous or its rows are not 16-byte aligned."""
+    dim is not contiguous or its rows are not 16-byte aligned (the TMA
+    tensor maps and cp.async both need that, and take any stride order)."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the attention kernels take bfloat16, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if (t.stride(3) != 1 or t.data_ptr() % 16
             or any(s % 8 for s in t.stride()[:3])):
-        t = t.contiguous()
+        # a fresh, packed copy (contiguous() would keep a misaligned base)
+        t = t.clone(memory_format=torch.contiguous_format)
     return t
 
 
@@ -193,11 +200,9 @@ def _strides(*ts) -> ctypes.Array:
 
 
 def _check_head_dim(D: int) -> None:
-    if D % 64 == 0 and D > KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"head_dim {D}: the attention kernels take head dims "
-                         f"up to {KERNEL_HEAD_DIMS[-1]} (ROADMAP.md, Queue 3)")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention kernels take head_dim in {KERNEL_HEAD_DIMS}, got {D}")
+    if not kernel_takes_head_dim(D):
+        raise ValueError(f"attention kernels take head dims that are multiples of 64, "
+                         f"got {D}")
 
 
 def _operands(q, k, v, do=None):
@@ -207,8 +212,8 @@ def _operands(q, k, v, do=None):
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     _check_head_dim(D)
-    if min(Lq, Lk) < 1 or B * H > 65535:
-        raise ValueError(f"attention kernels need Lq, Lk >= 1 and B*H <= 65535; "
+    if min(Lq, Lk) < 1:
+        raise ValueError(f"attention kernels need Lq, Lk >= 1; "
                          f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
     kv = (B, Lk, H, D)
     ts = [_operand(q, "q", q.shape), _operand(k, "k", kv), _operand(v, "v", kv)]
@@ -421,11 +426,6 @@ class FlashAttention(torch.autograd.Function):
 
 # -- dispatch ----------------------------------------------------------------------
 
-def _jax_splash_ok(lq: int, lk: int, d: int, causal: bool) -> bool:
-    """The JAX package's splash gate (``edl_tpu/ops/attention.py``)."""
-    return causal and lq == lk and lq % 128 == 0 and lq >= 128 and d % 64 == 0
-
-
 def _jax_flash_ok(lq: int, lk: int, d: int) -> bool:
     """The JAX package's flash gate: the shapes it hands its flash kernel."""
     return lq % 128 == 0 and lk % 128 == 0 and d % 64 == 0
@@ -433,9 +433,9 @@ def _jax_flash_ok(lq: int, lk: int, d: int) -> bool:
 
 def _splash_takes(lq: int, lk: int, d: int, dtype: torch.dtype, causal: bool) -> bool:
     """Shapes and types the splash kernels take: causal self-attention, D
-    in KERNEL_HEAD_DIMS, bf16 (the JAX gate also wants L % 128 == 0;
-    these kernels mask a ragged last tile)."""
-    return causal and lq == lk and d in KERNEL_HEAD_DIMS and dtype == torch.bfloat16
+    a multiple of 64, bf16 (the JAX gate also wants L % 128 == 0; these
+    kernels mask a ragged last tile)."""
+    return causal and lq == lk and kernel_takes_head_dim(d) and dtype == torch.bfloat16
 
 
 def _splash_ok(q, k, causal: bool) -> bool:
@@ -455,14 +455,11 @@ def choose_impl(lq: int, lk: int, d: int, dtype: torch.dtype, causal: bool,
     a mask-free call that passes the JAX flash gate runs flash in bf16,
     and dense in f32 only where dense computes the same function
     (non-causal, or ``Lq == Lk``; causal ``Lq != Lk`` in another dtype
-    raises ``TypeError``); every other call runs dense.  A head dim that
-    passes the JAX gates but is above the kernels' 256 raises
-    ``ValueError``.  Other devices take dense, as the JAX package does off
-    its accelerator."""
+    raises ``TypeError``); every other call runs dense.  The kernels take
+    every head dim the JAX gates take (``D % 64 == 0``).  Other devices
+    take dense, as the JAX package does off its accelerator."""
     if device_type != "cuda" or has_mask:
         return "dense"
-    if _jax_splash_ok(lq, lk, d, causal) or _jax_flash_ok(lq, lk, d):
-        _check_head_dim(d)   # the JAX package runs a kernel here
     if _splash_takes(lq, lk, d, dtype, causal):
         return "splash"
     if _jax_flash_ok(lq, lk, d):

@@ -63,7 +63,17 @@ def _splash_interpret(L, H, blk):
 
 
 def test_plain_matches_splash_interpret():
-    B, L, H, D, blk = 1, 256, 2, 64, 128
+    _check_plain_against_splash_interpret(D=64)
+
+
+def test_plain_matches_splash_interpret_above_256():
+    """D = 320, a head dim the splash kernel tiles in 128-lane repeats and
+    the port's wide kernels take."""
+    _check_plain_against_splash_interpret(D=320)
+
+
+def _check_plain_against_splash_interpret(D):
+    B, L, H, blk = 1, 256, 2, 128
     scale = D ** -0.5
     q, k, v = _qkv((B, L, H, D), (B, L, H, D), seed=3)
     do = np.random.default_rng(4).normal(size=(B, L, H, D)).astype(np.float32)

@@ -46,10 +46,13 @@ def _pallas_flash_vjp(fn, args, cotangent):
 
 
 # (causal, Lq, Lk, D): the two causal cross-length cases pin top-left
-# alignment, and Lq < Lk shows that keys no query sees get zero gradients
+# alignment, and Lq < Lk shows that keys no query sees get zero gradients;
+# D = 320 is a head dim above 256 (the wide kernels' range) at Lk = 128,
+# where the Pallas kernel takes a D that is not a multiple of 128
 PALLAS_CASES = [(False, 128, 128, 64), (False, 128, 256, 128),
                 (True, 128, 256, 64), (True, 256, 128, 64),
-                (True, 128, 256, 128), (True, 256, 128, 128)]
+                (True, 128, 256, 128), (True, 256, 128, 128),
+                (False, 128, 128, 320), (True, 128, 128, 320)]
 
 
 @pytest.mark.parametrize("causal,lq,lk,d", PALLAS_CASES,
@@ -203,18 +206,19 @@ def _jax_tpu_route(lq, lk, d, causal, has_mask):
     return "dense"
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 192, 256, 320])
+@pytest.mark.parametrize("d", [32, 64, 128, 192, 256, 320, 384, 512])
 def test_auto_route_on_cuda_computes_what_jax_computes(d):
     """Over causal/non-causal, Lq/Lk in {100, 128, 256}, bf16/f32 and
     mask/no mask: the route the port picks for CUDA tensors computes the
-    function the JAX package's TPU route computes.  Two refusals are
-    expected, and nothing else: a head dim above the kernels' 256 where
-    the JAX package runs a kernel (``ValueError``), and causal ``Lq != Lk``
-    in f32, where only the bf16 flash kernel gives the top-left function
-    (``TypeError``).  (At D = 192 with Lk > 128 the Pallas flash kernel
-    itself refuses the head dim; the port computes the function its gate
-    routes there.)  A bf16 call that the JAX package hands to a kernel
-    goes to a kernel in the port too, never to dense."""
+    function the JAX package's TPU route computes.  One refusal is
+    expected, and nothing else: causal ``Lq != Lk`` in f32, where only the
+    bf16 flash kernel gives the top-left function (``TypeError``).  Every
+    head dim the JAX gates take has a kernel, above 256 too (D = 320, 384,
+    512 route to splash or flash as the JAX package does).  (At D % 128 !=
+    0 with Lk > 128 the Pallas flash kernel itself refuses the head dim;
+    the port computes the function its gate routes there.)  A bf16 call
+    that the JAX package hands to a kernel goes to a kernel in the port
+    too, never to dense."""
     for causal, lq, lk, dtype, has_mask in itertools.product(
             (False, True), (100, 128, 256), (100, 128, 256),
             (torch.bfloat16, torch.float32), (False, True)):
@@ -223,17 +227,45 @@ def test_auto_route_on_cuda_computes_what_jax_computes(d):
         assert tattn.choose_impl(lq, lk, d, dtype, causal, has_mask, "cpu") == "dense"
         try:
             ours = tattn.choose_impl(lq, lk, d, dtype, causal, has_mask, "cuda")
-        except ValueError as e:
-            assert "up to 256" in str(e) and d > 256 and theirs != "dense", case
-            continue
         except TypeError as e:
             assert "bf16" in str(e), case
             assert (theirs, causal, dtype) == ("flash", True, torch.float32) and lq != lk, case
             continue
         assert ours in ("splash", "flash", "dense"), case
         if ours != "dense":
-            assert dtype == torch.bfloat16 and not has_mask and d in tattn.KERNEL_HEAD_DIMS, case
+            assert dtype == torch.bfloat16 and not has_mask and tattn.kernel_takes_head_dim(d), case
         np.testing.assert_array_equal(_visible(ours, causal, lq, lk),
                                       _visible(theirs, causal, lq, lk), err_msg=str(case))
         if theirs != "dense" and dtype == torch.bfloat16:
             assert ours != "dense", case
+
+
+def test_operands_take_any_batch_times_heads():
+    """B * H above 65,535 (here 16,384 x 5 at L = 128, which both JAX gates
+    take) is a kernel shape: ``_operands`` passes it on, routing picks a
+    kernel, and nothing is copied.  Meta tensors: nothing is allocated."""
+    shape = (16384, 128, 5, 64)
+    q = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    sds = jax.ShapeDtypeStruct(shape, jnp.bfloat16)
+    assert jattn._splash_ok(sds, sds, True) and jattn._flash_ok(sds, sds)
+    dims, ts = tattn._operands(q, q, q, q)
+    assert dims == (16384, 5, 128, 128, 64)
+    assert all(t is q for t in ts)
+    assert tattn.choose_impl(128, 128, 64, torch.bfloat16, True, False, "cuda") == "splash"
+    assert tattn.choose_impl(128, 128, 64, torch.bfloat16, False, False, "cuda") == "flash"
+
+
+def test_operand_copies_only_what_the_tile_loads_cannot_read():
+    """A split of a fused q|k|v projection and a [B, H, L, D] tensor
+    transposed to [B, L, H, D] are read in place (the tile loads take any
+    stride order); one whose rows are not 16-byte aligned is copied to an
+    aligned, packed tensor with the same values."""
+    B, L, H, D = 2, 16, 3, 64
+    fused = torch.zeros(B, L, 3 * H * D, dtype=torch.bfloat16)
+    q = fused[..., :H * D].reshape(B, L, H, D)
+    assert tattn._operand(q, "q", q.shape) is q
+    t = torch.zeros(B, H, L, D, dtype=torch.bfloat16).transpose(1, 2)
+    assert tattn._operand(t, "t", t.shape) is t
+    odd = torch.randn(B * L * H * D + 1).to(torch.bfloat16)[1:].view(B, L, H, D)
+    got = tattn._operand(odd, "odd", odd.shape)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous() and torch.equal(got, odd)

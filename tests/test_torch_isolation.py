@@ -1,5 +1,6 @@
-"""The port stands alone: ``edl_tpu_torch`` and ``chip_smoke.py`` import
-nothing of JAX, flax, optax, orbax or the JAX package ``edl_tpu``."""
+"""The port stands alone: ``edl_tpu_torch``, ``chip_smoke.py`` and
+``bench_attention.py`` import nothing of JAX, flax, optax, orbax or the JAX
+package ``edl_tpu``."""
 
 import ast
 import pathlib
@@ -15,7 +16,8 @@ def _forbidden(name: str) -> bool:
 
 
 def _port_sources():
-    return sorted((ROOT / "edl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "edl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                             ROOT / "bench_attention.py"]
 
 
 def test_importing_every_module_loads_no_jax():
@@ -28,7 +30,7 @@ import edl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(edl_tpu_torch.__path__, 'edl_tpu_torch.')]
 for n in names:
     importlib.import_module(n)
-import chip_smoke
+import chip_smoke, bench_attention
 print(len(names))
 print(sorted(set(bad()) - before))
 """
