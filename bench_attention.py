@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Time the attention forward and dK/dV kernels on one NVIDIA card, against
-an earlier version of them in the same process.
+"""Time the attention kernels on one NVIDIA card, against an earlier version
+of them in the same process.
 
-    python3 bench_attention.py --parent build/parent_attention.cu
+    git archive <commit> edl_tpu_torch/csrc | tar -x -C build/parent
+    python3 bench_attention.py --parent build/parent/edl_tpu_torch/csrc
 
-``--parent`` names a copy of an earlier ``edl_tpu_torch/csrc/attention.cu``
-(one self-contained source with the same C entry points); it is built by
-nvcc into ``build/edl_tpu_torch/libattn_parent.so``.  At the flagship shape
-``[8, 1024, 6, 128]`` bf16 the script times the earlier and the current
-forward and dK/dV, causal (the splash entry points) and non-causal (the
-flash ones), in turns: earlier, current, current, earlier.  It checks both
-against the plain PyTorch versions first, and the delta kernel
-(``rowsum(dO * O)``) the same way.  Then it times the current forward and
-dK/dV at ``[8, 1024, 6, 64]`` and ``[8, 1024, 4, 256]``, causal and not.
-Every time is a device time (``torch.profiler``, summed kernel time per
-call); each row carries its bound (the larger of bytes over 3.35 TB/s and
-operations over 989 TFLOP/s) and the library time of one PyTorch call for
-the same function (``scaled_dot_product_attention``, its whole backward
-for dK/dV).  Without ``--parent`` only the current kernels are timed.
+``--parent`` names a directory of an earlier tree's CUDA sources (every
+``.cu`` there is compiled against the headers beside it, and linked into
+``build/edl_tpu_torch/libattn_parent.so``); its entry points' arguments are
+read from its own ``attention.cu``, so a parent from before dQ took over
+delta is timed as its backward ran: delta, then dQ.  ``--parent_flags``
+passes nvcc flags to that build only (e.g. a ``-D`` that selects another
+variant of the current sources).  At the flagship shape ``[8, 1024, 6,
+128]`` bf16, and at ``[8, 1024, 6, 64]``, ``[8, 1024, 4, 192]`` and
+``[8, 1024, 4, 256]``, the
+script times the earlier and the current forward, dQ (with delta) and
+dK/dV, causal (the splash entry points) and non-causal (the flash ones), in
+turns: earlier, current, current, earlier.  It checks both against the
+plain PyTorch versions first.  Every time is a device time
+(``torch.profiler``, summed kernel time per call); each row carries its
+bound (the larger of bytes over 3.35 TB/s and operations over their type's
+peak rate) and the library time of one PyTorch call for the same function
+(``scaled_dot_product_attention``, its whole backward for dQ and dK/dV).
+Without ``--parent`` only the current kernels are timed.
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per measurement.  Imports nothing of JAX or of the JAX package.
@@ -28,71 +33,63 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
+import shlex
 import sys
+from pathlib import Path
 
 import chip_smoke as cs
 
 FLAGSHIP = (8, 1024, 6, 128)
-EXTRA = ((8, 1024, 6, 64), (8, 1024, 4, 256))
+EXTRA = ((8, 1024, 6, 64), (8, 1024, 4, 192), (8, 1024, 4, 256))
 REPS = 20
+KINDS = ("fwd", "dq", "dkdv")
+WORK = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkdv": "flash_bwd_dkdv"}  # cs._attention_work
+_CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
 
 
-def build_parent(source: str) -> ctypes.CDLL:
+def build_parent(csrc: str, flags: list[str]) -> ctypes.CDLL:
     from edl_tpu_torch.ops import _build
-    from edl_tpu_torch.ops import attention as A
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = Path(csrc)
     lib = _build.BUILD_DIR / "libattn_parent.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib), source]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{done.stdout}{done.stderr}")
+    _build.build_sources(sorted(src.glob("*.cu")), lib, flags)
     cdll = ctypes.CDLL(str(lib))
-    for name, argtypes in A._SIGNATURES.items():
+    for name, kinds in _build.entry_points((src / "attention.cu").read_text()).items():
         fn = getattr(cdll, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fn.argtypes, fn.restype = [_CTYPES[k] for k in kinds], ctypes.c_int
     return cdll
 
 
 def launcher(lib, kind: str, causal: bool):
-    """A call of ``lib``'s forward, delta or dK/dV entry point: the splash
-    one for causal, the flash one otherwise; the wrappers' argument set-up."""
+    """A call of ``lib``'s forward, dQ or dK/dV entry point: the splash one
+    for causal, the flash one otherwise, with the wrappers' argument
+    set-up.  dQ returns ``(dq, delta)``; a library whose dQ does not take
+    ``o`` computes delta with its own delta kernel first."""
     import torch
 
     from edl_tpu_torch.ops import attention as A
-    if kind == "delta":
-        def delta(o, do):
-            B, L, H, D = o.shape
-            out = torch.empty(B, H, L, dtype=torch.float32, device=o.device)
-            A._raise_on(lib.edl_attn_bwd_delta(o.data_ptr(), do.data_ptr(), out.data_ptr(),
-                                               A._strides(o, do), B, H, L, D, A._stream(o)),
-                        "edl_attn_bwd_delta")
-            return (out,)
-        return delta
-    entry = ("edl_attn_" if causal else "edl_flash_") + ("fwd" if kind == "fwd" else "bwd_dkdv")
-    fn = getattr(lib, entry)
+    entry = ("edl_attn_" if causal else "edl_flash_") + {"fwd": "fwd", "dq": "bwd_dq",
+                                                         "dkdv": "bwd_dkdv"}[kind]
     mode = None if causal else False
+    if kind == "fwd":
+        return lambda q, k, v, scale: A._run_fwd(entry, q, k, v, scale, mode, lib=lib)
+    if kind == "dkdv":
+        return lambda q, k, v, do, lse, delta, scale: A._run_dkdv(
+            entry, q, k, v, do, lse, delta, scale, mode, lib=lib)
+    fn = getattr(lib, entry)
+    if len(fn.argtypes) == len(A._SIGNATURES[entry]):
+        return lambda q, k, v, o, do, lse, scale: A._run_dq(
+            entry, q, k, v, o, do, lse, scale, mode, lib=lib)
 
-    def fwd(q, k, v, scale):
-        dims, (q, k, v) = A._operands(q, k, v)
-        B, H, Lq, _, D = dims
-        o = torch.empty(B, Lq, H, D, dtype=q.dtype, device=q.device)
-        lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
-        A._raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                       A._strides(q, k, v, o), *A._sizes(dims, mode), float(scale), A._stream(q)),
-                    entry)
-        return o, lse
-
-    def dkdv(q, k, v, do, lse, delta, scale):
+    def delta_then_dq(q, k, v, o, do, lse, scale):
+        delta = A._run_delta(o, do, lib=lib)
         dims, (q, k, v, do) = A._operands(q, k, v, do)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        dq = torch.empty_like(q)
         A._raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                       delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                       A._strides(q, k, v, do, dk, dv), *A._sizes(dims, mode), float(scale),
-                       A._stream(q)), entry)
-        return dk, dv
+                       delta.data_ptr(), dq.data_ptr(), A._strides(q, k, v, do, dq),
+                       *A._sizes(dims, mode), float(scale), A._stream(q)), entry)
+        return dq, delta
 
-    return fwd if kind == "fwd" else dkdv
+    return delta_then_dq
 
 
 def inputs(shape, seed):
@@ -117,7 +114,7 @@ def library_ms(q, k, v, do, causal) -> tuple[float, float]:
 
 
 def measure(shape, causal, seed, parent):
-    """Rows for the forward and dK/dV at one shape and mask."""
+    """Rows for the forward, dQ and dK/dV at one shape and mask."""
     import torch
 
     q, k, v, do, scale, A = inputs(shape, seed)
@@ -126,19 +123,21 @@ def measure(shape, causal, seed, parent):
     delta = A.attention_bwd_delta_plain(o, do)
     work = cs._attention_work(B, L, L, H, D, causal)
     lib_fwd, lib_bwd = library_ms(q, k, v, do, causal)
+    args = {"fwd": (q, k, v, scale), "dq": (q, k, v, o, do, lse, scale),
+            "dkdv": (q, k, v, do, lse, delta, scale)}
+    plain = {"fwd": lambda: A.flash_fwd_plain(q, k, v, scale, causal),
+             "dq": lambda: A.flash_bwd_dq_plain(q, k, v, o, do, lse, scale, causal),
+             "dkdv": lambda: A.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale, causal)}
+    library = {"fwd": ("sdpa forward", lib_fwd), "dq": ("sdpa whole backward", lib_bwd),
+               "dkdv": ("sdpa whole backward", lib_bwd)}
     rows = []
-    kinds = [("fwd", (q, k, v, scale), lambda: A.flash_fwd_plain(q, k, v, scale, causal)),
-             ("dkdv", (q, k, v, do, lse, delta, scale),
-              lambda: A.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale, causal))]
-    if parent is not None and causal:
-        kinds.append(("delta", (o, do), lambda: (delta,)))
-    for kind, args, plain in kinds:
-        want = plain()
+    for kind in KINDS:
+        want = plain[kind]()
         new = launcher(A._kernels(), kind, causal)
         old = launcher(parent, kind, causal) if parent is not None else None
-        errs = {"new": max(cs.rel_err(a, b) for a, b in zip(new(*args), want))}
+        errs = {"new": max(cs.rel_err(a, b) for a, b in zip(new(*args[kind]), want))}
         if old is not None:
-            errs["earlier"] = max(cs.rel_err(a, b) for a, b in zip(old(*args), want))
+            errs["earlier"] = max(cs.rel_err(a, b) for a, b in zip(old(*args[kind]), want))
         torch.cuda.synchronize()
         if max(errs.values()) > cs.REL_TOL:
             raise AssertionError(f"{kind} at {shape} causal={causal}: rel errs {errs}")
@@ -146,21 +145,21 @@ def measure(shape, causal, seed, parent):
         order = ("earlier", "new", "new", "earlier") if old is not None else ("new",)
         for who in order:
             fn = new if who == "new" else old
-            times.setdefault(who, []).append(cs.device_ms(lambda: fn(*args), reps=REPS))
-        bound, by = cs._bound(*work[{"fwd": "flash_fwd", "dkdv": "flash_bwd_dkdv",
-                                     "delta": "attention_bwd_delta"}[kind]])
-        library = {"fwd": ("sdpa forward", lib_fwd), "dkdv": ("sdpa whole backward", lib_bwd),
-                   "delta": (None, None)}[kind]
+            times.setdefault(who, []).append(cs.device_ms(lambda: fn(*args[kind]), reps=REPS))
+        bound, by = cs._bound(*work[WORK[kind]])
         rows.append({"kernel": kind, "shape": list(shape), "causal": causal,
                      "ms": times["new"], "earlier_ms": times.get("earlier"),
-                     "bound_ms": bound, "bound_by": by, "library_ms": library[1],
-                     "library": library[0], "rel_err": errs})
+                     "bound_ms": bound, "bound_by": by, "library_ms": library[kind][1],
+                     "library": library[kind][0], "rel_err": errs})
     return rows
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--parent", default=None, help="an earlier attention.cu to time against")
+    p.add_argument("--parent", default=None,
+                   help="a directory of earlier CUDA sources (csrc) to time against")
+    p.add_argument("--parent_flags", default="",
+                   help="extra nvcc flags for the parent's build, one string")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -169,13 +168,10 @@ def main(argv=None) -> int:
     from edl_tpu_torch.utils.device import smi_name_and_power_limit
     torch.backends.cuda.matmul.allow_tf32 = False
     print(smi_name_and_power_limit(), flush=True)
-    parent = build_parent(args.parent) if args.parent else None
-    for i, causal in enumerate((True, False)):
-        for row in measure(FLAGSHIP, causal, seed=40 + i, parent=parent):
-            print(json.dumps(row), flush=True)
-    for j, shape in enumerate(EXTRA):
+    parent = build_parent(args.parent, shlex.split(args.parent_flags)) if args.parent else None
+    for j, shape in enumerate((FLAGSHIP,) + EXTRA):
         for i, causal in enumerate((True, False)):
-            for row in measure(shape, causal, seed=50 + 2 * j + i, parent=None):
+            for row in measure(shape, causal, seed=40 + 2 * j + i, parent=parent):
                 print(json.dumps(row), flush=True)
     return 0
 

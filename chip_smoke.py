@@ -9,12 +9,12 @@ failure exits non-zero:
 
 1. ``build``: compile the CUDA kernels from ``edl_tpu_torch/csrc`` with nvcc,
    one process per source, all at once (every instantiation: the Hopper
-   forward at 4 head dims and dK/dV at 2, the mma.sync dK/dV at 2 and dQ
-   at 4, each causal and not, delta at 4 head dims and a runtime-D one,
-   and the wide kernels for D > 256), and print each one's registers and
-   spills.
+   forward and dQ at 4 head dims and dK/dV at 2, the mma.sync dK/dV at 2,
+   each causal and not, the standalone delta, and the wide kernels for
+   D > 256), and print each one's registers and spills.
 2. ``kernels``: each kernel against its plain PyTorch version (f32 from the
-   same bf16 inputs) at the flagship shape and at ragged, cross-length,
+   same bf16 inputs; dQ's two outputs, dq and delta, both) at the flagship
+   shape and at ragged, cross-length,
    wide-head (D = 192, 256, and 320, 512 on the wide kernels),
    many-head (B * H > 65,535) and transposed-layout ones, with device times
    (``torch.profiler``) of the kernel, of its plain version and of one
@@ -27,9 +27,11 @@ failure exits non-zero:
 4. ``flagship``: the 124M-parameter LM at batch 8 x seq 1024 with the fused
    cross-entropy, through ``edl_tpu_torch.train_lm``'s trainer: 2 warm-up
    steps and 10 timed steps on a fixed batch; tokens/s, MFU and peak memory;
-   the splash kernels' launch counters must equal 12 per step each.
+   the splash kernels' launch counters (forward, dQ, dK/dV) must equal 12
+   per step each, and every other attention kernel's 0 (the standalone
+   delta too: dQ computes delta).
 5. ``flash``: the same run with ``--attention flash``: the flash kernels
-   launch 12 times per step each and splash's forward, dK/dV and dQ none,
+   launch 12 times per step each and every other attention kernel none,
    the loss falls, and the first loss equals the splash path's.
 6. ``resume``: save at an epoch's end, drop the trainer, restore a new one
    with ``restore_or_create`` and check that step, epoch and the next loss
@@ -71,27 +73,27 @@ FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
 MANY_HEADS_SHAPE = (16384, 128, 5, 64)
 REL_TOL = 1e-2                          # ||kernel - plain|| / ||plain||
 
-SM90 = "edl_tpu_torch/csrc/attention_sm90.cu"     # the flagship path's forward and dK/dV
-MMA = "edl_tpu_torch/csrc/attention.cu"           # its dQ and delta
+SM90 = "edl_tpu_torch/csrc/attention_sm90.cu"     # the flagship path's forward, dQ and dK/dV
+ENTRY = "edl_tpu_torch/csrc/attention.cu"         # the entry points and the standalone delta
 SPLASH = "edl_tpu/ops/attention.py:112 -> jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
 FLASH = "edl_tpu/ops/attention.py:81 -> jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNELS = {
     # wrapper name -> (kernel name, source at the flagship shape, TPU code it replaces)
     "attention_fwd": ("edl_attn_fwd", SM90, f"{SPLASH}:1137"),
-    "attention_bwd_delta": ("edl_attn_bwd_delta", MMA, f"{SPLASH}:2285"),
+    "attention_bwd_delta": ("edl_attn_bwd_delta", ENTRY, f"{SPLASH}:2285"),
     "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", SM90, f"{SPLASH}:2196"),
-    "attention_bwd_dq": ("edl_attn_bwd_dq", MMA, f"{SPLASH}:1635"),
+    "attention_bwd_dq": ("edl_attn_bwd_dq", SM90, f"{SPLASH}:1635"),
     "flash_fwd": ("edl_flash_fwd", SM90, f"{FLASH}:758"),
     "flash_bwd_dkdv": ("edl_flash_bwd_dkdv", SM90, f"{FLASH}:1121"),
-    "flash_bwd_dq": ("edl_flash_bwd_dq", MMA, f"{FLASH}:1456"),
+    "flash_bwd_dq": ("edl_flash_bwd_dq", SM90, f"{FLASH}:1456"),
 }
-SPLASH_WRAPPERS = ("attention_fwd", "attention_bwd_delta", "attention_bwd_dkdv", "attention_bwd_dq")
-FLASH_WRAPPERS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
-# (causal, non-causal) x (Hopper forward at 4 head dims + Hopper dK/dV at 2 +
-# mma.sync dK/dV at 2 + dQ at 4), delta at 4 head dims and a runtime-D one
-# (bwd_delta<0>), and the wide kernels: (causal, non-causal) x (forward,
-# dK/dV, dQ)
-KERNEL_INSTANTIATIONS = 2 * (4 + 2 + 2 + 4) + 5 + 2 * 3
+# each path's kernels, in the order the autograd function launches them
+SPLASH_WRAPPERS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv")
+FLASH_WRAPPERS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+# (causal, non-causal) x (Hopper forward at 4 head dims + Hopper dQ at 4 +
+# Hopper dK/dV at 2 + mma.sync dK/dV at 2), the standalone delta (any D),
+# and the wide kernels: (causal, non-causal) x (forward, dK/dV, dQ)
+KERNEL_INSTANTIATIONS = 2 * (4 + 4 + 2 + 2) + 1 + 2 * 3
 
 
 def log(phase: str, **nums) -> None:
@@ -165,7 +167,7 @@ def phase_build(ctx) -> None:
                 kernels[name]["spill_bytes"] = int(m.group(1))
             elif name and (m := re.search(r"Used (\d+) registers", line)):
                 kernels[name]["registers"] = int(m.group(1))
-            elif "error" in line:
+            elif "error" in line or "warning" in line:
                 print(f"[build] {line.strip()}", flush=True)
     log("build", seconds=seconds, libraries=sorted(logs), kernel_instantiations=len(kernels),
         kernels=kernels)
@@ -177,28 +179,32 @@ def phase_build(ctx) -> None:
 # -- phase 2 ---------------------------------------------------------------------
 
 def _attention_work(B, Lq, Lk, H, D, causal) -> dict:
-    """Operations and bytes each kernel needs at this shape: the unmasked
-    pairs (causal, top-left: key j <= query i) are what the data needs;
-    each input read once, each output written once."""
+    """Operations (as ``(count, peak rate of their type)`` pairs) and bytes
+    each kernel needs at this shape: the unmasked pairs (causal, top-left:
+    key j <= query i) are what the data needs; each input read once, each
+    output written once."""
     if causal:
         pairs = B * H * sum(min(i + 1, Lk) for i in range(Lq))
     else:
         pairs = B * H * Lq * Lk
     tq, tk = B * Lq * H * D * 2, B * Lk * H * D * 2   # bf16 [B, L, H, D] tensors
     s = B * H * Lq * 4                                 # one f32 [B, H, Lq] statistic
-    fwd = (4 * pairs * D, PEAK_BF16_FLOPS, 2 * tq + 2 * tk + s)
-    dkdv = (8 * pairs * D, PEAK_BF16_FLOPS, 2 * tq + 4 * tk + 2 * s)
-    dq = (6 * pairs * D, PEAK_BF16_FLOPS, 3 * tq + 2 * tk + 2 * s)
+    delta = (2 * B * Lq * H * D, PEAK_F32_FLOPS)      # rowsum(dO * O) in f32
+    fwd = (((4 * pairs * D, PEAK_BF16_FLOPS),), 2 * tq + 2 * tk + s)
+    dkdv = (((8 * pairs * D, PEAK_BF16_FLOPS),), 2 * tq + 4 * tk + 2 * s)
+    # dQ with delta folded in: reads q, o, dO, k, v and lse; writes dq and delta
+    dq = (((6 * pairs * D, PEAK_BF16_FLOPS), delta), 4 * tq + 2 * tk + 2 * s)
     return {
         "attention_fwd": fwd, "flash_fwd": fwd,
-        "attention_bwd_delta": (2 * B * Lq * H * D, PEAK_F32_FLOPS, 2 * tq + s),
+        "attention_bwd_delta": ((delta,), 2 * tq + s),
         "attention_bwd_dkdv": dkdv, "flash_bwd_dkdv": dkdv,
         "attention_bwd_dq": dq, "flash_bwd_dq": dq,
     }
 
 
-def _bound(ops, peak, nbytes):
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(ops, nbytes):
+    t_ops = sum(n / peak for n, peak in ops) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -213,22 +219,19 @@ def _randn(shape, g, transposed=False):
 
 
 def _kernel_set(flash: bool, causal: bool) -> dict:
-    """wrapper name -> (kernel wrapper, plain version) of one path; the
-    delta kernel serves both."""
+    """wrapper name -> (kernel wrapper, plain version) of one path: the
+    forward, dQ (with delta) and dK/dV."""
     from edl_tpu_torch.ops import attention as A
-    delta = (A.attention_bwd_delta, A.attention_bwd_delta_plain)
     if not flash:
         return {"attention_fwd": (A.attention_fwd, A.attention_fwd_plain),
-                "attention_bwd_delta": delta,
-                "attention_bwd_dkdv": (A.attention_bwd_dkdv, A.attention_bwd_dkdv_plain),
-                "attention_bwd_dq": (A.attention_bwd_dq, A.attention_bwd_dq_plain)}
+                "attention_bwd_dq": (A.attention_bwd_dq, A.attention_bwd_dq_plain),
+                "attention_bwd_dkdv": (A.attention_bwd_dkdv, A.attention_bwd_dkdv_plain)}
     c = functools.partial
     return {"flash_fwd": (c(A.flash_fwd, causal=causal), c(A.flash_fwd_plain, causal=causal)),
-            "attention_bwd_delta": delta,
-            "flash_bwd_dkdv": (c(A.flash_bwd_dkdv, causal=causal),
-                               c(A.flash_bwd_dkdv_plain, causal=causal)),
             "flash_bwd_dq": (c(A.flash_bwd_dq, causal=causal),
-                             c(A.flash_bwd_dq_plain, causal=causal))}
+                             c(A.flash_bwd_dq_plain, causal=causal)),
+            "flash_bwd_dkdv": (c(A.flash_bwd_dkdv, causal=causal),
+                               c(A.flash_bwd_dkdv_plain, causal=causal))}
 
 
 def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False,
@@ -252,19 +255,19 @@ def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False,
         raise AssertionError("a transposed operand was copied before the kernels")
     scale = D ** -0.5
     ks = _kernel_set(flash, causal)
-    (fwd, fwd_p), (dlt, dlt_p), (dkdv, dkdv_p), (dq_k, dq_p) = ks.values()
+    (fwd, fwd_p), (dq_k, dq_p), (dkdv, dkdv_p) = ks.values()
+    n_fwd, n_dq, n_dkdv = ks
     o, lse = fwd(q, k, v, scale)
     o_p, lse_p = fwd_p(q, k, v, scale)
-    delta = dlt(o, do)
-    delta_p = dlt_p(o, do)
+    # dQ first: it computes delta, which dK/dV then takes, as on the path
+    dq, delta = dq_k(q, k, v, o, do, lse, scale)
+    dq_pl, delta_p = dq_p(q, k, v, o, do, lse, scale)
     dk, dv = dkdv(q, k, v, do, lse, delta, scale)
     dk_p, dv_p = dkdv_p(q, k, v, do, lse, delta, scale)
-    dq = dq_k(q, k, v, do, lse, delta, scale)
-    dq_pl = dq_p(q, k, v, do, lse, delta, scale)
+    delta_s = A.attention_bwd_delta(o, do)   # the standalone delta (D > 256's)
     torch.cuda.synchronize()
-    names = list(ks)
-    pairs = {names[0]: [(o, o_p), (lse, lse_p)], names[1]: [(delta, delta_p)],
-             names[2]: [(dk, dk_p), (dv, dv_p)], names[3]: [(dq, dq_pl)]}
+    pairs = {n_fwd: [(o, o_p), (lse, lse_p)], n_dq: [(dq, dq_pl), (delta, delta_p)],
+             n_dkdv: [(dk, dk_p), (dv, dv_p)], "attention_bwd_delta": [(delta_s, delta_p)]}
     out = {}
     for name, outs in pairs.items():
         errs = [rel_err(a, b) for a, b in outs]
@@ -300,8 +303,10 @@ def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False,
         return out
 
     work = _attention_work(B, Lq, Lk, H, D, causal)
-    args = {names[0]: (q, k, v, scale), names[1]: (o, do),
-            names[2]: (q, k, v, do, lse, delta, scale), names[3]: (q, k, v, do, lse, delta, scale)}
+    args = {n_fwd: (q, k, v, scale), n_dq: (q, k, v, o, do, lse, scale),
+            n_dkdv: (q, k, v, do, lse, delta, scale), "attention_bwd_delta": (o, do)}
+    if not flash:   # the standalone delta is timed once, on the splash path
+        ks["attention_bwd_delta"] = (A.attention_bwd_delta, A.attention_bwd_delta_plain)
     # the library yardstick: PyTorch's fused attention, forward and backward
     # (its backward computes dq, dk and dv in one call; its is_causal is
     # top-left too)
@@ -310,10 +315,8 @@ def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False,
     yt = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     lib_bwd = device_ms(lambda: torch.autograd.grad(yt, (qt, kt, vt), dot, retain_graph=True))
-    library = {names[0]: lib_fwd, names[1]: None, names[2]: lib_bwd, names[3]: lib_bwd}
+    library = {n_fwd: lib_fwd, n_dq: lib_bwd, n_dkdv: lib_bwd, "attention_bwd_delta": None}
     for name, (kernel_fn, plain_fn) in ks.items():
-        if flash and name == "attention_bwd_delta":
-            continue  # the same kernel at the same shape as the splash path's
         bound, by = _bound(*work[name])
         a = args[name]
         out[name].update(ms=device_ms(lambda: kernel_fn(*a)),
@@ -322,9 +325,41 @@ def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False,
     return out
 
 
+def check_fresh_thread() -> dict:
+    """The forward and dQ as the first launches of a host thread that has
+    made no CUDA call (autograd runs the backward on such a thread): the
+    Hopper kernels' tensor maps need the thread's context current."""
+    import threading
+
+    import torch
+
+    from edl_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (_randn((2, 200, 4, 64), g) for _ in range(4))
+    o, lse = A.attention_fwd_plain(q, k, v, 0.125)
+    errors = []
+
+    def body():
+        try:
+            A.attention_fwd(q, k, v, 0.125)
+            A.attention_bwd_dq(q, k, v, o, do, lse, 0.125)
+            torch.cuda.synchronize()
+        except Exception as e:  # raised again on the main thread below
+            errors.append(e)
+
+    for _ in range(2):
+        thread = threading.Thread(target=body)
+        thread.start()
+        thread.join()
+    if errors:
+        raise AssertionError(f"a launch from a fresh host thread failed: {errors[0]!r}")
+    return {"fresh_thread_launches": "ok"}
+
+
 def phase_kernels(ctx) -> None:
     import torch
     worst: dict[str, float] = {}
+    log("kernels", **check_fresh_thread())
 
     def record(res, **where):
         for name, r in res.items():
@@ -415,7 +450,7 @@ def phase_parity(ctx) -> None:
         if not (math.isfinite(loss_c) and loss_rel <= PARITY_LOSS_RTOL
                 and grad_rel <= PARITY_GRAD_RTOL):
             raise AssertionError(f"card and CPU disagree on the 2-layer {impl} step")
-        used = FLASH_WRAPPERS + ("attention_bwd_delta",) if impl == "flash" else SPLASH_WRAPPERS
+        used = FLASH_WRAPPERS if impl == "flash" else SPLASH_WRAPPERS
         want = {n: cfg.num_layers if n in used else 0 for n in n_c}
         if n_c != want or max(n_h.values()) != 0:
             raise AssertionError(f"the card's {impl} step must launch its path's kernels once "
@@ -434,8 +469,8 @@ FIRST_LOSS_RTOL = 1e-3   # splash and flash: one function, other kernels' roundi
 def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
     """The 124M LM through train_lm's trainer on a fixed batch: 2 warm-up
     and 10 timed steps; ``path_wrappers`` must launch 12 times a step each
-    and every other attention kernel but delta none.  Returns the losses
-    and the launch counts of the timed steps."""
+    and every other attention kernel none.  Returns the losses and the
+    launch counts of the timed steps."""
     import numpy as np
     import torch
 
@@ -485,8 +520,7 @@ def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
     if not losses[-1] < losses[0] - 0.1:
         raise AssertionError(f"loss did not fall: {losses}")
     per_step = cfg.num_layers * TIMED_STEPS
-    want = {n: per_step if n in path_wrappers or n == "attention_bwd_delta" else 0
-            for n in launches}
+    want = {n: per_step if n in path_wrappers else 0 for n in launches}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want} "
                              f"(12 layers x {TIMED_STEPS} steps on the path's kernels)")
@@ -513,7 +547,7 @@ def phase_flagship(ctx) -> None:
     """The 124M LM on the default (splash) path."""
     losses, launches = _drive_flagship("flagship", [], SPLASH_WRAPPERS)
     ctx["first_loss"] = losses[0]
-    ctx["launches"] = {n: launches[n] for n in SPLASH_WRAPPERS}
+    _keep_launches(ctx, launches, SPLASH_WRAPPERS)
 
 
 def phase_flash(ctx) -> None:
@@ -529,7 +563,16 @@ def phase_flash(ctx) -> None:
     if rel > FIRST_LOSS_RTOL:
         raise AssertionError(f"flash path's first loss {losses[0]} != splash path's "
                              f"{splash_first} (rel {rel}, tol {FIRST_LOSS_RTOL})")
-    ctx.setdefault("launches", {}).update({n: launches[n] for n in FLASH_WRAPPERS})
+    _keep_launches(ctx, launches, FLASH_WRAPPERS)
+
+
+def _keep_launches(ctx, launches, path_wrappers) -> None:
+    """Keep a main-path run's counts for the kernels line: its path's
+    kernels, and the standalone delta's, summed over the runs (0: dQ
+    computes delta on both paths)."""
+    kept = ctx.setdefault("launches", {})
+    kept.update({n: launches[n] for n in path_wrappers})
+    kept["attention_bwd_delta"] = kept.get("attention_bwd_delta", 0) + launches["attention_bwd_delta"]
 
 
 def _first_loss(extra_args: list[str]) -> float:

@@ -1,7 +1,8 @@
 // Attention for Hopper (sm_90a): the C entry points, and the mma.sync
-// kernels of the backward: delta = rowsum(dO * O), dK/dV at D = 192 and
-// 256, and dQ up to D = 256.  Causal (top-left: key j is visible to query i
-// iff j <= i) or not, with Lq and Lk free.
+// kernels of the backward that the Hopper kernels do not cover: dK/dV at
+// D = 192 and 256, and the standalone delta = rowsum(dO * O) for head dims
+// above 256.  Causal (top-left: key j is visible to query i iff j <= i) or
+// not, with Lq and Lk free.
 //
 // The kernels replace the Pallas TPU kernels that edl_tpu/ops/attention.py
 // reaches (jax/experimental/pallas/ops/tpu/...):
@@ -14,27 +15,27 @@
 //   - forward   : flash_attention.py:758
 //   - dk / dv   : flash_attention.py:1121
 //   - dq        : flash_attention.py:1456
-//   and, for both, the backward's XLA rowsum(dO * O) (edl_attn_bwd_delta).
+//   and, for both, the backward's XLA rowsum(dO * O), which the dQ entry
+//   points compute and return (splash_attention_kernel.py:2285,
+//   flash_attention.py:273).
 // Which kernel runs where:
 //   - forward, D = 64..256 : attention_sm90.cu (TMA, wgmma, warp-specialised)
 //   - dK/dV, D = 64, 128   : attention_sm90.cu
 //   - dK/dV, D = 192, 256  : here (mma.sync; two 64 x D f32 accumulators do
 //                            not fit a wgmma consumer's 240 registers)
-//   - dQ, D = 64..256      : here
-//   - delta, every D       : here (a runtime-D instantiation above 256)
-//   - forward, dK/dV, dQ, D > 256 (any D % 64 == 0): attention_wide.cu
+//   - dQ with delta folded in, D = 64..256 : attention_sm90.cu
+//   - forward, dK/dV, dQ, D > 256 (any D % 64 == 0): attention_wide.cu; the
+//     dQ entry points run this file's delta kernel first there
+// The backward is dQ (which writes delta), then dK/dV (which reads it).
 // Blocks never talk to each other, so the backward needs no atomics and is
 // deterministic.
 //
-// The mma.sync kernels here: every thread block owns one (batch, head,
-// 64-row tile) and walks its loop dimension itself; 4 warps of 16 rows, mma
-// m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix, cp.async
-// double-buffered tiles, score tiles kept in registers.  What bounds dQ at
-// the flagship shape: its ~19.5 GFLOP (causal) put it on the operations
-// side of the card's ridge; mma.sync reaches a fraction of wgmma's rate, so
-// it runs at ~18% of that bound (PERF.md).  Above D = 128 a block owns half
-// of the output columns (kCols) and grid z covers the halves; each half
-// recomputes the scores.
+// The mma.sync dK/dV: every thread block owns one (batch, head, 64-key
+// tile) and walks the query steps itself; 4 warps of 16 rows, mma m16n8k16
+// (bf16 in, f32 accumulate) fed by ldmatrix, cp.async double-buffered
+// tiles, score tiles kept in registers.  A block owns half of the output
+// columns (kCols) and grid z covers the halves; each half recomputes the
+// scores.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, L, H, D] with D contiguous and
 // read through their (batch, row, head) strides, so neither the model nor the
@@ -50,7 +51,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;    // query rows per block (16 per warp), key rows per step
+constexpr int kTile = 64;    // key rows per block of the dK/dV kernel (16 per warp)
 constexpr int kQStep = 32;   // query rows per step of the dK/dV kernel
 constexpr int kPad = 8;      // shared-memory row padding, in bf16 elements
 
@@ -69,39 +70,36 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* src, long long sl
   }
 }
 
-// Output columns a block accumulates: all of D up to 128, half above it.
+// Output columns a block of the dK/dV kernel accumulates: half of D.
 template <int D>
-constexpr int kCols = D > 128 ? D / 2 : D;
+constexpr int kCols = D / 2;
 
 // ---------------------------------------------------------------------------
-// Backward, pass 1: delta[b, h, l] = sum_d dO[b, l, h, d] * O[b, l, h, d]
-// (the XLA einsums of splash_attention_kernel.py:2285 and
-// flash_attention.py:273).  One warp per (b, h, l) row; it only streams O and
-// dO, so it is bound by their bytes.  D is a template argument up to 256,
-// so the loop unrolls (a runtime D timed slower at D = 128 on the H100,
-// PERF.md), and the runtime `dr` when D = 0, for the head dims above 256.
-template <int D>
+// delta[b, h, l] = sum_d dO[b, l, h, d] * O[b, l, h, d] (the XLA einsums of
+// splash_attention_kernel.py:2285 and flash_attention.py:273), standalone:
+// the dQ entry points run it before the wide dQ at head dims above 256
+// (below, the Hopper dQ computes delta itself).  One warp per (b, h, l)
+// row; it only streams O and dO, so it is bound by their bytes.
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                          float* __restrict__ delta, Strides so, Strides sdo, int H, int L, int dr,
+                          float* __restrict__ delta, Strides so, Strides sdo, int H, int L, int D,
                           long long rows) {
   const long long r = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (r >= rows) return;
-  const int lane = threadIdx.x % 32, dim = D > 0 ? D : dr;
+  const int lane = threadIdx.x % 32;
   const long long bh = r / L;
   const int i = (int)(r % L), b = (int)(bh / H), h = (int)(bh % H);
   const bf16* orow = o + b * so.b + (long long)i * so.l + h * so.h;
   const bf16* drow = dout + b * sdo.b + (long long)i * sdo.l + h * sdo.h;
   float acc = 0.f;
-#pragma unroll
-  for (int d = lane; d < dim; d += 32) acc += __bfloat162float(orow[d]) * __bfloat162float(drow[d]);
+  for (int d = lane; d < D; d += 32) acc += __bfloat162float(orow[d]) * __bfloat162float(drow[d]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[r] = acc;
 }
 
 // ---------------------------------------------------------------------------
-// Backward, pass 2: dK and dV at D = 192 and 256 (replaces
+// dK and dV at D = 192 and 256 (replaces
 // splash_attention_kernel.py:2196 and flash_attention.py:1121 there; D = 64
 // and 128 run the wgmma kernel of attention_sm90.cu, D > 256 the wide one).
 // Grid (B * H, ceil(Lk / 64), D / kCols); each block owns 64 key rows (16 per warp) and walks the query steps that see
@@ -125,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
   float* stats = reinterpret_cast<float*>(QdOs + 4 * STEP);  // stage i: lse, delta at 2i kQStep
 
   const int k0 = blockIdx.y * kTile;  // causal: tile 0 walks the most query steps: launched first
-  const int c0 = D == DV ? 0 : blockIdx.z * DV;
+  const int c0 = blockIdx.z * DV;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const bf16* qb = q + b * sq.b + h * sq.h;
@@ -271,129 +269,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------------------
-// Backward, pass 3: dQ up to D = 256 (replaces splash_attention_kernel.py:1635
-// and flash_attention.py:1456; D > 256 runs the wide kernel).
-// Grid (B * H, ceil(Lq / 64), D / kCols); each block owns 64 query rows and walks the key tiles they see.  Shared memory:
-// the Q and dO tiles, then two stages of (K tile, V tile).
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-    attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
-                       Strides sdq, int H, int Lq, int Lk, float scale) {
-  constexpr int DV = kCols<D>, LD = D + kPad, TILE = kTile * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + TILE;
-  bf16* KVs = dOs + TILE;  // stage i: K at KVs + 2i TILE, V right after it
-
-  const int n_tiles = (Lq + kTile - 1) / kTile;
-  const int q0 = (CAUSAL ? n_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y) * kTile;
-  const int c0 = D == DV ? 0 : blockIdx.z * DV;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-
-  load_tile<kTile, D>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
-  load_tile<kTile, D>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, Lq);
-  load_tile<kTile, D>(KVs, kb, sk.l, 0, Lk);
-  load_tile<kTile, D>(KVs + TILE, vb, sv.l, 0, Lk);
-  commit_group();
-
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse2[i] = row[i] < Lq ? lse[(long long)bh * Lq + row[i]] * kLog2e : 0.f;
-    dlt[i] = row[i] < Lq ? delta[(long long)bh * Lq + row[i]] : 0.f;
-  }
-  float dqa[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-  const float sl2 = scale * kLog2e;
-  const int last = (CAUSAL ? min(q0 + kTile - 1, Lk - 1) : Lk - 1) / kTile;
-
-  for (int j = 0; j <= last; ++j) {
-    const int k0 = j * kTile;
-    if (j < last) {  // the next tiles load while this one computes
-      bf16* next = KVs + 2 * ((j + 1) & 1) * TILE;
-      load_tile<kTile, D>(next, kb, sk.l, k0 + kTile, Lk);
-      load_tile<kTile, D>(next + TILE, vb, sv.l, k0 + kTile, Lk);
-      commit_group();
-      wait_group<1>();
-    } else {
-      wait_group<0>();
-    }
-    __syncthreads();
-    const bf16* Ks = KVs + 2 * (j & 1) * TILE;
-    const bf16* Vs = Ks + TILE;
-
-    float p[kTile / 8][4], ds[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-      p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-      ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-    }
-    // S = Q K^T and dP = dO V^T
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a(aq, Qs, LD, warp * 16, kk * 16, lane);
-      load_a(ado, dOs, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < kTile / 8; n += 2) {
-        uint32_t bk[4], bv[4];
-        load_b_t(bk, Ks, LD, n * 8, kk * 16, lane);
-        load_b_t(bv, Vs, LD, n * 8, kk * 16, lane);
-        mma16816(p[n], aq, bk);
-        mma16816(p[n + 1], aq, bk + 2);
-        mma16816(ds[n], ado, bv);
-        mma16816(ds[n + 1], ado, bv + 2);
-      }
-    }
-    const bool edge = (CAUSAL && k0 + kTile - 1 > q0) || (k0 + kTile > Lk);
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1), i = e >> 1;
-        float x = exp2f(p[n][e] * sl2 - lse2[i]);
-        if (edge && ((CAUSAL && col > row[i]) || col >= Lk)) x = 0.f;
-        ds[n][e] = x * (ds[n][e] - dlt[i]);
-      }
-    }
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t af[4];
-      acc_to_a(af, ds[2 * kk], ds[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < DV / 8; n += 2) {
-        uint32_t bf[4];
-        load_b_n(bf, Ks, LD, kk * 16, c0 + n * 8, lane);
-        mma16816(dqa[n], af, bf);
-        mma16816(dqa[n + 1], af, bf + 2);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  bf16* dqb = dq + b * sdq.b + h * sdq.h + c0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= Lq) continue;
-    bf16* dqrow = dqb + (long long)row[i] * sdq.l;
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dqrow + n * 8 + 2 * t) =
-          pack_f32(dqa[n][2 * i] * scale, dqa[n][2 * i + 1] * scale);
-    }
-  }
-}
-
 template <int D>
 dim3 grid_of(int L, int B, int H) {
   return dim3((unsigned)B * H, (L + kTile - 1) / kTile, D / kCols<D>);
@@ -403,13 +278,9 @@ cudaError_t delta(int D, const void* o, const void* dout, void* delta, const lon
                   int H, int L, cudaStream_t stream) {
   const long long rows = (long long)B * H * L;
   const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-  auto kernel = D == 64    ? &attn_bwd_delta_kernel<64>
-                : D == 128 ? &attn_bwd_delta_kernel<128>
-                : D == 192 ? &attn_bwd_delta_kernel<192>
-                : D == 256 ? &attn_bwd_delta_kernel<256>
-                           : &attn_bwd_delta_kernel<0>;
-  kernel<<<blocks, kThreads, 0, stream>>>((const bf16*)o, (const bf16*)dout, (float*)delta,
-                                          strides_at(st, 0), strides_at(st, 1), H, L, D, rows);
+  attn_bwd_delta_kernel<<<blocks, kThreads, 0, stream>>>(
+      (const bf16*)o, (const bf16*)dout, (float*)delta, strides_at(st, 0), strides_at(st, 1), H, L,
+      D, rows);
   return cudaGetLastError();
 }
 
@@ -425,20 +296,6 @@ cudaError_t run_dkdv(const void* q, const void* k, const void* v, const void* do
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
       (const float*)delta, (bf16*)dk, (bf16*)dv, strides_at(st, 0), strides_at(st, 1),
       strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Lq, Lk, scale);
-  return cudaGetLastError();
-}
-
-template <int D, bool CAUSAL>
-cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                   const void* delta, void* dq, const long long* st, int B, int H, int Lq, int Lk,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = 6 * kTile * (D + kPad) * sizeof(bf16);
-  cudaError_t err = set_smem(attn_bwd_dq_kernel<D, CAUSAL>, smem);
-  if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<D, CAUSAL><<<grid_of<D>(Lq, B, H), kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), strides_at(st, 4), H, Lq, Lk, scale);
   return cudaGetLastError();
 }
 
@@ -467,33 +324,35 @@ cudaError_t dkdv(int D, bool causal, const void* q, const void* k, const void* v
   return dkdv_wide(D, causal, q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk, scale, stream);
 }
 
-cudaError_t dq(int D, bool causal, const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dqp, const long long* st, int B, int H,
-               int Lq, int Lk, float scale, cudaStream_t stream) {
-#define EDL_DQ(DD)                                                                                \
-  case DD:                                                                                        \
-    return causal ? run_dq<DD, true>(q, k, v, dout, lse, delta, dqp, st, B, H, Lq, Lk, scale, stream) \
-                  : run_dq<DD, false>(q, k, v, dout, lse, delta, dqp, st, B, H, Lq, Lk, scale, stream);
+// dQ, which also writes delta: the Hopper kernel up to D = 256; above it,
+// the delta kernel and then the wide dQ, which reads delta.  `st` holds the
+// strides of q, k, v, o, dout, dq.
+cudaError_t dq(int D, bool causal, const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* dlt, void* dqp, const long long* st, int B,
+               int H, int Lq, int Lk, float scale, cudaStream_t stream) {
   if (!head_dim_ok(D)) return cudaErrorInvalidValue;
-  switch (D) {
-    EDL_DQ(64)
-    EDL_DQ(128)
-    EDL_DQ(192)
-    EDL_DQ(256)
-  }
-#undef EDL_DQ
-  return dq_wide(D, causal, q, k, v, dout, lse, delta, dqp, st, B, H, Lq, Lk, scale, stream);
+  if (D <= 256)
+    return dq_sm90(D, causal, q, k, v, o, dout, lse, dlt, dqp, st, B, H, Lq, Lk, scale, stream);
+  long long st_delta[6], st_wide[15];  // (o, dout) and (q, k, v, dout, dq)
+  for (int i = 0; i < 6; ++i) st_delta[i] = st[9 + i];
+  for (int i = 0; i < 9; ++i) st_wide[i] = st[i];
+  for (int i = 0; i < 6; ++i) st_wide[9 + i] = st[12 + i];
+  cudaError_t err = delta(D, o, dout, dlt, st_delta, B, H, Lq, stream);
+  if (err != cudaSuccess) return err;
+  return dq_wide(D, causal, q, k, v, dout, lse, dlt, dqp, st_wide, B, H, Lq, Lk, scale, stream);
 }
 
 }  // namespace
 }  // namespace edl_attn
 
 // Plain C entry points (loaded with ctypes).  Each launches one kernel on
-// `stream` and returns cudaGetLastError() (0 on success), or the error of
-// a refused set-up (a tensor map that does not encode, too much shared
-// memory); a head dim that is not a multiple of 64 returns
-// cudaErrorInvalidValue.  `st` holds (batch, row, head) element strides,
-// three per tensor, in the order the tensors are listed.  The edl_attn_*
+// `stream` (the dQ ones two above D = 256: delta, then the wide dQ) and
+// returns cudaGetLastError() (0 on success), or the error of a refused
+// set-up (a tensor map that does not encode, too much shared memory); a
+// head dim that is not a multiple of 64 returns cudaErrorInvalidValue.
+// `st` holds (batch, row, head) element strides, three per tensor, in the
+// order the [B, L, H, D] tensors are listed.  The dQ entry points write
+// delta = rowsum(dO * O), which the dK/dV ones then read.  The edl_attn_*
 // forward, dK/dV and dQ are causal self-attention (L = Lq = Lk); the
 // edl_flash_* ones take Lq, Lk and `causal`.
 extern "C" {
@@ -518,10 +377,10 @@ int edl_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* d
   return dkdv(D, true, q, k, v, dout, lse, dlt, dk, dv, st, B, H, L, L, scale, (cudaStream_t)stream);
 }
 
-int edl_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* dlt, void* dqp, const long long* st, int B,
-                    int H, int L, int D, float scale, void* stream) {
-  return dq(D, true, q, k, v, dout, lse, dlt, dqp, st, B, H, L, L, scale, (cudaStream_t)stream);
+int edl_attn_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                    const void* lse, void* dlt, void* dqp, const long long* st, int B, int H, int L,
+                    int D, float scale, void* stream) {
+  return dq(D, true, q, k, v, o, dout, lse, dlt, dqp, st, B, H, L, L, scale, (cudaStream_t)stream);
 }
 
 int edl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -538,10 +397,10 @@ int edl_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* 
               (cudaStream_t)stream);
 }
 
-int edl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* dlt, void* dqp, const long long* st, int B,
-                     int H, int Lq, int Lk, int D, int causal, float scale, void* stream) {
-  return dq(D, causal != 0, q, k, v, dout, lse, dlt, dqp, st, B, H, Lq, Lk, scale,
+int edl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const void* lse, void* dlt, void* dqp, const long long* st,
+                     int B, int H, int Lq, int Lk, int D, int causal, float scale, void* stream) {
+  return dq(D, causal != 0, q, k, v, o, dout, lse, dlt, dqp, st, B, H, Lq, Lk, scale,
             (cudaStream_t)stream);
 }
 

@@ -122,6 +122,11 @@ cudaError_t dkdv_sm90(int D, bool causal, const void* q, const void* k, const vo
                       const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                       const long long* st, int B, int H, int Lq, int Lk, float scale,
                       cudaStream_t stream);
+// dQ with delta = rowsum(dO * O) folded in: `delta` is an output; `st` holds
+// the strides of q, k, v, o, dout, dq.
+cudaError_t dq_sm90(int D, bool causal, const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const void* lse, void* delta, void* dq, const long long* st,
+                    int B, int H, int Lq, int Lk, float scale, cudaStream_t stream);
 // attention_wide.cu: any D % 64 == 0 above 256, D a runtime argument.
 cudaError_t fwd_wide(int D, bool causal, const void* q, const void* k, const void* v, void* o,
                      void* lse, const long long* st, int B, int H, int Lq, int Lk, float scale,

@@ -1,5 +1,6 @@
-// The attention forward (D = 64, 128, 192, 256) and dK/dV (D = 64, 128)
-// for Hopper: TMA tile loads into an mbarrier ring, wgmma products, one
+// The attention forward (D = 64, 128, 192, 256), dK/dV (D = 64, 128) and
+// dQ with delta = rowsum(dO * O) folded in (D = 64, 128, 192, 256) for
+// Hopper: TMA tile loads into an mbarrier ring, wgmma products, one
 // producer warpgroup and two consumer warpgroups.
 //
 // Replaces, behind the C entry points of attention.cu:
@@ -7,6 +8,10 @@
 //     splash_attention/splash_attention_kernel.py:1137 and flash_attention.py:758
 //   dK/dV (edl_attn_bwd_dkdv, edl_flash_bwd_dkdv):
 //     splash_attention/splash_attention_kernel.py:2196 and flash_attention.py:1121
+//   dQ (edl_attn_bwd_dq, edl_flash_bwd_dq):
+//     splash_attention/splash_attention_kernel.py:1635 and flash_attention.py:1456,
+//     with the XLA rowsum(dO * O) of splash_attention_kernel.py:2285 and
+//     flash_attention.py:273
 // (jax/experimental/pallas/ops/tpu/, reached from edl_tpu/ops/attention.py
 // _splash and _flash).  The TPU kernels walk a sequential grid and carry
 // their statistics in scratch; here a block owns one (batch, head, 128-row
@@ -15,17 +20,17 @@
 //
 // What bounds them on an H100: at the flagship shape [8, 1024, 6, 128] bf16
 // the forward does 4 Lq Lk D flops per (b, h) on ~50 MB of q/k/v/o, which
-// puts the non-causal forward and every dK/dV on the operations side of
-// the card's ridge and the causal forward near it.  So the design is about
-// keeping the tensor cores fed:
+// puts the non-causal forward and every backward kernel on the operations
+// side of the card's ridge and the causal forward near it.  So the design
+// is about keeping the tensor cores fed:
 //   - wgmma (m64nNk16, bf16 in, f32 accumulate) for every product: the
 //     only instruction that reaches the tensor cores' full rate on sm_90.
 //     The score products read both operands from shared memory (K-major,
-//     as the tensors are stored); P V, P^T dO and dS^T Q take P / P^T /
-//     dS^T from registers and V / dO / Q as transposed (MN-major) B
-//     operands, so nothing is transposed in memory.
+//     as the tensors are stored); P V, P^T dO, dS^T Q and dS K take P /
+//     P^T / dS^T / dS from registers and V / dO / Q / K as transposed
+//     (MN-major) B operands, so nothing is transposed in memory.
 //   - Two consumer warpgroups of 64 rows each share every tile in shared
-//     memory, so each K/V (forward) or Q/dO (dK/dV) byte staged there
+//     memory, so each K/V (forward, dQ) or Q/dO (dK/dV) byte staged there
 //     feeds 128 rows.
 //   - One producer warpgroup: one thread issues the TMA loads
 //     (cp.async.bulk.tensor, 128-byte swizzle, the layout wgmma reads)
@@ -49,6 +54,18 @@
 //     turn faster than issuing S with P V without turns.  The wgmma issues
 //     sit outside any branch: ptxas serialises wgmma in a divergent path
 //     (warning C7520), which made a first version slower.
+//   - dQ ping-pong (up to D = EDL_DQ_PINGPONG, below): two turns per key
+//     tile, one issuing S and dP, one issuing dQ += dS K (holding dS of
+//     one tile while the next tile's S and dP accumulate, as the forward
+//     holds P, would not fit the registers at D = 128).
+//   - dQ compiles its masks (causal, col >= Lk) only into the tiles that
+//     need them: the key loop runs the tiles every row of the warpgroup
+//     sees, then the masked ones.  With one body and a runtime flag, as the
+//     forward and dK/dV still have, the causal dQ took as long as the
+//     non-causal one.
+//   - dQ computes delta for its rows before its key loop, from O and dO in
+//     device memory, while the producer's first tiles load, and writes it
+//     for dK/dV: the backward is two launches, not three.
 // Causal: query tiles launch longest first; key tiles right of a
 // warpgroup's last row are skipped (key 0 is visible to every row, so no
 // row is ever fully masked).  dK/dV: a key tile no query sees (k0 >= Lq)
@@ -56,10 +73,12 @@
 //
 // Head dims: the forward holds a 64 x D f32 accumulator per warpgroup (D/2
 // registers a thread) beside the 64 x kBlockN scores: kBlockN = 128 up to
-// D = 128 and 64 above it keeps them under 240 registers.  dK/dV holds two
-// 64 x D accumulators (D registers a thread): that fits up to D = 128; at
-// D = 192 and 256 it would be 192 and 256 of the 240, so those head dims
-// keep the mma.sync kernel of attention.cu.
+// D = 128 and 64 above it keeps them under 240 registers.  dQ holds the
+// same accumulator beside S and dP (kBlockN each), with kBlockN = 128, 64
+// and 32 at D <= 128, 192 and 256.  dK/dV holds two 64 x D accumulators
+// (D registers a thread): that fits up to D = 128; at D = 192 and 256 it
+// would be 192 and 256 of the 240, so those head dims keep the mma.sync
+// kernel of attention.cu.
 
 #include <cuda.h>
 
@@ -575,6 +594,241 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// dQ, with delta = rowsum(dO * O) folded in.  Grid (B * H, ceil(Lq / 128));
+// consumer c owns query rows q0 + 64c .. + 63 and both walk the key tiles
+// that their rows see, recomputing P from q, k and the saved logsumexp.
+// The producer loads Q and dO once, then streams (K, V) tiles through the
+// ring.  Before the key loop each consumer computes delta for its rows
+// from O and dO in device memory (a quad of threads shares a row), uses
+// it, and writes it out for dK/dV.  Per key tile: S = Q K^T and dP = dO V^T
+// (SS), P and dS = P (dP - delta) in f32 registers, dS to bf16 A fragments
+// in place of dP, and dQ += dS K with K as the MN-major B operand (the
+// form of P V in the forward).  Shared memory: Q, dO, then 2 stages of (K
+// tile, V tile): 197,688 bytes at D = 128, 192 and 256 (99,384 at 64), the
+// key tile shrinking as D grows (128 keys up to D = 128, 64 at 192, 32 at
+// 256), which also keeps S, dP and the 64 x D accumulator under 240
+// registers.
+
+// Head dims up to this one take ping-pong turns between the consumers;
+// above it each consumer runs S and dP, dS, dQ += dS K in plain order.  On
+// the H100 the turns won at D = 64 and 128 and lost at 256, where 32-key
+// tiles make each turn short (PERF.md).  bench_attention.py times one order
+// against the other with --parent_flags=-DEDL_DQ_PINGPONG=0 (or =256).
+#ifndef EDL_DQ_PINGPONG
+#define EDL_DQ_PINGPONG 128
+#endif
+
+template <int D>
+struct DqCfg {
+  static constexpr int kBlockM = 128, kBlockN = D <= 128 ? 128 : D == 192 ? 64 : 32, kStages = 2;
+  static constexpr int kQBytes = kBlockM * D * 2, kKVBytes = kBlockN * D * 2;
+  // Q, dO, then per stage K and V, then the barriers; 1 KB of slack to align
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 8 * (3 + 2 * kStages);
+};
+
+// Selects, at compile time, a tile body with or without masks.
+template <bool ON>
+struct MaskTag {
+  static constexpr bool kOn = ON;
+};
+
+// sum of the products of eight bf16 pairs
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    s += u.x * w.x + u.y * w.y;
+  }
+  return s;
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                        const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
+                        Strides so, Strides sdo, Strides sdq, int H, int Lq, int Lk, float scale) {
+  using C = DqCfg<D>;
+  constexpr int BM = C::kBlockM, BN = C::kBlockN, S = C::kStages, KV = C::kKVBytes;
+  constexpr bool kPingPong = D <= EDL_DQ_PINGPONG;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + C::kQBytes;
+  const uint32_t sKV = sdO + C::kQBytes;  // stage s: K at sKV + 2 s KV, V after it
+  const uint32_t bars = sKV + 2 * S * KV;
+  const uint32_t qdo_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + S + s); };
+  auto turn = [&](int c) { return bars + 8 * (1 + 2 * S + c); };  // consumer c may issue
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_qt = (Lq + BM - 1) / BM;
+  // causal: the last query tiles see the most keys, so they launch first
+  const int q0 = (CAUSAL ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y) * BM;
+  const int n_kt = (CAUSAL ? min(q0 + BM - 1, Lk - 1) : Lk - 1) / BN + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * kWgThreads);
+    }
+    mbar_init(turn(0), kWgThreads);
+    mbar_init(turn(1), kWgThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {  // producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qdo_full, 2 * C::kQBytes);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sQ + c * BM * kRowBytes, &tq, qdo_full, c * 64, h, q0, b);
+        tma_load(sdO + c * BM * kRowBytes, &tdo, qdo_full, c * 64, h, q0, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % S;
+        const uint32_t sk = sKV + 2 * s * KV;
+        mbar_wait(empty(s), ((j / S) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * KV);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(sk + c * BN * kRowBytes, &tk, full(s), c * 64, h, j * BN, b);
+          tma_load(sk + KV + c * BN * kRowBytes, &tv, full(s), c * 64, h, j * BN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_alloc<kConsumerRegs>();
+  const int cw = threadIdx.x / kWgThreads - 1, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + cw * 64;  // this warpgroup's first row
+  const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+  // causal: key tiles right of this warpgroup's last row hold no visible key
+  const int my_kt = CAUSAL ? min(r0 + 63, Lk - 1) / BN + 1 : n_kt;
+
+  // delta of this thread's two rows (thread t of the quad sums 16-byte
+  // chunks t, t + 4, ...), and the logsumexp in the log2 domain (+inf past
+  // Lq, which zeroes those rows' P)
+  float dlt[2], lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float part = 0.f;
+    if (row[i] < Lq) {
+      const uint4* orow = reinterpret_cast<const uint4*>(o + b * so.b + (long long)row[i] * so.l + h * so.h);
+      const uint4* drow =
+          reinterpret_cast<const uint4*>(dout + b * sdo.b + (long long)row[i] * sdo.l + h * sdo.h);
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) part += dot8(orow[4 * c + t], drow[4 * c + t]);
+    }
+    dlt[i] = quad_sum(part);
+    lse2[i] = row[i] < Lq ? lse[(long long)bh * Lq + row[i]] * kLog2e : INFINITY;
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row[i] < Lq) delta[(long long)bh * Lq + row[i]] = dlt[i];
+  }
+
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  const float sl2 = scale * kLog2e;
+  auto ph_of = [&](int j) { return (uint32_t)((j / S) & 1); };
+
+  mbar_wait(qdo_full, 0);
+  // Ping-pong (D <= EDL_DQ_PINGPONG): each tile takes two turns per
+  // consumer, one to issue S and dP, one to issue dQ += dS K; the consumers
+  // alternate, so one's P and dS run while the other's products hold the
+  // tensor cores.
+  if (kPingPong && cw == 1) mbar_arrive(turn(0));  // consumer 0 goes first
+  // One key tile: S and dP, P = exp2(S scale log2 e - lse2) and dS = P (dP -
+  // delta) in place of dP, then dQ += dS K.  The masks (causal, col >= Lk)
+  // are compiled only into the tiles that need them (MaskTag<true>).
+  auto tile = [&](int j, auto mask_tag) {
+    constexpr bool kMask = decltype(mask_tag)::kOn;
+    const int s = j % S;
+    const uint32_t sk = sKV + 2 * s * KV, sv = sk + KV;
+    mbar_wait(full(s), ph_of(j));
+    if (kPingPong) mbar_wait(turn(cw), 0);
+    float sc[BN / 8][4], dp[BN / 8][4];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BN>(sc, kmajor(sQ, BM, cw * 64, kk), kmajor(sk, BN, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BN>(dp, kmajor(sdO, BM, cw * 64, kk), kmajor(sv, BN, 0, kk), kk > 0);
+    wg_commit();
+    if (kPingPong) mbar_arrive(turn(1 - cw));
+    wg_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = exp2f(sc[n][e] * sl2 - lse2[i]);
+        if constexpr (kMask) {
+          const int col = j * BN + n * 8 + 2 * t + (e & 1);
+          if ((CAUSAL && col > row[i]) || col >= Lk) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - dlt[i]);
+      }
+    }
+    uint32_t dsf[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a(dsf[kk], dp[2 * kk], dp[2 * kk + 1]);
+    if (kPingPong) mbar_wait(turn(cw), 1);
+    fence_acc(dqa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tb<D>(dqa, dsf[kk], mnmajor(sk, BN, kk), 1);
+    wg_commit();
+    if (kPingPong) mbar_arrive(turn(1 - cw));
+    wg_wait<0>();
+    fence_acc(dqa);
+    mbar_arrive(empty(s));
+  };
+  // tiles whose keys every row of this warpgroup sees, then the masked ones
+  const int n_full = min(my_kt, CAUSAL ? min((r0 + 1) / BN, Lk / BN) : Lk / BN);
+  for (int j = 0; j < n_full; ++j) tile(j, MaskTag<false>{});
+  for (int j = n_full; j < my_kt; ++j) tile(j, MaskTag<true>{});
+  // causal: tiles right of these rows hold no visible key; release them in
+  // order, and take their turns, so that both consumers count the same
+  // rounds on every barrier
+  for (int j = my_kt; j < n_kt; ++j) {
+    mbar_wait(full(j % S), ph_of(j));
+    mbar_arrive(empty(j % S));
+    if (kPingPong) {
+      mbar_wait(turn(cw), 0);
+      mbar_arrive(turn(1 - cw));
+      mbar_wait(turn(cw), 1);
+      mbar_arrive(turn(1 - cw));
+    }
+  }
+
+  bf16* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Lq) continue;
+    bf16* dqrow = dqb + (long long)row[i] * sdq.l;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dqrow + n * 8 + 2 * t) =
+          pack_f32(dqa[n][2 * i] * scale, dqa[n][2 * i + 1] * scale);
+    }
+  }
+}
+
 // -- host: tensor maps and launchers ------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -622,10 +876,13 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* 
                     const long long* st, int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
   using C = FwdCfg<D>;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, strides_at(st, 0), B, Lq, H, D, C::kBlockM);
+  // a runtime call first: it makes the device's context current in this
+  // thread (autograd runs the backward on a thread of its own), which the
+  // tensor-map encode, a driver call, needs
+  cudaError_t err = set_smem(attn_fwd_sm90_kernel<D, CAUSAL>, C::kSmem);
+  if (err == cudaSuccess) err = make_map(&tq, q, strides_at(st, 0), B, Lq, H, D, C::kBlockM);
   if (err == cudaSuccess) err = make_map(&tk, k, strides_at(st, 1), B, Lk, H, D, C::kBlockN);
   if (err == cudaSuccess) err = make_map(&tv, v, strides_at(st, 2), B, Lk, H, D, C::kBlockN);
-  if (err == cudaSuccess) err = set_smem(attn_fwd_sm90_kernel<D, CAUSAL>, C::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)B * H, (Lq + C::kBlockM - 1) / C::kBlockM);
   attn_fwd_sm90_kernel<D, CAUSAL><<<grid, kThreads, C::kSmem, stream>>>(
@@ -639,16 +896,35 @@ cudaError_t run_dkdv(const void* q, const void* k, const void* v, const void* do
                      int Lk, float scale, cudaStream_t stream) {
   using C = DkdvCfg<D>;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = make_map(&tq, q, strides_at(st, 0), B, Lq, H, D, C::kBlockM);
+  cudaError_t err = set_smem(attn_dkdv_sm90_kernel<D, CAUSAL>, C::kSmem);  // first: see run_fwd
+  if (err == cudaSuccess) err = make_map(&tq, q, strides_at(st, 0), B, Lq, H, D, C::kBlockM);
   if (err == cudaSuccess) err = make_map(&tk, k, strides_at(st, 1), B, Lk, H, D, C::kBlockN);
   if (err == cudaSuccess) err = make_map(&tv, v, strides_at(st, 2), B, Lk, H, D, C::kBlockN);
   if (err == cudaSuccess) err = make_map(&tdo, dout, strides_at(st, 3), B, Lq, H, D, C::kBlockM);
-  if (err == cudaSuccess) err = set_smem(attn_dkdv_sm90_kernel<D, CAUSAL>, C::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)B * H, (Lk + C::kBlockN - 1) / C::kBlockN);
   attn_dkdv_sm90_kernel<D, CAUSAL><<<grid, kThreads, C::kSmem, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
       strides_at(st, 4), strides_at(st, 5), H, Lq, Lk, scale);
+  return cudaGetLastError();
+}
+
+template <int D, bool CAUSAL>
+cudaError_t run_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const void* lse, void* delta, void* dq, const long long* st, int B, int H, int Lq,
+                   int Lk, float scale, cudaStream_t stream) {
+  using C = DqCfg<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = set_smem(attn_dq_sm90_kernel<D, CAUSAL>, C::kSmem);  // first: see run_fwd
+  if (err == cudaSuccess) err = make_map(&tq, q, strides_at(st, 0), B, Lq, H, D, C::kBlockM);
+  if (err == cudaSuccess) err = make_map(&tk, k, strides_at(st, 1), B, Lk, H, D, C::kBlockN);
+  if (err == cudaSuccess) err = make_map(&tv, v, strides_at(st, 2), B, Lk, H, D, C::kBlockN);
+  if (err == cudaSuccess) err = make_map(&tdo, dout, strides_at(st, 4), B, Lq, H, D, C::kBlockM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)B * H, (Lq + C::kBlockM - 1) / C::kBlockM);
+  attn_dq_sm90_kernel<D, CAUSAL><<<grid, kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, tdo, (const bf16*)o, (const bf16*)dout, (const float*)lse, (float*)delta,
+      (bf16*)dq, strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Lq, Lk, scale);
   return cudaGetLastError();
 }
 
@@ -686,6 +962,25 @@ cudaError_t dkdv_sm90(int D, bool causal, const void* q, const void* k, const vo
     EDL_DKDV(128)
   }
 #undef EDL_DKDV
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dq_sm90(int D, bool causal, const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const void* lse, void* delta, void* dq, const long long* st,
+                    int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
+#define EDL_DQ(DD)                                                                                \
+  case DD:                                                                                        \
+    return causal ? run_dq<DD, true>(q, k, v, o, dout, lse, delta, dq, st, B, H, Lq, Lk, scale,   \
+                                     stream)                                                      \
+                  : run_dq<DD, false>(q, k, v, o, dout, lse, delta, dq, st, B, H, Lq, Lk, scale,  \
+                                      stream);
+  switch (D) {
+    EDL_DQ(64)
+    EDL_DQ(128)
+    EDL_DQ(192)
+    EDL_DQ(256)
+  }
+#undef EDL_DQ
   return cudaErrorInvalidValue;
 }
 

@@ -4,8 +4,9 @@
 //
 // Replaces the same Pallas TPU kernels as attention.cu and
 // attention_sm90.cu (splash_attention_kernel.py:1137, :1635, :2196 and
-// flash_attention.py:758, :1121, :1456; delta is attention.cu's at every
-// D), at the head dims those kernels tile in 128-lane repeats
+// flash_attention.py:758, :1121, :1456; delta is attention.cu's standalone
+// kernel, which the dQ entry points run before this file's dQ), at the head
+// dims those kernels tile in 128-lane repeats
 // (splash_attention_kernel.py:731).
 //
 // Design: right and simple first.  A block is 4 warps owning 64 rows (16 a

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -60,18 +61,41 @@ def _run(cmd: list[str]) -> subprocess.Popen:
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _start(name: str, extra_flags: list[str], force: bool):
-    """Start one ``nvcc -c`` per source of ``name`` unless an up-to-date
-    build exists (or ``force``); returns the compile jobs and what the link
-    needs."""
-    sources, lib, stamp, digest = _paths(name)
-    if not force and lib.exists() and stamp.exists() and stamp.read_text() == digest:
-        return None
+def _start(sources: list[Path], lib: Path, extra_flags: list[str]):
+    """Start one ``nvcc -c`` per source of ``lib``; returns what
+    :func:`_finish` needs."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    objs = [BUILD_DIR / f"{name}.{src.stem}.{os.getpid()}.o" for src in sources]
+    objs = [BUILD_DIR / f"{lib.stem}.{src.stem}.{os.getpid()}.o" for src in sources]
     jobs = [_run([_nvcc(), *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)])
             for src, obj in zip(sources, objs)]
-    return jobs, objs, lib, stamp, digest
+    return jobs, objs, lib
+
+
+def _finish(jobs, objs, lib: Path) -> str:
+    """Wait for the compiles, link ``lib`` and return the compiler output;
+    raise :class:`KernelBuildError` if a step failed."""
+    outs, failed = [], []
+    for proc in jobs:
+        out, _ = proc.communicate()
+        outs.append(out)
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
+    if not failed:
+        link = _run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+                     *(str(o) for o in objs)])
+        out, _ = link.communicate()
+        outs.append(out)
+        if link.returncode != 0:
+            failed.append(link.returncode)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "\n".join(outs)
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(f"nvcc failed building {lib.name} (exit {failed[0]}):\n{log}")
+    os.replace(tmp, lib)
+    return log
 
 
 def build(names=None, extra_flags: list[str] | None = None,
@@ -82,38 +106,46 @@ def build(names=None, extra_flags: list[str] | None = None,
     rebuilds).  ``extra_flags`` (e.g. ``["-Xptxas", "-v"]``) go to the
     compiles and do not enter the stamp."""
     names = list(LIBRARIES) if names is None else list(names)
-    running = {n: _start(n, list(extra_flags or []), force) for n in names}
-    logs: dict[str, str] = {}
-    for name, job in running.items():
-        if job is None:
-            logs[name] = ""
+    running = {}
+    for name in names:
+        sources, lib, stamp, digest = _paths(name)
+        if not force and lib.exists() and stamp.exists() and stamp.read_text() == digest:
             continue
-        jobs, objs, lib, stamp, digest = job
-        outs, failed = [], []
-        for proc in jobs:
-            out, _ = proc.communicate()
-            outs.append(out)
-            if proc.returncode != 0:
-                failed.append(proc.returncode)
-        tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
-        if not failed:
-            link = _run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-                         *(str(o) for o in objs)])
-            out, _ = link.communicate()
-            outs.append(out)
-            if link.returncode != 0:
-                failed.append(link.returncode)
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-        log = "\n".join(outs)
-        if failed:
-            tmp.unlink(missing_ok=True)
-            raise KernelBuildError(
-                f"nvcc failed building lib{name}.so (exit {failed[0]}):\n{log}")
-        os.replace(tmp, lib)
+        running[name] = (_start(sources, lib, list(extra_flags or [])), stamp, digest)
+    logs = {name: "" for name in names}
+    for name, (job, stamp, digest) in running.items():
+        logs[name] = _finish(*job)
         stamp.write_text(digest)
-        logs[name] = log
     return logs
+
+
+def build_sources(sources: list[Path], lib: Path, extra_flags: list[str] | None = None) -> str:
+    """Compile ``sources`` (each with the headers beside it), all at once,
+    and link them into ``lib``, e.g. an earlier tree's ``csrc`` to time
+    against; no stamp, always rebuilt.  Returns the compiler output."""
+    return _finish(*_start(list(sources), lib, list(extra_flags or [])))
+
+
+_KINDS = {"float": "F", "int": "I"}
+
+
+def entry_points(source: str) -> dict[str, list[str]]:
+    """The functions of the ``extern "C"`` block of a CUDA source, each as
+    its parameter kinds in order: ``"P"`` for a pointer, ``"I"`` for an
+    ``int``, ``"F"`` for a ``float``; any other parameter type raises."""
+    body = source[source.index('extern "C" {'):]
+    out: dict[str, list[str]] = {}
+    for name, params in re.findall(r"^int\s+(\w+)\s*\(([^)]*)\)\s*\{", body, re.M):
+        kinds = []
+        for param in (" ".join(p.split()) for p in params.split(",")):
+            if "*" in param:
+                kinds.append("P")
+            elif param.split()[0] in _KINDS:
+                kinds.append(_KINDS[param.split()[0]])
+            else:
+                raise ValueError(f"{name}: parameter {param!r} has no ctypes kind")
+        out[name] = kinds
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,8 +6,9 @@
   attention is native (q head h uses kv head h // (H // Hk)); a causal
   mask is aligned bottom-right, as the JAX package's ``dense_attention``;
 - ``splash``: causal self-attention through the hand-written CUDA kernels
-  in ``edl_tpu_torch/csrc/attention.cu`` (forward, and a backward of three
-  kernels), the counterpart of the JAX package's splash path;
+  behind ``edl_tpu_torch/csrc/attention.cu``'s entry points (forward, and a
+  backward of two kernels: dQ, which also computes ``delta = rowsum(dO *
+  O)``, then dK/dV), the counterpart of the JAX package's splash path;
 - ``flash``: attention with ``Lq`` and ``Lk`` free, causal or not, through
   the same kernels' ``edl_flash_*`` entry points, the counterpart of the
   JAX package's Pallas flash kernel; its causal mask is aligned top-left
@@ -111,10 +112,14 @@ def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale: float, causal: bool):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, scale: float, causal: bool):
-    """``dq`` from the saved logsumexp."""
+def flash_bwd_dq_plain(q, k, v, o, do, lse, scale: float, causal: bool):
+    """``(dq, delta)`` from the saved logsumexp: ``delta`` is
+    :func:`attention_bwd_delta_plain` of ``o`` and ``do``, which dq uses
+    and dK/dV then takes."""
+    delta = attention_bwd_delta_plain(o, do)
     _, ds = _probs_and_dscores(q, k, v, do, lse, delta, scale, causal)
-    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return dq.to(q.dtype), delta
 
 
 # causal self-attention: the flash functions at Lq == Lk, where top-left
@@ -129,9 +134,9 @@ def attention_bwd_dkdv_plain(q, k, v, do, lse, delta, scale: float):
     return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale, True)
 
 
-def attention_bwd_dq_plain(q, k, v, do, lse, delta, scale: float):
-    """``dq`` of causal self-attention from the saved logsumexp."""
-    return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, True)
+def attention_bwd_dq_plain(q, k, v, o, do, lse, scale: float):
+    """``(dq, delta)`` of causal self-attention, as :func:`flash_bwd_dq_plain`."""
+    return flash_bwd_dq_plain(q, k, v, o, do, lse, scale, True)
 
 
 # -- the kernels -----------------------------------------------------------------
@@ -146,12 +151,12 @@ _SIGNATURES = {
     "edl_attn_bwd_delta": [_P] * 4 + [_I] * 4 + [_P],
     # q k v dout lse delta dk dv strides B H L D scale stream
     "edl_attn_bwd_dkdv": [_P] * 9 + [_I] * 4 + [_F, _P],
-    # q k v dout lse delta dq strides B H L D scale stream
-    "edl_attn_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _P],
+    # q k v o dout lse delta(out) dq strides B H L D scale stream
+    "edl_attn_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _P],
     # as edl_attn_*, with B H Lq Lk D causal in place of B H L D
     "edl_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
     "edl_flash_bwd_dkdv": [_P] * 9 + [_I] * 6 + [_F, _P],
-    "edl_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "edl_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _P],
 }
 _lib = None
 
@@ -231,12 +236,12 @@ def _stream(t) -> _P:
     return _P(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _stats(lse, delta, B, H, L):
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, L):
-            raise ValueError(f"{name}: want f32 [{B}, {H}, {L}], got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    return lse.contiguous(), delta.contiguous()
+def _stat(t, name, B, H, L):
+    """Check an f32 [B, H, L] statistic (lse, delta); contiguous."""
+    if t.dtype != torch.float32 or tuple(t.shape) != (B, H, L):
+        raise ValueError(f"{name}: want f32 [{B}, {H}, {L}], got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    return t.contiguous()
 
 
 def _sizes(dims, causal):
@@ -251,25 +256,29 @@ def _sizes(dims, causal):
     return (B, H, Lq, Lk, D, int(bool(causal)))
 
 
-def _run_fwd(entry, q, k, v, scale, causal):
+def _run_fwd(entry, q, k, v, scale, causal, lib=None):
+    """``(o, lse)`` from one launch of a forward entry point (of ``lib``,
+    or of the package's library)."""
     dims, (q, k, v) = _operands(q, k, v)
     B, H, Lq, _, D = dims
     o = torch.empty(B, Lq, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
-    err = getattr(_kernels(), entry)(
+    err = getattr(lib or _kernels(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _strides(q, k, v, o), *_sizes(dims, causal), float(scale), _stream(q))
     _raise_on(err, entry)
     return o, lse
 
 
-def _run_dkdv(entry, q, k, v, do, lse, delta, scale, causal):
+def _run_dkdv(entry, q, k, v, do, lse, delta, scale, causal, lib=None):
+    """``(dk, dv)`` from one launch of a dK/dV entry point (of ``lib``, or
+    of the package's library)."""
     dims, (q, k, v, do) = _operands(q, k, v, do)
     B, H, Lq, _, _ = dims
-    lse, delta = _stats(lse, delta, B, H, Lq)
+    lse, delta = _stat(lse, "lse", B, H, Lq), _stat(delta, "delta", B, H, Lq)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    err = getattr(_kernels(), entry)(
+    err = getattr(lib or _kernels(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _strides(q, k, v, do, dk, dv), *_sizes(dims, causal), float(scale), _stream(q))
@@ -277,17 +286,35 @@ def _run_dkdv(entry, q, k, v, do, lse, delta, scale, causal):
     return dk, dv
 
 
-def _run_dq(entry, q, k, v, do, lse, delta, scale, causal):
+def _run_dq(entry, q, k, v, o, do, lse, scale, causal, lib=None):
+    """``(dq, delta)`` from one launch of a dQ entry point (of ``lib``, or
+    of the package's library)."""
     dims, (q, k, v, do) = _operands(q, k, v, do)
     B, H, Lq, _, _ = dims
-    lse, delta = _stats(lse, delta, B, H, Lq)
+    o = _operand(o, "o", q.shape)
+    lse = _stat(lse, "lse", B, H, Lq)
+    delta = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = getattr(_kernels(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    err = getattr(lib or _kernels(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        _strides(q, k, v, do, dq), *_sizes(dims, causal), float(scale), _stream(q))
+        _strides(q, k, v, o, do, dq), *_sizes(dims, causal), float(scale), _stream(q))
     _raise_on(err, entry)
-    return dq
+    return dq, delta
+
+
+def _run_delta(o, do, lib=None):
+    """``delta`` from one launch of ``edl_attn_bwd_delta`` (of ``lib``, or
+    of the package's library)."""
+    B, L, H, D = o.shape
+    _check_head_dim(D)
+    o, do = _operand(o, "o", o.shape), _operand(do, "do", o.shape)
+    delta = torch.empty(B, H, L, dtype=torch.float32, device=o.device)
+    err = (lib or _kernels()).edl_attn_bwd_delta(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), _strides(o, do),
+        B, H, L, D, _stream(o))
+    _raise_on(err, "edl_attn_bwd_delta")
+    return delta
 
 
 def attention_fwd(q, k, v, scale: float):
@@ -301,19 +328,13 @@ def attention_fwd(q, k, v, scale: float):
 
 
 def attention_bwd_delta(o, do):
-    """``rowsum(dO * O)`` as :func:`attention_bwd_delta_plain`, for the
-    splash and the flash backward alike.  Launches ``edl_attn_bwd_delta``
-    on CUDA."""
+    """``rowsum(dO * O)`` as :func:`attention_bwd_delta_plain`: the
+    standalone kernel that the dQ entry points run before the wide dQ at
+    head dims above 256 (below, dQ computes delta itself).  Launches
+    ``edl_attn_bwd_delta`` on CUDA."""
     if _on_cpu(o, do):
         return attention_bwd_delta_plain(o, do)
-    B, L, H, D = o.shape
-    _check_head_dim(D)
-    o, do = _operand(o, "o", o.shape), _operand(do, "do", o.shape)
-    delta = torch.empty(B, H, L, dtype=torch.float32, device=o.device)
-    err = _kernels().edl_attn_bwd_delta(
-        o.data_ptr(), do.data_ptr(), delta.data_ptr(), _strides(o, do),
-        B, H, L, D, _stream(o))
-    _raise_on(err, "edl_attn_bwd_delta")
+    delta = _run_delta(o, do)
     attention_bwd_delta.launches += 1
     return delta
 
@@ -328,12 +349,12 @@ def attention_bwd_dkdv(q, k, v, do, lse, delta, scale: float):
     return out
 
 
-def attention_bwd_dq(q, k, v, do, lse, delta, scale: float):
-    """``dq`` as :func:`attention_bwd_dq_plain`.  Launches
+def attention_bwd_dq(q, k, v, o, do, lse, scale: float):
+    """``(dq, delta)`` as :func:`attention_bwd_dq_plain`.  Launches
     ``edl_attn_bwd_dq`` on CUDA."""
-    if _on_cpu(q, k, v, do, lse, delta):
-        return attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
-    out = _run_dq("edl_attn_bwd_dq", q, k, v, do, lse, delta, scale, None)
+    if _on_cpu(q, k, v, o, do, lse):
+        return attention_bwd_dq_plain(q, k, v, o, do, lse, scale)
+    out = _run_dq("edl_attn_bwd_dq", q, k, v, o, do, lse, scale, None)
     attention_bwd_dq.launches += 1
     return out
 
@@ -358,12 +379,12 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float, causal: bool):
     return out
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
-    """``dq`` as :func:`flash_bwd_dq_plain`.  Launches ``edl_flash_bwd_dq``
-    on CUDA."""
-    if _on_cpu(q, k, v, do, lse, delta):
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal)
-    out = _run_dq("edl_flash_bwd_dq", q, k, v, do, lse, delta, scale, causal)
+def flash_bwd_dq(q, k, v, o, do, lse, scale: float, causal: bool):
+    """``(dq, delta)`` as :func:`flash_bwd_dq_plain`.  Launches
+    ``edl_flash_bwd_dq`` on CUDA."""
+    if _on_cpu(q, k, v, o, do, lse):
+        return flash_bwd_dq_plain(q, k, v, o, do, lse, scale, causal)
+    out = _run_dq("edl_flash_bwd_dq", q, k, v, o, do, lse, scale, causal)
     flash_bwd_dq.launches += 1
     return out
 
@@ -397,9 +418,8 @@ class SplashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        delta = attention_bwd_delta(o, do)
+        dq, delta = attention_bwd_dq(q, k, v, o, do, lse, ctx.scale)
         dk, dv = attention_bwd_dkdv(q, k, v, do, lse, delta, ctx.scale)
-        dq = attention_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
         return dq, dk, dv, None
 
 
@@ -418,9 +438,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        delta = attention_bwd_delta(o, do)
+        dq, delta = flash_bwd_dq(q, k, v, o, do, lse, ctx.scale, ctx.causal)
         dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
         return dq, dk, dv, None, None
 
 

@@ -107,17 +107,18 @@ def _check_plain_against_splash_interpret(D):
 
 @pytest.mark.parametrize("shape", [(2, 37, 3, 64), (1, 70, 2, 128)])
 def test_kernel_parts_compose_to_dense_grads(shape):
-    """The plain forward and the three plain backward parts (the kernels'
-    reference functions) give dense attention's autograd gradients,
-    at ragged lengths."""
+    """The plain forward and the plain backward parts (the kernels'
+    reference functions: dQ with delta, then dK/dV) give dense attention's
+    autograd gradients, at ragged lengths; dQ's delta is the standalone
+    delta's."""
     rng = np.random.default_rng(sum(shape))
     q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                    for _ in range(4))
     scale = shape[-1] ** -0.5
     o, lse = tattn.attention_fwd(q, k, v, scale)
-    delta = tattn.attention_bwd_delta(o, do)
+    dq, delta = tattn.attention_bwd_dq(q, k, v, o, do, lse, scale)
+    torch.testing.assert_close(delta, tattn.attention_bwd_delta(o, do), atol=0, rtol=0)
     dk, dv = tattn.attention_bwd_dkdv(q, k, v, do, lse, delta, scale)
-    dq = tattn.attention_bwd_dq(q, k, v, do, lse, delta, scale)
     qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
     ref = tattn.dense_attention(qa, ka, va, causal=True)
     rq, rk, rv = torch.autograd.grad(ref, (qa, ka, va), do)
@@ -172,3 +173,38 @@ def test_kernel_gate():
     d32 = torch.zeros(1, 128, 2, 32, dtype=bf)
     assert not tattn._splash_ok(d32, d32, causal=True)
     assert not tattn._splash_ok(ok, torch.zeros(1, 100, 2, 64, dtype=bf), causal=True)
+
+
+@pytest.mark.parametrize("path", ["splash", "flash"])
+def test_backward_runs_dq_then_dkdv_with_dqs_delta(path, monkeypatch):
+    """The autograd backward launches two kernels: dQ, which computes
+    delta, then dK/dV, which receives that same delta; the standalone delta
+    kernel is not called.  Recorded through the wrappers, on CPU tensors."""
+    calls = []
+    names = (("attention_bwd_dq", "attention_bwd_dkdv") if path == "splash"
+             else ("flash_bwd_dq", "flash_bwd_dkdv"))
+
+    def recording(name):
+        inner = getattr(tattn, name)
+
+        def wrapper(*args):
+            out = inner(*args)
+            calls.append((name, args, out))
+            return out
+        return wrapper
+
+    for name in names + ("attention_bwd_delta",):
+        monkeypatch.setattr(tattn, name, recording(name))
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv((1, 40, 2, 64), (1, 40, 2, 64), seed=12))
+    do = torch.from_numpy(np.random.default_rng(13).normal(size=(1, 40, 2, 64)).astype(np.float32))
+    if path == "splash":
+        y = tattn.SplashAttention.apply(q, k, v, 0.125)
+    else:
+        y = tattn.FlashAttention.apply(q, k, v, 0.125, True)
+    grads = torch.autograd.grad(y, (q, k, v), do)
+    assert [c[0] for c in calls] == list(names)
+    (_, _, (dq, delta)), (_, dkdv_args, (dk, dv)) = calls
+    assert dkdv_args[5] is delta
+    for got, want in zip(grads, (dq, dk, dv)):
+        assert got is want

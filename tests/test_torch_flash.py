@@ -68,9 +68,8 @@ def test_plain_matches_pallas_flash_interpret(causal, lq, lk, d):
 
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     o, lse = tattn.flash_fwd_plain(tq, tk, tv, scale, causal)
-    delta = tattn.attention_bwd_delta_plain(o, tdo)
+    dq, delta = tattn.flash_bwd_dq_plain(tq, tk, tv, o, tdo, lse, scale, causal)
     dk, dv = tattn.flash_bwd_dkdv_plain(tq, tk, tv, tdo, lse, delta, scale, causal)
-    dq = tattn.flash_bwd_dq_plain(tq, tk, tv, tdo, lse, delta, scale, causal)
     np.testing.assert_allclose(o.numpy(), want, atol=ATOL, rtol=0)
     for got, ref in ((dq, wq), (dk, wk), (dv, wv)):
         np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
@@ -169,9 +168,9 @@ def test_flash_parts_compose_to_dense_grads(shape_q, lk, causal):
         [shape_q, (B, lk, H, D), (B, lk, H, D), shape_q], seed=Lq + lk))
     scale = D ** -0.5
     o, lse = tattn.flash_fwd(q, k, v, scale, causal)
-    delta = tattn.attention_bwd_delta(o, do)
+    dq, delta = tattn.flash_bwd_dq(q, k, v, o, do, lse, scale, causal)
+    torch.testing.assert_close(delta, tattn.attention_bwd_delta(o, do), atol=0, rtol=0)
     dk, dv = tattn.flash_bwd_dkdv(q, k, v, do, lse, delta, scale, causal)
-    dq = tattn.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
     qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
     keep = torch.ones(Lq, lk, dtype=torch.bool).tril() if causal else None
     ref = tattn.dense_attention(qa, ka, va, mask=keep)
