@@ -9,9 +9,9 @@ of them in the same process.
 ``.cu`` there is compiled against the headers beside it, and linked into
 ``build/edl_tpu_torch/libattn_parent.so``); its entry points' arguments are
 read from its own ``attention.cu``, so a parent from before dQ took over
-delta is timed as its backward ran: delta, then dQ.  ``--parent_flags``
-passes nvcc flags to that build only (e.g. a ``-D`` that selects another
-variant of the current sources).  At the flagship shape ``[8, 1024, 6,
+delta is timed as its backward ran: delta, then dQ.  To time a variant of
+the current sources, copy ``csrc`` under ``build/``, edit the copy and pass
+it as ``--parent``.  At the flagship shape ``[8, 1024, 6,
 128]`` bf16, and at ``[8, 1024, 6, 64]``, ``[8, 1024, 4, 192]`` and
 ``[8, 1024, 4, 256]``, the
 script times the earlier and the current forward, dQ (with delta) and
@@ -20,7 +20,7 @@ turns: earlier, current, current, earlier.  It checks both against the
 plain PyTorch versions first.  Every time is a device time
 (``torch.profiler``, summed kernel time per call); each row carries its
 bound (the larger of bytes over 3.35 TB/s and operations over their type's
-peak rate) and the library time of one PyTorch call for the same function
+peak rate, the larger over the types) and the library time of one PyTorch call for the same function
 (``scaled_dot_product_attention``, its whole backward for dQ and dK/dV).
 Without ``--parent`` only the current kernels are timed.
 
@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shlex
 import sys
 from pathlib import Path
 
@@ -44,26 +43,22 @@ EXTRA = ((8, 1024, 6, 64), (8, 1024, 4, 192), (8, 1024, 4, 256))
 REPS = 20
 KINDS = ("fwd", "dq", "dkdv")
 WORK = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkdv": "flash_bwd_dkdv"}  # cs._attention_work
-_CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
 
 
-def build_parent(csrc: str, flags: list[str]) -> ctypes.CDLL:
+def build_parent(csrc: str) -> ctypes.CDLL:
     from edl_tpu_torch.ops import _build
     src = Path(csrc)
     lib = _build.BUILD_DIR / "libattn_parent.so"
-    _build.build_sources(sorted(src.glob("*.cu")), lib, flags)
-    cdll = ctypes.CDLL(str(lib))
-    for name, kinds in _build.entry_points((src / "attention.cu").read_text()).items():
-        fn = getattr(cdll, name)
-        fn.argtypes, fn.restype = [_CTYPES[k] for k in kinds], ctypes.c_int
-    return cdll
+    _build.build_sources(sorted(src.glob("*.cu")), lib)
+    return _build.bind(ctypes.CDLL(str(lib)), (src / "attention.cu").read_text())
 
 
 def launcher(lib, kind: str, causal: bool):
     """A call of ``lib``'s forward, dQ or dK/dV entry point: the splash one
     for causal, the flash one otherwise, with the wrappers' argument
-    set-up.  dQ returns ``(dq, delta)``; a library whose dQ does not take
-    ``o`` computes delta with its own delta kernel first."""
+    set-up.  dQ returns ``(dq, delta)``; a library whose dQ entry point is
+    not declared as the current one (one from before dQ took ``o``)
+    computes delta with its own delta kernel first."""
     import torch
 
     from edl_tpu_torch.ops import attention as A
@@ -76,9 +71,9 @@ def launcher(lib, kind: str, causal: bool):
         return lambda q, k, v, do, lse, delta, scale: A._run_dkdv(
             entry, q, k, v, do, lse, delta, scale, mode, lib=lib)
     fn = getattr(lib, entry)
-    if len(fn.argtypes) == len(A._SIGNATURES[entry]):
+    if fn.argtypes == getattr(A._kernels(), entry).argtypes:
         return lambda q, k, v, o, do, lse, scale: A._run_dq(
-            entry, q, k, v, o, do, lse, scale, mode, lib=lib)
+            entry, q, k, v, o, do, lse, scale, mode, lib=lib)[:2]
 
     def delta_then_dq(q, k, v, o, do, lse, scale):
         delta = A._run_delta(o, do, lib=lib)
@@ -158,8 +153,6 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", default=None,
                    help="a directory of earlier CUDA sources (csrc) to time against")
-    p.add_argument("--parent_flags", default="",
-                   help="extra nvcc flags for the parent's build, one string")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -168,7 +161,7 @@ def main(argv=None) -> int:
     from edl_tpu_torch.utils.device import smi_name_and_power_limit
     torch.backends.cuda.matmul.allow_tf32 = False
     print(smi_name_and_power_limit(), flush=True)
-    parent = build_parent(args.parent, shlex.split(args.parent_flags)) if args.parent else None
+    parent = build_parent(args.parent) if args.parent else None
     for j, shape in enumerate((FLAGSHIP,) + EXTRA):
         for i, causal in enumerate((True, False)):
             for row in measure(shape, causal, seed=40 + 2 * j + i, parent=parent):

@@ -29,7 +29,9 @@ failure exits non-zero:
    steps and 10 timed steps on a fixed batch; tokens/s, MFU and peak memory;
    the splash kernels' launch counters (forward, dQ, dK/dV) must equal 12
    per step each, and every other attention kernel's 0 (the standalone
-   delta too: dQ computes delta).
+   delta too: dQ computes delta); the profile of two more steps must show
+   this repo's attention kernels 36 times a step and the standalone delta
+   kernel never.
 5. ``flash``: the same run with ``--attention flash``: the flash kernels
    launch 12 times per step each and every other attention kernel none,
    the loss falls, and the first loss equals the splash path's.
@@ -61,12 +63,14 @@ PEAK_BYTES = 3.35e12
 
 FLAGSHIP_SHAPE = (8, 1024, 6, 128)     # [B, L, H, D]
 RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64),
-                 (2, 256, 4, 192), (2, 256, 4, 256), (2, 256, 2, 320), (1, 200, 2, 512))
+                 (2, 256, 4, 192), (2, 256, 4, 256), (1, 77, 2, 192), (1, 77, 2, 256),
+                 (2, 256, 2, 320), (1, 200, 2, 512))
 # flash: (q's [B, Lq, H, D], Lk, causal), untimed
 FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
                ((1, 300, 2, 64), 1100, False),
                ((2, 256, 4, 192), 256, True), ((2, 256, 4, 192), 256, False),
                ((2, 256, 4, 256), 256, True), ((2, 256, 4, 256), 256, False),
+               ((2, 200, 4, 256), 300, True), ((2, 300, 4, 192), 200, True),
                ((2, 256, 2, 320), 384, True), ((1, 300, 2, 320), 200, False),
                ((2, 256, 2, 512), 256, True), ((1, 200, 2, 512), 300, False))
 # B * H = 81,920 > 65,535 (grid y's limit): B * H rides on grid x (splash, untimed)
@@ -203,7 +207,10 @@ def _attention_work(B, Lq, Lk, H, D, causal) -> dict:
 
 
 def _bound(ops, nbytes):
-    t_ops = sum(n / peak for n, peak in ops) * 1e3
+    """The least time in ms for ``ops`` (``(count, peak rate)`` pairs, one
+    per type: the types' units run side by side, so the slowest type
+    bounds) and ``nbytes``, and which of the two bounds it."""
+    t_ops = max(n / peak for n, peak in ops) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -537,6 +544,14 @@ def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
         if rank < 15 or "attn_" in key:
             log(f"{phase}_profile", kernel=key[:100], ms_per_step=us / 2 / 1e3,
                 share=us / total, calls_per_step=count / 2)
+    # the device's own record: a forward and two backward kernels (dQ with
+    # delta, dK/dV) per layer, and no standalone delta kernel
+    attn_calls = {key: count / 2 for _, key, count in rows
+                  if _kernel_group(key).startswith("attention")}
+    if (sum(attn_calls.values()) != 3 * cfg.num_layers
+            or any("attn_bwd_delta_kernel" in key for key in attn_calls)):
+        raise AssertionError(f"the profile shows attention kernels per step {attn_calls}, "
+                             f"want 3 x {cfg.num_layers} and no attn_bwd_delta_kernel")
     A.reset_launch_counts()
     del trainer, state
     torch.cuda.empty_cache()
@@ -569,7 +584,8 @@ def phase_flash(ctx) -> None:
 def _keep_launches(ctx, launches, path_wrappers) -> None:
     """Keep a main-path run's counts for the kernels line: its path's
     kernels, and the standalone delta's, summed over the runs (0: dQ
-    computes delta on both paths)."""
+    computes delta on both paths; the dQ wrappers count it when their
+    entry point reports that it ran, above D = 256)."""
     kept = ctx.setdefault("launches", {})
     kept.update({n: launches[n] for n in path_wrappers})
     kept["attention_bwd_delta"] = kept.get("attention_bwd_delta", 0) + launches["attention_bwd_delta"]

@@ -326,19 +326,24 @@ cudaError_t dkdv(int D, bool causal, const void* q, const void* k, const void* v
 
 // dQ, which also writes delta: the Hopper kernel up to D = 256; above it,
 // the delta kernel and then the wide dQ, which reads delta.  `st` holds the
-// strides of q, k, v, o, dout, dq.
+// strides of q, k, v, o, dout, dq; `kernels` gets the number of kernels
+// launched.
 cudaError_t dq(int D, bool causal, const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* dlt, void* dqp, const long long* st, int B,
-               int H, int Lq, int Lk, float scale, cudaStream_t stream) {
+               int H, int Lq, int Lk, float scale, int* kernels, cudaStream_t stream) {
+  *kernels = 0;
   if (!head_dim_ok(D)) return cudaErrorInvalidValue;
-  if (D <= 256)
+  if (D <= 256) {
+    *kernels = 1;
     return dq_sm90(D, causal, q, k, v, o, dout, lse, dlt, dqp, st, B, H, Lq, Lk, scale, stream);
+  }
   long long st_delta[6], st_wide[15];  // (o, dout) and (q, k, v, dout, dq)
   for (int i = 0; i < 6; ++i) st_delta[i] = st[9 + i];
   for (int i = 0; i < 9; ++i) st_wide[i] = st[i];
   for (int i = 0; i < 6; ++i) st_wide[9 + i] = st[12 + i];
   cudaError_t err = delta(D, o, dout, dlt, st_delta, B, H, Lq, stream);
   if (err != cudaSuccess) return err;
+  *kernels = 2;
   return dq_wide(D, causal, q, k, v, dout, lse, dlt, dqp, st_wide, B, H, Lq, Lk, scale, stream);
 }
 
@@ -352,7 +357,9 @@ cudaError_t dq(int D, bool causal, const void* q, const void* k, const void* v, 
 // head dim that is not a multiple of 64 returns cudaErrorInvalidValue.
 // `st` holds (batch, row, head) element strides, three per tensor, in the
 // order the [B, L, H, D] tensors are listed.  The dQ entry points write
-// delta = rowsum(dO * O), which the dK/dV ones then read.  The edl_attn_*
+// delta = rowsum(dO * O), which the dK/dV ones then read, and set
+// `*kernels` to the number of kernels they launched (1, or 2 above D = 256),
+// so the caller counts the standalone delta's launches too.  The edl_attn_*
 // forward, dK/dV and dQ are causal self-attention (L = Lq = Lk); the
 // edl_flash_* ones take Lq, Lk and `causal`.
 extern "C" {
@@ -379,8 +386,9 @@ int edl_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* d
 
 int edl_attn_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                     const void* lse, void* dlt, void* dqp, const long long* st, int B, int H, int L,
-                    int D, float scale, void* stream) {
-  return dq(D, true, q, k, v, o, dout, lse, dlt, dqp, st, B, H, L, L, scale, (cudaStream_t)stream);
+                    int D, float scale, int* kernels, void* stream) {
+  return dq(D, true, q, k, v, o, dout, lse, dlt, dqp, st, B, H, L, L, scale, kernels,
+            (cudaStream_t)stream);
 }
 
 int edl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -399,8 +407,9 @@ int edl_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* 
 
 int edl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const void* lse, void* dlt, void* dqp, const long long* st,
-                     int B, int H, int Lq, int Lk, int D, int causal, float scale, void* stream) {
-  return dq(D, causal != 0, q, k, v, o, dout, lse, dlt, dqp, st, B, H, Lq, Lk, scale,
+                     int B, int H, int Lq, int Lk, int D, int causal, float scale, int* kernels,
+                     void* stream) {
+  return dq(D, causal != 0, q, k, v, o, dout, lse, dlt, dqp, st, B, H, Lq, Lk, scale, kernels,
             (cudaStream_t)stream);
 }
 

@@ -54,7 +54,7 @@
 //     turn faster than issuing S with P V without turns.  The wgmma issues
 //     sit outside any branch: ptxas serialises wgmma in a divergent path
 //     (warning C7520), which made a first version slower.
-//   - dQ ping-pong (up to D = EDL_DQ_PINGPONG, below): two turns per key
+//   - dQ ping-pong (up to D = 128, kPingPong below): two turns per key
 //     tile, one issuing S and dP, one issuing dQ += dS K (holding dS of
 //     one tile while the next tile's S and dP accumulate, as the forward
 //     holds P, would not fit the registers at D = 128).
@@ -610,15 +610,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // 256), which also keeps S, dP and the 64 x D accumulator under 240
 // registers.
 
-// Head dims up to this one take ping-pong turns between the consumers;
-// above it each consumer runs S and dP, dS, dQ += dS K in plain order.  On
-// the H100 the turns won at D = 64 and 128 and lost at 256, where 32-key
-// tiles make each turn short (PERF.md).  bench_attention.py times one order
-// against the other with --parent_flags=-DEDL_DQ_PINGPONG=0 (or =256).
-#ifndef EDL_DQ_PINGPONG
-#define EDL_DQ_PINGPONG 128
-#endif
-
 template <int D>
 struct DqCfg {
   static constexpr int kBlockM = 128, kBlockN = D <= 128 ? 128 : D == 192 ? 64 : 32, kStages = 2;
@@ -655,7 +646,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                         Strides so, Strides sdo, Strides sdq, int H, int Lq, int Lk, float scale) {
   using C = DqCfg<D>;
   constexpr int BM = C::kBlockM, BN = C::kBlockN, S = C::kStages, KV = C::kKVBytes;
-  constexpr bool kPingPong = D <= EDL_DQ_PINGPONG;
+  // Ping-pong turns up to D = 128; above it each consumer runs S and dP,
+  // dS, dQ += dS K in plain order.  On the H100 the turns won at D = 64 and
+  // 128 and lost at 256, where 32-key tiles make each turn short (PERF.md).
+  constexpr bool kPingPong = D <= 128;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sdO = sQ + C::kQBytes;
@@ -744,7 +738,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto ph_of = [&](int j) { return (uint32_t)((j / S) & 1); };
 
   mbar_wait(qdo_full, 0);
-  // Ping-pong (D <= EDL_DQ_PINGPONG): each tile takes two turns per
+  // Ping-pong (D <= 128): each tile takes two turns per
   // consumer, one to issue S and dP, one to issue dQ += dS K; the consumers
   // alternate, so one's P and dS run while the other's products hold the
   // tensor cores.

@@ -119,14 +119,15 @@ def build(names=None, extra_flags: list[str] | None = None,
     return logs
 
 
-def build_sources(sources: list[Path], lib: Path, extra_flags: list[str] | None = None) -> str:
+def build_sources(sources: list[Path], lib: Path) -> str:
     """Compile ``sources`` (each with the headers beside it), all at once,
     and link them into ``lib``, e.g. an earlier tree's ``csrc`` to time
     against; no stamp, always rebuilt.  Returns the compiler output."""
-    return _finish(*_start(list(sources), lib, list(extra_flags or [])))
+    return _finish(*_start(list(sources), lib, []))
 
 
 _KINDS = {"float": "F", "int": "I"}
+_CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
 
 
 def entry_points(source: str) -> dict[str, list[str]]:
@@ -146,6 +147,17 @@ def entry_points(source: str) -> dict[str, list[str]]:
                 raise ValueError(f"{name}: parameter {param!r} has no ctypes kind")
         out[name] = kinds
     return out
+
+
+def bind(lib, source: str):
+    """Declare the entry points of ``lib`` as the ``extern "C"`` block of
+    ``source`` (the CUDA source text it was built from) declares them (see
+    :func:`entry_points`); each returns an ``int``.  Returns ``lib``."""
+    for name, kinds in entry_points(source).items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_CTYPES[k] for k in kinds]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

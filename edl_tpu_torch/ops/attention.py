@@ -142,35 +142,16 @@ def attention_bwd_dq_plain(q, k, v, o, do, lse, scale: float):
 # -- the kernels -----------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_SIGNATURES = {
-    # q k v o lse strides B H L D scale stream
-    "edl_attn_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
-    # o dout delta strides B H L D stream
-    "edl_attn_bwd_delta": [_P] * 4 + [_I] * 4 + [_P],
-    # q k v dout lse delta dk dv strides B H L D scale stream
-    "edl_attn_bwd_dkdv": [_P] * 9 + [_I] * 4 + [_F, _P],
-    # q k v o dout lse delta(out) dq strides B H L D scale stream
-    "edl_attn_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _P],
-    # as edl_attn_*, with B H Lq Lk D causal in place of B H L D
-    "edl_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
-    "edl_flash_bwd_dkdv": [_P] * 9 + [_I] * 6 + [_F, _P],
-    "edl_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _P],
-}
 _lib = None
 
 
 def _kernels():
+    """The kernels' library, its entry points declared as the ``extern
+    "C"`` block of ``csrc/attention.cu`` declares them."""
     global _lib
     if _lib is None:
         from edl_tpu_torch.ops import _build
-        lib = _build.load("attn")
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _build.bind(_build.load("attn"), (_build.CSRC / "attention.cu").read_text())
     return _lib
 
 
@@ -287,20 +268,24 @@ def _run_dkdv(entry, q, k, v, do, lse, delta, scale, causal, lib=None):
 
 
 def _run_dq(entry, q, k, v, o, do, lse, scale, causal, lib=None):
-    """``(dq, delta)`` from one launch of a dQ entry point (of ``lib``, or
-    of the package's library)."""
+    """``(dq, delta, kernels)`` from one call of a dQ entry point (of
+    ``lib``, or of the package's library): ``kernels`` is the number of
+    kernels it launched (2 above D = 256: the standalone delta, then the
+    wide dQ)."""
     dims, (q, k, v, do) = _operands(q, k, v, do)
     B, H, Lq, _, _ = dims
     o = _operand(o, "o", q.shape)
     lse = _stat(lse, "lse", B, H, Lq)
     delta = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    kernels = ctypes.c_int(0)
     err = getattr(lib or _kernels(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        _strides(q, k, v, o, do, dq), *_sizes(dims, causal), float(scale), _stream(q))
+        _strides(q, k, v, o, do, dq), *_sizes(dims, causal), float(scale),
+        ctypes.byref(kernels), _stream(q))
     _raise_on(err, entry)
-    return dq, delta
+    return dq, delta, kernels.value
 
 
 def _run_delta(o, do, lib=None):
@@ -330,8 +315,9 @@ def attention_fwd(q, k, v, scale: float):
 def attention_bwd_delta(o, do):
     """``rowsum(dO * O)`` as :func:`attention_bwd_delta_plain`: the
     standalone kernel that the dQ entry points run before the wide dQ at
-    head dims above 256 (below, dQ computes delta itself).  Launches
-    ``edl_attn_bwd_delta`` on CUDA."""
+    head dims above 256 (below, dQ computes delta itself; the dQ wrappers
+    count those launches here too).  Launches ``edl_attn_bwd_delta`` on
+    CUDA."""
     if _on_cpu(o, do):
         return attention_bwd_delta_plain(o, do)
     delta = _run_delta(o, do)
@@ -354,9 +340,8 @@ def attention_bwd_dq(q, k, v, o, do, lse, scale: float):
     ``edl_attn_bwd_dq`` on CUDA."""
     if _on_cpu(q, k, v, o, do, lse):
         return attention_bwd_dq_plain(q, k, v, o, do, lse, scale)
-    out = _run_dq("edl_attn_bwd_dq", q, k, v, o, do, lse, scale, None)
-    attention_bwd_dq.launches += 1
-    return out
+    return _count_dq(attention_bwd_dq, *_run_dq("edl_attn_bwd_dq", q, k, v, o, do, lse, scale,
+                                                 None))
 
 
 def flash_fwd(q, k, v, scale: float, causal: bool):
@@ -384,9 +369,16 @@ def flash_bwd_dq(q, k, v, o, do, lse, scale: float, causal: bool):
     ``edl_flash_bwd_dq`` on CUDA."""
     if _on_cpu(q, k, v, o, do, lse):
         return flash_bwd_dq_plain(q, k, v, o, do, lse, scale, causal)
-    out = _run_dq("edl_flash_bwd_dq", q, k, v, o, do, lse, scale, causal)
-    flash_bwd_dq.launches += 1
-    return out
+    return _count_dq(flash_bwd_dq, *_run_dq("edl_flash_bwd_dq", q, k, v, o, do, lse, scale,
+                                             causal))
+
+
+def _count_dq(wrapper, dq, delta, kernels):
+    """Count a dQ entry point's launches: its dQ kernel, and the standalone
+    delta it ran first (above D = 256)."""
+    wrapper.launches += 1
+    attention_bwd_delta.launches += kernels - 1
+    return dq, delta
 
 
 KERNEL_WRAPPERS = (attention_fwd, attention_bwd_delta, attention_bwd_dkdv,

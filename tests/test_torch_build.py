@@ -71,5 +71,5 @@ def test_failed_compile_raises_with_the_output_and_keeps_the_old_library(fake):
 def test_build_sources_links_any_set_of_sources(fake):
     csrc, out = fake
     lib = out / "libother.so"
-    log = _build.build_sources([csrc / "b.cu"], lib, ["-DX=1"])
+    log = _build.build_sources([csrc / "b.cu"], lib)
     assert log.count("built ") == 2 and lib.exists()
