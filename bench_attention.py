@@ -11,17 +11,22 @@ of them in the same process.
 read from its own ``attention.cu``, so a parent from before dQ took over
 delta is timed as its backward ran: delta, then dQ.  To time a variant of
 the current sources, copy ``csrc`` under ``build/``, edit the copy and pass
-it as ``--parent``.  At the flagship shape ``[8, 1024, 6,
-128]`` bf16, and at ``[8, 1024, 6, 64]``, ``[8, 1024, 4, 192]`` and
-``[8, 1024, 4, 256]``, the
-script times the earlier and the current forward, dQ (with delta) and
-dK/dV, causal (the splash entry points) and non-causal (the flash ones), in
-turns: earlier, current, current, earlier.  It checks both against the
-plain PyTorch versions first.  Every time is a device time
-(``torch.profiler``, summed kernel time per call); each row carries its
-bound (the larger of bytes over 3.35 TB/s and operations over their type's
-peak rate, the larger over the types) and the library time of one PyTorch call for the same function
-(``scaled_dot_product_attention``, its whole backward for dQ and dK/dV).
+it as ``--parent``.
+
+At the flagship shape ``[8, 1024, 6, 128]`` bf16, and at ``[8, 1024, 6,
+64]``, ``[8, 1024, 4, 192]``, ``[8, 1024, 4, 256]``, the ``d256`` phase's
+``[8, 1024, 3, 256]`` of ``chip_smoke.py``, ``[8, 1024, 2, 320]`` and ``[4,
+1024, 2, 512]`` (the last two run the kernels for head dims above 256, their
+dQ with the standalone delta before it), the script times the
+earlier and the current forward, dQ (with delta) and dK/dV, causal (the
+splash entry points) and non-causal (the flash ones), in turns: earlier,
+current, current, earlier.  It checks both against the plain PyTorch
+versions first.  Every time is a device time (``torch.profiler``, summed
+kernel time per call); each row carries its bound (the larger of bytes over
+3.35 TB/s and operations over their type's peak rate, the larger over the
+types) and the library time of one PyTorch call for the same function
+(``scaled_dot_product_attention``, its whole backward for dQ and dK/dV),
+with the SDPA backend that ran, read from its longest kernel's name.
 Without ``--parent`` only the current kernels are timed.
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
@@ -39,7 +44,8 @@ from pathlib import Path
 import chip_smoke as cs
 
 FLAGSHIP = (8, 1024, 6, 128)
-EXTRA = ((8, 1024, 6, 64), (8, 1024, 4, 192), (8, 1024, 4, 256))
+EXTRA = ((8, 1024, 6, 64), (8, 1024, 4, 192), (8, 1024, 4, 256), cs.D256_SHAPE,
+         (8, 1024, 2, 320), (4, 1024, 2, 512))
 REPS = 20
 KINDS = ("fwd", "dq", "dkdv")
 WORK = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkdv": "flash_bwd_dkdv"}  # cs._attention_work
@@ -97,15 +103,44 @@ def inputs(shape, seed):
     return q, k, v, do, scale, A
 
 
-def library_ms(q, k, v, do, causal) -> tuple[float, float]:
+def sdpa_backend(fn) -> str:
+    """The SDPA backend that ``fn()`` ran, from the name of its longest
+    kernel, with that name."""
+    for _ in range(5):   # a profile that recorded no kernel is taken again
+        rows = cs.kernel_times(fn, reps=REPS)
+        if rows:
+            break
+    else:
+        raise RuntimeError("the profiler recorded no kernel in 5 tries")
+    name = rows[0][1]
+    if "cudnn" in name:
+        kind = "cudnn"
+    elif "flash" in name:
+        kind = "flash"
+    elif "fmha" in name or "cutlass" in name or "mem_eff" in name:
+        kind = "efficient"
+    else:
+        kind = "math"
+    return f"{kind} ({name[:80]})"
+
+
+def library_ms(q, k, v, do, causal) -> tuple[tuple[float, int], tuple[float, int], str, str]:
+    """SDPA's forward and whole-backward device ms (each with its profile
+    retakes, as ``cs.device_ms`` gives them), and the backend of each."""
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    fwd = cs.device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), reps=REPS)
     yt = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
-    bwd = cs.device_ms(lambda: torch.autograd.grad(yt, (qt, kt, vt), dot, retain_graph=True), reps=REPS)
-    return fwd, bwd
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    def bwd():
+        return torch.autograd.grad(yt, (qt, kt, vt), dot, retain_graph=True)
+
+    return (cs.device_ms(fwd, reps=REPS), cs.device_ms(bwd, reps=REPS),
+            sdpa_backend(fwd), sdpa_backend(bwd))
 
 
 def measure(shape, causal, seed, parent):
@@ -117,14 +152,15 @@ def measure(shape, causal, seed, parent):
     o, lse = A.flash_fwd_plain(q, k, v, scale, causal)
     delta = A.attention_bwd_delta_plain(o, do)
     work = cs._attention_work(B, L, L, H, D, causal)
-    lib_fwd, lib_bwd = library_ms(q, k, v, do, causal)
+    lib_fwd, lib_bwd, be_fwd, be_bwd = library_ms(q, k, v, do, causal)
     args = {"fwd": (q, k, v, scale), "dq": (q, k, v, o, do, lse, scale),
             "dkdv": (q, k, v, do, lse, delta, scale)}
     plain = {"fwd": lambda: A.flash_fwd_plain(q, k, v, scale, causal),
              "dq": lambda: A.flash_bwd_dq_plain(q, k, v, o, do, lse, scale, causal),
              "dkdv": lambda: A.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale, causal)}
-    library = {"fwd": ("sdpa forward", lib_fwd), "dq": ("sdpa whole backward", lib_bwd),
-               "dkdv": ("sdpa whole backward", lib_bwd)}
+    library = {"fwd": (f"sdpa forward, {be_fwd}", lib_fwd),
+               "dq": (f"sdpa whole backward, {be_bwd}", lib_bwd),
+               "dkdv": (f"sdpa whole backward, {be_bwd}", lib_bwd)}
     rows = []
     for kind in KINDS:
         want = plain[kind]()
@@ -137,15 +173,19 @@ def measure(shape, causal, seed, parent):
         if max(errs.values()) > cs.REL_TOL:
             raise AssertionError(f"{kind} at {shape} causal={causal}: rel errs {errs}")
         times = {}
+        lib_ms, retakes = library[kind][1]
         order = ("earlier", "new", "new", "earlier") if old is not None else ("new",)
         for who in order:
             fn = new if who == "new" else old
-            times.setdefault(who, []).append(cs.device_ms(lambda: fn(*args[kind]), reps=REPS))
+            ms, n = cs.device_ms(lambda: fn(*args[kind]), reps=REPS)
+            times.setdefault(who, []).append(ms)
+            retakes += n
         bound, by = cs._bound(*work[WORK[kind]])
         rows.append({"kernel": kind, "shape": list(shape), "causal": causal,
                      "ms": times["new"], "earlier_ms": times.get("earlier"),
-                     "bound_ms": bound, "bound_by": by, "library_ms": library[kind][1],
-                     "library": library[kind][0], "rel_err": errs})
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                     "library": library[kind][0], "rel_err": errs,
+                     "profile_retakes": retakes})
     return rows
 
 
@@ -162,6 +202,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(smi_name_and_power_limit(), flush=True)
     parent = build_parent(args.parent) if args.parent else None
+    from edl_tpu_torch.ops import attention as A
+    A._kernels()   # built before any profile: profiles right after a build lost records
     for j, shape in enumerate((FLAGSHIP,) + EXTRA):
         for i, causal in enumerate((True, False)):
             for row in measure(shape, causal, seed=40 + 2 * j + i, parent=parent):

@@ -3,27 +3,30 @@
 
     python3 chip_smoke.py                 # every phase, as a check runs it
     python3 chip_smoke.py --phases build,kernels,flash
+    python3 chip_smoke.py --phases build,kernels,d256
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
 
 1. ``build``: compile the CUDA kernels from ``edl_tpu_torch/csrc`` with nvcc,
    one process per source, all at once (every instantiation: the Hopper
-   forward and dQ at 4 head dims and dK/dV at 2, the mma.sync dK/dV at 2,
-   each causal and not, the standalone delta, and the wide kernels for
-   D > 256), and print each one's registers and spills.
+   forward, dQ and dK/dV at 4 head dims each, causal and not, the
+   standalone delta, and the wide kernels for D > 256), and print each
+   one's registers and spills.
 2. ``kernels``: each kernel against its plain PyTorch version (f32 from the
    same bf16 inputs; dQ's two outputs, dq and delta, both) at the flagship
-   shape and at ragged, cross-length,
+   shape and at ragged, cross-length (causal ``Lq < Lk``: keys that no
+   query sees must get exactly zero gradients),
    wide-head (D = 192, 256, and 320, 512 on the wide kernels),
-   many-head (B * H > 65,535) and transposed-layout ones, with device times
-   (``torch.profiler``) of the kernel, of its plain version and of one
-   PyTorch library call as a yardstick only, and the least time the card
-   could take (the bound).
+   many-head (B * H > 65,535, at D = 64 and 256) and transposed-layout
+   ones (D = 128, 192, 256), with device times (``torch.profiler``) of the
+   kernel, of its plain version and of one PyTorch library call as a
+   yardstick only, and the least time the card could take (the bound), at
+   the flagship shape and at the ``d256`` phase's ``[8, 1024, 3, 256]``.
 3. ``parity``: one training step of small bf16 configs on the card (with
    the kernels) and on the CPU (plain path) from the same weights: the
-   splash path, and the flash path with grouped-query attention at head
-   dim 64.
+   splash path at head dims 128, 192 and 256, and the flash path with
+   grouped-query attention at head dims 64 and 256.
 4. ``flagship``: the 124M-parameter LM at batch 8 x seq 1024 with the fused
    cross-entropy, through ``edl_tpu_torch.train_lm``'s trainer: 2 warm-up
    steps and 10 timed steps on a fixed batch; tokens/s, MFU and peak memory;
@@ -35,7 +38,10 @@ failure exits non-zero:
 5. ``flash``: the same run with ``--attention flash``: the flash kernels
    launch 12 times per step each and every other attention kernel none,
    the loss falls, and the first loss equals the splash path's.
-6. ``resume``: save at an epoch's end, drop the trainer, restore a new one
+6. ``d256``: the flagship's widths and depth with ``--heads 3``, so head
+   dim 256 (the Gemma family's): the same checks, and the profile must
+   show the dK/dV kernel whose consumers split dK and dV 12 times a step.
+7. ``resume``: save at an epoch's end, drop the trainer, restore a new one
    with ``restore_or_create`` and check that step, epoch and the next loss
    continue the uninterrupted run.
 
@@ -53,7 +59,7 @@ import math
 import sys
 import time
 
-PHASES = ("build", "kernels", "parity", "flagship", "flash", "resume")
+PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "resume")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -62,6 +68,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP_SHAPE = (8, 1024, 6, 128)     # [B, L, H, D]
+D256_SHAPE = (8, 1024, 3, 256)         # the d256 phase's attention
 RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64),
                  (2, 256, 4, 192), (2, 256, 4, 256), (1, 77, 2, 192), (1, 77, 2, 256),
                  (2, 256, 2, 320), (1, 200, 2, 512))
@@ -71,10 +78,16 @@ FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
                ((2, 256, 4, 192), 256, True), ((2, 256, 4, 192), 256, False),
                ((2, 256, 4, 256), 256, True), ((2, 256, 4, 256), 256, False),
                ((2, 200, 4, 256), 300, True), ((2, 300, 4, 192), 200, True),
+               ((2, 128, 4, 256), 512, True),
                ((2, 256, 2, 320), 384, True), ((1, 300, 2, 320), 200, False),
                ((2, 256, 2, 512), 256, True), ((1, 200, 2, 512), 300, False))
-# B * H = 81,920 > 65,535 (grid y's limit): B * H rides on grid x (splash, untimed)
-MANY_HEADS_SHAPE = (16384, 128, 5, 64)
+# flash with every operand a transposed [B, H, L, D] tensor: (q's shape, Lk,
+# causal), untimed
+TRANSPOSED_CASES = (((2, 256, 4, 128), 384, True), ((2, 256, 4, 192), 384, True),
+                    ((2, 320, 4, 256), 256, False))
+# B * H = 81,920 and 65,540 > 65,535 (grid y's limit): B * H rides on grid x
+# (splash, untimed)
+MANY_HEADS_SHAPES = ((16384, 128, 5, 64), (13108, 32, 5, 256))
 REL_TOL = 1e-2                          # ||kernel - plain|| / ||plain||
 
 SM90 = "edl_tpu_torch/csrc/attention_sm90.cu"     # the flagship path's forward, dQ and dK/dV
@@ -94,10 +107,11 @@ KERNELS = {
 # each path's kernels, in the order the autograd function launches them
 SPLASH_WRAPPERS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv")
 FLASH_WRAPPERS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
-# (causal, non-causal) x (Hopper forward at 4 head dims + Hopper dQ at 4 +
-# Hopper dK/dV at 2 + mma.sync dK/dV at 2), the standalone delta (any D),
-# and the wide kernels: (causal, non-causal) x (forward, dK/dV, dQ)
-KERNEL_INSTANTIATIONS = 2 * (4 + 4 + 2 + 2) + 1 + 2 * 3
+# (causal, non-causal) x (Hopper forward, dQ and dK/dV at 4 head dims each;
+# dK/dV at 192 and 256 is the kernel whose consumers split dK and dV), the
+# standalone delta (any D), and the wide kernels: (causal, non-causal) x
+# (forward, dK/dV, dQ)
+KERNEL_INSTANTIATIONS = 2 * (4 + 4 + 4) + 1 + 2 * 3
 
 
 def log(phase: str, **nums) -> None:
@@ -122,17 +136,24 @@ def kernel_times(fn, reps: int) -> list[tuple[float, str, int]]:
                    and not ev.key.startswith("Optimizer.")), reverse=True)
 
 
-def device_ms(fn, reps: int = 10, warmup: int = 3) -> float:
+def device_ms(fn, reps: int = 10, warmup: int = 3) -> tuple[float, int]:
     """Mean device time of ``fn()`` in ms: the summed time of the kernels it
     launches, so the host's launch overhead between calls, which exceeds the
-    shortest kernels' run time, does not count."""
+    shortest kernels' run time, does not count.  Every call launches the
+    same kernels, so a profile in which a kernel's count is not a multiple
+    of ``reps`` lost records, and is taken again, as is one with none.
+    Returns the time and how many profiles were taken again before it."""
     for _ in range(warmup):
         fn()
-    for _ in range(3):   # a profile that recorded no kernel is taken again
-        total = sum(us for us, _, _ in kernel_times(fn, reps))
-        if total > 0:
-            return total / reps / 1e3
-    raise RuntimeError("the profiler recorded no kernel time in 3 tries")
+    for attempt in range(10):
+        rows = kernel_times(fn, reps)
+        if rows and all(count % reps == 0 for _, _, count in rows):
+            return sum(us for us, _, _ in rows) / reps / 1e3, attempt
+        print(f"device_ms: the profiler lost kernel records (counts "
+              f"{[count for _, _, count in rows]} of {reps} calls); taken again",
+              file=sys.stderr, flush=True)
+        time.sleep(0.1 * (attempt + 1))
+    raise RuntimeError("the profiler lost kernel records in 10 tries")
 
 
 def rel_err(got, want) -> float:
@@ -322,13 +343,16 @@ def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False,
     yt = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     lib_bwd = device_ms(lambda: torch.autograd.grad(yt, (qt, kt, vt), dot, retain_graph=True))
-    library = {n_fwd: lib_fwd, n_dq: lib_bwd, n_dkdv: lib_bwd, "attention_bwd_delta": None}
+    library = {n_fwd: lib_fwd, n_dq: lib_bwd, n_dkdv: lib_bwd, "attention_bwd_delta": (None, 0)}
     for name, (kernel_fn, plain_fn) in ks.items():
         bound, by = _bound(*work[name])
         a = args[name]
-        out[name].update(ms=device_ms(lambda: kernel_fn(*a)),
-                         plain_ms=device_ms(lambda: plain_fn(*a), reps=5),
-                         library_ms=library[name], bound_ms=bound, bound_by=by)
+        ms, retakes = device_ms(lambda: kernel_fn(*a))
+        plain_ms, plain_retakes = device_ms(lambda: plain_fn(*a), reps=5)
+        lib_ms, lib_retakes = library[name]
+        # profiles taken again (records lost) behind ms, plain_ms and library_ms
+        out[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                         bound_by=by, profile_retakes=retakes + plain_retakes + lib_retakes)
     return out
 
 
@@ -365,41 +389,49 @@ def check_fresh_thread() -> dict:
 
 def phase_kernels(ctx) -> None:
     import torch
+    # the largest error of each wrapper: over every shape, and over D = 256
     worst: dict[str, float] = {}
+    worst_256: dict[str, float] = {}
     log("kernels", **check_fresh_thread())
 
-    def record(res, **where):
+    def record(res, shape, log_it=True, **where):
         for name, r in res.items():
             if isinstance(r, dict):
                 worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
-        log("kernels", **where, **res)
+                if shape[3] == 256:
+                    worst_256[name] = max(worst_256.get(name, 0.0), r["max_abs_err"])
+        if log_it:
+            log("kernels", shape=list(shape), **where, **res)
 
     for i, shape in enumerate(RAGGED_SHAPES):
-        record(check_kernels(shape, seed=10 + i, timed=False), path="splash", shape=list(shape))
-    record(check_kernels(MANY_HEADS_SHAPE, seed=9, timed=False), path="splash",
-           shape=list(MANY_HEADS_SHAPE))
-    record(check_kernels((2, 256, 4, 128), seed=8, timed=False, Lk=384, causal=True, flash=True,
-                         transposed=True), path="flash", shape=[2, 256, 4, 128], Lk=384,
-           causal=True, layout="[B, H, L, D] transposed")
-    torch.cuda.empty_cache()
+        record(check_kernels(shape, seed=10 + i, timed=False), shape, path="splash")
+    for seed, shape in zip((9, 31), MANY_HEADS_SHAPES):
+        record(check_kernels(shape, seed=seed, timed=False), shape, path="splash")
+        torch.cuda.empty_cache()
+    for seed, (shape, Lk, causal) in zip((8, 41, 42), TRANSPOSED_CASES):
+        record(check_kernels(shape, seed=seed, timed=False, Lk=Lk, causal=causal, flash=True,
+                             transposed=True),
+               shape, path="flash", Lk=Lk, causal=causal, layout="[B, H, L, D] transposed")
     for i, (shape, Lk, causal) in enumerate(FLASH_CASES):
         record(check_kernels(shape, seed=20 + i, timed=False, Lk=Lk, causal=causal, flash=True),
-             path="flash", shape=list(shape), Lk=Lk, causal=causal)
+               shape, path="flash", Lk=Lk, causal=causal)
     res = check_kernels(FLAGSHIP_SHAPE, seed=1, timed=True)
     flash = check_kernels(FLAGSHIP_SHAPE, seed=2, timed=True, causal=False, flash=True)
-    for path, r, causal in (("splash", res, True), ("flash", flash, False)):
+    d256 = check_kernels(D256_SHAPE, seed=3, timed=True)
+    for path, r, causal, shape in (("splash", res, True, FLAGSHIP_SHAPE),
+                                   ("flash", flash, False, FLAGSHIP_SHAPE),
+                                   ("splash", d256, True, D256_SHAPE)):
+        record(r, shape, log_it=False)
         for name, nums in r.items():
-            if name in KERNELS:
-                worst[name] = max(worst[name], nums["max_abs_err"])
-                if "ms" in nums:
-                    log("kernels", path=path, shape=list(FLAGSHIP_SHAPE), causal=causal,
-                        kernel=name, **nums)
-        log("kernels", path=path, shape=list(FLAGSHIP_SHAPE), causal=causal,
+            if name in KERNELS and "ms" in nums:
+                log("kernels", path=path, shape=list(shape), causal=causal, kernel=name, **nums)
+        log("kernels", path=path, shape=list(shape), causal=causal,
             autograd_vs_dense_rel_err=r["autograd_vs_dense_rel_err"])
     timed = {**res, **{n: flash[n] for n in FLASH_WRAPPERS}}
     for name in KERNELS:
         timed[name]["max_abs_err"] = worst[name]
     ctx["kernels"] = timed
+    ctx["kernels_d256"] = {n: {**d256[n], "max_abs_err": worst_256[n]} for n in SPLASH_WRAPPERS}
     torch.cuda.synchronize()
 
 
@@ -407,9 +439,11 @@ def phase_kernels(ctx) -> None:
 
 PARITY_LOSS_RTOL = 2e-2    # bf16 compute rounds to ~0.4% at every layer output
 PARITY_GRAD_RTOL = 5e-2    # per-parameter gradient norms, same reason
-# (attention impl, heads, kv heads): the splash path at head dim 128, and the
-# flash path with grouped-query attention at head dim 64
-PARITY_CONFIGS = (("auto", 2, 0), ("flash", 4, 2))
+# (attention impl, width, heads, kv heads): the splash path at head dims
+# 128, 192 and 256, and the flash path with grouped-query attention at
+# head dims 64 and 256
+PARITY_CONFIGS = (("auto", 256, 2, 0), ("flash", 256, 4, 2), ("auto", 384, 2, 0),
+                  ("auto", 512, 2, 0), ("flash", 512, 2, 1))
 
 
 def phase_parity(ctx) -> None:
@@ -424,8 +458,8 @@ def phase_parity(ctx) -> None:
     from edl_tpu_torch.train.state import adamw
     from edl_tpu_torch.train.trainer import ElasticTrainer
 
-    for impl, heads, kv_heads in PARITY_CONFIGS:
-        cfg = TransformerConfig(vocab_size=1000, num_layers=2, embed_dim=256, num_heads=heads,
+    for impl, width, heads, kv_heads in PARITY_CONFIGS:
+        cfg = TransformerConfig(vocab_size=1000, num_layers=2, embed_dim=width, num_heads=heads,
                                 num_kv_heads=kv_heads, mlp_dim=512, max_len=256,
                                 dtype=torch.bfloat16, remat=False, attention_impl=impl)
         args = train_lm.parse_args(["--fused_ce", "--ce_block", "256"])
@@ -456,7 +490,8 @@ def phase_parity(ctx) -> None:
             grad_rtol=PARITY_GRAD_RTOL)
         if not (math.isfinite(loss_c) and loss_rel <= PARITY_LOSS_RTOL
                 and grad_rel <= PARITY_GRAD_RTOL):
-            raise AssertionError(f"card and CPU disagree on the 2-layer {impl} step")
+            raise AssertionError(f"card and CPU disagree on the 2-layer {impl} step at "
+                                 f"head dim {cfg.head_dim}")
         used = FLASH_WRAPPERS if impl == "flash" else SPLASH_WRAPPERS
         want = {n: cfg.num_layers if n in used else 0 for n in n_c}
         if n_c != want or max(n_h.values()) != 0:
@@ -473,11 +508,19 @@ WARMUP_STEPS, TIMED_STEPS = 2, 10
 FIRST_LOSS_RTOL = 1e-3   # splash and flash: one function, other kernels' rounding
 
 
-def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
+# the device kernels of one layer's attention (forward, dQ with delta, dK/dV),
+# by name: the Hopper kernels of attention_sm90.cu, dK/dV at D = 256 the one
+# whose consumers split dK and dV
+SM90_KERNELS = ("attn_fwd_sm90_kernel", "attn_dq_sm90_kernel", "attn_dkdv_sm90_kernel")
+SM90_KERNELS_D256 = ("attn_fwd_sm90_kernel", "attn_dq_sm90_kernel", "attn_dkdv_split_sm90_kernel")
+
+
+def _drive_flagship(phase: str, extra_args: list[str], path_wrappers, device_kernels=SM90_KERNELS):
     """The 124M LM through train_lm's trainer on a fixed batch: 2 warm-up
     and 10 timed steps; ``path_wrappers`` must launch 12 times a step each
-    and every other attention kernel none.  Returns the losses and the
-    launch counts of the timed steps."""
+    and every other attention kernel none, and the profile must show each
+    of ``device_kernels`` 12 times a step and no other attention kernel.
+    Returns the losses and the launch counts of the timed steps."""
     import numpy as np
     import torch
 
@@ -485,6 +528,7 @@ def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
     from edl_tpu_torch.models.transformer import param_count
     from edl_tpu_torch.obs.flops import analytic_lm_flops_per_token, peak_tflops
     from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
 
     args = train_lm.parse_args(FLAGSHIP_ARGS + extra_args)
     device = torch.device("cuda")
@@ -513,7 +557,8 @@ def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
     flops_tok = analytic_lm_flops_per_token(cfg.num_layers, cfg.embed_dim, cfg.mlp_dim,
                                             cfg.vocab_size, args.seq_len)
     peak = peak_tflops(torch.cuda.get_device_name(0))
-    log(phase, attention=args.attention, params=param_count(cfg), remat=cfg.remat,
+    log(phase, nvidia_smi=smi_name_and_power_limit(), attention=args.attention,
+        head_dim=cfg.head_dim, params=param_count(cfg), remat=cfg.remat,
         dtype=str(cfg.dtype), steps=TIMED_STEPS, step_ms=dt / TIMED_STEPS * 1e3,
         tokens_per_s=tok_s, tflops=tok_s * flops_tok / 1e12,
         mfu=(tok_s * flops_tok / 1e12 / peak) if peak else None,
@@ -538,20 +583,26 @@ def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
     groups: dict[str, float] = {}
     for us, key, _ in rows:
         groups[_kernel_group(key)] = groups.get(_kernel_group(key), 0.0) + us / 2 / 1e3
-    log(f"{phase}_profile", device_busy_ms_per_step=total / 2 / 1e3,
-        wall_ms_per_step=dt / TIMED_STEPS * 1e3, ms_per_step_by_group=groups)
+    log(f"{phase}_profile", nvidia_smi=smi_name_and_power_limit(),
+        device_busy_ms_per_step=total / 2 / 1e3, wall_ms_per_step=dt / TIMED_STEPS * 1e3,
+        ms_per_step_by_group=groups)
     for rank, (us, key, count) in enumerate(rows):
         if rank < 15 or "attn_" in key:
             log(f"{phase}_profile", kernel=key[:100], ms_per_step=us / 2 / 1e3,
                 share=us / total, calls_per_step=count / 2)
     # the device's own record: a forward and two backward kernels (dQ with
-    # delta, dK/dV) per layer, and no standalone delta kernel
+    # delta, dK/dV) per layer, all from attention_sm90.cu, and no standalone
+    # delta kernel
     attn_calls = {key: count / 2 for _, key, count in rows
                   if _kernel_group(key).startswith("attention")}
+    by_kernel = {k: sum(n for key, n in attn_calls.items() if f"::{k}<" in key)
+                 for k in device_kernels}
     if (sum(attn_calls.values()) != 3 * cfg.num_layers
+            or any(n != cfg.num_layers for n in by_kernel.values())
             or any("attn_bwd_delta_kernel" in key for key in attn_calls)):
         raise AssertionError(f"the profile shows attention kernels per step {attn_calls}, "
-                             f"want 3 x {cfg.num_layers} and no attn_bwd_delta_kernel")
+                             f"want {cfg.num_layers} each of {device_kernels} and no "
+                             f"attn_bwd_delta_kernel")
     A.reset_launch_counts()
     del trainer, state
     torch.cuda.empty_cache()
@@ -579,6 +630,14 @@ def phase_flash(ctx) -> None:
         raise AssertionError(f"flash path's first loss {losses[0]} != splash path's "
                              f"{splash_first} (rel {rel}, tol {FIRST_LOSS_RTOL})")
     _keep_launches(ctx, launches, FLASH_WRAPPERS)
+
+
+def phase_d256(ctx) -> None:
+    """The flagship's widths and depth at head dim 256 (``--heads 3``) on the
+    splash path: the dK/dV kernel whose consumers split dK and dV runs
+    every layer."""
+    _, launches = _drive_flagship("d256", ["--heads", "3"], SPLASH_WRAPPERS, SM90_KERNELS_D256)
+    ctx["launches_d256"] = {n: launches[n] for n in SPLASH_WRAPPERS}
 
 
 def _keep_launches(ctx, launches, path_wrappers) -> None:
@@ -709,25 +768,28 @@ def main(argv=None) -> int:
 
     ctx: dict = {}
     runners = {"build": phase_build, "kernels": phase_kernels, "parity": phase_parity,
-               "flagship": phase_flagship, "flash": phase_flash, "resume": phase_resume}
+               "flagship": phase_flagship, "flash": phase_flash, "d256": phase_d256,
+               "resume": phase_resume}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()
             runners[name](ctx)
             log(name, phase_seconds=time.perf_counter() - t0)
 
-    kern = ctx.get("kernels", {})
-    launches = ctx.get("launches", {})
-    entries = []
-    for wrapper, (kname, source, replaces) in KERNELS.items():
-        r = kern.get(wrapper, {})
-        entries.append({
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches.get(wrapper), "max_abs_err": r.get("max_abs_err"),
-            "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
-            "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
-            "library_ms": r.get("library_ms"),
-        })
+    def entry(name, source, replaces, launches, r):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+                "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
+                "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
+                "profile_retakes": r.get("profile_retakes")}
+
+    kern, launches = ctx.get("kernels", {}), ctx.get("launches", {})
+    entries = [entry(kname, source, replaces, launches.get(wrapper), kern.get(wrapper, {}))
+               for wrapper, (kname, source, replaces) in KERNELS.items()]
+    # the d256 phase's kernels: the splash path at [8, 1024, 3, 256]
+    kern, launches = ctx.get("kernels_d256", {}), ctx.get("launches_d256", {})
+    entries += [entry(f"{KERNELS[w][0]} at D=256", SM90, KERNELS[w][2], launches.get(w),
+                      kern.get(w, {})) for w in SPLASH_WRAPPERS]
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 // Shared pieces of the attention kernels (attention.cu, attention_sm90.cu,
 // attention_wide.cu): operand strides, the mma.sync / ldmatrix / cp.async
-// helpers of the kernels that run on them, and the launchers each source
-// exports to the C entry points in attention.cu.
+// helpers of the wide kernels, and the launchers each source exports to the
+// C entry points in attention.cu.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,7 +1,7 @@
-// The attention forward (D = 64, 128, 192, 256), dK/dV (D = 64, 128) and
-// dQ with delta = rowsum(dO * O) folded in (D = 64, 128, 192, 256) for
-// Hopper: TMA tile loads into an mbarrier ring, wgmma products, one
-// producer warpgroup and two consumer warpgroups.
+// The attention forward, dK/dV and dQ with delta = rowsum(dO * O) folded
+// in, at D = 64, 128, 192 and 256, for Hopper: TMA tile loads into an
+// mbarrier ring, wgmma products, one producer warpgroup and two consumer
+// warpgroups.
 //
 // Replaces, behind the C entry points of attention.cu:
 //   forward (edl_attn_fwd, edl_flash_fwd):
@@ -30,8 +30,8 @@
 //     P^T / dS^T / dS from registers and V / dO / Q / K as transposed
 //     (MN-major) B operands, so nothing is transposed in memory.
 //   - Two consumer warpgroups of 64 rows each share every tile in shared
-//     memory, so each K/V (forward, dQ) or Q/dO (dK/dV) byte staged there
-//     feeds 128 rows.
+//     memory, so each K/V (forward, dQ) or Q/dO (dK/dV up to D = 128) byte
+//     staged there feeds 128 rows.
 //   - One producer warpgroup: one thread issues the TMA loads
 //     (cp.async.bulk.tensor, 128-byte swizzle, the layout wgmma reads)
 //     into a ring of stages guarded by full/empty mbarriers, so the next
@@ -61,11 +61,14 @@
 //   - dQ compiles its masks (causal, col >= Lk) only into the tiles that
 //     need them: the key loop runs the tiles every row of the warpgroup
 //     sees, then the masked ones.  With one body and a runtime flag, as the
-//     forward and dK/dV still have, the causal dQ took as long as the
-//     non-causal one.
+//     forward and dK/dV up to D = 128 still have, the causal dQ took as
+//     long as the non-causal one.
 //   - dQ computes delta for its rows before its key loop, from O and dO in
 //     device memory, while the producer's first tiles load, and writes it
 //     for dK/dV: the backward is two launches, not three.
+//   - dK/dV at D = 192 and 256 compiles its causal mask only into the one
+//     query step that needs it, as dQ does; up to D = 128 it still masks
+//     through a runtime flag.
 // Causal: query tiles launch longest first; key tiles right of a
 // warpgroup's last row are skipped (key 0 is visible to every row, so no
 // row is ever fully masked).  dK/dV: a key tile no query sees (k0 >= Lq)
@@ -75,12 +78,16 @@
 // registers a thread) beside the 64 x kBlockN scores: kBlockN = 128 up to
 // D = 128 and 64 above it keeps them under 240 registers.  dQ holds the
 // same accumulator beside S and dP (kBlockN each), with kBlockN = 128, 64
-// and 32 at D <= 128, 192 and 256.  dK/dV holds two 64 x D accumulators
-// (D registers a thread): that fits up to D = 128; at D = 192 and 256 it
-// would be 192 and 256 of the 240, so those head dims keep the mma.sync
-// kernel of attention.cu.
+// and 32 at D <= 128, 192 and 256.  dK/dV up to D = 128 holds two 64 x D
+// accumulators per consumer (D registers a thread); at D = 192 and 256
+// that would be 192 and 256 of the 240, so there a block owns 64 keys and
+// its consumers split the outputs: one accumulates dV, the other dK, each
+// 64 x D (D/2 registers a thread), with P^T passed between them through
+// shared memory (attn_dkdv_split_sm90_kernel).
 
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 #include "wgmma.cuh"
@@ -244,6 +251,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 8][4], float (&m)[
 #pragma unroll
   for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
 }
+
+// Selects, at compile time, a tile body with or without masks.
+template <bool ON>
+struct MaskTag {
+  static constexpr bool kOn = ON;
+};
 
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -421,20 +434,114 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// dK and dV.  Grid (B * H, ceil(Lk / 128)); consumer c owns key rows k0 +
-// 64c .. + 63 and both walk the query steps (64 rows) that see the block's
-// keys, recomputing P^T from q, k and the saved logsumexp.  The producer
-// loads K and V once, then streams (Q, dO) steps through the ring; its
-// first warp also copies each step's lse (times log2 e; +inf past Lq, which
-// zeroes those rows' P^T) and delta into the stage.  Shared memory: K, V,
-// then 2 stages of (Q step, dO step, lse, delta): 133,160 bytes at D = 128.
+// dK and dV: what both kernels below share.  A block owns kBlockN keys; its
+// producer warpgroup loads K and V once, then streams (Q, dO) steps of 64
+// queries through the ring; its first warp also copies each step's lse
+// (times log2 e; +inf past Lq, which zeroes those rows' P^T) and delta into
+// the stage.  A Cfg gives the tiles and, as byte offsets from the aligned
+// base of shared memory, where stage s's Q step lies (its dO step follows
+// it: q_off), its lse2[BM] and delta[BM] (stat_off), and the barriers
+// (kBarOff): K and V loaded, then full and empty per stage, then the
+// kernel's own.
+
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  return p + (((smem_u32(p) + 1023) & ~1023u) - smem_u32(p));
+}
+
+template <int S>
+__device__ __forceinline__ uint32_t dkdv_full(uint32_t bars, int s) { return bars + 8 * (1 + s); }
+template <int S>
+__device__ __forceinline__ uint32_t dkdv_empty(uint32_t bars, int s) { return bars + 8 * (1 + S + s); }
+
+// The barriers, then n_extra more after them, each counting the arrivals of
+// one consumer warpgroup.
+template <int S>
+__device__ __forceinline__ void dkdv_init_barriers(uint32_t bars, int n_extra) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(dkdv_full<S>(bars, s), 1 + 32);  // the TMA thread's expect_tx + the first warp's stats
+      mbar_init(dkdv_empty<S>(bars, s), 2 * kWgThreads);
+    }
+    for (int j = 0; j < n_extra; ++j) mbar_init(bars + 8 * (1 + 2 * S + j), kWgThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer warpgroup: its first warp loads and copies n_steps query
+// steps from query i0 * BM on; the other warps leave at once.
+template <int D, class C>
+__device__ __forceinline__ void dkdv_produce(const CUtensorMap* tq, const CUtensorMap* tk,
+                                             const CUtensorMap* tv, const CUtensorMap* tdo,
+                                             const float* lse, const float* delta, unsigned char* base,
+                                             int bh, int b, int h, int k0, int i0, int n_steps, int Lq) {
+  constexpr int BN = C::kBlockN, BM = C::kBlockM, S = C::kStages, STEP = C::kStepBytes;
+  regs_dealloc<kProducerRegs>();
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const uint32_t sK = smem_u32(base), sV = sK + C::kKVBytes, bars = sK + C::kBarOff;
+  const float* lse_b = lse + (long long)bh * Lq;
+  const float* delta_b = delta + (long long)bh * Lq;
+  if (lane == 0 && n_steps > 0) {
+    mbar_expect_tx(bars, 2 * C::kKVBytes);
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load(sK + c * BN * kRowBytes, tk, bars, c * 64, h, k0, b);
+      tma_load(sV + c * BN * kRowBytes, tv, bars, c * 64, h, k0, b);
+    }
+  }
+  for (int it = 0; it < n_steps; ++it) {
+    const int s = it % S, q0 = (i0 + it) * BM;
+    const uint32_t full = dkdv_full<S>(bars, s), sq = sK + C::q_off(s);
+    mbar_wait(dkdv_empty<S>(bars, s), ((it / S) & 1) ^ 1);
+    if (lane == 0) {
+      mbar_expect_tx(full, 2 * STEP);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sq + c * BM * kRowBytes, tq, full, c * 64, h, q0, b);
+        tma_load(sq + STEP + c * BM * kRowBytes, tdo, full, c * 64, h, q0, b);
+      }
+    }
+    float* st = reinterpret_cast<float*>(base + C::stat_off(s));
+    for (int i = lane; i < BM; i += 32) {
+      const int qi = q0 + i;
+      st[i] = qi < Lq ? lse_b[qi] * kLog2e : INFINITY;
+      st[BM + i] = qi < Lq ? delta_b[qi] : 0.f;
+    }
+    mbar_arrive(full);
+  }
+}
+
+// This thread's rows[i] (those below Lk) of a 64 x D f32 accumulator, times
+// mul, in bf16 to out (row stride ld).
+template <int D>
+__device__ __forceinline__ void dkdv_store(const float (&acc)[D / 8][4], bf16* out, long long ld,
+                                           const int (&rows)[2], int Lk, float mul, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= Lk) continue;
+    bf16* orow = out + (long long)rows[i] * ld;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) = pack_f32(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK and dV up to D = 128.  Grid (B * H, ceil(Lk / 128)); consumer c owns
+// key rows k0 + 64c .. + 63 and both walk the query steps that see the
+// block's keys, recomputing P^T from q, k and the saved logsumexp.  Shared
+// memory: K, V, then 2 stages of (Q step, dO step, lse, delta): 133,160
+// bytes at D = 128.
 
 template <int D>
 struct DkdvCfg {
   static constexpr int kBlockN = 128, kBlockM = 64, kStages = 2;
   static constexpr int kKVBytes = kBlockN * D * 2, kStepBytes = kBlockM * D * 2;
   static constexpr int kStageBytes = 2 * kStepBytes + 2 * kBlockM * 4;  // Q, dO, lse, delta
-  static constexpr size_t kSmem = 1024 + 2 * kKVBytes + kStages * kStageBytes + 8 * (1 + 2 * kStages);
+  static constexpr int kBarOff = 2 * kKVBytes + kStages * kStageBytes;
+  static constexpr size_t kSmem = 1024 + kBarOff + 8 * (1 + 2 * kStages);
+  __host__ __device__ static constexpr int q_off(int s) { return 2 * kKVBytes + s * kStageBytes; }
+  __host__ __device__ static constexpr int stat_off(int s) { return q_off(s) + 2 * kStepBytes; }
 };
 
 template <int D, bool CAUSAL>
@@ -445,67 +552,19 @@ __global__ void __launch_bounds__(kThreads, 1)
                           bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk, Strides sdv,
                           int H, int Lq, int Lk, float scale) {
   using C = DkdvCfg<D>;
-  constexpr int BN = C::kBlockN, BM = C::kBlockM, S = C::kStages;
-  constexpr int STEP = C::kStepBytes, STAGE = C::kStageBytes;
+  constexpr int BN = C::kBlockN, BM = C::kBlockM, S = C::kStages, STEP = C::kStepBytes;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* const aligned = smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
-  const uint32_t sK = smem_u32(aligned), sV = sK + C::kKVBytes;
-  const uint32_t sStage = sV + C::kKVBytes;  // stage s: Q, dO, lse2[BM], delta[BM]
-  const uint32_t bars = sStage + S * STAGE;
-  const uint32_t kv_full = bars;
-  auto full = [&](int s) { return bars + 8 * (1 + s); };
-  auto empty = [&](int s) { return bars + 8 * (1 + S + s); };
-  auto stats = [&](int s) {  // generic pointer to stage s's lse2, then delta
-    return reinterpret_cast<float*>(aligned + 2 * C::kKVBytes + s * STAGE + 2 * STEP);
-  };
+  unsigned char* const aligned = align_1k(smem_raw);
+  const uint32_t sK = smem_u32(aligned), sV = sK + C::kKVBytes, bars = sK + C::kBarOff;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * BN;  // causal: key tile 0 walks the most steps: launched first
   const int i0 = CAUSAL ? k0 / BM : 0;  // queries before k0 never see these keys
   const int n_steps = max(0, (Lq + BM - 1) / BM - i0);
 
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full(s), 1 + 32);  // the TMA thread's expect_tx + the first warp's stats
-      mbar_init(empty(s), 2 * kWgThreads);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x < kWgThreads) {  // producer
-    regs_dealloc<kProducerRegs>();
-    if (threadIdx.x >= 32) return;
-    const int lane = threadIdx.x;
-    const float* lse_b = lse + (long long)bh * Lq;
-    const float* delta_b = delta + (long long)bh * Lq;
-    if (lane == 0 && n_steps > 0) {
-      mbar_expect_tx(kv_full, 2 * C::kKVBytes);
-      for (int c = 0; c < D / 64; ++c) {
-        tma_load(sK + c * BN * kRowBytes, &tk, kv_full, c * 64, h, k0, b);
-        tma_load(sV + c * BN * kRowBytes, &tv, kv_full, c * 64, h, k0, b);
-      }
-    }
-    for (int it = 0; it < n_steps; ++it) {
-      const int s = it % S, q0 = (i0 + it) * BM;
-      mbar_wait(empty(s), ((it / S) & 1) ^ 1);
-      const uint32_t sq = sStage + s * STAGE;
-      if (lane == 0) {
-        mbar_expect_tx(full(s), 2 * STEP);
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load(sq + c * BM * kRowBytes, &tq, full(s), c * 64, h, q0, b);
-          tma_load(sq + STEP + c * BM * kRowBytes, &tdo, full(s), c * 64, h, q0, b);
-        }
-      }
-      float* st = stats(s);
-      for (int i = lane; i < BM; i += 32) {
-        const int qi = q0 + i;
-        st[i] = qi < Lq ? lse_b[qi] * kLog2e : INFINITY;
-        st[BM + i] = qi < Lq ? delta_b[qi] : 0.f;
-      }
-      mbar_arrive(full(s));
-    }
+  dkdv_init_barriers<S>(bars, 0);
+  if (threadIdx.x < kWgThreads) {
+    dkdv_produce<D, C>(&tq, &tk, &tv, &tdo, lse, delta, aligned, bh, b, h, k0, i0, n_steps, Lq);
     return;
   }
 
@@ -522,13 +581,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
     dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
   }
-  if (n_steps > 0) mbar_wait(kv_full, 0);
+  if (n_steps > 0) mbar_wait(bars, 0);
   for (int it = 0; it < n_steps; ++it) {
     const int s = it % S, q0 = (i0 + it) * BM;
-    const uint32_t sq = sStage + s * STAGE, sdo = sq + STEP;
-    mbar_wait(full(s), (it / S) & 1);
+    const uint32_t sq = sK + C::q_off(s), sdo = sq + STEP;
+    mbar_wait(dkdv_full<S>(bars, s), (it / S) & 1);
     if (!CAUSAL || q0 + BM - 1 >= kr0) {  // else no query of the step sees these keys
-      const float* lse2 = stats(s);
+      const float* lse2 = reinterpret_cast<const float*>(aligned + C::stat_off(s));
       const float* dlt = lse2 + BM;
       // S^T = K Q^T and dP^T = V dO^T for 64 keys x 64 queries
       float st[BM / 8][4], dpt[BM / 8][4];
@@ -575,23 +634,159 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_acc(dva);
       fence_acc(dka);
     }
-    mbar_arrive(empty(s));
+    mbar_arrive(dkdv_empty<S>(bars, s));
   }
 
-  bf16* dkb = dk + b * sdk.b + h * sdk.h;
-  bf16* dvb = dv + b * sdv.b + h * sdv.h;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (kvrow[i] >= Lk) continue;
-    bf16* dkrow = dkb + (long long)kvrow[i] * sdk.l;
-    bf16* dvrow = dvb + (long long)kvrow[i] * sdv.l;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dkrow + n * 8 + 2 * t) =
-          pack_f32(dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvrow + n * 8 + 2 * t) = pack_f32(dva[n][2 * i], dva[n][2 * i + 1]);
-    }
+  dkdv_store<D>(dka, dk + b * sdk.b + h * sdk.h, sdk.l, kvrow, Lk, scale, t);
+  dkdv_store<D>(dva, dv + b * sdv.b + h * sdv.h, sdv.l, kvrow, Lk, 1.f, t);
+}
+
+// ---------------------------------------------------------------------------
+// dK and dV at D = 192 and 256.  The form above holds two 64 x D f32
+// accumulators per consumer, D registers a thread; here the consumers split
+// the output instead: a block owns 64 keys, consumer 0 accumulates their dV
+// and consumer 1 their dK, each 64 x D (D / 2 registers a thread).  Grid
+// (B * H, ceil(Lk / 64)).  Per query step of 64 rows, consumer 0 computes
+// S^T = K Q^T and P^T, hands P^T (f32) to consumer 1 through a shared
+// buffer, and runs dV += P^T dO; consumer 1 computes dP^T = V dO^T, takes
+// P^T, forms dS^T = P^T (dP^T - delta) and runs dK += dS^T Q.  So each
+// consumer issues one m64n64 score product (both operands from shared
+// memory) and one m64nD product (A from registers, B the stage's dO / Q
+// read MN-major) a step, and the tensor cores take one consumer's products
+// while the other computes P^T or dS^T.  The P^T buffer is
+// double-buffered between two mbarrier pairs, so consumer 0 can run a step
+// ahead.  Causal: the block's first step (queries k0 .. k0 + 63) is the
+// only one with a query before a key; only its body is compiled with the
+// mask.  Shared memory: K, V, 2 stages of (Q step, dO step), 2 P^T
+// buffers, 2 stages of (lse2, delta), the barriers: 231,496 bytes at
+// D = 256, 182,344 at 192.
+
+template <int D>
+struct DkdvSplitCfg {
+  static constexpr int kBlockN = 64, kBlockM = 64, kStages = 2;
+  static constexpr int kKVBytes = kBlockN * D * 2, kStepBytes = kBlockM * D * 2;
+  static constexpr int kPBytes = kBlockN * kBlockM * 4;  // one f32 P^T buffer
+  static constexpr int kStatBytes = 2 * kBlockM * 4;      // one stage's lse2 and delta
+  static constexpr int kPOff = 2 * kKVBytes + 2 * kStages * kStepBytes;  // P^T buffer j: + j kPBytes
+  static constexpr int kBarOff = kPOff + 2 * kPBytes + kStages * kStatBytes;
+  static constexpr size_t kSmem = 1024 + kBarOff + 8 * (5 + 2 * kStages);
+  __host__ __device__ static constexpr int q_off(int s) { return 2 * kKVBytes + 2 * s * kStepBytes; }
+  __host__ __device__ static constexpr int stat_off(int s) { return kPOff + 2 * kPBytes + s * kStatBytes; }
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_dkdv_split_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk, Strides sdv,
+                                int H, int Lq, int Lk, float scale) {
+  using C = DkdvSplitCfg<D>;
+  constexpr int BN = C::kBlockN, BM = C::kBlockM, S = C::kStages, STEP = C::kStepBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const aligned = align_1k(smem_raw);
+  const uint32_t sK = smem_u32(aligned), sV = sK + C::kKVBytes, bars = sK + C::kBarOff;
+  auto p_full = [&](int j) { return bars + 8 * (1 + 2 * S + j); };   // P^T of buffer j written
+  auto p_empty = [&](int j) { return bars + 8 * (3 + 2 * S + j); };  // P^T of buffer j taken
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BN;  // causal: key tile 0 walks the most steps: launched first
+  const int i0 = CAUSAL ? k0 / BM : 0;  // queries before k0 never see these keys
+  const int n_steps = max(0, (Lq + BM - 1) / BM - i0);
+
+  dkdv_init_barriers<S>(bars, 4);
+  if (threadIdx.x < kWgThreads) {
+    dkdv_produce<D, C>(&tq, &tk, &tv, &tdo, lse, delta, aligned, bh, b, h, k0, i0, n_steps, Lq);
+    return;
   }
+
+  regs_alloc<kConsumerRegs>();
+  const int cw = threadIdx.x / kWgThreads - 1, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int kr[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's keys, from k0
+  const float sl2 = scale * kLog2e;
+
+  float acc[D / 8][4];  // consumer 0: dV; consumer 1: dK (before the scale)
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // One query step.  The masked body (causal, the block's first step, whose
+  // queries q0 + ql see key k0 + kr iff kr <= ql since q0 == k0) is
+  // compiled only for that step (MaskTag<true>).
+  auto step = [&](int it, auto mask_tag) {
+    constexpr bool kMask = decltype(mask_tag)::kOn;
+    const int s = it % S, j = it & 1;
+    const uint32_t sq = sK + C::q_off(s), sdo = sq + STEP;
+    // this thread's slots of P^T buffer j: element block n at pbuf[n * kWgThreads]
+    float4* pbuf = reinterpret_cast<float4*>(aligned + C::kPOff + j * C::kPBytes) + tid;
+    mbar_wait(dkdv_full<S>(bars, s), (it / S) & 1);
+    const float* lse2 = reinterpret_cast<const float*>(aligned + C::stat_off(s));
+    const float* dlt = lse2 + BM;
+    // consumer 0: S^T = K Q^T; consumer 1: dP^T = V dO^T (64 keys x 64 queries)
+    float x[BM / 8][4];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BM>(x, kmajor(cw == 0 ? sK : sV, BN, 0, kk), kmajor(cw == 0 ? sq : sdo, BM, 0, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(x);
+    if (cw == 0) {
+      // P^T = exp2(S^T scale log2 e - lse2), handed to consumer 1 in f32
+#pragma unroll
+      for (int n = 0; n < BM / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = n * 8 + 2 * t + (e & 1);
+          float p = exp2f(x[n][e] * sl2 - lse2[ql]);
+          if constexpr (kMask) {
+            if (ql < kr[e >> 1]) p = 0.f;
+          }
+          x[n][e] = p;
+        }
+      }
+      mbar_wait(p_empty(j), ((it >> 1) & 1) ^ 1);
+#pragma unroll
+      for (int n = 0; n < BM / 8; ++n) pbuf[n * kWgThreads] = make_float4(x[n][0], x[n][1], x[n][2], x[n][3]);
+      mbar_arrive(p_full(j));
+    } else {
+      // dS^T = P^T (dP^T - delta)
+      mbar_wait(p_full(j), (it >> 1) & 1);
+#pragma unroll
+      for (int n = 0; n < BM / 8; ++n) {
+        const float4 p = pbuf[n * kWgThreads];
+        const int ql = n * 8 + 2 * t;
+        x[n][0] = p.x * (x[n][0] - dlt[ql]);
+        x[n][1] = p.y * (x[n][1] - dlt[ql + 1]);
+        x[n][2] = p.z * (x[n][2] - dlt[ql]);
+        x[n][3] = p.w * (x[n][3] - dlt[ql + 1]);
+      }
+      mbar_arrive(p_empty(j));
+    }
+    uint32_t af[BM / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) acc_to_a(af[kk], x[2 * kk], x[2 * kk + 1]);
+    // consumer 0: dV += P^T dO; consumer 1: dK += dS^T Q
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk)
+      wgmma_rs_tb<D>(acc, af[kk], mnmajor(cw == 0 ? sdo : sq, BM, kk), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(dkdv_empty<S>(bars, s));
+  };
+  if (n_steps > 0) {
+    mbar_wait(bars, 0);
+    int it = 0;
+    if constexpr (CAUSAL) step(it++, MaskTag<true>{});
+    for (; it < n_steps; ++it) step(it, MaskTag<false>{});
+  }
+
+  const Strides so = cw == 0 ? sdv : sdk;
+  const int rows[2] = {k0 + kr[0], k0 + kr[1]};
+  dkdv_store<D>(acc, (cw == 0 ? dv : dk) + b * so.b + h * so.h, so.l, rows, Lk, cw == 0 ? 1.f : scale, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -616,12 +811,6 @@ struct DqCfg {
   static constexpr int kQBytes = kBlockM * D * 2, kKVBytes = kBlockN * D * 2;
   // Q, dO, then per stage K and V, then the barriers; 1 KB of slack to align
   static constexpr size_t kSmem = 1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 8 * (3 + 2 * kStages);
-};
-
-// Selects, at compile time, a tile body with or without masks.
-template <bool ON>
-struct MaskTag {
-  static constexpr bool kOn = ON;
 };
 
 // sum of the products of eight bf16 pairs
@@ -884,20 +1073,32 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* 
   return cudaGetLastError();
 }
 
+// dK/dV up to D = 128: two consumers of 64 keys each; above it, one block
+// of 64 keys whose consumers split dV and dK.
+template <int D, bool CAUSAL>
+auto dkdv_kernel() {
+  if constexpr (D <= 128) {
+    return attn_dkdv_sm90_kernel<D, CAUSAL>;
+  } else {
+    return attn_dkdv_split_sm90_kernel<D, CAUSAL>;
+  }
+}
+
 template <int D, bool CAUSAL>
 cudaError_t run_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                      const void* delta, void* dk, void* dv, const long long* st, int B, int H, int Lq,
                      int Lk, float scale, cudaStream_t stream) {
-  using C = DkdvCfg<D>;
+  using C = std::conditional_t<(D <= 128), DkdvCfg<D>, DkdvSplitCfg<D>>;
+  const auto kernel = dkdv_kernel<D, CAUSAL>();
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = set_smem(attn_dkdv_sm90_kernel<D, CAUSAL>, C::kSmem);  // first: see run_fwd
+  cudaError_t err = set_smem(kernel, C::kSmem);  // first: see run_fwd
   if (err == cudaSuccess) err = make_map(&tq, q, strides_at(st, 0), B, Lq, H, D, C::kBlockM);
   if (err == cudaSuccess) err = make_map(&tk, k, strides_at(st, 1), B, Lk, H, D, C::kBlockN);
   if (err == cudaSuccess) err = make_map(&tv, v, strides_at(st, 2), B, Lk, H, D, C::kBlockN);
   if (err == cudaSuccess) err = make_map(&tdo, dout, strides_at(st, 3), B, Lq, H, D, C::kBlockM);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)B * H, (Lk + C::kBlockN - 1) / C::kBlockN);
-  attn_dkdv_sm90_kernel<D, CAUSAL><<<grid, kThreads, C::kSmem, stream>>>(
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
       strides_at(st, 4), strides_at(st, 5), H, Lq, Lk, scale);
   return cudaGetLastError();
@@ -954,6 +1155,8 @@ cudaError_t dkdv_sm90(int D, bool causal, const void* q, const void* k, const vo
   switch (D) {
     EDL_DKDV(64)
     EDL_DKDV(128)
+    EDL_DKDV(192)
+    EDL_DKDV(256)
   }
 #undef EDL_DKDV
   return cudaErrorInvalidValue;

@@ -66,6 +66,12 @@ def test_plain_matches_splash_interpret():
     _check_plain_against_splash_interpret(D=64)
 
 
+def test_plain_matches_splash_interpret_at_256():
+    """D = 256, a head dim whose Hopper dK/dV splits dK and dV between its
+    consumer warpgroups."""
+    _check_plain_against_splash_interpret(D=256)
+
+
 def test_plain_matches_splash_interpret_above_256():
     """D = 320, a head dim the splash kernel tiles in 128-lane repeats and
     the port's wide kernels take."""
@@ -95,10 +101,15 @@ def _check_plain_against_splash_interpret(D):
     for g, w in zip(got_grads, want_grads):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0)
 
-    # the forward's plain version alone, and its logsumexp
-    o, lse = tattn.attention_fwd_plain(torch.from_numpy(q), torch.from_numpy(k),
-                                       torch.from_numpy(v), scale)
+    # the plain versions alone: the forward, its logsumexp, and the
+    # backward's dQ (with delta), then dK/dV from that delta
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = tattn.attention_fwd_plain(tq, tk, tv, scale)
     np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    dq, delta = tattn.attention_bwd_dq_plain(tq, tk, tv, o, tdo, lse, scale)
+    dk, dv = tattn.attention_bwd_dkdv_plain(tq, tk, tv, tdo, lse, delta, scale)
+    for g, w in zip((dq, dk, dv), want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0)
     s = np.einsum("bqhd,bkhd->bhqk", q, k).astype(np.float64) * scale
     s = np.where(np.tril(np.ones((L, L), bool)), s, -np.inf)
     lse_ref = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)

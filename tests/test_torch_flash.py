@@ -47,11 +47,15 @@ def _pallas_flash_vjp(fn, args, cotangent):
 
 # (causal, Lq, Lk, D): the two causal cross-length cases pin top-left
 # alignment, and Lq < Lk shows that keys no query sees get zero gradients;
-# D = 320 is a head dim above 256 (the wide kernels' range) at Lk = 128,
-# where the Pallas kernel takes a D that is not a multiple of 128
+# D = 192 and 256 are the head dims of the Hopper dK/dV whose consumers
+# split dK and dV, D = 320 one above 256 (the wide kernels' range); D = 192
+# and 320 at Lk = 128, where the Pallas kernel takes a D that is not a
+# multiple of 128
 PALLAS_CASES = [(False, 128, 128, 64), (False, 128, 256, 128),
                 (True, 128, 256, 64), (True, 256, 128, 64),
                 (True, 128, 256, 128), (True, 256, 128, 128),
+                (True, 128, 256, 256), (False, 256, 128, 256),
+                (False, 128, 128, 192), (True, 256, 128, 192),
                 (False, 128, 128, 320), (True, 128, 128, 320)]
 
 
