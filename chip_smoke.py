@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as a check runs it
     python3 chip_smoke.py --phases build,kernels,flash
     python3 chip_smoke.py --phases build,kernels,d256
+    python3 chip_smoke.py --phases build,kernels,d384
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -11,21 +12,26 @@ failure exits non-zero:
 1. ``build``: compile the CUDA kernels from ``edl_tpu_torch/csrc`` with nvcc,
    one process per source, all at once (every instantiation: the Hopper
    forward, dQ and dK/dV at 4 head dims each, causal and not, the
-   standalone delta, and the wide kernels for D > 256), and print each
-   one's registers and spills.
+   standalone delta, the Hopper forward whose consumers split the output
+   columns at D = 320, 384, 448, 512, and the wide dK/dV, dQ and the
+   forward above 512), and print each one's registers and spills.
 2. ``kernels``: each kernel against its plain PyTorch version (f32 from the
    same bf16 inputs; dQ's two outputs, dq and delta, both) at the flagship
    shape and at ragged, cross-length (causal ``Lq < Lk``: keys that no
    query sees must get exactly zero gradients),
-   wide-head (D = 192, 256, and 320, 512 on the wide kernels),
-   many-head (B * H > 65,535, at D = 64 and 256) and transposed-layout
-   ones (D = 128, 192, 256), with device times (``torch.profiler``) of the
-   kernel, of its plain version and of one PyTorch library call as a
-   yardstick only, and the least time the card could take (the bound), at
-   the flagship shape and at the ``d256`` phase's ``[8, 1024, 3, 256]``.
+   wide-head (D = 192, 256, 320, 384, 448, 512, and 640 on the mma.sync
+   forward), many-head (B * H > 65,535, at D = 64 and 256) and
+   transposed-layout ones (D = 128, 192, 256, 384); which forward kernel
+   each head dim runs (from the profile); f32 causal cross-length
+   attention on the card (the top-left function, through dense); and
+   device times (``torch.profiler``) of the kernel, of its plain version
+   and of one PyTorch library call as a yardstick only, and the least time
+   the card could take (the bound), at the flagship shape, at the ``d256``
+   phase's ``[8, 1024, 3, 256]`` and at the ``d384`` phase's ``[8, 1024,
+   2, 384]``.
 3. ``parity``: one training step of small bf16 configs on the card (with
    the kernels) and on the CPU (plain path) from the same weights: the
-   splash path at head dims 128, 192 and 256, and the flash path with
+   splash path at head dims 128, 192, 256 and 384, and the flash path with
    grouped-query attention at head dims 64 and 256.
 4. ``flagship``: the 124M-parameter LM at batch 8 x seq 1024 with the fused
    cross-entropy, through ``edl_tpu_torch.train_lm``'s trainer: 2 warm-up
@@ -41,7 +47,12 @@ failure exits non-zero:
 6. ``d256``: the flagship's widths and depth with ``--heads 3``, so head
    dim 256 (the Gemma family's): the same checks, and the profile must
    show the dK/dV kernel whose consumers split dK and dV 12 times a step.
-7. ``resume``: save at an epoch's end, drop the trainer, restore a new one
+7. ``d384``: the same with ``--heads 2``, head dim 384, through the wide
+   kernels: the launch counters show forward, dQ, dK/dV and the standalone
+   delta 12 times a step each, and the profile the Hopper forward whose
+   consumers split the output columns, the standalone delta, the wide dQ
+   and the wide dK/dV 12 times a step each, and no other attention kernel.
+8. ``resume``: save at an epoch's end, drop the trainer, restore a new one
    with ``restore_or_create`` and check that step, epoch and the next loss
    continue the uninterrupted run.
 
@@ -56,10 +67,11 @@ import argparse
 import functools
 import json
 import math
+import re
 import sys
 import time
 
-PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "resume")
+PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "resume")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -69,9 +81,11 @@ PEAK_BYTES = 3.35e12
 
 FLAGSHIP_SHAPE = (8, 1024, 6, 128)     # [B, L, H, D]
 D256_SHAPE = (8, 1024, 3, 256)         # the d256 phase's attention
+D384_SHAPE = (8, 1024, 2, 384)         # the d384 phase's attention
 RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64),
                  (2, 256, 4, 192), (2, 256, 4, 256), (1, 77, 2, 192), (1, 77, 2, 256),
-                 (2, 256, 2, 320), (1, 200, 2, 512))
+                 (2, 256, 2, 320), (1, 77, 2, 384), (2, 300, 2, 384), (1, 100, 2, 448),
+                 (1, 200, 2, 512), (1, 77, 2, 640))
 # flash: (q's [B, Lq, H, D], Lk, causal), untimed
 FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
                ((1, 300, 2, 64), 1100, False),
@@ -80,17 +94,22 @@ FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
                ((2, 200, 4, 256), 300, True), ((2, 300, 4, 192), 200, True),
                ((2, 128, 4, 256), 512, True),
                ((2, 256, 2, 320), 384, True), ((1, 300, 2, 320), 200, False),
-               ((2, 256, 2, 512), 256, True), ((1, 200, 2, 512), 300, False))
+               ((2, 128, 2, 384), 512, True), ((2, 300, 2, 384), 200, True),
+               ((1, 300, 2, 384), 200, False), ((1, 100, 2, 448), 300, True),
+               ((2, 256, 2, 512), 256, True), ((1, 200, 2, 512), 300, False),
+               ((1, 77, 2, 640), 200, True), ((1, 200, 2, 640), 77, False))
 # flash with every operand a transposed [B, H, L, D] tensor: (q's shape, Lk,
 # causal), untimed
 TRANSPOSED_CASES = (((2, 256, 4, 128), 384, True), ((2, 256, 4, 192), 384, True),
-                    ((2, 320, 4, 256), 256, False))
+                    ((2, 320, 4, 256), 256, False), ((2, 256, 2, 384), 320, True))
 # B * H = 81,920 and 65,540 > 65,535 (grid y's limit): B * H rides on grid x
 # (splash, untimed)
 MANY_HEADS_SHAPES = ((16384, 128, 5, 64), (13108, 32, 5, 256))
 REL_TOL = 1e-2                          # ||kernel - plain|| / ||plain||
 
 SM90 = "edl_tpu_torch/csrc/attention_sm90.cu"     # the flagship path's forward, dQ and dK/dV
+SPLIT = "edl_tpu_torch/csrc/attention_wide_sm90.cu"   # the forward at D = 320..512
+WIDE = "edl_tpu_torch/csrc/attention_wide.cu"     # dQ, dK/dV above D = 256
 ENTRY = "edl_tpu_torch/csrc/attention.cu"         # the entry points and the standalone delta
 SPLASH = "edl_tpu/ops/attention.py:112 -> jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
 FLASH = "edl_tpu/ops/attention.py:81 -> jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -104,14 +123,24 @@ KERNELS = {
     "flash_bwd_dkdv": ("edl_flash_bwd_dkdv", SM90, f"{FLASH}:1121"),
     "flash_bwd_dq": ("edl_flash_bwd_dq", SM90, f"{FLASH}:1456"),
 }
+# the d384 phase's kernels: the splash path's at D = 384 (the Hopper forward
+# whose consumers split the output columns; the wide dQ, which the
+# standalone delta precedes, and dK/dV)
+KERNELS_D384 = {
+    "attention_fwd": ("edl_attn_fwd", SPLIT, KERNELS["attention_fwd"][2]),
+    "attention_bwd_delta": ("edl_attn_bwd_delta", ENTRY, KERNELS["attention_bwd_delta"][2]),
+    "attention_bwd_dq": ("edl_attn_bwd_dq", WIDE, KERNELS["attention_bwd_dq"][2]),
+    "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", WIDE, KERNELS["attention_bwd_dkdv"][2]),
+}
 # each path's kernels, in the order the autograd function launches them
 SPLASH_WRAPPERS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv")
 FLASH_WRAPPERS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
 # (causal, non-causal) x (Hopper forward, dQ and dK/dV at 4 head dims each;
 # dK/dV at 192 and 256 is the kernel whose consumers split dK and dV), the
-# standalone delta (any D), and the wide kernels: (causal, non-causal) x
-# (forward, dK/dV, dQ)
-KERNEL_INSTANTIATIONS = 2 * (4 + 4 + 4) + 1 + 2 * 3
+# standalone delta (any D), (causal, non-causal) x the Hopper forward whose
+# consumers split the output columns at 4 head dims, and the wide kernels:
+# (causal, non-causal) x (forward above 512, dK/dV, dQ)
+KERNEL_INSTANTIATIONS = 2 * (4 + 4 + 4) + 1 + 2 * 4 + 2 * 3
 
 
 def log(phase: str, **nums) -> None:
@@ -170,11 +199,11 @@ def max_abs(got, want) -> float:
 def phase_build(ctx) -> None:
     """Build, and print each kernel instantiation's registers and spill
     bytes from ``ptxas -v`` (``fwd_sm90<128,1>``: Hopper forward, D = 128,
-    causal; ``fwd_wide<1>``: the wide forward, causal).  A kernel that
+    causal; ``fwd_split_sm90<384,1>``: the Hopper forward whose consumers
+    split the output columns, D = 384, causal; ``fwd_wide<1>``: the
+    mma.sync forward above 512, causal).  A kernel that
     moves registers with setmaxnreg reports its launch-bound count (168);
     its consumer warpgroups run on 240."""
-    import re
-
     from edl_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build(extra_flags=["-Xptxas", "-v"], force=True)
@@ -387,19 +416,73 @@ def check_fresh_thread() -> dict:
     return {"fresh_thread_launches": "ok"}
 
 
+FORWARD_ROUTE_HEAD_DIMS = (128, 256, 320, 384, 448, 512, 640)
+
+
+def check_forward_routes() -> dict:
+    """The device kernel the forward entry points run at each head dim, from
+    the profile of one causal call, against ``device_kernels``' routing."""
+    import torch
+
+    from edl_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(6)
+    routes = {}
+    for d in FORWARD_ROUTE_HEAD_DIMS:
+        q = _randn((1, 128, 2, d), g)
+        A.attention_fwd(q, q, q, d ** -0.5)
+        for _ in range(5):   # a profile that lost the kernel's record is taken again
+            rows = kernel_times(lambda: A.attention_fwd(q, q, q, d ** -0.5), reps=1)
+            names = [key for _, key, _ in rows if "attn_" in key]
+            if names:
+                break
+        want = A.device_kernels(d)[0]
+        if len(names) != 1 or not re.search(rf"::{want}[<(]", names[0]):
+            raise AssertionError(f"the forward at D = {d} ran {names}, want {want}")
+        routes[d] = want
+    return {"forward_kernel_by_head_dim": routes}
+
+
+def check_f32_cross_length() -> dict:
+    """f32 causal attention with Lq != Lk on the card, which the JAX package
+    hands to its flash kernel: ``impl="auto"`` and ``"flash"`` compute its
+    top-left function (through dense; the kernels take bf16) and launch no
+    kernel."""
+    import torch
+
+    from edl_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for lq, lk in ((128, 256), (256, 128)):
+        q = torch.randn(2, lq, 2, 64, generator=g, device="cuda")
+        k, v = (torch.randn(2, lk, 2, 64, generator=g, device="cuda") for _ in range(2))
+        A.reset_launch_counts()
+        got = [A.dot_product_attention(q, k, v, causal=True, impl=impl) for impl in ("auto", "flash")]
+        o, _ = A.flash_fwd_plain(q, k, v, 64 ** -0.5, True)
+        errs = [rel_err(x, o) for x in got]
+        if max(errs) > 1e-5 or sum(A.launch_counts().values()) != 0:
+            raise AssertionError(f"f32 causal {lq}x{lk}: rel errs {errs} against the top-left "
+                                 f"function, launches {A.launch_counts()}")
+        out[f"{lq}x{lk}"] = max(errs)
+    return {"f32_causal_cross_length_rel_err": out}
+
+
 def phase_kernels(ctx) -> None:
     import torch
     # the largest error of each wrapper: over every shape, and over D = 256
+    # and D = 384
     worst: dict[str, float] = {}
-    worst_256: dict[str, float] = {}
+    worst_at = {256: {}, 384: {}}
     log("kernels", **check_fresh_thread())
+    log("kernels", **check_forward_routes())
+    log("kernels", **check_f32_cross_length())
 
     def record(res, shape, log_it=True, **where):
         for name, r in res.items():
             if isinstance(r, dict):
                 worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
-                if shape[3] == 256:
-                    worst_256[name] = max(worst_256.get(name, 0.0), r["max_abs_err"])
+                if shape[3] in worst_at:
+                    at = worst_at[shape[3]]
+                    at[name] = max(at.get(name, 0.0), r["max_abs_err"])
         if log_it:
             log("kernels", shape=list(shape), **where, **res)
 
@@ -418,9 +501,11 @@ def phase_kernels(ctx) -> None:
     res = check_kernels(FLAGSHIP_SHAPE, seed=1, timed=True)
     flash = check_kernels(FLAGSHIP_SHAPE, seed=2, timed=True, causal=False, flash=True)
     d256 = check_kernels(D256_SHAPE, seed=3, timed=True)
+    d384 = check_kernels(D384_SHAPE, seed=4, timed=True)
     for path, r, causal, shape in (("splash", res, True, FLAGSHIP_SHAPE),
                                    ("flash", flash, False, FLAGSHIP_SHAPE),
-                                   ("splash", d256, True, D256_SHAPE)):
+                                   ("splash", d256, True, D256_SHAPE),
+                                   ("splash", d384, True, D384_SHAPE)):
         record(r, shape, log_it=False)
         for name, nums in r.items():
             if name in KERNELS and "ms" in nums:
@@ -431,7 +516,8 @@ def phase_kernels(ctx) -> None:
     for name in KERNELS:
         timed[name]["max_abs_err"] = worst[name]
     ctx["kernels"] = timed
-    ctx["kernels_d256"] = {n: {**d256[n], "max_abs_err": worst_256[n]} for n in SPLASH_WRAPPERS}
+    ctx["kernels_d256"] = {n: {**d256[n], "max_abs_err": worst_at[256][n]} for n in SPLASH_WRAPPERS}
+    ctx["kernels_d384"] = {n: {**d384[n], "max_abs_err": worst_at[384][n]} for n in KERNELS_D384}
     torch.cuda.synchronize()
 
 
@@ -440,10 +526,10 @@ def phase_kernels(ctx) -> None:
 PARITY_LOSS_RTOL = 2e-2    # bf16 compute rounds to ~0.4% at every layer output
 PARITY_GRAD_RTOL = 5e-2    # per-parameter gradient norms, same reason
 # (attention impl, width, heads, kv heads): the splash path at head dims
-# 128, 192 and 256, and the flash path with grouped-query attention at
+# 128, 192, 256 and 384, and the flash path with grouped-query attention at
 # head dims 64 and 256
 PARITY_CONFIGS = (("auto", 256, 2, 0), ("flash", 256, 4, 2), ("auto", 384, 2, 0),
-                  ("auto", 512, 2, 0), ("flash", 512, 2, 1))
+                  ("auto", 512, 2, 0), ("flash", 512, 2, 1), ("auto", 768, 2, 0))
 
 
 def phase_parity(ctx) -> None:
@@ -493,6 +579,8 @@ def phase_parity(ctx) -> None:
             raise AssertionError(f"card and CPU disagree on the 2-layer {impl} step at "
                                  f"head dim {cfg.head_dim}")
         used = FLASH_WRAPPERS if impl == "flash" else SPLASH_WRAPPERS
+        if cfg.head_dim > 256:   # the wide dQ's standalone delta
+            used += ("attention_bwd_delta",)
         want = {n: cfg.num_layers if n in used else 0 for n in n_c}
         if n_c != want or max(n_h.values()) != 0:
             raise AssertionError(f"the card's {impl} step must launch its path's kernels once "
@@ -508,19 +596,13 @@ WARMUP_STEPS, TIMED_STEPS = 2, 10
 FIRST_LOSS_RTOL = 1e-3   # splash and flash: one function, other kernels' rounding
 
 
-# the device kernels of one layer's attention (forward, dQ with delta, dK/dV),
-# by name: the Hopper kernels of attention_sm90.cu, dK/dV at D = 256 the one
-# whose consumers split dK and dV
-SM90_KERNELS = ("attn_fwd_sm90_kernel", "attn_dq_sm90_kernel", "attn_dkdv_sm90_kernel")
-SM90_KERNELS_D256 = ("attn_fwd_sm90_kernel", "attn_dq_sm90_kernel", "attn_dkdv_split_sm90_kernel")
-
-
-def _drive_flagship(phase: str, extra_args: list[str], path_wrappers, device_kernels=SM90_KERNELS):
+def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
     """The 124M LM through train_lm's trainer on a fixed batch: 2 warm-up
     and 10 timed steps; ``path_wrappers`` must launch 12 times a step each
     and every other attention kernel none, and the profile must show each
-    of ``device_kernels`` 12 times a step and no other attention kernel.
-    Returns the losses and the launch counts of the timed steps."""
+    device kernel that one layer's attention launches at the run's head
+    dim (``device_kernels``) 12 times a step and no other attention
+    kernel.  Returns the losses and the launch counts of the timed steps."""
     import numpy as np
     import torch
 
@@ -590,19 +672,19 @@ def _drive_flagship(phase: str, extra_args: list[str], path_wrappers, device_ker
         if rank < 15 or "attn_" in key:
             log(f"{phase}_profile", kernel=key[:100], ms_per_step=us / 2 / 1e3,
                 share=us / total, calls_per_step=count / 2)
-    # the device's own record: a forward and two backward kernels (dQ with
-    # delta, dK/dV) per layer, all from attention_sm90.cu, and no standalone
-    # delta kernel
+    # the device's own record: per layer a forward and the backward's
+    # kernels (up to D = 256 dQ with delta, then dK/dV, all from
+    # attention_sm90.cu, and no standalone delta kernel; above it the
+    # standalone delta, the wide dQ and dK/dV), and no other attention kernel
+    device_kernels = A.device_kernels(cfg.head_dim)
     attn_calls = {key: count / 2 for _, key, count in rows
                   if _kernel_group(key).startswith("attention")}
-    by_kernel = {k: sum(n for key, n in attn_calls.items() if f"::{k}<" in key)
+    by_kernel = {k: sum(n for key, n in attn_calls.items() if re.search(rf"::{k}[<(]", key))
                  for k in device_kernels}
-    if (sum(attn_calls.values()) != 3 * cfg.num_layers
-            or any(n != cfg.num_layers for n in by_kernel.values())
-            or any("attn_bwd_delta_kernel" in key for key in attn_calls)):
+    if (sum(attn_calls.values()) != len(device_kernels) * cfg.num_layers
+            or any(n != cfg.num_layers for n in by_kernel.values())):
         raise AssertionError(f"the profile shows attention kernels per step {attn_calls}, "
-                             f"want {cfg.num_layers} each of {device_kernels} and no "
-                             f"attn_bwd_delta_kernel")
+                             f"want {cfg.num_layers} each of {device_kernels} and no other")
     A.reset_launch_counts()
     del trainer, state
     torch.cuda.empty_cache()
@@ -610,10 +692,25 @@ def _drive_flagship(phase: str, extra_args: list[str], path_wrappers, device_ker
 
 
 def phase_flagship(ctx) -> None:
-    """The 124M LM on the default (splash) path."""
+    """The 124M LM on the default (splash) path; also the splash path's
+    pre-scale of q and of dq, timed apart at the flagship's q shape."""
     losses, launches = _drive_flagship("flagship", [], SPLASH_WRAPPERS)
     ctx["first_loss"] = losses[0]
     _keep_launches(ctx, launches, SPLASH_WRAPPERS)
+    log("flagship", **prescale_cost())
+
+
+def prescale_cost() -> dict:
+    """Device ms a flagship step spends scaling q before the splash kernels
+    and dq after them (``SplashAttention``): 12 layers x 2 bf16 multiplies
+    of a [8, 1024, 6, 128] tensor."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = _randn(FLAGSHIP_SHAPE, g)
+    s_b = float(torch.tensor(FLAGSHIP_SHAPE[3] ** -0.5, dtype=torch.bfloat16))
+    ms, retakes = device_ms(lambda: x * s_b)
+    return {"prescale_ms_per_call": ms, "prescale_ms_per_step": 2 * 12 * ms,
+            "prescale_profile_retakes": retakes}
 
 
 def phase_flash(ctx) -> None:
@@ -636,8 +733,16 @@ def phase_d256(ctx) -> None:
     """The flagship's widths and depth at head dim 256 (``--heads 3``) on the
     splash path: the dK/dV kernel whose consumers split dK and dV runs
     every layer."""
-    _, launches = _drive_flagship("d256", ["--heads", "3"], SPLASH_WRAPPERS, SM90_KERNELS_D256)
+    _, launches = _drive_flagship("d256", ["--heads", "3"], SPLASH_WRAPPERS)
     ctx["launches_d256"] = {n: launches[n] for n in SPLASH_WRAPPERS}
+
+
+def phase_d384(ctx) -> None:
+    """The flagship's widths and depth at head dim 384 (``--heads 2``) on the
+    splash path: every layer runs the Hopper forward whose consumers split
+    the output columns, and the wide backward with its standalone delta."""
+    _, launches = _drive_flagship("d384", ["--heads", "2"], tuple(KERNELS_D384))
+    ctx["launches_d384"] = {n: launches[n] for n in KERNELS_D384}
 
 
 def _keep_launches(ctx, launches, path_wrappers) -> None:
@@ -769,7 +874,7 @@ def main(argv=None) -> int:
     ctx: dict = {}
     runners = {"build": phase_build, "kernels": phase_kernels, "parity": phase_parity,
                "flagship": phase_flagship, "flash": phase_flash, "d256": phase_d256,
-               "resume": phase_resume}
+               "d384": phase_d384, "resume": phase_resume}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()
@@ -790,6 +895,10 @@ def main(argv=None) -> int:
     kern, launches = ctx.get("kernels_d256", {}), ctx.get("launches_d256", {})
     entries += [entry(f"{KERNELS[w][0]} at D=256", SM90, KERNELS[w][2], launches.get(w),
                       kern.get(w, {})) for w in SPLASH_WRAPPERS]
+    # the d384 phase's kernels: the splash path at [8, 1024, 2, 384]
+    kern, launches = ctx.get("kernels_d384", {}), ctx.get("launches_d384", {})
+    entries += [entry(f"{kname} at D=384", source, replaces, launches.get(w), kern.get(w, {}))
+                for w, (kname, source, replaces) in KERNELS_D384.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,9 +23,12 @@
 //   - dK/dV, D = 192, 256  : attention_sm90.cu, the consumers of a 64-key
 //                            block splitting the outputs (one dV, one dK)
 //   - dQ with delta folded in, D = 64..256 : attention_sm90.cu
-//   - forward, dK/dV, dQ, D > 256 (any D % 64 == 0): attention_wide.cu
-//     (mma.sync); the dQ entry points run this file's delta kernel first
-//     there
+//   - forward, D = 320..512 : attention_wide_sm90.cu (TMA, wgmma,
+//                            warp-specialised, the consumers splitting
+//                            the output columns)
+//   - forward above D = 512, and dK/dV, dQ above D = 256 (any D % 64 == 0):
+//     attention_wide.cu (mma.sync); the dQ entry points run this file's
+//     delta kernel first there
 // The backward is dQ (which writes delta), then dK/dV (which reads it).
 // Blocks never talk to each other, so the backward needs no atomics and is
 // deterministic.
@@ -86,6 +89,7 @@ cudaError_t fwd(int D, bool causal, const void* q, const void* k, const void* v,
                 const long long* st, int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
   if (!head_dim_ok(D)) return cudaErrorInvalidValue;
   if (D <= 256) return fwd_sm90(D, causal, q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream);
+  if (D <= 512) return fwd_split_sm90(D, causal, q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream);
   return fwd_wide(D, causal, q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream);
 }
 

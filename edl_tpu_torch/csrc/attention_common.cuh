@@ -1,5 +1,5 @@
 // Shared pieces of the attention kernels (attention.cu, attention_sm90.cu,
-// attention_wide.cu): operand strides, the mma.sync / ldmatrix / cp.async
+// attention_wide_sm90.cu, attention_wide.cu): operand strides, the mma.sync / ldmatrix / cp.async
 // helpers of the wide kernels, and the launchers each source exports to the
 // C entry points in attention.cu.
 #pragma once
@@ -127,7 +127,13 @@ cudaError_t dkdv_sm90(int D, bool causal, const void* q, const void* k, const vo
 cudaError_t dq_sm90(int D, bool causal, const void* q, const void* k, const void* v, const void* o,
                     const void* dout, const void* lse, void* delta, void* dq, const long long* st,
                     int B, int H, int Lq, int Lk, float scale, cudaStream_t stream);
-// attention_wide.cu: any D % 64 == 0 above 256, D a runtime argument.
+// attention_wide_sm90.cu: the forward at D = 320, 384, 448, 512, TMA +
+// wgmma, warp-specialised, its consumers splitting the output columns.
+cudaError_t fwd_split_sm90(int D, bool causal, const void* q, const void* k, const void* v, void* o,
+                           void* lse, const long long* st, int B, int H, int Lq, int Lk, float scale,
+                           cudaStream_t stream);
+// attention_wide.cu: any D % 64 == 0 above 256, D a runtime argument (the
+// forward runs only above 512).
 cudaError_t fwd_wide(int D, bool causal, const void* q, const void* k, const void* v, void* o,
                      void* lse, const long long* st, int B, int H, int Lq, int Lk, float scale,
                      cudaStream_t stream);

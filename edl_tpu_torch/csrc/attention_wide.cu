@@ -1,6 +1,8 @@
-// Attention at head dims above 256: forward, dK/dV and dQ for any
-// D % 64 == 0, with D a runtime argument, so every head dim the JAX
-// package's gates take has a kernel.
+// Attention at head dims above 256: dK/dV and dQ for any D % 64 == 0, and
+// the forward above D = 512 (attention_wide_sm90.cu runs it from 320 to
+// 512: above 512 its resident Q no longer fits beside two K/V stages), with
+// D a runtime argument, so every head dim the JAX package's gates take has
+// a kernel.
 //
 // Replaces the same Pallas TPU kernels as attention.cu and
 // attention_sm90.cu (splash_attention_kernel.py:1137, :1635, :2196 and
@@ -114,7 +116,7 @@ __device__ __forceinline__ void store_rows(bf16* base, long long sl, const int (
 }
 
 // ---------------------------------------------------------------------------
-// Forward.  Grid (B * H, ceil(Lq / 64), ceil(D / 128)).
+// Forward, above D = 512.  Grid (B * H, ceil(Lq / 64), ceil(D / 128)).
 template <bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -26,7 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 # library name -> its sources under csrc/ (each includes headers from csrc/)
-LIBRARIES = {"attn": ["attention.cu", "attention_sm90.cu", "attention_wide.cu"]}
+LIBRARIES = {"attn": ["attention.cu", "attention_sm90.cu", "attention_wide_sm90.cu",
+                      "attention_wide.cu"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -8,11 +8,16 @@
 - ``splash``: causal self-attention through the hand-written CUDA kernels
   behind ``edl_tpu_torch/csrc/attention.cu``'s entry points (forward, and a
   backward of two kernels: dQ, which also computes ``delta = rowsum(dO *
-  O)``, then dK/dV), the counterpart of the JAX package's splash path;
+  O)``, then dK/dV), the counterpart of the JAX package's splash path: q
+  is scaled in its own dtype before the kernels, as the JAX package's
+  ``_splash`` scales it (:func:`splash_fwd`);
 - ``flash``: attention with ``Lq`` and ``Lk`` free, causal or not, through
   the same kernels' ``edl_flash_*`` entry points, the counterpart of the
   JAX package's Pallas flash kernel; its causal mask is aligned top-left
   (key j is visible to query i iff j <= i), as that kernel's is;
+- ``splash`` and ``flash`` on CUDA tensors the kernels do not take (not
+  bf16) compute the same function through ``dense_attention`` with the
+  top-left mask given explicitly (:func:`dense_topleft_attention`);
 - ``ring``: not ported yet (``NotImplementedError``);
 - ``auto``: the choice the JAX package makes on its accelerator
   (:func:`choose_impl`), for CUDA tensors; CPU tensors take dense.
@@ -36,8 +41,23 @@ logger = logging.getLogger(__name__)
 
 def kernel_takes_head_dim(d: int) -> bool:
     """Head dims the kernels take: every multiple of 64, as the JAX gates
-    (64 to 256 run specialised kernels, larger ones the wide kernels)."""
+    (see :func:`device_kernels` for which kernel runs which)."""
     return d >= 64 and d % 64 == 0
+
+
+def device_kernels(d: int) -> tuple[str, ...]:
+    """The device kernels one layer's attention launches at head dim ``d``
+    (forward, dQ, dK/dV), by name, as the C entry points route them
+    (``csrc/attention.cu``: ``fwd``, ``dq``, ``dkdv``): up to 256 the
+    Hopper kernels of ``attention_sm90.cu`` (dK/dV above 128 the one whose
+    consumers split dK and dV); above it the standalone delta before the
+    wide dQ and dK/dV of ``attention_wide.cu``, with the forward of
+    ``attention_wide_sm90.cu`` up to 512 and the ``mma.sync`` one above."""
+    if d <= 256:
+        return ("attn_fwd_sm90_kernel", "attn_dq_sm90_kernel",
+                "attn_dkdv_sm90_kernel" if d <= 128 else "attn_dkdv_split_sm90_kernel")
+    fwd = "attn_fwd_split_sm90_kernel" if d <= 512 else "attn_fwd_wide_kernel"
+    return (fwd, "attn_bwd_delta_kernel", "attn_bwd_dq_wide_kernel", "attn_bwd_dkdv_wide_kernel")
 
 
 # -- the plain versions --------------------------------------------------------
@@ -74,13 +94,27 @@ def dense_attention(q, k, v, *, causal: bool = False,
     return out.reshape(B, Lq, H, D)
 
 
+def _topleft(lq: int, lk: int, device) -> torch.Tensor:
+    """The [Lq, Lk] top-left causal visibility: key j is seen by query i
+    iff j <= i."""
+    return torch.ones(lq, lk, dtype=torch.bool, device=device).tril()
+
+
+def dense_topleft_attention(q, k, v, *, causal: bool, sm_scale: float | None = None):
+    """The kernels' function through :func:`dense_attention`, causal masked
+    top-left as the Pallas flash kernel masks it (for ``Lq == Lk`` the same
+    as dense's bottom-right), or not masked: what ``impl="flash"`` and
+    ``"splash"`` compute for CUDA tensors the kernels do not take."""
+    keep = _topleft(q.shape[1], k.shape[1], q.device) if causal else None
+    return dense_attention(q, k, v, sm_scale=sm_scale, mask=keep)
+
+
 def _scores(q, k, scale, causal):
     """f32 scaled scores [B, H, Lq, Lk]; causal masks top-left (j > i)."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if not causal:
         return s
-    keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool, device=q.device).tril()
-    return s.masked_fill(~keep, float("-inf"))
+    return s.masked_fill(~_topleft(q.shape[1], k.shape[1], q.device), float("-inf"))
 
 
 def flash_fwd_plain(q, k, v, scale: float, causal: bool):
@@ -396,23 +430,38 @@ def launch_counts() -> dict[str, int]:
     return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
 
 
+def splash_fwd(q, k, v, scale: float):
+    """The splash path's forward: ``(o, lse, q_s, s_b)``.  As the JAX
+    package's ``_splash`` (``(qt * scale).astype(q.dtype)``), q is scaled in
+    its own dtype first, by ``s_b``, the scale rounded to that dtype, and
+    the kernels run on ``q_s`` with scale 1; ``lse`` is the logsumexp of
+    ``q_s k^T``, as the splash kernel's residual."""
+    # a JAX multiply by a Python float rounds it to the array's dtype (a
+    # weakly typed scalar); q * s_b then rounds the product to that dtype
+    s_b = float(torch.tensor(scale, dtype=q.dtype))
+    q_s = q * s_b
+    o, lse = attention_fwd(q_s, k, v, 1.0)
+    return o, lse, q_s, s_b
+
+
 class SplashAttention(torch.autograd.Function):
     """Causal self-attention whose forward and backward are the kernels
-    (their plain versions for CPU tensors)."""
+    (their plain versions for CPU tensors), on q pre-scaled in its dtype
+    (:func:`splash_fwd`); dq is the pre-scaled q's gradient times ``s_b``
+    in q's dtype, the VJP of the JAX package's multiply."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
-        o, lse = attention_fwd(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
+        o, lse, q_s, ctx.s_b = splash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q_s, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, delta = attention_bwd_dq(q, k, v, o, do, lse, ctx.scale)
-        dk, dv = attention_bwd_dkdv(q, k, v, do, lse, delta, ctx.scale)
-        return dq, dk, dv, None
+        q_s, k, v, o, lse = ctx.saved_tensors
+        dq_s, delta = attention_bwd_dq(q_s, k, v, o, do, lse, 1.0)
+        dk, dv = attention_bwd_dkdv(q_s, k, v, do, lse, delta, 1.0)
+        return dq_s * ctx.s_b, dk, dv, None
 
 
 class FlashAttention(torch.autograd.Function):
@@ -463,24 +512,20 @@ def choose_impl(lq: int, lk: int, d: int, dtype: torch.dtype, causal: bool,
     its accelerator, where the choice matters: for causal ``Lq != Lk`` its
     flash kernel masks top-left and its dense path bottom-right.  So:
     causal self-attention the splash kernels take runs splash; otherwise
-    a mask-free call that passes the JAX flash gate runs flash in bf16,
-    and dense in f32 only where dense computes the same function
-    (non-causal, or ``Lq == Lk``; causal ``Lq != Lk`` in another dtype
-    raises ``TypeError``); every other call runs dense.  The kernels take
-    every head dim the JAX gates take (``D % 64 == 0``).  Other devices
-    take dense, as the JAX package does off its accelerator."""
+    a mask-free call that passes the JAX flash gate runs flash, in bf16
+    on the kernels; in another dtype dense where dense computes the same
+    function (non-causal, or ``Lq == Lk``), and causal ``Lq != Lk`` flash,
+    which on tensors the kernels do not take is dense with the top-left
+    mask (:func:`dense_topleft_attention`); every other call runs dense.
+    The kernels take every head dim the JAX gates take (``D % 64 == 0``).
+    Other devices take dense, as the JAX package does off its
+    accelerator."""
     if device_type != "cuda" or has_mask:
         return "dense"
     if _splash_takes(lq, lk, d, dtype, causal):
         return "splash"
-    if _jax_flash_ok(lq, lk, d):
-        if dtype == torch.bfloat16:
-            return "flash"
-        if causal and lq != lk:
-            raise TypeError(
-                f"causal attention with Lq={lq} != Lk={lk} needs the bf16 flash "
-                f"kernel (top-left mask, as the JAX package's); got {dtype}, for "
-                f"which dense would mask bottom-right")
+    if _jax_flash_ok(lq, lk, d) and (dtype == torch.bfloat16 or (causal and lq != lk)):
+        return "flash"
     return "dense"
 
 
@@ -492,7 +537,7 @@ def _warn_downgrade(q, k, why: str) -> None:
     if key in _warned_shapes:
         return
     _warned_shapes.add(key)
-    logger.warning("attention auto: L=%d/%d D=%d %s: %s; using dense",
+    logger.warning("attention: L=%d/%d D=%d %s: %s; using dense",
                    q.shape[1], k.shape[1], q.shape[3], q.dtype, why)
 
 
@@ -523,6 +568,9 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
         if q.shape[1] != k.shape[1]:
             raise ValueError(f"impl='splash' needs self-attention; got "
                              f"Lq={q.shape[1]}, Lk={k.shape[1]}")
+    if q.device.type == "cuda" and any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        _warn_downgrade(q, k, "the kernels take bf16 (the top-left mask given explicitly)")
+        return dense_topleft_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     if k.shape[2] != q.shape[2]:
         # grouped-query attention: the kernels take MHA shapes, so the
         # K/V groups are expanded here, as the JAX dispatch does

@@ -9,6 +9,7 @@ source, call every entry point through the wrapper code on CPU tensors,
 and convert each argument as ctypes would."""
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -135,3 +136,66 @@ def test_parser_reads_kinds_and_refuses_unknown_types():
     assert _build.entry_points(src) == {"f": ["P", "I", "F", "P"]}
     with pytest.raises(ValueError, match="no ctypes kind"):
         _build.entry_points('extern "C" {\nint g(double x) {\n}\n}')
+
+
+# -- routing by head dim ---------------------------------------------------------
+
+def _router(fn):
+    """A C router of ``attention.cu`` (``fwd``, ``dq``, ``dkdv``): its
+    ``(bound, launcher)`` branches in order (``if (D <= bound) ... return
+    launcher(``), the launcher past the last, and its body."""
+    src = (_build.CSRC / "attention.cu").read_text()
+    body = src[src.index(f"cudaError_t {fn}(int D"):]
+    body = body[:body.index("\n}\n")]
+    branches = [(int(b), name) for b, name in
+                re.findall(r"if \(D <= (\d+)\)\s*\{?[^}]*?return (\w+)\(", body)]
+    return branches, re.findall(r"return (\w+)\(", body)[-1], body
+
+
+def _routed(fn, d):
+    branches, rest, _ = _router(fn)
+    return next((name for bound, name in branches if d <= bound), rest)
+
+
+# the device kernel each launcher of the routers runs at head dim d
+LAUNCHED = {
+    "fwd_sm90": lambda d: "attn_fwd_sm90_kernel",
+    "fwd_split_sm90": lambda d: "attn_fwd_split_sm90_kernel",
+    "fwd_wide": lambda d: "attn_fwd_wide_kernel",
+    "dq_sm90": lambda d: "attn_dq_sm90_kernel",
+    "dq_wide": lambda d: "attn_bwd_dq_wide_kernel",
+    "dkdv_sm90": lambda d: "attn_dkdv_sm90_kernel" if d <= 128 else "attn_dkdv_split_sm90_kernel",
+    "dkdv_wide": lambda d: "attn_bwd_dkdv_wide_kernel",
+}
+
+
+def test_routers_branch_at_256_and_512():
+    """The forward runs attention_sm90.cu up to D = 256, the Hopper kernel
+    whose consumers split the output columns up to 512 and the mma.sync
+    one above; dQ (the standalone delta first above 256) and dK/dV change
+    kernels at 256; each launcher instantiates the head dims its branch
+    passes it."""
+    assert _router("fwd")[:2] == ([(256, "fwd_sm90"), (512, "fwd_split_sm90")], "fwd_wide")
+    assert _router("dkdv")[:2] == ([(256, "dkdv_sm90")], "dkdv_wide")
+    branches, rest, body = _router("dq")
+    assert (branches, rest) == ([(256, "dq_sm90")], "dq_wide")
+    assert body.index("delta(D, o, dout") < body.rindex("return dq_wide(")
+
+    def cases(source, macro):
+        text = (_build.CSRC / source).read_text()
+        return {int(d) for d in re.findall(rf"^\s*{macro}\((\d+)\)\s*$", text, re.M)}
+
+    assert cases("attention_sm90.cu", "EDL_FWD") == {64, 128, 192, 256}
+    assert cases("attention_wide_sm90.cu", "EDL_FWD_SPLIT") == {320, 384, 448, 512}
+    assert "if constexpr (D <= 128)" in (_build.CSRC / "attention_sm90.cu").read_text()
+
+
+@pytest.mark.parametrize("d", range(64, 1025, 64))
+def test_device_kernels_follow_the_routers(d):
+    """``device_kernels(d)``, which the card's profile checks read, names
+    the kernels the C routers launch at head dim d, in launch order."""
+    fwd = LAUNCHED[_routed("fwd", d)](d)
+    dq = LAUNCHED[_routed("dq", d)](d)
+    dkdv = LAUNCHED[_routed("dkdv", d)](d)
+    delta = ("attn_bwd_delta_kernel",) if d > 256 else ()
+    assert tattn.device_kernels(d) == (fwd, *delta, dq, dkdv)

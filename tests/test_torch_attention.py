@@ -47,9 +47,10 @@ def test_dense_matches_jax(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
-def _splash_interpret(L, H, blk):
+def _splash_interpret(L, H, blk, save_residuals=False):
     """The splash kernel exactly as edl_tpu/ops/attention.py:_splash_kernel
-    builds it, but in Pallas interpret mode."""
+    builds it, but in Pallas interpret mode (``save_residuals``: also
+    returning its f32 logsumexp)."""
     from jax.experimental.pallas.ops.tpu.splash_attention import (
         splash_attention_kernel as sk, splash_attention_mask as sm,
     )
@@ -59,7 +60,7 @@ def _splash_interpret(L, H, blk):
         block_q_dkv=blk, block_kv_dkv=blk, block_kv_dkv_compute=blk,
         block_q_dq=blk, block_kv_dq=blk)
     return sk.make_splash_mha(mask=mask, head_shards=1, q_seq_shards=1,
-                              block_sizes=sizes, interpret=True)
+                              block_sizes=sizes, interpret=True, save_residuals=save_residuals)
 
 
 def test_plain_matches_splash_interpret():
@@ -76,6 +77,12 @@ def test_plain_matches_splash_interpret_above_256():
     """D = 320, a head dim the splash kernel tiles in 128-lane repeats and
     the port's wide kernels take."""
     _check_plain_against_splash_interpret(D=320)
+
+
+def test_plain_matches_splash_interpret_at_384():
+    """D = 384, the d384 workload's head dim, whose forward is the Hopper
+    kernel with the output columns split across its consumers."""
+    _check_plain_against_splash_interpret(D=384)
 
 
 def _check_plain_against_splash_interpret(D):
@@ -114,6 +121,53 @@ def _check_plain_against_splash_interpret(D):
     s = np.where(np.tril(np.ones((L, L), bool)), s, -np.inf)
     lse_ref = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
     np.testing.assert_allclose(lse.numpy(), lse_ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("D", [128, 192])
+def test_bf16_splash_scales_q_as_jax(D):
+    """bf16 splash against the splash kernel in interpret mode, q pre-scaled
+    as ``_splash`` scales it: in bf16, by the scale rounded to bf16 (at D =
+    128, 0.08837891 for 0.08838835).  The f32 logsumexp (the kernel's
+    ``save_residuals`` output) within 1e-5: both sum the same exact bf16
+    products in f32; scaling the f32 scores instead of q misses by more
+    than 1e-4.
+    The bf16 output within 2^-7 and the gradients within 2^-6, absolute
+    and relative: a bf16 ulp or two, from rounding P and the products in
+    another order; dq is the pre-scaled q's gradient times the bf16 scale,
+    rounded to bf16, as the VJP of the JAX multiply."""
+    B, L, H, blk = 1, 256, 2, 128
+    scale = D ** -0.5
+    q, k, v = _qkv((B, L, H, D), (B, L, H, D), seed=21)
+    do = np.random.default_rng(22).normal(size=(B, L, H, D)).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    with_lse = _splash_interpret(L, H, blk, save_residuals=True)
+    kernel = _splash_interpret(L, H, blk)
+
+    def prescaled(q):   # as _splash: [B, L, H, D] -> [B, H, L, D], then q * scale
+        return (q.swapaxes(1, 2) * scale).astype(q.dtype)
+
+    _, (want_lse,) = jax.jit(lambda q, k, v: jax.vmap(with_lse)(
+        prescaled(q), k.swapaxes(1, 2), v.swapaxes(1, 2)))(jq, jk, jv)
+    want, vjp = jax.vjp(lambda q, k, v: jax.vmap(kernel)(
+        prescaled(q), k.swapaxes(1, 2), v.swapaxes(1, 2)).swapaxes(1, 2), jq, jk, jv)
+    want_grads = vjp(jdo)
+
+    def f32(x):
+        return np.asarray(jnp.asarray(x, jnp.float32))
+
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
+    _, lse, q_s, s_b = tattn.splash_fwd(tq, tk, tv, scale)
+    assert s_b == float(jnp.asarray(scale, jnp.bfloat16)) and q_s.dtype == torch.bfloat16
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5, rtol=0)
+    _, lse_scores_scaled = tattn.attention_fwd_plain(tq, tk, tv, scale)
+    assert np.abs(lse_scores_scaled.numpy() - np.asarray(want_lse)).max() > 1e-4
+    aq, ak, av = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    got = tattn.SplashAttention.apply(aq, ak, av, scale)
+    got_grads = torch.autograd.grad(got, (aq, ak, av), tdo)
+    np.testing.assert_allclose(got.detach().float().numpy(), f32(want), atol=2**-7, rtol=2**-7)
+    for g, w in zip(got_grads, want_grads):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), f32(w), atol=2**-6, rtol=2**-6)
 
 
 @pytest.mark.parametrize("shape", [(2, 37, 3, 64), (1, 70, 2, 128)])
@@ -190,7 +244,9 @@ def test_kernel_gate():
 def test_backward_runs_dq_then_dkdv_with_dqs_delta(path, monkeypatch):
     """The autograd backward launches two kernels: dQ, which computes
     delta, then dK/dV, which receives that same delta; the standalone delta
-    kernel is not called.  Recorded through the wrappers, on CPU tensors."""
+    kernel is not called.  Recorded through the wrappers, on CPU tensors.
+    The splash path's kernels ran on the pre-scaled q with scale 1, and its
+    dq is theirs times the scale (0.125, exact in f32)."""
     calls = []
     names = (("attention_bwd_dq", "attention_bwd_dkdv") if path == "splash"
              else ("flash_bwd_dq", "flash_bwd_dkdv"))
@@ -215,7 +271,13 @@ def test_backward_runs_dq_then_dkdv_with_dqs_delta(path, monkeypatch):
         y = tattn.FlashAttention.apply(q, k, v, 0.125, True)
     grads = torch.autograd.grad(y, (q, k, v), do)
     assert [c[0] for c in calls] == list(names)
-    (_, _, (dq, delta)), (_, dkdv_args, (dk, dv)) = calls
+    (_, dq_args, (dq, delta)), (_, dkdv_args, (dk, dv)) = calls
     assert dkdv_args[5] is delta
-    for got, want in zip(grads, (dq, dk, dv)):
+    for got, want in zip(grads[1:], (dk, dv)):
         assert got is want
+    if path == "flash":
+        assert grads[0] is dq
+    else:
+        assert dq_args[-1] == 1.0 and dkdv_args[-1] == 1.0
+        torch.testing.assert_close(dq_args[0], q.detach() * 0.125, atol=0, rtol=0)
+        torch.testing.assert_close(grads[0], dq * 0.125, atol=0, rtol=0)

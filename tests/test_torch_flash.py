@@ -213,34 +213,63 @@ def _jax_tpu_route(lq, lk, d, causal, has_mask):
 def test_auto_route_on_cuda_computes_what_jax_computes(d):
     """Over causal/non-causal, Lq/Lk in {100, 128, 256}, bf16/f32 and
     mask/no mask: the route the port picks for CUDA tensors computes the
-    function the JAX package's TPU route computes.  One refusal is
-    expected, and nothing else: causal ``Lq != Lk`` in f32, where only the
-    bf16 flash kernel gives the top-left function (``TypeError``).  Every
-    head dim the JAX gates take has a kernel, above 256 too (D = 320, 384,
-    512 route to splash or flash as the JAX package does).  (At D % 128 !=
-    0 with Lk > 128 the Pallas flash kernel itself refuses the head dim;
-    the port computes the function its gate routes there.)  A bf16 call
-    that the JAX package hands to a kernel goes to a kernel in the port
-    too, never to dense."""
+    function the JAX package's TPU route computes.  Causal ``Lq != Lk`` in
+    f32, which the JAX package hands to its flash kernel, routes to flash,
+    whose function on tensors the kernels do not take is dense with the
+    top-left mask (``dense_topleft_attention``, held against the Pallas
+    kernel by ``test_f32_causal_cross_length_route_matches_pallas_flash``).
+    Every head dim the JAX gates take has a kernel, above 256 too (D = 320,
+    384, 512 route to splash or flash as the JAX package does).  (At D %
+    128 != 0 with Lk > 128 the Pallas flash kernel itself refuses the head
+    dim; the port computes the function its gate routes there.)  A bf16
+    call that the JAX package hands to a kernel goes to a kernel in the
+    port too, never to dense."""
     for causal, lq, lk, dtype, has_mask in itertools.product(
             (False, True), (100, 128, 256), (100, 128, 256),
             (torch.bfloat16, torch.float32), (False, True)):
         case = (causal, lq, lk, d, dtype, has_mask)
         theirs = _jax_tpu_route(lq, lk, d, causal, has_mask)
         assert tattn.choose_impl(lq, lk, d, dtype, causal, has_mask, "cpu") == "dense"
-        try:
-            ours = tattn.choose_impl(lq, lk, d, dtype, causal, has_mask, "cuda")
-        except TypeError as e:
-            assert "bf16" in str(e), case
-            assert (theirs, causal, dtype) == ("flash", True, torch.float32) and lq != lk, case
-            continue
+        ours = tattn.choose_impl(lq, lk, d, dtype, causal, has_mask, "cuda")
         assert ours in ("splash", "flash", "dense"), case
         if ours != "dense":
-            assert dtype == torch.bfloat16 and not has_mask and tattn.kernel_takes_head_dim(d), case
+            assert not has_mask and tattn.kernel_takes_head_dim(d), case
+        if ours != "dense" and dtype != torch.bfloat16:
+            # the one kernel route off bf16: f32 causal Lq != Lk, the top-left
+            # function, which dense alone would mask bottom-right
+            assert (ours, theirs, causal, dtype) == ("flash", "flash", True, torch.float32), case
+            assert lq != lk, case
+            assert not np.array_equal(_visible(ours, causal, lq, lk),
+                                      _visible("dense", causal, lq, lk)), case
         np.testing.assert_array_equal(_visible(ours, causal, lq, lk),
                                       _visible(theirs, causal, lq, lk), err_msg=str(case))
         if theirs != "dense" and dtype == torch.bfloat16:
             assert ours != "dense", case
+
+
+@pytest.mark.parametrize("lq,lk", [(128, 256), (256, 128)])
+def test_f32_causal_cross_length_route_matches_pallas_flash(lq, lk):
+    """f32 causal ``Lq != Lk``: the function ``dot_product_attention`` runs
+    for CUDA tensors the kernels do not take (``dense_topleft_attention``)
+    is the Pallas flash kernel's, top-left masked, held against that kernel
+    in interpret mode: the output within 1e-5 (f32 throughout; one
+    softmax, summed in another order) and the gradients within ATOL; and
+    it is not dense's bottom-right function."""
+    B, H, D = 1, 2, 64
+    scale = D ** -0.5
+    q, k, v, do = _arrays([(B, lq, H, D), (B, lk, H, D), (B, lk, H, D), (B, lq, H, D)],
+                          seed=lq + 2 * lk)
+    want, wgrads = _pallas_flash_vjp(
+        lambda q, k, v: jattn._flash(q, k, v, True, scale), (q, k, v), do)
+    assert tattn.choose_impl(lq, lk, D, torch.float32, True, False, "cuda") == "flash"
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = tattn.dense_topleft_attention(tq, tk, tv, causal=True, sm_scale=scale)
+    grads = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(do))
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5, rtol=0)
+    for g, w in zip(grads, wgrads):
+        np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=0)
+    bottom_right = tattn.dense_attention(tq, tk, tv, causal=True, sm_scale=scale)
+    assert not torch.allclose(bottom_right, got, atol=0.1)
 
 
 def test_operands_take_any_batch_times_heads():
