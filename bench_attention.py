@@ -16,11 +16,13 @@ it as ``--parent``.
 At the flagship shape ``[8, 1024, 6, 128]`` bf16, and at ``[8, 1024, 6,
 64]``, ``[8, 1024, 4, 192]``, ``[8, 1024, 4, 256]``, the ``d256`` phase's
 ``[8, 1024, 3, 256]`` of ``chip_smoke.py``, ``[8, 1024, 2, 320]``, the
-``d384`` phase's ``[8, 1024, 2, 384]``, ``[4, 1024, 2, 512]`` and ``[4,
-1024, 2, 640]`` (the last four run the kernels for head dims above 256:
-up to 512 the Hopper forward whose consumers split the output columns,
-above it the mma.sync one; the wide dQ with the standalone delta before
-it, the wide dK/dV), the script times the
+``d384`` phase's ``[8, 1024, 2, 384]``, ``[4, 1024, 2, 512]``, ``[4,
+1024, 2, 640]``, the ``d768`` phase's ``[8, 1024, 1, 768]`` and ``[4, 1024,
+2, 1024]`` (the last six run the kernels for head dims above 256: the
+Hopper forward whose consumers split the output columns, above 512 on
+chunks of the columns, with a run-time plan above 768; the wide dQ with
+the standalone delta before it; the Hopper dK/dV whose blocks split the
+output columns up to 512, the wide one above), the script times the
 earlier and the current forward, dQ (with delta) and dK/dV, causal (the
 splash entry points) and non-causal (the flash ones), in turns: earlier,
 current, current, earlier.  It checks both against the plain PyTorch
@@ -48,7 +50,8 @@ import chip_smoke as cs
 
 FLAGSHIP = (8, 1024, 6, 128)
 EXTRA = ((8, 1024, 6, 64), (8, 1024, 4, 192), (8, 1024, 4, 256), cs.D256_SHAPE,
-         (8, 1024, 2, 320), cs.D384_SHAPE, (4, 1024, 2, 512), (4, 1024, 2, 640))
+         (8, 1024, 2, 320), cs.D384_SHAPE, (4, 1024, 2, 512), (4, 1024, 2, 640),
+         cs.D768_SHAPE, (4, 1024, 2, 1024))
 REPS = 20
 KINDS = ("fwd", "dq", "dkdv")
 WORK = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkdv": "flash_bwd_dkdv"}  # cs._attention_work

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels,flash
     python3 chip_smoke.py --phases build,kernels,d256
     python3 chip_smoke.py --phases build,kernels,d384
+    python3 chip_smoke.py --phases build,kernels,d768
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -13,26 +14,28 @@ failure exits non-zero:
    one process per source, all at once (every instantiation: the Hopper
    forward, dQ and dK/dV at 4 head dims each, causal and not, the
    standalone delta, the Hopper forward whose consumers split the output
-   columns at D = 320, 384, 448, 512, and the wide dK/dV, dQ and the
-   forward above 512), and print each one's registers and spills.
+   columns at D = 320, 384, 448, 512 and the one that does so on chunks of
+   the columns above 512, the Hopper dK/dV whose blocks split the output
+   columns at D = 320, 384, 448, 512, and the wide dQ and dK/dV), and
+   print each one's registers and spills.
 2. ``kernels``: each kernel against its plain PyTorch version (f32 from the
    same bf16 inputs; dQ's two outputs, dq and delta, both) at the flagship
    shape and at ragged, cross-length (causal ``Lq < Lk``: keys that no
    query sees must get exactly zero gradients),
-   wide-head (D = 192, 256, 320, 384, 448, 512, and 640 on the mma.sync
-   forward), many-head (B * H > 65,535, at D = 64 and 256) and
-   transposed-layout ones (D = 128, 192, 256, 384); which forward kernel
-   each head dim runs (from the profile); f32 causal cross-length
+   wide-head (D = 192 to 512, and the forward above 512 at D = 576, 640,
+   768, 1024, 1152), many-head (B * H > 65,535, at D = 64 and 256) and
+   transposed-layout ones (D = 128, 192, 256, 384, 768); which forward and
+   dK/dV kernel each head dim runs (from the profile); f32 causal cross-length
    attention on the card (the top-left function, through dense); and
    device times (``torch.profiler``) of the kernel, of its plain version
    and of one PyTorch library call as a yardstick only, and the least time
    the card could take (the bound), at the flagship shape, at the ``d256``
-   phase's ``[8, 1024, 3, 256]`` and at the ``d384`` phase's ``[8, 1024,
-   2, 384]``.
+   phase's ``[8, 1024, 3, 256]``, at the ``d384`` phase's ``[8, 1024,
+   2, 384]`` and at the ``d768`` phase's ``[8, 1024, 1, 768]``.
 3. ``parity``: one training step of small bf16 configs on the card (with
    the kernels) and on the CPU (plain path) from the same weights: the
-   splash path at head dims 128, 192, 256 and 384, and the flash path with
-   grouped-query attention at head dims 64 and 256.
+   splash path at head dims 128, 192, 256, 384 and 768, and the flash path
+   with grouped-query attention at head dims 64 and 256.
 4. ``flagship``: the 124M-parameter LM at batch 8 x seq 1024 with the fused
    cross-entropy, through ``edl_tpu_torch.train_lm``'s trainer: 2 warm-up
    steps and 10 timed steps on a fixed batch; tokens/s, MFU and peak memory;
@@ -47,12 +50,17 @@ failure exits non-zero:
 6. ``d256``: the flagship's widths and depth with ``--heads 3``, so head
    dim 256 (the Gemma family's): the same checks, and the profile must
    show the dK/dV kernel whose consumers split dK and dV 12 times a step.
-7. ``d384``: the same with ``--heads 2``, head dim 384, through the wide
-   kernels: the launch counters show forward, dQ, dK/dV and the standalone
-   delta 12 times a step each, and the profile the Hopper forward whose
-   consumers split the output columns, the standalone delta, the wide dQ
-   and the wide dK/dV 12 times a step each, and no other attention kernel.
-8. ``resume``: save at an epoch's end, drop the trainer, restore a new one
+7. ``d384``: the same with ``--heads 2``, head dim 384: the launch
+   counters show forward, dQ, dK/dV and the standalone delta 12 times a
+   step each, and the profile the Hopper forward whose consumers split the
+   output columns, the standalone delta, the wide dQ and the Hopper dK/dV
+   whose blocks split the output columns 12 times a step each, and no
+   other attention kernel.
+8. ``d768``: the same with ``--heads 1``, head dim 768: the profile shows
+   the Hopper forward on chunks of the output columns, the standalone
+   delta, the wide dQ and the wide dK/dV 12 times a step each, and no
+   other attention kernel.
+9. ``resume``: save at an epoch's end, drop the trainer, restore a new one
    with ``restore_or_create`` and check that step, epoch and the next loss
    continue the uninterrupted run.
 
@@ -71,7 +79,7 @@ import re
 import sys
 import time
 
-PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "resume")
+PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resume")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -82,10 +90,16 @@ PEAK_BYTES = 3.35e12
 FLAGSHIP_SHAPE = (8, 1024, 6, 128)     # [B, L, H, D]
 D256_SHAPE = (8, 1024, 3, 256)         # the d256 phase's attention
 D384_SHAPE = (8, 1024, 2, 384)         # the d384 phase's attention
+D768_SHAPE = (8, 1024, 1, 768)         # the d768 phase's attention
 RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64),
                  (2, 256, 4, 192), (2, 256, 4, 256), (1, 77, 2, 192), (1, 77, 2, 256),
-                 (2, 256, 2, 320), (1, 77, 2, 384), (2, 300, 2, 384), (1, 100, 2, 448),
-                 (1, 200, 2, 512), (1, 77, 2, 640))
+                 (2, 256, 2, 320), (1, 77, 2, 320), (1, 200, 2, 320),
+                 (1, 77, 2, 384), (1, 200, 2, 384), (2, 300, 2, 384),
+                 (1, 77, 2, 448), (1, 100, 2, 448), (1, 200, 2, 448),
+                 (1, 77, 2, 512), (1, 200, 2, 512),
+                 (1, 77, 2, 576), (1, 200, 2, 576), (1, 77, 2, 640), (1, 200, 2, 640),
+                 (1, 77, 2, 768), (1, 200, 2, 768), (1, 77, 2, 1024), (1, 200, 2, 1024),
+                 (1, 130, 2, 1152))
 # flash: (q's [B, Lq, H, D], Lk, causal), untimed
 FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
                ((1, 300, 2, 64), 1100, False),
@@ -97,11 +111,22 @@ FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
                ((2, 128, 2, 384), 512, True), ((2, 300, 2, 384), 200, True),
                ((1, 300, 2, 384), 200, False), ((1, 100, 2, 448), 300, True),
                ((2, 256, 2, 512), 256, True), ((1, 200, 2, 512), 300, False),
-               ((1, 77, 2, 640), 200, True), ((1, 200, 2, 640), 77, False))
+               ((1, 200, 2, 320), 77, True), ((1, 300, 2, 448), 200, False),
+               ((1, 77, 2, 448), 200, True), ((1, 128, 2, 512), 320, True),
+               ((1, 300, 2, 512), 200, True), ((1, 200, 2, 512), 77, False),
+               ((1, 77, 2, 576), 200, True), ((1, 200, 2, 576), 77, True),
+               ((1, 200, 2, 576), 300, False),
+               ((1, 77, 2, 640), 200, True), ((1, 200, 2, 640), 77, False),
+               ((1, 300, 2, 640), 200, True),
+               ((1, 77, 2, 768), 200, True), ((1, 200, 2, 768), 77, True),
+               ((1, 200, 2, 768), 300, False),
+               ((1, 77, 2, 1024), 200, True), ((1, 200, 2, 1024), 77, True),
+               ((1, 200, 2, 1024), 300, False))
 # flash with every operand a transposed [B, H, L, D] tensor: (q's shape, Lk,
 # causal), untimed
 TRANSPOSED_CASES = (((2, 256, 4, 128), 384, True), ((2, 256, 4, 192), 384, True),
-                    ((2, 320, 4, 256), 256, False), ((2, 256, 2, 384), 320, True))
+                    ((2, 320, 4, 256), 256, False), ((2, 256, 2, 384), 320, True),
+                    ((1, 200, 2, 768), 256, True))
 # B * H = 81,920 and 65,540 > 65,535 (grid y's limit): B * H rides on grid x
 # (splash, untimed)
 MANY_HEADS_SHAPES = ((16384, 128, 5, 64), (13108, 32, 5, 256))
@@ -109,7 +134,8 @@ REL_TOL = 1e-2                          # ||kernel - plain|| / ||plain||
 
 SM90 = "edl_tpu_torch/csrc/attention_sm90.cu"     # the flagship path's forward, dQ and dK/dV
 SPLIT = "edl_tpu_torch/csrc/attention_wide_sm90.cu"   # the forward at D = 320..512
-WIDE = "edl_tpu_torch/csrc/attention_wide.cu"     # dQ, dK/dV above D = 256
+CHUNK = "edl_tpu_torch/csrc/attention_chunk_sm90.cu"  # the forward above D = 512
+WIDE = "edl_tpu_torch/csrc/attention_wide.cu"     # dQ above D = 256, dK/dV above 512
 ENTRY = "edl_tpu_torch/csrc/attention.cu"         # the entry points and the standalone delta
 SPLASH = "edl_tpu/ops/attention.py:112 -> jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
 FLASH = "edl_tpu/ops/attention.py:81 -> jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -125,22 +151,32 @@ KERNELS = {
 }
 # the d384 phase's kernels: the splash path's at D = 384 (the Hopper forward
 # whose consumers split the output columns; the wide dQ, which the
-# standalone delta precedes, and dK/dV)
+# standalone delta precedes; the Hopper dK/dV whose blocks split the output
+# columns)
 KERNELS_D384 = {
     "attention_fwd": ("edl_attn_fwd", SPLIT, KERNELS["attention_fwd"][2]),
     "attention_bwd_delta": ("edl_attn_bwd_delta", ENTRY, KERNELS["attention_bwd_delta"][2]),
     "attention_bwd_dq": ("edl_attn_bwd_dq", WIDE, KERNELS["attention_bwd_dq"][2]),
-    "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", WIDE, KERNELS["attention_bwd_dkdv"][2]),
+    "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", SM90, KERNELS["attention_bwd_dkdv"][2]),
 }
+# the d768 phase's kernels: the splash path's at D = 768 (the Hopper forward
+# on chunks of the output columns; the wide dQ after the standalone delta,
+# and the wide dK/dV)
+KERNELS_D768 = {**KERNELS_D384,
+                "attention_fwd": ("edl_attn_fwd", CHUNK, KERNELS["attention_fwd"][2]),
+                "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", WIDE, KERNELS["attention_bwd_dkdv"][2])}
 # each path's kernels, in the order the autograd function launches them
 SPLASH_WRAPPERS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv")
 FLASH_WRAPPERS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
 # (causal, non-causal) x (Hopper forward, dQ and dK/dV at 4 head dims each;
 # dK/dV at 192 and 256 is the kernel whose consumers split dK and dV), the
-# standalone delta (any D), (causal, non-causal) x the Hopper forward whose
-# consumers split the output columns at 4 head dims, and the wide kernels:
-# (causal, non-causal) x (forward above 512, dK/dV, dQ)
-KERNEL_INSTANTIATIONS = 2 * (4 + 4 + 4) + 1 + 2 * 4 + 2 * 3
+# standalone delta (any D), (causal, non-causal) x (the Hopper forward whose
+# consumers split the output columns at 4 head dims, the Hopper dK/dV whose
+# blocks split the output columns at 4 head dims), (causal, non-causal) x
+# the forward above 512 (a compile-time plan at D = 576, 640, 704, 768, and
+# the run-time one above), and the wide kernels: (causal, non-causal) x
+# (dK/dV, dQ)
+KERNEL_INSTANTIATIONS = 2 * (4 + 4 + 4) + 1 + 2 * (4 + 4) + 2 * (4 + 1) + 2 * 2
 
 
 def log(phase: str, **nums) -> None:
@@ -200,23 +236,34 @@ def phase_build(ctx) -> None:
     """Build, and print each kernel instantiation's registers and spill
     bytes from ``ptxas -v`` (``fwd_sm90<128,1>``: Hopper forward, D = 128,
     causal; ``fwd_split_sm90<384,1>``: the Hopper forward whose consumers
-    split the output columns, D = 384, causal; ``fwd_wide<1>``: the
-    mma.sync forward above 512, causal).  A kernel that
-    moves registers with setmaxnreg reports its launch-bound count (168);
-    its consumer warpgroups run on 240."""
+    split the output columns, D = 384, causal; ``fwd_chunk_sm90<768,1>``:
+    the one on chunks of the columns above 512, D = 768, causal;
+    ``fwd_chunk_sm90<1>``: the same with the run-time plan above 768).  A
+    kernel that moves registers with setmaxnreg reports its launch-bound
+    count (168); its consumer warpgroups run on 240.  Also the
+    instantiations whose wgmma ptxas serialises (its notes C7515, C7520:
+    slow, not wrong), which it prints as info, not as warnings."""
     from edl_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build(extra_flags=["-Xptxas", "-v"], force=True)
     seconds = time.perf_counter() - t0
-    kernels, name = {}, None
+
+    def key(m):
+        # the kernel's name and its integer and bool template arguments (a
+        # plan's head dim too), from the mangled name's tail
+        targs = m.group(2).split("Ev")[0] if m.group(2).startswith("I") else ""
+        params = ",".join(re.findall(r"L[ib](\d+)E", targs))
+        return f"{m.group(1)}<{params}>" if params else m.group(1)
+
+    kernels, serialised, name = {}, {}, None
     for out in logs.values():
         for line in out.splitlines():
-            m = re.search(r"Compiling entry function '.*?attn_(\w+?)_kernel"
-                          r"(?:I(?:Li(\d+)E)?(?:Lb(\d)E)?E)?", line)
+            m = re.search(r"Compiling entry function '.*?attn_(\w+?)_kernel(\w*)", line)
             if m:
-                params = ",".join(x for x in m.group(2, 3) if x)
-                name = f"{m.group(1)}<{params}>" if params else m.group(1)
+                name = key(m)
                 kernels[name] = {}
+            elif "serialized" in line and (m := re.search(r"attn_(\w+?)_kernel(\w*)", line)):
+                serialised.setdefault(key(m), []).append(re.search(r"\((C\d+)\)", line).group(1))
             elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
                 kernels[name]["spill_bytes"] = int(m.group(1))
             elif name and (m := re.search(r"Used (\d+) registers", line)):
@@ -224,7 +271,7 @@ def phase_build(ctx) -> None:
             elif "error" in line or "warning" in line:
                 print(f"[build] {line.strip()}", flush=True)
     log("build", seconds=seconds, libraries=sorted(logs), kernel_instantiations=len(kernels),
-        kernels=kernels)
+        kernels=kernels, wgmma_serialised=serialised)
     if len(kernels) != KERNEL_INSTANTIATIONS:
         raise AssertionError(f"compiled {len(kernels)} attention kernels, want "
                              f"{KERNEL_INSTANTIATIONS}")
@@ -416,30 +463,36 @@ def check_fresh_thread() -> dict:
     return {"fresh_thread_launches": "ok"}
 
 
-FORWARD_ROUTE_HEAD_DIMS = (128, 256, 320, 384, 448, 512, 640)
+ROUTE_HEAD_DIMS = (128, 256, 320, 384, 448, 512, 576, 640, 768, 1024)
 
 
-def check_forward_routes() -> dict:
-    """The device kernel the forward entry points run at each head dim, from
-    the profile of one causal call, against ``device_kernels``' routing."""
+def check_routes() -> dict:
+    """The device kernel the forward and the dK/dV entry points run at each
+    head dim, from the profile of one causal call, against
+    ``device_kernels``' routing."""
     import torch
 
     from edl_tpu_torch.ops import attention as A
     g = torch.Generator(device="cuda").manual_seed(6)
-    routes = {}
-    for d in FORWARD_ROUTE_HEAD_DIMS:
+    routes = {"forward": {}, "dkdv": {}}
+    for d in ROUTE_HEAD_DIMS:
         q = _randn((1, 128, 2, d), g)
-        A.attention_fwd(q, q, q, d ** -0.5)
-        for _ in range(5):   # a profile that lost the kernel's record is taken again
-            rows = kernel_times(lambda: A.attention_fwd(q, q, q, d ** -0.5), reps=1)
-            names = [key for _, key, _ in rows if "attn_" in key]
-            if names:
-                break
-        want = A.device_kernels(d)[0]
-        if len(names) != 1 or not re.search(rf"::{want}[<(]", names[0]):
-            raise AssertionError(f"the forward at D = {d} ran {names}, want {want}")
-        routes[d] = want
-    return {"forward_kernel_by_head_dim": routes}
+        o, lse = A.attention_fwd(q, q, q, d ** -0.5)
+        delta = A.attention_bwd_delta_plain(o, q)
+        calls = {"forward": (lambda: A.attention_fwd(q, q, q, d ** -0.5), 0),
+                 "dkdv": (lambda: A.attention_bwd_dkdv(q, q, q, q, lse, delta, d ** -0.5), -1)}
+        for kind, (fn, at) in calls.items():
+            fn()
+            for _ in range(5):   # a profile that lost the kernel's record is taken again
+                rows = kernel_times(fn, reps=1)
+                names = [key for _, key, _ in rows if "attn_" in key]
+                if names:
+                    break
+            want = A.device_kernels(d)[at]
+            if len(names) != 1 or not re.search(rf"::{want}[<(]", names[0]):
+                raise AssertionError(f"the {kind} at D = {d} ran {names}, want {want}")
+            routes[kind][d] = want
+    return {"kernel_by_head_dim": routes}
 
 
 def check_f32_cross_length() -> dict:
@@ -468,12 +521,12 @@ def check_f32_cross_length() -> dict:
 
 def phase_kernels(ctx) -> None:
     import torch
-    # the largest error of each wrapper: over every shape, and over D = 256
-    # and D = 384
+    # the largest error of each wrapper: over every shape, and over D = 256,
+    # 384 and 768
     worst: dict[str, float] = {}
-    worst_at = {256: {}, 384: {}}
+    worst_at = {256: {}, 384: {}, 768: {}}
     log("kernels", **check_fresh_thread())
-    log("kernels", **check_forward_routes())
+    log("kernels", **check_routes())
     log("kernels", **check_f32_cross_length())
 
     def record(res, shape, log_it=True, **where):
@@ -491,7 +544,7 @@ def phase_kernels(ctx) -> None:
     for seed, shape in zip((9, 31), MANY_HEADS_SHAPES):
         record(check_kernels(shape, seed=seed, timed=False), shape, path="splash")
         torch.cuda.empty_cache()
-    for seed, (shape, Lk, causal) in zip((8, 41, 42), TRANSPOSED_CASES):
+    for seed, (shape, Lk, causal) in zip((8, 41, 42, 43, 44), TRANSPOSED_CASES, strict=True):
         record(check_kernels(shape, seed=seed, timed=False, Lk=Lk, causal=causal, flash=True,
                              transposed=True),
                shape, path="flash", Lk=Lk, causal=causal, layout="[B, H, L, D] transposed")
@@ -502,10 +555,12 @@ def phase_kernels(ctx) -> None:
     flash = check_kernels(FLAGSHIP_SHAPE, seed=2, timed=True, causal=False, flash=True)
     d256 = check_kernels(D256_SHAPE, seed=3, timed=True)
     d384 = check_kernels(D384_SHAPE, seed=4, timed=True)
+    d768 = check_kernels(D768_SHAPE, seed=5, timed=True)
     for path, r, causal, shape in (("splash", res, True, FLAGSHIP_SHAPE),
                                    ("flash", flash, False, FLAGSHIP_SHAPE),
                                    ("splash", d256, True, D256_SHAPE),
-                                   ("splash", d384, True, D384_SHAPE)):
+                                   ("splash", d384, True, D384_SHAPE),
+                                   ("splash", d768, True, D768_SHAPE)):
         record(r, shape, log_it=False)
         for name, nums in r.items():
             if name in KERNELS and "ms" in nums:
@@ -518,6 +573,7 @@ def phase_kernels(ctx) -> None:
     ctx["kernels"] = timed
     ctx["kernels_d256"] = {n: {**d256[n], "max_abs_err": worst_at[256][n]} for n in SPLASH_WRAPPERS}
     ctx["kernels_d384"] = {n: {**d384[n], "max_abs_err": worst_at[384][n]} for n in KERNELS_D384}
+    ctx["kernels_d768"] = {n: {**d768[n], "max_abs_err": worst_at[768][n]} for n in KERNELS_D768}
     torch.cuda.synchronize()
 
 
@@ -526,10 +582,11 @@ def phase_kernels(ctx) -> None:
 PARITY_LOSS_RTOL = 2e-2    # bf16 compute rounds to ~0.4% at every layer output
 PARITY_GRAD_RTOL = 5e-2    # per-parameter gradient norms, same reason
 # (attention impl, width, heads, kv heads): the splash path at head dims
-# 128, 192, 256 and 384, and the flash path with grouped-query attention at
-# head dims 64 and 256
+# 128, 192, 256, 384 and 768, and the flash path with grouped-query
+# attention at head dims 64 and 256
 PARITY_CONFIGS = (("auto", 256, 2, 0), ("flash", 256, 4, 2), ("auto", 384, 2, 0),
-                  ("auto", 512, 2, 0), ("flash", 512, 2, 1), ("auto", 768, 2, 0))
+                  ("auto", 512, 2, 0), ("flash", 512, 2, 1), ("auto", 768, 2, 0),
+                  ("auto", 768, 1, 0))
 
 
 def phase_parity(ctx) -> None:
@@ -740,9 +797,18 @@ def phase_d256(ctx) -> None:
 def phase_d384(ctx) -> None:
     """The flagship's widths and depth at head dim 384 (``--heads 2``) on the
     splash path: every layer runs the Hopper forward whose consumers split
-    the output columns, and the wide backward with its standalone delta."""
+    the output columns, the standalone delta and the wide dQ, and the
+    Hopper dK/dV whose blocks split the output columns."""
     _, launches = _drive_flagship("d384", ["--heads", "2"], tuple(KERNELS_D384))
     ctx["launches_d384"] = {n: launches[n] for n in KERNELS_D384}
+
+
+def phase_d768(ctx) -> None:
+    """The flagship's widths and depth at head dim 768 (``--heads 1``) on the
+    splash path: every layer runs the Hopper forward on chunks of the output
+    columns, the standalone delta, the wide dQ and the wide dK/dV."""
+    _, launches = _drive_flagship("d768", ["--heads", "1"], tuple(KERNELS_D768))
+    ctx["launches_d768"] = {n: launches[n] for n in KERNELS_D768}
 
 
 def _keep_launches(ctx, launches, path_wrappers) -> None:
@@ -874,7 +940,7 @@ def main(argv=None) -> int:
     ctx: dict = {}
     runners = {"build": phase_build, "kernels": phase_kernels, "parity": phase_parity,
                "flagship": phase_flagship, "flash": phase_flash, "d256": phase_d256,
-               "d384": phase_d384, "resume": phase_resume}
+               "d384": phase_d384, "d768": phase_d768, "resume": phase_resume}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()
@@ -899,6 +965,10 @@ def main(argv=None) -> int:
     kern, launches = ctx.get("kernels_d384", {}), ctx.get("launches_d384", {})
     entries += [entry(f"{kname} at D=384", source, replaces, launches.get(w), kern.get(w, {}))
                 for w, (kname, source, replaces) in KERNELS_D384.items()]
+    # the d768 phase's kernels: the splash path at [8, 1024, 1, 768]
+    kern, launches = ctx.get("kernels_d768", {}), ctx.get("launches_d768", {})
+    entries += [entry(f"{kname} at D=768", source, replaces, launches.get(w), kern.get(w, {}))
+                for w, (kname, source, replaces) in KERNELS_D768.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

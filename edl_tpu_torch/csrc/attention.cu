@@ -22,11 +22,15 @@
 //                            owning 64 keys x both outputs
 //   - dK/dV, D = 192, 256  : attention_sm90.cu, the consumers of a 64-key
 //                            block splitting the outputs (one dV, one dK)
+//   - dK/dV, D = 320..512  : attention_sm90.cu, the same on half the output
+//                            columns per block
 //   - dQ with delta folded in, D = 64..256 : attention_sm90.cu
 //   - forward, D = 320..512 : attention_wide_sm90.cu (TMA, wgmma,
 //                            warp-specialised, the consumers splitting
 //                            the output columns)
-//   - forward above D = 512, and dK/dV, dQ above D = 256 (any D % 64 == 0):
+//   - forward above D = 512 (any D % 64 == 0): attention_chunk_sm90.cu, the
+//                            same on chunks of the output columns
+//   - dQ above D = 256 and dK/dV above D = 512 (any D % 64 == 0):
 //     attention_wide.cu (mma.sync); the dQ entry points run this file's
 //     delta kernel first there
 // The backward is dQ (which writes delta), then dK/dV (which reads it).
@@ -90,7 +94,7 @@ cudaError_t fwd(int D, bool causal, const void* q, const void* k, const void* v,
   if (!head_dim_ok(D)) return cudaErrorInvalidValue;
   if (D <= 256) return fwd_sm90(D, causal, q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream);
   if (D <= 512) return fwd_split_sm90(D, causal, q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream);
-  return fwd_wide(D, causal, q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream);
+  return fwd_chunk_sm90(D, causal, q, k, v, o, lse, st, B, H, Lq, Lk, scale, stream);
 }
 
 cudaError_t dkdv(int D, bool causal, const void* q, const void* k, const void* v, const void* dout,
@@ -99,6 +103,9 @@ cudaError_t dkdv(int D, bool causal, const void* q, const void* k, const void* v
   if (!head_dim_ok(D)) return cudaErrorInvalidValue;
   if (D <= 256)
     return dkdv_sm90(D, causal, q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk, scale, stream);
+  if (D <= 512)
+    return dkdv_chunk_sm90(D, causal, q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk, scale,
+                           stream);
   return dkdv_wide(D, causal, q, k, v, dout, lse, delta, dk, dv, st, B, H, Lq, Lk, scale, stream);
 }
 

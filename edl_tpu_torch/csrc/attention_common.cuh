@@ -1,7 +1,8 @@
 // Shared pieces of the attention kernels (attention.cu, attention_sm90.cu,
-// attention_wide_sm90.cu, attention_wide.cu): operand strides, the mma.sync / ldmatrix / cp.async
-// helpers of the wide kernels, and the launchers each source exports to the
-// C entry points in attention.cu.
+// attention_wide_sm90.cu, attention_chunk_sm90.cu, attention_wide.cu):
+// operand strides, the mma.sync / ldmatrix / cp.async helpers of the wide
+// kernels, and the launchers each source exports to the C entry points in
+// attention.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -122,6 +123,12 @@ cudaError_t dkdv_sm90(int D, bool causal, const void* q, const void* k, const vo
                       const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                       const long long* st, int B, int H, int Lq, int Lk, float scale,
                       cudaStream_t stream);
+// dK/dV at D = 320, 384, 448, 512: the consumers split dV and dK, the
+// blocks the output columns.
+cudaError_t dkdv_chunk_sm90(int D, bool causal, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                            const long long* st, int B, int H, int Lq, int Lk, float scale,
+                            cudaStream_t stream);
 // dQ with delta = rowsum(dO * O) folded in: `delta` is an output; `st` holds
 // the strides of q, k, v, o, dout, dq.
 cudaError_t dq_sm90(int D, bool causal, const void* q, const void* k, const void* v, const void* o,
@@ -132,11 +139,13 @@ cudaError_t dq_sm90(int D, bool causal, const void* q, const void* k, const void
 cudaError_t fwd_split_sm90(int D, bool causal, const void* q, const void* k, const void* v, void* o,
                            void* lse, const long long* st, int B, int H, int Lq, int Lk, float scale,
                            cudaStream_t stream);
-// attention_wide.cu: any D % 64 == 0 above 256, D a runtime argument (the
-// forward runs only above 512).
-cudaError_t fwd_wide(int D, bool causal, const void* q, const void* k, const void* v, void* o,
-                     void* lse, const long long* st, int B, int H, int Lq, int Lk, float scale,
-                     cudaStream_t stream);
+// attention_chunk_sm90.cu: the same above 512 (any D % 64 == 0) on chunks
+// of the output columns.
+cudaError_t fwd_chunk_sm90(int D, bool causal, const void* q, const void* k, const void* v, void* o,
+                           void* lse, const long long* st, int B, int H, int Lq, int Lk, float scale,
+                           cudaStream_t stream);
+// attention_wide.cu: any D % 64 == 0 above 256, D a runtime argument (dK/dV
+// runs only above 512).
 cudaError_t dkdv_wide(int D, bool causal, const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                       const long long* st, int B, int H, int Lq, int Lk, float scale,

@@ -1,7 +1,7 @@
 // The attention forward, dK/dV and dQ with delta = rowsum(dO * O) folded
-// in, at D = 64, 128, 192 and 256, for Hopper: TMA tile loads into an
-// mbarrier ring, wgmma products, one producer warpgroup and two consumer
-// warpgroups.
+// in, at D = 64, 128, 192 and 256, and dK/dV at D = 320, 384, 448 and 512,
+// for Hopper: TMA tile loads into an mbarrier ring, wgmma products, one
+// producer warpgroup and two consumer warpgroups.
 //
 // Replaces, behind the C entry points of attention.cu:
 //   forward (edl_attn_fwd, edl_flash_fwd):
@@ -83,7 +83,10 @@
 // that would be 192 and 256 of the 240, so there a block owns 64 keys and
 // its consumers split the outputs: one accumulates dV, the other dK, each
 // 64 x D (D/2 registers a thread), with P^T passed between them through
-// shared memory (attn_dkdv_split_sm90_kernel).
+// shared memory (attn_dkdv_split_sm90_kernel).  From D = 320 on, one
+// consumer's 64 x D output would not fit either: two blocks split the
+// output columns and each runs that kernel's roles on its half
+// (attn_dkdv_chunk_sm90_kernel).
 
 #include <type_traits>
 
@@ -284,9 +287,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// dK and dV: what both kernels below share.  A block owns kBlockN keys; its
-// producer warpgroup loads K and V once, then streams (Q, dO) steps of 64
-// queries through the ring; its first warp also copies each step's lse
+// dK and dV: what the kernels below share.  A block owns kBlockN keys; its
+// producer warpgroup loads K and V once, then streams (Q, dO) steps of
+// kBlockM queries through the ring; its first warp also copies each step's lse
 // (times log2 e; +inf past Lq, which zeroes those rows' P^T) and delta into
 // the stage.  A Cfg gives the tiles and, as byte offsets from the aligned
 // base of shared memory, where stage s's Q step lies (its dO step follows
@@ -357,18 +360,20 @@ __device__ __forceinline__ void dkdv_produce(const CUtensorMap* tq, const CUtens
   }
 }
 
-// This thread's rows[i] (those below Lk) of a 64 x D f32 accumulator, times
-// mul, in bf16 to out (row stride ld).
-template <int D>
-__device__ __forceinline__ void dkdv_store(const float (&acc)[D / 8][4], bf16* out, long long ld,
-                                           const int (&rows)[2], int Lk, float mul, int t) {
+// This thread's rows[i] (those below Lk) of a 64 x W f32 accumulator, times
+// mul, in bf16 to out (row stride ld), from column 8 n_from on.
+template <int W>
+__device__ __forceinline__ void dkdv_store(const float (&acc)[W / 8][4], bf16* out, long long ld,
+                                           const int (&rows)[2], int Lk, float mul, int t,
+                                           int n_from = 0) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (rows[i] >= Lk) continue;
     bf16* orow = out + (long long)rows[i] * ld;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) = pack_f32(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
+    for (int n = 0; n < W / 8; ++n)
+      if (n >= n_from)
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) = pack_f32(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
   }
 }
 
@@ -381,7 +386,7 @@ __device__ __forceinline__ void dkdv_store(const float (&acc)[D / 8][4], bf16* o
 
 template <int D>
 struct DkdvCfg {
-  static constexpr int kBlockN = 128, kBlockM = 64, kStages = 2;
+  static constexpr int kBlockN = 128, kBlockM = 64, kStages = 2, kChunks = 1;
   static constexpr int kKVBytes = kBlockN * D * 2, kStepBytes = kBlockM * D * 2;
   static constexpr int kStageBytes = 2 * kStepBytes + 2 * kBlockM * 4;  // Q, dO, lse, delta
   static constexpr int kBarOff = 2 * kKVBytes + kStages * kStageBytes;
@@ -488,28 +493,47 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// dK and dV at D = 192 and 256.  The form above holds two 64 x D f32
+// dK and dV at D = 192 .. 512.  The form above holds two 64 x D f32
 // accumulators per consumer, D registers a thread; here the consumers split
 // the output instead: a block owns 64 keys, consumer 0 accumulates their dV
-// and consumer 1 their dK, each 64 x D (D / 2 registers a thread).  Grid
-// (B * H, ceil(Lk / 64)).  Per query step of 64 rows, consumer 0 computes
-// S^T = K Q^T and P^T, hands P^T (f32) to consumer 1 through a shared
-// buffer, and runs dV += P^T dO; consumer 1 computes dP^T = V dO^T, takes
-// P^T, forms dS^T = P^T (dP^T - delta) and runs dK += dS^T Q.  So each
-// consumer issues one m64n64 score product (both operands from shared
-// memory) and one m64nD product (A from registers, B the stage's dO / Q
-// read MN-major) a step, and the tensor cores take one consumer's products
-// while the other computes P^T or dS^T.  The P^T buffer is
-// double-buffered between two mbarrier pairs, so consumer 0 can run a step
-// ahead.  Causal: the block's first step (queries k0 .. k0 + 63) is the
-// only one with a query before a key; only its body is compiled with the
-// mask.  Shared memory: K, V, 2 stages of (Q step, dO step), 2 P^T
-// buffers, 2 stages of (lse2, delta), the barriers: 231,496 bytes at
-// D = 256, 182,344 at 192.
+// and consumer 1 their dK, each 64 x W (W / 2 registers a thread).  Grid
+// (B * H, ceil(Lk / 64), kChunks).  Per query step of kBlockM rows,
+// consumer 0 computes S^T = K Q^T and P^T, hands P^T (f32) to consumer 1
+// through a shared buffer, and runs dV += P^T dO; consumer 1 computes dP^T
+// = V dO^T, takes P^T, forms dS^T = P^T (dP^T - delta) and runs dK += dS^T
+// Q.  So each consumer issues one m64n(kBlockM) score product (both
+// operands from shared memory) and one m64nW product (A from registers, B
+// the stage's dO / Q read MN-major) a step, and the tensor cores take one
+// consumer's products while the other computes P^T or dS^T.  The P^T
+// buffer is double-buffered between two mbarrier pairs, so consumer 0 can
+// run a step ahead.  Causal: the block's first 64 / kBlockM steps (queries
+// k0 .. k0 + 63) are the only ones with a query before a key; only their
+// body is compiled with the mask.
+//   - attn_dkdv_split_sm90_kernel, D = 192 and 256: W = D, 64-query steps.
+//     Shared memory: K, V, 2 stages of (Q step, dO step), 2 P^T buffers, 2
+//     stages of (lse2, delta), the barriers: 231,496 bytes at D = 256,
+//     182,344 at 192.
+//   - attn_dkdv_chunk_sm90_kernel, D = 320, 384, 448, 512 (replaces the
+//     mma.sync dK/dV of attention_wide.cu there): one 64 x D f32 output is
+//     96 to 128 KB, 192 to 256 registers a thread, so the output columns
+//     are split across two blocks (grid z) in chunks of W = 64 ceil(D /
+//     128) (192 at D = 320 and 384, 256 at 448 and 512); chunk 1 starts
+//     D - W columns in, and at an odd box count (D = 320, 448) computes the
+//     middle 64-column box again and does not store it.  Both score
+//     products still reduce over the whole D, so a block does them for its
+//     chunk: 1.5 times the products the bound counts at D = 384 and 512
+//     (the mma.sync kernel did 2 times in 128-column chunks, and reloaded
+//     every operand slice per tile).  K and V stay resident (64 x D each),
+//     so the query steps shrink as D grows: 32 queries at D = 320 and 384,
+//     16 at 448 and 512 (32 would need over 245,760 bytes at D = 448).  Shared
+//     memory: 181,832 / 214,600 / 181,576 / 206,152 bytes at D = 320 /
+//     384 / 448 / 512.
 
-template <int D>
-struct DkdvSplitCfg {
-  static constexpr int kBlockN = 64, kBlockM = 64, kStages = 2;
+// BM queries a step; W output columns a block accumulates, CHUNKS blocks
+// in z
+template <int D, int BM, int W, int CHUNKS>
+struct DkdvOutSplitCfg {
+  static constexpr int kBlockN = 64, kBlockM = BM, kStages = 2, kW = W, kChunks = CHUNKS;
   static constexpr int kKVBytes = kBlockN * D * 2, kStepBytes = kBlockM * D * 2;
   static constexpr int kPBytes = kBlockN * kBlockM * 4;  // one f32 P^T buffer
   static constexpr int kStatBytes = 2 * kBlockM * 4;      // one stage's lse2 and delta
@@ -520,15 +544,19 @@ struct DkdvSplitCfg {
   __host__ __device__ static constexpr int stat_off(int s) { return kPOff + 2 * kPBytes + s * kStatBytes; }
 };
 
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 1)
-    attn_dkdv_split_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-                                const float* __restrict__ lse, const float* __restrict__ delta,
-                                bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk, Strides sdv,
-                                int H, int Lq, int Lk, float scale) {
-  using C = DkdvSplitCfg<D>;
-  constexpr int BN = C::kBlockN, BM = C::kBlockM, S = C::kStages, STEP = C::kStepBytes;
+template <int D>
+using DkdvSplitCfg = DkdvOutSplitCfg<D, 64, D, 1>;
+template <int D>
+using DkdvChunkCfg = DkdvOutSplitCfg<D, D <= 384 ? 32 : 16, 64 * ((D / 64 + 1) / 2), 2>;
+
+template <int D, class C, bool CAUSAL>
+__device__ __forceinline__ void dkdv_split_body(const CUtensorMap* tq, const CUtensorMap* tk,
+                                                const CUtensorMap* tv, const CUtensorMap* tdo,
+                                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                                bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk,
+                                                Strides sdv, int H, int Lq, int Lk, float scale) {
+  constexpr int BN = C::kBlockN, BM = C::kBlockM, S = C::kStages, STEP = C::kStepBytes, W = C::kW;
+  constexpr int kMaskSteps = BN / BM;  // causal: the steps whose queries start before the keys end
   extern __shared__ unsigned char smem_raw[];
   unsigned char* const aligned = align_1k(smem_raw);
   const uint32_t sK = smem_u32(aligned), sV = sK + C::kKVBytes, bars = sK + C::kBarOff;
@@ -539,10 +567,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k0 = blockIdx.y * BN;  // causal: key tile 0 walks the most steps: launched first
   const int i0 = CAUSAL ? k0 / BM : 0;  // queries before k0 never see these keys
   const int n_steps = max(0, (Lq + BM - 1) / BM - i0);
+  // this block's output columns: boxes cb0 .. cb0 + W / 64 - 1 of D
+  const int cb0 = (int)blockIdx.z * (D / 64 - W / 64);
 
   dkdv_init_barriers<S>(bars, 4);
   if (threadIdx.x < kWgThreads) {
-    dkdv_produce<D, C>(&tq, &tk, &tv, &tdo, lse, delta, aligned, bh, b, h, k0, i0, n_steps, Lq);
+    dkdv_produce<D, C>(tq, tk, tv, tdo, lse, delta, aligned, bh, b, h, k0, i0, n_steps, Lq);
     return;
   }
 
@@ -552,13 +582,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kr[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's keys, from k0
   const float sl2 = scale * kLog2e;
 
-  float acc[D / 8][4];  // consumer 0: dV; consumer 1: dK (before the scale)
+  float acc[W / 8][4];  // consumer 0: dV; consumer 1: dK (before the scale)
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < W / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  // One query step.  The masked body (causal, the block's first step, whose
-  // queries q0 + ql see key k0 + kr iff kr <= ql since q0 == k0) is
-  // compiled only for that step (MaskTag<true>).
+  // One query step.  The masked body (causal, the block's first kMaskSteps
+  // steps, whose queries q0 + ql = k0 + it BM + ql see key k0 + kr iff
+  // kr <= it BM + ql) is compiled only for those steps (MaskTag<true>).
   auto step = [&](int it, auto mask_tag) {
     constexpr bool kMask = decltype(mask_tag)::kOn;
     const int s = it % S, j = it & 1;
@@ -568,7 +598,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(dkdv_full<S>(bars, s), (it / S) & 1);
     const float* lse2 = reinterpret_cast<const float*>(aligned + C::stat_off(s));
     const float* dlt = lse2 + BM;
-    // consumer 0: S^T = K Q^T; consumer 1: dP^T = V dO^T (64 keys x 64 queries)
+    // consumer 0: S^T = K Q^T; consumer 1: dP^T = V dO^T (64 keys x BM queries)
     float x[BM / 8][4];
     wg_fence();
 #pragma unroll
@@ -586,7 +616,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int ql = n * 8 + 2 * t + (e & 1);
           float p = exp2f(x[n][e] * sl2 - lse2[ql]);
           if constexpr (kMask) {
-            if (ql < kr[e >> 1]) p = 0.f;
+            if (it * BM + ql < kr[e >> 1]) p = 0.f;
           }
           x[n][e] = p;
         }
@@ -612,12 +642,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t af[BM / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BM / 16; ++kk) acc_to_a(af[kk], x[2 * kk], x[2 * kk + 1]);
-    // consumer 0: dV += P^T dO; consumer 1: dK += dS^T Q
+    // consumer 0: dV += P^T dO; consumer 1: dK += dS^T Q (this block's columns)
+    const uint32_t sb = (cw == 0 ? sdo : sq) + cb0 * BM * kRowBytes;
     fence_acc(acc);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk)
-      wgmma_rs_tb<D>(acc, af[kk], mnmajor(cw == 0 ? sdo : sq, BM, kk), 1);
+    for (int kk = 0; kk < BM / 16; ++kk) wgmma_rs_tb<W>(acc, af[kk], mnmajor(sb, BM, kk), 1);
     wg_commit();
     wg_wait<0>();
     fence_acc(acc);
@@ -626,13 +656,40 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (n_steps > 0) {
     mbar_wait(bars, 0);
     int it = 0;
-    if constexpr (CAUSAL) step(it++, MaskTag<true>{});
+    if constexpr (CAUSAL) {
+      for (; it < min(kMaskSteps, n_steps); ++it) step(it, MaskTag<true>{});
+    }
     for (; it < n_steps; ++it) step(it, MaskTag<false>{});
   }
 
+  // chunk 1 leaves the columns chunk 0 stores (the middle box at an odd count)
   const Strides so = cw == 0 ? sdv : sdk;
   const int rows[2] = {k0 + kr[0], k0 + kr[1]};
-  dkdv_store<D>(acc, (cw == 0 ? dv : dk) + b * so.b + h * so.h, so.l, rows, Lk, cw == 0 ? 1.f : scale, t);
+  const int n_from = blockIdx.z == 0 ? 0 : (W - cb0 * 64) / 8;
+  dkdv_store<W>(acc, (cw == 0 ? dv : dk) + b * so.b + h * so.h + cb0 * 64, so.l, rows, Lk,
+                cw == 0 ? 1.f : scale, t, n_from);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_dkdv_split_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk, Strides sdv,
+                                int H, int Lq, int Lk, float scale) {
+  dkdv_split_body<D, DkdvSplitCfg<D>, CAUSAL>(&tq, &tk, &tv, &tdo, lse, delta, dk, dv, sdk, sdv, H, Lq,
+                                              Lk, scale);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_dkdv_chunk_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk, Strides sdv,
+                                int H, int Lq, int Lk, float scale) {
+  dkdv_split_body<D, DkdvChunkCfg<D>, CAUSAL>(&tq, &tk, &tv, &tdo, lse, delta, dk, dv, sdk, sdv, H, Lq,
+                                              Lk, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -880,13 +937,20 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* 
 }
 
 // dK/dV up to D = 128: two consumers of 64 keys each; above it, one block
-// of 64 keys whose consumers split dV and dK.
+// of 64 keys whose consumers split dV and dK, above 256 on a chunk of the
+// output columns.
+template <int D>
+using DkdvCfgOf = std::conditional_t<(D <= 128), DkdvCfg<D>,
+                                     std::conditional_t<(D <= 256), DkdvSplitCfg<D>, DkdvChunkCfg<D>>>;
+
 template <int D, bool CAUSAL>
 auto dkdv_kernel() {
   if constexpr (D <= 128) {
     return attn_dkdv_sm90_kernel<D, CAUSAL>;
-  } else {
+  } else if constexpr (D <= 256) {
     return attn_dkdv_split_sm90_kernel<D, CAUSAL>;
+  } else {
+    return attn_dkdv_chunk_sm90_kernel<D, CAUSAL>;
   }
 }
 
@@ -894,7 +958,7 @@ template <int D, bool CAUSAL>
 cudaError_t run_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                      const void* delta, void* dk, void* dv, const long long* st, int B, int H, int Lq,
                      int Lk, float scale, cudaStream_t stream) {
-  using C = std::conditional_t<(D <= 128), DkdvCfg<D>, DkdvSplitCfg<D>>;
+  using C = DkdvCfgOf<D>;
   const auto kernel = dkdv_kernel<D, CAUSAL>();
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = set_smem(kernel, C::kSmem);  // first: see run_fwd
@@ -903,7 +967,7 @@ cudaError_t run_dkdv(const void* q, const void* k, const void* v, const void* do
   if (err == cudaSuccess) err = make_map(&tv, v, strides_at(st, 2), B, Lk, H, D, C::kBlockN);
   if (err == cudaSuccess) err = make_map(&tdo, dout, strides_at(st, 3), B, Lq, H, D, C::kBlockM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)B * H, (Lk + C::kBlockN - 1) / C::kBlockN);
+  const dim3 grid((unsigned)B * H, (Lk + C::kBlockN - 1) / C::kBlockN, C::kChunks);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
       strides_at(st, 4), strides_at(st, 5), H, Lq, Lk, scale);
@@ -964,6 +1028,21 @@ cudaError_t dkdv_sm90(int D, bool causal, const void* q, const void* k, const vo
     EDL_DKDV(192)
     EDL_DKDV(256)
   }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dkdv_chunk_sm90(int D, bool causal, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                            const long long* st, int B, int H, int Lq, int Lk, float scale,
+                            cudaStream_t stream) {
+#define EDL_DKDV_CHUNK(DD) EDL_DKDV(DD)
+  switch (D) {
+    EDL_DKDV_CHUNK(320)
+    EDL_DKDV_CHUNK(384)
+    EDL_DKDV_CHUNK(448)
+    EDL_DKDV_CHUNK(512)
+  }
+#undef EDL_DKDV_CHUNK
 #undef EDL_DKDV
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,11 @@
-// Attention at head dims above 256: dK/dV and dQ for any D % 64 == 0, and
-// the forward above D = 512 (attention_wide_sm90.cu runs it from 320 to
-// 512: above 512 its resident Q no longer fits beside two K/V stages), with
-// D a runtime argument, so every head dim the JAX package's gates take has
-// a kernel.
+// Attention at head dims above 256: dQ for any D % 64 == 0 above 256, and
+// dK/dV above 512 (attention_sm90.cu runs it from 320 to 512), with D a
+// runtime argument, so every head dim the JAX package's gates take has a
+// kernel.
 //
 // Replaces the same Pallas TPU kernels as attention.cu and
-// attention_sm90.cu (splash_attention_kernel.py:1137, :1635, :2196 and
-// flash_attention.py:758, :1121, :1456; delta is attention.cu's standalone
+// attention_sm90.cu (splash_attention_kernel.py:1635, :2196 and
+// flash_attention.py:1121, :1456; delta is attention.cu's standalone
 // kernel, which the dQ entry points run before this file's dQ), at the head
 // dims those kernels tile in 128-lane repeats
 // (splash_attention_kernel.py:731).
@@ -14,12 +13,12 @@
 // Design: right and simple first.  A block is 4 warps owning 64 rows (16 a
 // warp) of one (batch, head) and a chunk of at most 128 output columns
 // (grid z), so neither registers nor shared memory grow with D.  The score
-// products (Q K^T, and dO V^T in the backward) are accumulated over D in
-// 64-column slices staged through shared memory by cp.async; the output
-// products read a <= 128-column chunk.  mma.sync m16n8k16 (bf16 in, f32
-// accumulate) fed by ldmatrix.  Each column chunk recomputes the scores,
-// and slices are loaded anew for every tile: what bounds these kernels is
-// those reloads and mma.sync's rate, not the card's bound (PERF.md).
+// products (Q K^T and dO V^T) are accumulated over D in 64-column slices
+// staged through shared memory by cp.async; the output products read a
+// <= 128-column chunk.  mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by
+// ldmatrix.  Each column chunk recomputes the scores, and slices are loaded
+// anew for every tile: what bounds these kernels is those reloads and
+// mma.sync's rate, not the card's bound (PERF.md).
 
 #include "attention_common.cuh"
 
@@ -113,113 +112,6 @@ __device__ __forceinline__ void store_rows(bf16* base, long long sl, const int (
             pack_f32(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// Forward, above D = 512.  Grid (B * H, ceil(Lq / 64), ceil(D / 128)).
-template <bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-    attn_fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                         Strides sq, Strides sk, Strides sv, Strides so, int H, int Lq, int Lk,
-                         int D, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kRows * kLdS;
-  bf16* Vs = Ks + kRows * kLdS;  // kRows x kLdC
-
-  const int n_tiles = (Lq + kRows - 1) / kRows;
-  const int q0 = (CAUSAL ? n_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y) * kRows;
-  const int c0 = blockIdx.z * kChunk, w = min(kChunk, D - c0);
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-
-  float acc[kChunk / 8][4];
-  zero(acc);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const float sl2 = scale * kLog2e;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const int last = (CAUSAL ? min(q0 + kRows - 1, Lk - 1) : Lk - 1) / kRows;
-
-  for (int j = 0; j <= last; ++j) {
-    const int k0 = j * kRows;
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    for (int c = 0; c < D; c += 64) {  // S = Q K^T over 64-column slices
-      load_rows(Qs, kLdS, qb, sq.l, q0, kRows, Lq, c, 64);
-      load_rows(Ks, kLdS, kb, sk.l, k0, kRows, Lk, c, 64);
-      sync_copies();
-      mma_ab_t<64>(s, Qs, kLdS, warp * 16, Ks, kLdS, lane);
-      __syncthreads();
-    }
-    load_rows(Vs, kLdC, vb, sv.l, k0, kRows, Lk, c0, w);
-    commit_group();  // V loads while the softmax runs
-
-    const bool edge = (CAUSAL && k0 + kRows - 1 > q0) || (k0 + kRows > Lk);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        float x = s[n][e] * sl2;
-        if (edge && ((CAUSAL && col > row[e >> 1]) || col >= Lk)) x = -INFINITY;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float base[2], alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
-      alpha[i] = exp2f(m[i] - base[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - base[e >> 1]);
-        s[n][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-    wait_group<0>();
-    __syncthreads();
-    mma_p_b<4>(acc, s, Vs, w, lane);  // O += P V
-    __syncthreads();
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float tot = quad_sum(l[i]);
-    inv[i] = 1.f / tot;
-    if (row[i] < Lq && c0 == 0 && t == 0) lse[(long long)bh * Lq + row[i]] = m[i] * kLn2 + logf(tot);
-  }
-  // rows of one thread share a scale only per row: scale each row's half
-#pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n) {
-    acc[n][0] *= inv[0];
-    acc[n][1] *= inv[0];
-    acc[n][2] *= inv[1];
-    acc[n][3] *= inv[1];
-  }
-  store_rows(o + b * so.b + h * so.h + c0, so.l, row, Lq, acc, 1.f, w, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -395,19 +287,6 @@ dim3 grid_of(int L, int B, int H, int D) {
 }
 
 }  // namespace
-
-cudaError_t fwd_wide(int D, bool causal, const void* q, const void* k, const void* v, void* o,
-                     void* lse, const long long* st, int B, int H, int Lq, int Lk, float scale,
-                     cudaStream_t stream) {
-  const size_t smem = (2 * kRows * kLdS + kRows * kLdC) * sizeof(bf16);
-  auto kernel = causal ? &attn_fwd_wide_kernel<true> : &attn_fwd_wide_kernel<false>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid_of(Lq, B, H, D), kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, strides_at(st, 0),
-      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), H, Lq, Lk, D, scale);
-  return cudaGetLastError();
-}
 
 cudaError_t dkdv_wide(int D, bool causal, const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta, void* dk, void* dv,

@@ -1,7 +1,8 @@
 // The attention forward at head dims 320, 384, 448 and 512 (256 < D <= 512)
 // for Hopper: TMA tile loads into an mbarrier ring, wgmma products, one
 // producer warpgroup and two consumer warpgroups that split the output
-// columns and exchange partial scores.
+// columns and exchange partial scores.  Above 512, attention_chunk_sm90.cu
+// runs the same design on chunks of the output columns.
 //
 // Replaces, behind the forward entry points of attention.cu (edl_attn_fwd,
 // edl_flash_fwd), splash_attention/splash_attention_kernel.py:1137 and
@@ -9,8 +10,7 @@
 // edl_tpu/ops/attention.py _splash and _flash) at the head dims those
 // kernels tile in 128-lane repeats: O and the f32 logsumexp, causal
 // (top-left: key j is visible to query i iff j <= i) or not, Lq and Lk
-// free.  Above D = 512 the mma.sync forward of attention_wide.cu still
-// runs: there Q no longer fits in shared memory beside two K/V stages.
+// free.
 //
 // What bounds it on an H100: 4 Lq Lk D flops per (b, h) on the bytes of
 // q, k, v and o, so at L = 1024 the non-causal forward is on the
@@ -80,9 +80,6 @@ struct FwdSplitCfg {
   static constexpr int kBarOff = kXOff + 4 * kXBytes;
   static constexpr size_t kSmem = 1024 + kBarOff + 8 * (1 + 4 * kStages);
 };
-
-// The two consumer warpgroups' own barrier (barrier 0 is __syncthreads).
-__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)

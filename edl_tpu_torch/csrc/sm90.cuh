@@ -1,7 +1,8 @@
 // What the Hopper attention kernels (attention_sm90.cu,
-// attention_wide_sm90.cu) share: mbarriers, TMA tile loads and their tensor
-// maps, the wgmma fences, setmaxnreg, the shared-memory matrix descriptors
-// of 128-byte-swizzled tiles, and the online softmax of one score tile.
+// attention_wide_sm90.cu, attention_chunk_sm90.cu) share: mbarriers, TMA
+// tile loads and their tensor maps, the wgmma fences, setmaxnreg, the
+// shared-memory matrix descriptors of 128-byte-swizzled tiles, the online
+// softmax of one score tile, the consumers' named barrier.
 #pragma once
 
 #include <cuda.h>
@@ -79,6 +80,18 @@ __device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j]) :: "memory");
 }
 
+// Make the compiler form register A fragments here, before the fence that
+// precedes their wgmma: a fragment put together between two wgmmas makes
+// ptxas inject a fence there (C7519), which can serialise every wgmma of
+// the kernel (C7520).
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void regs_dealloc() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R)); }
 template <int R>
@@ -154,6 +167,9 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 8][4], float (&m)[
 #pragma unroll
   for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
 }
+
+// The two consumer warpgroups' own barrier (barrier 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 
 // Selects, at compile time, a tile body with or without masks.
 template <bool ON>

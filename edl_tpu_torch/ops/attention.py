@@ -50,14 +50,20 @@ def device_kernels(d: int) -> tuple[str, ...]:
     (forward, dQ, dK/dV), by name, as the C entry points route them
     (``csrc/attention.cu``: ``fwd``, ``dq``, ``dkdv``): up to 256 the
     Hopper kernels of ``attention_sm90.cu`` (dK/dV above 128 the one whose
-    consumers split dK and dV); above it the standalone delta before the
-    wide dQ and dK/dV of ``attention_wide.cu``, with the forward of
-    ``attention_wide_sm90.cu`` up to 512 and the ``mma.sync`` one above."""
+    consumers split dK and dV); above it the forward of
+    ``attention_wide_sm90.cu`` whose consumers split the output columns (up
+    to 512; above, the same on chunks of the columns), the standalone delta
+    before the wide dQ of ``attention_wide.cu``, and dK/dV split across
+    blocks by output columns (``attention_sm90.cu``, up to 512) or the wide
+    one (``attention_wide.cu``, above)."""
     if d <= 256:
         return ("attn_fwd_sm90_kernel", "attn_dq_sm90_kernel",
                 "attn_dkdv_sm90_kernel" if d <= 128 else "attn_dkdv_split_sm90_kernel")
-    fwd = "attn_fwd_split_sm90_kernel" if d <= 512 else "attn_fwd_wide_kernel"
-    return (fwd, "attn_bwd_delta_kernel", "attn_bwd_dq_wide_kernel", "attn_bwd_dkdv_wide_kernel")
+    if d <= 512:
+        return ("attn_fwd_split_sm90_kernel", "attn_bwd_delta_kernel", "attn_bwd_dq_wide_kernel",
+                "attn_dkdv_chunk_sm90_kernel")
+    return ("attn_fwd_chunk_sm90_kernel", "attn_bwd_delta_kernel", "attn_bwd_dq_wide_kernel",
+            "attn_bwd_dkdv_wide_kernel")
 
 
 # -- the plain versions --------------------------------------------------------

@@ -161,22 +161,26 @@ def _routed(fn, d):
 LAUNCHED = {
     "fwd_sm90": lambda d: "attn_fwd_sm90_kernel",
     "fwd_split_sm90": lambda d: "attn_fwd_split_sm90_kernel",
-    "fwd_wide": lambda d: "attn_fwd_wide_kernel",
+    "fwd_chunk_sm90": lambda d: "attn_fwd_chunk_sm90_kernel",
     "dq_sm90": lambda d: "attn_dq_sm90_kernel",
     "dq_wide": lambda d: "attn_bwd_dq_wide_kernel",
     "dkdv_sm90": lambda d: "attn_dkdv_sm90_kernel" if d <= 128 else "attn_dkdv_split_sm90_kernel",
+    "dkdv_chunk_sm90": lambda d: "attn_dkdv_chunk_sm90_kernel",
     "dkdv_wide": lambda d: "attn_bwd_dkdv_wide_kernel",
 }
 
 
 def test_routers_branch_at_256_and_512():
     """The forward runs attention_sm90.cu up to D = 256, the Hopper kernel
-    whose consumers split the output columns up to 512 and the mma.sync
-    one above; dQ (the standalone delta first above 256) and dK/dV change
-    kernels at 256; each launcher instantiates the head dims its branch
-    passes it."""
-    assert _router("fwd")[:2] == ([(256, "fwd_sm90"), (512, "fwd_split_sm90")], "fwd_wide")
-    assert _router("dkdv")[:2] == ([(256, "dkdv_sm90")], "dkdv_wide")
+    whose consumers split the output columns up to 512 and, above, the
+    Hopper kernel that does the same on chunks of the columns (no mma.sync
+    forward is left); dK/dV runs attention_sm90.cu up to 512 (above 256 the
+    kernel whose blocks split the output columns) and the mma.sync one
+    above; dQ (the standalone delta first above 256) changes kernels at
+    256; each launcher instantiates the head dims its branch passes it, and
+    the forward above 512 takes D at run time."""
+    assert _router("fwd")[:2] == ([(256, "fwd_sm90"), (512, "fwd_split_sm90")], "fwd_chunk_sm90")
+    assert _router("dkdv")[:2] == ([(256, "dkdv_sm90"), (512, "dkdv_chunk_sm90")], "dkdv_wide")
     branches, rest, body = _router("dq")
     assert (branches, rest) == ([(256, "dq_sm90")], "dq_wide")
     assert body.index("delta(D, o, dout") < body.rindex("return dq_wide(")
@@ -187,6 +191,11 @@ def test_routers_branch_at_256_and_512():
 
     assert cases("attention_sm90.cu", "EDL_FWD") == {64, 128, 192, 256}
     assert cases("attention_wide_sm90.cu", "EDL_FWD_SPLIT") == {320, 384, 448, 512}
+    assert cases("attention_sm90.cu", "EDL_DKDV_CHUNK") == {320, 384, 448, 512}
+    chunk_sm90 = (_build.CSRC / "attention_chunk_sm90.cu").read_text()
+    assert cases("attention_chunk_sm90.cu", "EDL_FWD_CHUNK") == {576, 640, 704, 768}
+    assert "if (D <= 768 || D % 64 != 0) return cudaErrorInvalidValue;" in chunk_sm90
+    assert "attn_fwd_wide_kernel" not in (_build.CSRC / "attention_wide.cu").read_text()
     assert "if constexpr (D <= 128)" in (_build.CSRC / "attention_sm90.cu").read_text()
 
 

@@ -85,6 +85,16 @@ def test_plain_matches_splash_interpret_at_384():
     _check_plain_against_splash_interpret(D=384)
 
 
+@pytest.mark.parametrize("D", [640])
+def test_plain_matches_splash_interpret_above_512(D):
+    """Head dims above 512, whose forward is the Hopper kernel on chunks of
+    the output columns (D = 640: two chunks of 320), and whose backward is
+    the wide dQ and dK/dV: forward, logsumexp and all three gradients
+    against the splash kernel in interpret mode, as at the head dims
+    above."""
+    _check_plain_against_splash_interpret(D)
+
+
 def _check_plain_against_splash_interpret(D):
     B, L, H, blk = 1, 256, 2, 128
     scale = D ** -0.5

@@ -50,13 +50,15 @@ def _pallas_flash_vjp(fn, args, cotangent):
 # D = 192 and 256 are the head dims of the Hopper dK/dV whose consumers
 # split dK and dV, D = 320 one above 256 (the wide kernels' range); D = 192
 # and 320 at Lk = 128, where the Pallas kernel takes a D that is not a
-# multiple of 128
+# multiple of 128; D = 384 cross-length pins the function of the Hopper
+# dK/dV whose blocks split the output columns (keys no query sees too)
 PALLAS_CASES = [(False, 128, 128, 64), (False, 128, 256, 128),
                 (True, 128, 256, 64), (True, 256, 128, 64),
                 (True, 128, 256, 128), (True, 256, 128, 128),
                 (True, 128, 256, 256), (False, 256, 128, 256),
                 (False, 128, 128, 192), (True, 256, 128, 192),
-                (False, 128, 128, 320), (True, 128, 128, 320)]
+                (False, 128, 128, 320), (True, 128, 128, 320),
+                (True, 128, 256, 384)]
 
 
 @pytest.mark.parametrize("causal,lq,lk,d", PALLAS_CASES,
@@ -209,7 +211,7 @@ def _jax_tpu_route(lq, lk, d, causal, has_mask):
     return "dense"
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 192, 256, 320, 384, 512])
+@pytest.mark.parametrize("d", [32, 64, 128, 192, 256, 320, 384, 512, 640, 768])
 def test_auto_route_on_cuda_computes_what_jax_computes(d):
     """Over causal/non-causal, Lq/Lk in {100, 128, 256}, bf16/f32 and
     mask/no mask: the route the port picks for CUDA tensors computes the
@@ -219,7 +221,7 @@ def test_auto_route_on_cuda_computes_what_jax_computes(d):
     top-left mask (``dense_topleft_attention``, held against the Pallas
     kernel by ``test_f32_causal_cross_length_route_matches_pallas_flash``).
     Every head dim the JAX gates take has a kernel, above 256 too (D = 320,
-    384, 512 route to splash or flash as the JAX package does).  (At D %
+    384, 512, 640, 768 route to splash or flash as the JAX package does).  (At D %
     128 != 0 with Lk > 128 the Pallas flash kernel itself refuses the head
     dim; the port computes the function its gate routes there.)  A bf16
     call that the JAX package hands to a kernel goes to a kernel in the
