@@ -8,30 +8,32 @@ of them in the same process.
 ``--parent`` names a directory of an earlier tree's CUDA sources (every
 ``.cu`` there is compiled against the headers beside it, and linked into
 ``build/edl_tpu_torch/libattn_parent.so``); its entry points' arguments are
-read from its own ``attention.cu``, so a parent from before dQ took over
-delta is timed as its backward ran: delta, then dQ.  To time a variant of
-the current sources, copy ``csrc`` under ``build/``, edit the copy and pass
-it as ``--parent``.
+read from its own ``attention.cu``, so a parent whose dQ entry points
+report the kernels they launched (an ``int*`` before the stream: above D =
+256 the standalone delta, then the mma.sync dQ) is timed as its dQ ran,
+both kernels.  To time a variant of the current sources, copy ``csrc``
+under ``build/``, edit the copy and pass it as ``--parent``.
 
 At the flagship shape ``[8, 1024, 6, 128]`` bf16, and at ``[8, 1024, 6,
 64]``, ``[8, 1024, 4, 192]``, ``[8, 1024, 4, 256]``, the ``d256`` phase's
 ``[8, 1024, 3, 256]`` of ``chip_smoke.py``, ``[8, 1024, 2, 320]``, the
-``d384`` phase's ``[8, 1024, 2, 384]``, ``[4, 1024, 2, 512]``, ``[4,
-1024, 2, 640]``, the ``d768`` phase's ``[8, 1024, 1, 768]`` and ``[4, 1024,
-2, 1024]`` (the last six run the kernels for head dims above 256: the
-Hopper forward whose consumers split the output columns, above 512 on
-chunks of the columns, with a run-time plan above 768; the wide dQ with
-the standalone delta before it; the Hopper dK/dV whose blocks split the
-output columns up to 512, the wide one above), the script times the
-earlier and the current forward, dQ (with delta) and dK/dV, causal (the
-splash entry points) and non-causal (the flash ones), in turns: earlier,
-current, current, earlier.  It checks both against the plain PyTorch
-versions first.  Every time is a device time (``torch.profiler``, summed
-kernel time per call); each row carries its bound (the larger of bytes over
-3.35 TB/s and operations over their type's peak rate, the larger over the
-types) and the library time of one PyTorch call for the same function
-(``scaled_dot_product_attention``, its whole backward for dQ and dK/dV),
-with the SDPA backend that ran, read from its longest kernel's name.
+``d384`` phase's ``[8, 1024, 2, 384]``, ``[4, 1024, 2, 512]``, ``[4, 1024,
+2, 640]``, the ``d768`` phase's ``[8, 1024, 1, 768]``, ``[4, 1024, 2,
+1024]`` and ``[4, 1024, 2, 448]`` (the last seven run the kernels for head
+dims above 256: the Hopper forward whose consumers split the output
+columns, above 512 on chunks of the columns, with a run-time plan above
+768; the Hopper dQ with delta folded in on a thread block cluster that
+splits D; the Hopper dK/dV whose blocks split the output columns up to
+384, the cluster one above), the script times the earlier and the current
+forward, dQ (with delta) and dK/dV, causal (the splash entry points) and
+non-causal (the flash ones), in turns: earlier, current, current, earlier.
+It checks both against the plain PyTorch versions first. Every time is a
+device time (``torch.profiler``, summed kernel time per call); each row
+carries its bound (the larger of bytes over 3.35 TB/s and operations over
+their type's peak rate, the larger over the types) and the library time of
+one PyTorch call for the same function (``scaled_dot_product_attention``,
+its whole backward for dQ and dK/dV), with the SDPA backend that ran, read
+from its longest kernel's name.
 Without ``--parent`` only the current kernels are timed.
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
@@ -44,6 +46,7 @@ import argparse
 import ctypes
 import json
 import sys
+import types
 from pathlib import Path
 
 import chip_smoke as cs
@@ -51,7 +54,7 @@ import chip_smoke as cs
 FLAGSHIP = (8, 1024, 6, 128)
 EXTRA = ((8, 1024, 6, 64), (8, 1024, 4, 192), (8, 1024, 4, 256), cs.D256_SHAPE,
          (8, 1024, 2, 320), cs.D384_SHAPE, (4, 1024, 2, 512), (4, 1024, 2, 640),
-         cs.D768_SHAPE, (4, 1024, 2, 1024))
+         cs.D768_SHAPE, (4, 1024, 2, 1024), (4, 1024, 2, 448))
 REPS = 20
 KINDS = ("fwd", "dq", "dkdv")
 WORK = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkdv": "flash_bwd_dkdv"}  # cs._attention_work
@@ -68,11 +71,9 @@ def build_parent(csrc: str) -> ctypes.CDLL:
 def launcher(lib, kind: str, causal: bool):
     """A call of ``lib``'s forward, dQ or dK/dV entry point: the splash one
     for causal, the flash one otherwise, with the wrappers' argument
-    set-up.  dQ returns ``(dq, delta)``; a library whose dQ entry point is
-    not declared as the current one (one from before dQ took ``o``)
-    computes delta with its own delta kernel first."""
-    import torch
-
+    set-up.  dQ returns ``(dq, delta)``; a library whose dQ entry point
+    takes an ``int*`` count of the kernels it launched before the stream
+    gets one."""
     from edl_tpu_torch.ops import attention as A
     entry = ("edl_attn_" if causal else "edl_flash_") + {"fwd": "fwd", "dq": "bwd_dq",
                                                          "dkdv": "bwd_dkdv"}[kind]
@@ -83,20 +84,15 @@ def launcher(lib, kind: str, causal: bool):
         return lambda q, k, v, do, lse, delta, scale: A._run_dkdv(
             entry, q, k, v, do, lse, delta, scale, mode, lib=lib)
     fn = getattr(lib, entry)
-    if fn.argtypes == getattr(A._kernels(), entry).argtypes:
+    if len(fn.argtypes) == len(getattr(A._kernels(), entry).argtypes):
         return lambda q, k, v, o, do, lse, scale: A._run_dq(
-            entry, q, k, v, o, do, lse, scale, mode, lib=lib)[:2]
+            entry, q, k, v, o, do, lse, scale, mode, lib=lib)
 
-    def delta_then_dq(q, k, v, o, do, lse, scale):
-        delta = A._run_delta(o, do, lib=lib)
-        dims, (q, k, v, do) = A._operands(q, k, v, do)
-        dq = torch.empty_like(q)
-        A._raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                       delta.data_ptr(), dq.data_ptr(), A._strides(q, k, v, do, dq),
-                       *A._sizes(dims, mode), float(scale), A._stream(q)), entry)
-        return dq, delta
-
-    return delta_then_dq
+    # the entry point with the count passed before the stream
+    counted = types.SimpleNamespace(**{
+        entry: lambda *a: fn(*a[:-1], ctypes.byref(ctypes.c_int(0)), a[-1])})
+    return lambda q, k, v, o, do, lse, scale: A._run_dq(
+        entry, q, k, v, o, do, lse, scale, mode, lib=counted)
 
 
 def inputs(shape, seed):

@@ -12,20 +12,24 @@ failure exits non-zero:
 
 1. ``build``: compile the CUDA kernels from ``edl_tpu_torch/csrc`` with nvcc,
    one process per source, all at once (every instantiation: the Hopper
-   forward, dQ and dK/dV at 4 head dims each, causal and not, the
-   standalone delta, the Hopper forward whose consumers split the output
-   columns at D = 320, 384, 448, 512 and the one that does so on chunks of
-   the columns above 512, the Hopper dK/dV whose blocks split the output
-   columns at D = 320, 384, 448, 512, and the wide dQ and dK/dV), and
-   print each one's registers and spills.
+   forward, dQ and dK/dV at 4 head dims each, causal and not, the Hopper
+   forward whose consumers split the output columns at D = 320, 384, 448,
+   512 and the one that does so on chunks of the columns above 512, the
+   Hopper dK/dV whose blocks split the output columns at D = 320, 384,
+   the Hopper dQ and dK/dV on thread block clusters that split
+   D, at 3 and 4 column boxes a block, and the mma.sync dQ and dK/dV past
+   the largest cluster), and print each one's registers and spills, and
+   the cluster kernels' shared memory; the cluster kernels must neither
+   spill nor carry a ptxas C75xx note.
 2. ``kernels``: each kernel against its plain PyTorch version (f32 from the
    same bf16 inputs; dQ's two outputs, dq and delta, both) at the flagship
    shape and at ragged, cross-length (causal ``Lq < Lk``: keys that no
    query sees must get exactly zero gradients),
-   wide-head (D = 192 to 512, and the forward above 512 at D = 576, 640,
-   768, 1024, 1152), many-head (B * H > 65,535, at D = 64 and 256) and
-   transposed-layout ones (D = 128, 192, 256, 384, 768); which forward and
-   dK/dV kernel each head dim runs (from the profile); f32 causal cross-length
+   wide-head (D = 192 to 2112: the cluster kernels from 320 on, with 2 to
+   8 blocks a cluster, and the mma.sync backward at 2112), many-head (B *
+   H > 65,535, at D = 64 and 256) and transposed-layout ones (D = 128, 192,
+   256, 384, 768); which forward, dQ and dK/dV kernel each head dim runs
+   (from the profile); f32 causal cross-length
    attention on the card (the top-left function, through dense); and
    device times (``torch.profiler``) of the kernel, of its plain version
    and of one PyTorch library call as a yardstick only, and the least time
@@ -40,10 +44,8 @@ failure exits non-zero:
    cross-entropy, through ``edl_tpu_torch.train_lm``'s trainer: 2 warm-up
    steps and 10 timed steps on a fixed batch; tokens/s, MFU and peak memory;
    the splash kernels' launch counters (forward, dQ, dK/dV) must equal 12
-   per step each, and every other attention kernel's 0 (the standalone
-   delta too: dQ computes delta); the profile of two more steps must show
-   this repo's attention kernels 36 times a step and the standalone delta
-   kernel never.
+   per step each, and every other attention kernel's 0; the profile of two
+   more steps must show this repo's attention kernels 36 times a step.
 5. ``flash``: the same run with ``--attention flash``: the flash kernels
    launch 12 times per step each and every other attention kernel none,
    the loss falls, and the first loss equals the splash path's.
@@ -51,15 +53,14 @@ failure exits non-zero:
    dim 256 (the Gemma family's): the same checks, and the profile must
    show the dK/dV kernel whose consumers split dK and dV 12 times a step.
 7. ``d384``: the same with ``--heads 2``, head dim 384: the launch
-   counters show forward, dQ, dK/dV and the standalone delta 12 times a
-   step each, and the profile the Hopper forward whose consumers split the
-   output columns, the standalone delta, the wide dQ and the Hopper dK/dV
-   whose blocks split the output columns 12 times a step each, and no
-   other attention kernel.
+   counters show forward, dQ and dK/dV 12 times a step each, and the
+   profile the Hopper forward whose consumers split the output columns,
+   the cluster dQ and the Hopper dK/dV whose blocks split the output
+   columns 12 times a step each (36 attention kernels), and no other.
 8. ``d768``: the same with ``--heads 1``, head dim 768: the profile shows
-   the Hopper forward on chunks of the output columns, the standalone
-   delta, the wide dQ and the wide dK/dV 12 times a step each, and no
-   other attention kernel.
+   the Hopper forward on chunks of the output columns, the cluster dQ and
+   the cluster dK/dV 12 times a step each, and no other attention
+   kernel.
 9. ``resume``: save at an epoch's end, drop the trainer, restore a new one
    with ``restore_or_create`` and check that step, epoch and the next loss
    continue the uninterrupted run.
@@ -98,8 +99,9 @@ RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64),
                  (1, 77, 2, 448), (1, 100, 2, 448), (1, 200, 2, 448),
                  (1, 77, 2, 512), (1, 200, 2, 512),
                  (1, 77, 2, 576), (1, 200, 2, 576), (1, 77, 2, 640), (1, 200, 2, 640),
-                 (1, 77, 2, 768), (1, 200, 2, 768), (1, 77, 2, 1024), (1, 200, 2, 1024),
-                 (1, 130, 2, 1152))
+                 (1, 77, 2, 768), (1, 200, 2, 768), (1, 77, 2, 832), (1, 200, 2, 832),
+                 (1, 77, 2, 1024), (1, 200, 2, 1024), (1, 130, 2, 1152), (1, 77, 1, 2048),
+                 (1, 77, 1, 2112), (1, 300, 1, 2048))
 # flash: (q's [B, Lq, H, D], Lk, causal), untimed
 FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
                ((1, 300, 2, 64), 1100, False),
@@ -120,8 +122,9 @@ FLASH_CASES = (((2, 256, 4, 128), 512, True), ((2, 512, 4, 128), 256, True),
                ((1, 300, 2, 640), 200, True),
                ((1, 77, 2, 768), 200, True), ((1, 200, 2, 768), 77, True),
                ((1, 200, 2, 768), 300, False),
+               ((1, 77, 2, 832), 200, True), ((1, 200, 2, 832), 300, False),
                ((1, 77, 2, 1024), 200, True), ((1, 200, 2, 1024), 77, True),
-               ((1, 200, 2, 1024), 300, False))
+               ((1, 200, 2, 1024), 300, False), ((1, 300, 1, 2048), 200, False))
 # flash with every operand a transposed [B, H, L, D] tensor: (q's shape, Lk,
 # causal), untimed
 TRANSPOSED_CASES = (((2, 256, 4, 128), 384, True), ((2, 256, 4, 192), 384, True),
@@ -135,14 +138,12 @@ REL_TOL = 1e-2                          # ||kernel - plain|| / ||plain||
 SM90 = "edl_tpu_torch/csrc/attention_sm90.cu"     # the flagship path's forward, dQ and dK/dV
 SPLIT = "edl_tpu_torch/csrc/attention_wide_sm90.cu"   # the forward at D = 320..512
 CHUNK = "edl_tpu_torch/csrc/attention_chunk_sm90.cu"  # the forward above D = 512
-WIDE = "edl_tpu_torch/csrc/attention_wide.cu"     # dQ above D = 256, dK/dV above 512
-ENTRY = "edl_tpu_torch/csrc/attention.cu"         # the entry points and the standalone delta
+CLUSTER = "edl_tpu_torch/csrc/attention_bwd_cluster_sm90.cu"  # dQ above 256, dK/dV above 384
 SPLASH = "edl_tpu/ops/attention.py:112 -> jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
 FLASH = "edl_tpu/ops/attention.py:81 -> jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNELS = {
     # wrapper name -> (kernel name, source at the flagship shape, TPU code it replaces)
     "attention_fwd": ("edl_attn_fwd", SM90, f"{SPLASH}:1137"),
-    "attention_bwd_delta": ("edl_attn_bwd_delta", ENTRY, f"{SPLASH}:2285"),
     "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", SM90, f"{SPLASH}:2196"),
     "attention_bwd_dq": ("edl_attn_bwd_dq", SM90, f"{SPLASH}:1635"),
     "flash_fwd": ("edl_flash_fwd", SM90, f"{FLASH}:758"),
@@ -150,33 +151,31 @@ KERNELS = {
     "flash_bwd_dq": ("edl_flash_bwd_dq", SM90, f"{FLASH}:1456"),
 }
 # the d384 phase's kernels: the splash path's at D = 384 (the Hopper forward
-# whose consumers split the output columns; the wide dQ, which the
-# standalone delta precedes; the Hopper dK/dV whose blocks split the output
-# columns)
+# whose consumers split the output columns; the cluster dQ, delta folded
+# in; the Hopper dK/dV whose blocks split the output columns)
 KERNELS_D384 = {
     "attention_fwd": ("edl_attn_fwd", SPLIT, KERNELS["attention_fwd"][2]),
-    "attention_bwd_delta": ("edl_attn_bwd_delta", ENTRY, KERNELS["attention_bwd_delta"][2]),
-    "attention_bwd_dq": ("edl_attn_bwd_dq", WIDE, KERNELS["attention_bwd_dq"][2]),
+    "attention_bwd_dq": ("edl_attn_bwd_dq", CLUSTER, KERNELS["attention_bwd_dq"][2]),
     "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", SM90, KERNELS["attention_bwd_dkdv"][2]),
 }
 # the d768 phase's kernels: the splash path's at D = 768 (the Hopper forward
-# on chunks of the output columns; the wide dQ after the standalone delta,
-# and the wide dK/dV)
+# on chunks of the output columns; the cluster dQ and dK/dV)
 KERNELS_D768 = {**KERNELS_D384,
                 "attention_fwd": ("edl_attn_fwd", CHUNK, KERNELS["attention_fwd"][2]),
-                "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", WIDE, KERNELS["attention_bwd_dkdv"][2])}
+                "attention_bwd_dkdv": ("edl_attn_bwd_dkdv", CLUSTER, KERNELS["attention_bwd_dkdv"][2])}
 # each path's kernels, in the order the autograd function launches them
 SPLASH_WRAPPERS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv")
 FLASH_WRAPPERS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
 # (causal, non-causal) x (Hopper forward, dQ and dK/dV at 4 head dims each;
-# dK/dV at 192 and 256 is the kernel whose consumers split dK and dV), the
-# standalone delta (any D), (causal, non-causal) x (the Hopper forward whose
-# consumers split the output columns at 4 head dims, the Hopper dK/dV whose
-# blocks split the output columns at 4 head dims), (causal, non-causal) x
-# the forward above 512 (a compile-time plan at D = 576, 640, 704, 768, and
-# the run-time one above), and the wide kernels: (causal, non-causal) x
-# (dK/dV, dQ)
-KERNEL_INSTANTIATIONS = 2 * (4 + 4 + 4) + 1 + 2 * (4 + 4) + 2 * (4 + 1) + 2 * 2
+# dK/dV at 192 and 256 is the kernel whose consumers split dK and dV),
+# (causal, non-causal) x (the Hopper forward whose consumers split the
+# output columns at 4 head dims, the Hopper dK/dV whose blocks split the
+# output columns at 2 head dims), (causal, non-causal) x the forward above
+# 512 (a compile-time plan at D = 576, 640, 704, 768, and the run-time one
+# above), (causal, non-causal) x the cluster dQ and dK/dV at 3 and 4 boxes
+# a block, and the mma.sync kernels past the largest cluster: (causal,
+# non-causal) x (dK/dV, dQ)
+KERNEL_INSTANTIATIONS = 2 * (4 + 4 + 4) + 2 * (4 + 2) + 2 * (4 + 1) + 2 * (2 + 2) + 2 * 2
 
 
 def log(phase: str, **nums) -> None:
@@ -240,9 +239,11 @@ def phase_build(ctx) -> None:
     the one on chunks of the columns above 512, D = 768, causal;
     ``fwd_chunk_sm90<1>``: the same with the run-time plan above 768).  A
     kernel that moves registers with setmaxnreg reports its launch-bound
-    count (168); its consumer warpgroups run on 240.  Also the
-    instantiations whose wgmma ptxas serialises (its notes C7515, C7520:
-    slow, not wrong), which it prints as info, not as warnings."""
+    count (168); its consumer warpgroups run on 240.  Also every ptxas
+    note C75xx, by instantiation (C7515, C7519, C7520: wgmma serialised or
+    an arrive injected, slow, not wrong), which it prints as info, not as
+    warnings; the note names its function, else it is the function being
+    compiled."""
     from edl_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build(extra_flags=["-Xptxas", "-v"], force=True)
@@ -255,15 +256,16 @@ def phase_build(ctx) -> None:
         params = ",".join(re.findall(r"L[ib](\d+)E", targs))
         return f"{m.group(1)}<{params}>" if params else m.group(1)
 
-    kernels, serialised, name = {}, {}, None
+    kernels, notes, name = {}, {}, None
     for out in logs.values():
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '.*?attn_(\w+?)_kernel(\w*)", line)
             if m:
                 name = key(m)
                 kernels[name] = {}
-            elif "serialized" in line and (m := re.search(r"attn_(\w+?)_kernel(\w*)", line)):
-                serialised.setdefault(key(m), []).append(re.search(r"\((C\d+)\)", line).group(1))
+            elif note := re.search(r"\((C75\d\d)\)", line):
+                m = re.search(r"attn_(\w+?)_kernel(\w*)", line)
+                notes.setdefault(key(m) if m else str(name), []).append(note.group(1))
             elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
                 kernels[name]["spill_bytes"] = int(m.group(1))
             elif name and (m := re.search(r"Used (\d+) registers", line)):
@@ -271,10 +273,27 @@ def phase_build(ctx) -> None:
             elif "error" in line or "warning" in line:
                 print(f"[build] {line.strip()}", flush=True)
     log("build", seconds=seconds, libraries=sorted(logs), kernel_instantiations=len(kernels),
-        kernels=kernels, wgmma_serialised=serialised)
+        kernels=kernels, wgmma_notes=notes)
     if len(kernels) != KERNEL_INSTANTIATIONS:
         raise AssertionError(f"compiled {len(kernels)} attention kernels, want "
                              f"{KERNEL_INSTANTIATIONS}")
+    # the cluster kernels (3 or 4 column boxes a block): registers, spills,
+    # C75xx notes and the dynamic shared memory a launch takes
+    # (edl_attn_bwd_smem)
+    from edl_tpu_torch.ops import attention as A
+    cluster = {}
+    for kname in ("dq_cluster_sm90", "dkdv_cluster_sm90"):
+        for bpr in (3, 4):
+            for causal in (0, 1):
+                inst = f"{kname}<{bpr},{causal}>"
+                cluster[inst] = {**kernels.get(inst, {}), "notes": notes.get(inst, []),
+                                 "smem_bytes": A.bwd_cluster_smem(bpr, kname.startswith("dq"))}
+    log("build", cluster_kernels=cluster)
+    bad = {k: v for k, v in cluster.items()
+           if v.get("spill_bytes", 1) or v["notes"] or not v["smem_bytes"]}
+    if bad:
+        raise AssertionError(f"cluster kernels that spill, carry a C75xx note or were not "
+                             f"built: {bad}")
 
 
 # -- phase 2 ---------------------------------------------------------------------
@@ -290,14 +309,13 @@ def _attention_work(B, Lq, Lk, H, D, causal) -> dict:
         pairs = B * H * Lq * Lk
     tq, tk = B * Lq * H * D * 2, B * Lk * H * D * 2   # bf16 [B, L, H, D] tensors
     s = B * H * Lq * 4                                 # one f32 [B, H, Lq] statistic
-    delta = (2 * B * Lq * H * D, PEAK_F32_FLOPS)      # rowsum(dO * O) in f32
+    delta = (2 * B * Lq * H * D, PEAK_F32_FLOPS)      # rowsum(dO * O) in f32, in dQ
     fwd = (((4 * pairs * D, PEAK_BF16_FLOPS),), 2 * tq + 2 * tk + s)
     dkdv = (((8 * pairs * D, PEAK_BF16_FLOPS),), 2 * tq + 4 * tk + 2 * s)
     # dQ with delta folded in: reads q, o, dO, k, v and lse; writes dq and delta
     dq = (((6 * pairs * D, PEAK_BF16_FLOPS), delta), 4 * tq + 2 * tk + 2 * s)
     return {
         "attention_fwd": fwd, "flash_fwd": fwd,
-        "attention_bwd_delta": ((delta,), 2 * tq + s),
         "attention_bwd_dkdv": dkdv, "flash_bwd_dkdv": dkdv,
         "attention_bwd_dq": dq, "flash_bwd_dq": dq,
     }
@@ -368,10 +386,9 @@ def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False,
     dq_pl, delta_p = dq_p(q, k, v, o, do, lse, scale)
     dk, dv = dkdv(q, k, v, do, lse, delta, scale)
     dk_p, dv_p = dkdv_p(q, k, v, do, lse, delta, scale)
-    delta_s = A.attention_bwd_delta(o, do)   # the standalone delta (D > 256's)
     torch.cuda.synchronize()
     pairs = {n_fwd: [(o, o_p), (lse, lse_p)], n_dq: [(dq, dq_pl), (delta, delta_p)],
-             n_dkdv: [(dk, dk_p), (dv, dv_p)], "attention_bwd_delta": [(delta_s, delta_p)]}
+             n_dkdv: [(dk, dk_p), (dv, dv_p)]}
     out = {}
     for name, outs in pairs.items():
         errs = [rel_err(a, b) for a, b in outs]
@@ -408,9 +425,7 @@ def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False,
 
     work = _attention_work(B, Lq, Lk, H, D, causal)
     args = {n_fwd: (q, k, v, scale), n_dq: (q, k, v, o, do, lse, scale),
-            n_dkdv: (q, k, v, do, lse, delta, scale), "attention_bwd_delta": (o, do)}
-    if not flash:   # the standalone delta is timed once, on the splash path
-        ks["attention_bwd_delta"] = (A.attention_bwd_delta, A.attention_bwd_delta_plain)
+            n_dkdv: (q, k, v, do, lse, delta, scale)}
     # the library yardstick: PyTorch's fused attention, forward and backward
     # (its backward computes dq, dk and dv in one call; its is_causal is
     # top-left too)
@@ -419,7 +434,7 @@ def check_kernels(shape, seed, timed: bool, Lk=None, causal=True, flash=False,
     yt = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     lib_bwd = device_ms(lambda: torch.autograd.grad(yt, (qt, kt, vt), dot, retain_graph=True))
-    library = {n_fwd: lib_fwd, n_dq: lib_bwd, n_dkdv: lib_bwd, "attention_bwd_delta": (None, 0)}
+    library = {n_fwd: lib_fwd, n_dq: lib_bwd, n_dkdv: lib_bwd}
     for name, (kernel_fn, plain_fn) in ks.items():
         bound, by = _bound(*work[name])
         a = args[name]
@@ -463,24 +478,25 @@ def check_fresh_thread() -> dict:
     return {"fresh_thread_launches": "ok"}
 
 
-ROUTE_HEAD_DIMS = (128, 256, 320, 384, 448, 512, 576, 640, 768, 1024)
+ROUTE_HEAD_DIMS = (128, 256, 320, 384, 448, 512, 576, 640, 768, 832, 1024, 2048, 2112)
 
 
 def check_routes() -> dict:
-    """The device kernel the forward and the dK/dV entry points run at each
-    head dim, from the profile of one causal call, against
+    """The device kernel the forward, dQ and dK/dV entry points run at each
+    head dim, from the profile of one causal call (one kernel each), against
     ``device_kernels``' routing."""
     import torch
 
     from edl_tpu_torch.ops import attention as A
     g = torch.Generator(device="cuda").manual_seed(6)
-    routes = {"forward": {}, "dkdv": {}}
+    routes = {"forward": {}, "dq": {}, "dkdv": {}}
     for d in ROUTE_HEAD_DIMS:
         q = _randn((1, 128, 2, d), g)
         o, lse = A.attention_fwd(q, q, q, d ** -0.5)
         delta = A.attention_bwd_delta_plain(o, q)
         calls = {"forward": (lambda: A.attention_fwd(q, q, q, d ** -0.5), 0),
-                 "dkdv": (lambda: A.attention_bwd_dkdv(q, q, q, q, lse, delta, d ** -0.5), -1)}
+                 "dq": (lambda: A.attention_bwd_dq(q, q, q, o, q, lse, d ** -0.5), 1),
+                 "dkdv": (lambda: A.attention_bwd_dkdv(q, q, q, q, lse, delta, d ** -0.5), 2)}
         for kind, (fn, at) in calls.items():
             fn()
             for _ in range(5):   # a profile that lost the kernel's record is taken again
@@ -636,8 +652,6 @@ def phase_parity(ctx) -> None:
             raise AssertionError(f"card and CPU disagree on the 2-layer {impl} step at "
                                  f"head dim {cfg.head_dim}")
         used = FLASH_WRAPPERS if impl == "flash" else SPLASH_WRAPPERS
-        if cfg.head_dim > 256:   # the wide dQ's standalone delta
-            used += ("attention_bwd_delta",)
         want = {n: cfg.num_layers if n in used else 0 for n in n_c}
         if n_c != want or max(n_h.values()) != 0:
             raise AssertionError(f"the card's {impl} step must launch its path's kernels once "
@@ -729,10 +743,8 @@ def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
         if rank < 15 or "attn_" in key:
             log(f"{phase}_profile", kernel=key[:100], ms_per_step=us / 2 / 1e3,
                 share=us / total, calls_per_step=count / 2)
-    # the device's own record: per layer a forward and the backward's
-    # kernels (up to D = 256 dQ with delta, then dK/dV, all from
-    # attention_sm90.cu, and no standalone delta kernel; above it the
-    # standalone delta, the wide dQ and dK/dV), and no other attention kernel
+    # the device's own record: per layer a forward and the backward's two
+    # kernels (dQ with delta, then dK/dV), and no other attention kernel
     device_kernels = A.device_kernels(cfg.head_dim)
     attn_calls = {key: count / 2 for _, key, count in rows
                   if _kernel_group(key).startswith("attention")}
@@ -797,8 +809,8 @@ def phase_d256(ctx) -> None:
 def phase_d384(ctx) -> None:
     """The flagship's widths and depth at head dim 384 (``--heads 2``) on the
     splash path: every layer runs the Hopper forward whose consumers split
-    the output columns, the standalone delta and the wide dQ, and the
-    Hopper dK/dV whose blocks split the output columns."""
+    the output columns, the cluster dQ and the Hopper dK/dV whose blocks
+    split the output columns."""
     _, launches = _drive_flagship("d384", ["--heads", "2"], tuple(KERNELS_D384))
     ctx["launches_d384"] = {n: launches[n] for n in KERNELS_D384}
 
@@ -806,19 +818,15 @@ def phase_d384(ctx) -> None:
 def phase_d768(ctx) -> None:
     """The flagship's widths and depth at head dim 768 (``--heads 1``) on the
     splash path: every layer runs the Hopper forward on chunks of the output
-    columns, the standalone delta, the wide dQ and the wide dK/dV."""
+    columns and the cluster dQ and dK/dV."""
     _, launches = _drive_flagship("d768", ["--heads", "1"], tuple(KERNELS_D768))
     ctx["launches_d768"] = {n: launches[n] for n in KERNELS_D768}
 
 
 def _keep_launches(ctx, launches, path_wrappers) -> None:
-    """Keep a main-path run's counts for the kernels line: its path's
-    kernels, and the standalone delta's, summed over the runs (0: dQ
-    computes delta on both paths; the dQ wrappers count it when their
-    entry point reports that it ran, above D = 256)."""
-    kept = ctx.setdefault("launches", {})
-    kept.update({n: launches[n] for n in path_wrappers})
-    kept["attention_bwd_delta"] = kept.get("attention_bwd_delta", 0) + launches["attention_bwd_delta"]
+    """Keep a main-path run's counts of its path's kernels for the kernels
+    line."""
+    ctx.setdefault("launches", {}).update({n: launches[n] for n in path_wrappers})
 
 
 def _first_loss(extra_args: list[str]) -> float:

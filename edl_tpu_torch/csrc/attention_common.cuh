@@ -1,8 +1,9 @@
 // Shared pieces of the attention kernels (attention.cu, attention_sm90.cu,
-// attention_wide_sm90.cu, attention_chunk_sm90.cu, attention_wide.cu):
-// operand strides, the mma.sync / ldmatrix / cp.async helpers of the wide
-// kernels, and the launchers each source exports to the C entry points in
-// attention.cu.
+// attention_wide_sm90.cu, attention_chunk_sm90.cu,
+// attention_bwd_cluster_sm90.cu, attention_wide.cu): operand strides, the
+// mma.sync / ldmatrix / cp.async helpers of the wide kernels, the
+// fragment and reduction helpers, and the launchers each source exports to
+// the C entry points in attention.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -108,6 +109,19 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// the sum of the products of eight bf16 pairs (delta = rowsum(dO * O))
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    s += u.x * w.x + u.y * w.y;
+  }
+  return s;
+}
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -123,8 +137,8 @@ cudaError_t dkdv_sm90(int D, bool causal, const void* q, const void* k, const vo
                       const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                       const long long* st, int B, int H, int Lq, int Lk, float scale,
                       cudaStream_t stream);
-// dK/dV at D = 320, 384, 448, 512: the consumers split dV and dK, the
-// blocks the output columns.
+// dK/dV at D = 320, 384: the consumers split dV and dK, the blocks the
+// output columns.
 cudaError_t dkdv_chunk_sm90(int D, bool causal, const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                             const long long* st, int B, int H, int Lq, int Lk, float scale,
@@ -144,15 +158,28 @@ cudaError_t fwd_split_sm90(int D, bool causal, const void* q, const void* k, con
 cudaError_t fwd_chunk_sm90(int D, bool causal, const void* q, const void* k, const void* v, void* o,
                            void* lse, const long long* st, int B, int H, int Lq, int Lk, float scale,
                            cudaStream_t stream);
-// attention_wide.cu: any D % 64 == 0 above 256, D a runtime argument (dK/dV
-// runs only above 512).
+// attention_bwd_cluster_sm90.cu: dK/dV (run above 384) and dQ with delta
+// folded in (run above 256) up to D = 2048 (any D % 64 == 0), on thread
+// block clusters that split D; bwd_cluster_smem gives the dynamic shared
+// memory a launch takes with `bpr` 64-column boxes a block (0 for a count
+// that is not instantiated).
+cudaError_t dkdv_cluster_sm90(int D, bool causal, const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                              const long long* st, int B, int H, int Lq, int Lk, float scale,
+                              cudaStream_t stream);
+cudaError_t dq_cluster_sm90(int D, bool causal, const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const void* lse, void* delta, void* dq, const long long* st,
+                            int B, int H, int Lq, int Lk, float scale, cudaStream_t stream);
+int bwd_cluster_smem(int bpr, bool dq);
+// attention_wide.cu: dK/dV and dQ with delta folded in (mma.sync) for any
+// D % 64 == 0, D a runtime argument (run above D = 2048, past the largest
+// cluster).
 cudaError_t dkdv_wide(int D, bool causal, const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                       const long long* st, int B, int H, int Lq, int Lk, float scale,
                       cudaStream_t stream);
-cudaError_t dq_wide(int D, bool causal, const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta, void* dq,
-                    const long long* st, int B, int H, int Lq, int Lk, float scale,
-                    cudaStream_t stream);
+cudaError_t dq_wide(int D, bool causal, const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const void* lse, void* delta, void* dq, const long long* st,
+                    int B, int H, int Lq, int Lk, float scale, cudaStream_t stream);
 
 }  // namespace edl_attn

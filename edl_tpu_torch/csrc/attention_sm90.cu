@@ -1,6 +1,6 @@
 // The attention forward, dK/dV and dQ with delta = rowsum(dO * O) folded
-// in, at D = 64, 128, 192 and 256, and dK/dV at D = 320, 384, 448 and 512,
-// for Hopper: TMA tile loads into an mbarrier ring, wgmma products, one
+// in, at D = 64, 128, 192 and 256, and dK/dV at D = 320 and 384, for
+// Hopper: TMA tile loads into an mbarrier ring, wgmma products, one
 // producer warpgroup and two consumer warpgroups.
 //
 // Replaces, behind the C entry points of attention.cu:
@@ -493,7 +493,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// dK and dV at D = 192 .. 512.  The form above holds two 64 x D f32
+// dK and dV at D = 192 .. 384.  The form above holds two 64 x D f32
 // accumulators per consumer, D registers a thread; here the consumers split
 // the output instead: a block owns 64 keys, consumer 0 accumulates their dV
 // and consumer 1 their dK, each 64 x W (W / 2 registers a thread).  Grid
@@ -513,21 +513,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 //     Shared memory: K, V, 2 stages of (Q step, dO step), 2 P^T buffers, 2
 //     stages of (lse2, delta), the barriers: 231,496 bytes at D = 256,
 //     182,344 at 192.
-//   - attn_dkdv_chunk_sm90_kernel, D = 320, 384, 448, 512 (replaces the
-//     mma.sync dK/dV of attention_wide.cu there): one 64 x D f32 output is
-//     96 to 128 KB, 192 to 256 registers a thread, so the output columns
-//     are split across two blocks (grid z) in chunks of W = 64 ceil(D /
-//     128) (192 at D = 320 and 384, 256 at 448 and 512); chunk 1 starts
-//     D - W columns in, and at an odd box count (D = 320, 448) computes the
-//     middle 64-column box again and does not store it.  Both score
-//     products still reduce over the whole D, so a block does them for its
-//     chunk: 1.5 times the products the bound counts at D = 384 and 512
-//     (the mma.sync kernel did 2 times in 128-column chunks, and reloaded
-//     every operand slice per tile).  K and V stay resident (64 x D each),
-//     so the query steps shrink as D grows: 32 queries at D = 320 and 384,
-//     16 at 448 and 512 (32 would need over 245,760 bytes at D = 448).  Shared
-//     memory: 181,832 / 214,600 / 181,576 / 206,152 bytes at D = 320 /
-//     384 / 448 / 512.
+//   - attn_dkdv_chunk_sm90_kernel, D = 320 and 384: one 64 x D f32 output
+//     is 80 to 96 KB, 160 to 192 registers a thread, so the output columns
+//     are split across two blocks (grid z) in chunks of W = 192; chunk 1
+//     starts D - W columns in, and at D = 320 computes the middle
+//     64-column box again and does not store it.  Both score products
+//     still reduce over the whole D, so a block does them for its chunk:
+//     1.5 times the products the bound counts at D = 384.  K and V stay
+//     resident (64 x D each), with 32-query steps.  Shared memory: 181,832
+//     / 214,600 bytes at D = 320 / 384.  At D = 448 and 512 the cluster
+//     kernel of attention_bwd_cluster_sm90.cu, which does every product
+//     once, is faster (this kernel needed 16-query steps there); at 320
+//     and 384 this one is (PERF.md).
 
 // BM queries a step; W output columns a block accumulates, CHUNKS blocks
 // in z
@@ -547,7 +544,7 @@ struct DkdvOutSplitCfg {
 template <int D>
 using DkdvSplitCfg = DkdvOutSplitCfg<D, 64, D, 1>;
 template <int D>
-using DkdvChunkCfg = DkdvOutSplitCfg<D, D <= 384 ? 32 : 16, 64 * ((D / 64 + 1) / 2), 2>;
+using DkdvChunkCfg = DkdvOutSplitCfg<D, 32, 192, 2>;
 
 template <int D, class C, bool CAUSAL>
 __device__ __forceinline__ void dkdv_split_body(const CUtensorMap* tq, const CUtensorMap* tk,
@@ -715,19 +712,6 @@ struct DqCfg {
   // Q, dO, then per stage K and V, then the barriers; 1 KB of slack to align
   static constexpr size_t kSmem = 1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 8 * (3 + 2 * kStages);
 };
-
-// sum of the products of eight bf16 pairs
-__device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
-  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
-    s += u.x * w.x + u.y * w.y;
-  }
-  return s;
-}
 
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1039,8 +1023,6 @@ cudaError_t dkdv_chunk_sm90(int D, bool causal, const void* q, const void* k, co
   switch (D) {
     EDL_DKDV_CHUNK(320)
     EDL_DKDV_CHUNK(384)
-    EDL_DKDV_CHUNK(448)
-    EDL_DKDV_CHUNK(512)
   }
 #undef EDL_DKDV_CHUNK
 #undef EDL_DKDV

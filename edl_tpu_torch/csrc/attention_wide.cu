@@ -1,14 +1,12 @@
-// Attention at head dims above 256: dQ for any D % 64 == 0 above 256, and
-// dK/dV above 512 (attention_sm90.cu runs it from 320 to 512), with D a
-// runtime argument, so every head dim the JAX package's gates take has a
-// kernel.
+// Attention backward above head dim 2048, past the largest thread block
+// cluster of attention_bwd_cluster_sm90.cu: dK/dV and dQ with delta =
+// rowsum(dO * O) folded in, for any D % 64 == 0, D a runtime argument, so
+// every head dim the JAX package's gates take has a kernel.
 //
 // Replaces the same Pallas TPU kernels as attention.cu and
-// attention_sm90.cu (splash_attention_kernel.py:1635, :2196 and
-// flash_attention.py:1121, :1456; delta is attention.cu's standalone
-// kernel, which the dQ entry points run before this file's dQ), at the head
-// dims those kernels tile in 128-lane repeats
-// (splash_attention_kernel.py:731).
+// attention_bwd_cluster_sm90.cu (splash_attention_kernel.py:1635, :2196
+// with the rowsum of :2285, and flash_attention.py:1121, :1456 with the di
+// of :273) at those head dims.
 //
 // Design: right and simple first.  A block is 4 warps owning 64 rows (16 a
 // warp) of one (batch, head) and a chunk of at most 128 output columns
@@ -18,7 +16,9 @@
 // <= 128-column chunk.  mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by
 // ldmatrix.  Each column chunk recomputes the scores, and slices are loaded
 // anew for every tile: what bounds these kernels is those reloads and
-// mma.sync's rate, not the card's bound (PERF.md).
+// mma.sync's rate, not the card's bound (PERF.md).  Each dQ block computes
+// delta for its rows from O and dO in device memory before its key loop;
+// chunk 0 writes it for dK/dV.
 
 #include "attention_common.cuh"
 
@@ -204,15 +204,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// dQ.  Grid (B * H, ceil(Lq / 64), ceil(D / 128)); a block owns 64 query
-// rows and walks the key tiles they see.
+// dQ, with delta folded in.  Grid (B * H, ceil(Lq / 64), ceil(D / 128)); a
+// block owns 64 query rows and walks the key tiles they see.
 template <bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
-                            Strides sdq, int H, int Lq, int Lk, int D, float scale) {
+                            const bf16* __restrict__ v, const bf16* __restrict__ o,
+                            const bf16* __restrict__ dout, const float* __restrict__ lse,
+                            float* __restrict__ delta, bf16* __restrict__ dq, Strides sq, Strides sk,
+                            Strides sv, Strides so, Strides sdo, Strides sdq, int H, int Lq, int Lk,
+                            int D, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + kRows * kLdS;
@@ -231,11 +232,20 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* dob = dout + b * sdo.b + h * sdo.h;
 
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  // delta of this thread's two rows (thread t of the quad sums 16-byte
+  // chunks t, t + 4, ...), written by chunk 0
   float lse2[2], dlt[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
+    float part = 0.f;
+    if (row[i] < Lq) {
+      const uint4* orow = reinterpret_cast<const uint4*>(o + b * so.b + (long long)row[i] * so.l + h * so.h);
+      const uint4* drow = reinterpret_cast<const uint4*>(dob + (long long)row[i] * sdo.l);
+      for (int c = t; c < D / 8; c += 4) part += dot8(orow[c], drow[c]);
+    }
+    dlt[i] = quad_sum(part);
     lse2[i] = row[i] < Lq ? lse[(long long)bh * Lq + row[i]] * kLog2e : 0.f;
-    dlt[i] = row[i] < Lq ? delta[(long long)bh * Lq + row[i]] : 0.f;
+    if (blockIdx.z == 0 && t == 0 && row[i] < Lq) delta[(long long)bh * Lq + row[i]] = dlt[i];
   }
   float dqa[kChunk / 8][4];
   zero(dqa);
@@ -305,18 +315,18 @@ cudaError_t dkdv_wide(int D, bool causal, const void* q, const void* k, const vo
   return cudaGetLastError();
 }
 
-cudaError_t dq_wide(int D, bool causal, const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta, void* dq,
-                    const long long* st, int B, int H, int Lq, int Lk, float scale,
-                    cudaStream_t stream) {
+cudaError_t dq_wide(int D, bool causal, const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const void* lse, void* delta, void* dq, const long long* st,
+                    int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
   const size_t smem = (4 * kRows * kLdS + kRows * kLdC) * sizeof(bf16);
   auto kernel = causal ? &attn_bwd_dq_wide_kernel<true> : &attn_bwd_dq_wide_kernel<false>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid_of(Lq, B, H, D), kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), strides_at(st, 4), H, Lq, Lk, D, scale);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout,
+      (const float*)lse, (float*)delta, (bf16*)dq, strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Lq, Lk, D,
+      scale);
   return cudaGetLastError();
 }
 

@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # library name -> its sources under csrc/ (each includes headers from csrc/)
 LIBRARIES = {"attn": ["attention.cu", "attention_sm90.cu", "attention_wide_sm90.cu",
-                      "attention_chunk_sm90.cu", "attention_wide.cu"]}
+                      "attention_chunk_sm90.cu", "attention_bwd_cluster_sm90.cu",
+                      "attention_wide.cu"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

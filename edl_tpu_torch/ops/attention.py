@@ -52,18 +52,22 @@ def device_kernels(d: int) -> tuple[str, ...]:
     Hopper kernels of ``attention_sm90.cu`` (dK/dV above 128 the one whose
     consumers split dK and dV); above it the forward of
     ``attention_wide_sm90.cu`` whose consumers split the output columns (up
-    to 512; above, the same on chunks of the columns), the standalone delta
-    before the wide dQ of ``attention_wide.cu``, and dK/dV split across
-    blocks by output columns (``attention_sm90.cu``, up to 512) or the wide
-    one (``attention_wide.cu``, above)."""
+    to 512; above, the same on chunks of the columns), dQ with delta folded
+    in on a thread block cluster that splits D
+    (``attention_bwd_cluster_sm90.cu``), and dK/dV split across blocks by
+    output columns (``attention_sm90.cu``, up to 384) or on a cluster
+    (above).  Past the largest cluster (D > 2048) dQ and dK/dV are the
+    ``mma.sync`` kernels of ``attention_wide.cu``."""
     if d <= 256:
         return ("attn_fwd_sm90_kernel", "attn_dq_sm90_kernel",
                 "attn_dkdv_sm90_kernel" if d <= 128 else "attn_dkdv_split_sm90_kernel")
     if d <= 512:
-        return ("attn_fwd_split_sm90_kernel", "attn_bwd_delta_kernel", "attn_bwd_dq_wide_kernel",
-                "attn_dkdv_chunk_sm90_kernel")
-    return ("attn_fwd_chunk_sm90_kernel", "attn_bwd_delta_kernel", "attn_bwd_dq_wide_kernel",
-            "attn_bwd_dkdv_wide_kernel")
+        return ("attn_fwd_split_sm90_kernel", "attn_dq_cluster_sm90_kernel",
+                "attn_dkdv_chunk_sm90_kernel" if d <= 384 else "attn_dkdv_cluster_sm90_kernel")
+    if d <= 2048:
+        return ("attn_fwd_chunk_sm90_kernel", "attn_dq_cluster_sm90_kernel",
+                "attn_dkdv_cluster_sm90_kernel")
+    return ("attn_fwd_chunk_sm90_kernel", "attn_bwd_dq_wide_kernel", "attn_bwd_dkdv_wide_kernel")
 
 
 # -- the plain versions --------------------------------------------------------
@@ -308,38 +312,28 @@ def _run_dkdv(entry, q, k, v, do, lse, delta, scale, causal, lib=None):
 
 
 def _run_dq(entry, q, k, v, o, do, lse, scale, causal, lib=None):
-    """``(dq, delta, kernels)`` from one call of a dQ entry point (of
-    ``lib``, or of the package's library): ``kernels`` is the number of
-    kernels it launched (2 above D = 256: the standalone delta, then the
-    wide dQ)."""
+    """``(dq, delta)`` from one launch of a dQ entry point (of ``lib``, or
+    of the package's library)."""
     dims, (q, k, v, do) = _operands(q, k, v, do)
     B, H, Lq, _, _ = dims
     o = _operand(o, "o", q.shape)
     lse = _stat(lse, "lse", B, H, Lq)
     delta = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    kernels = ctypes.c_int(0)
     err = getattr(lib or _kernels(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        _strides(q, k, v, o, do, dq), *_sizes(dims, causal), float(scale),
-        ctypes.byref(kernels), _stream(q))
+        _strides(q, k, v, o, do, dq), *_sizes(dims, causal), float(scale), _stream(q))
     _raise_on(err, entry)
-    return dq, delta, kernels.value
+    return dq, delta
 
 
-def _run_delta(o, do, lib=None):
-    """``delta`` from one launch of ``edl_attn_bwd_delta`` (of ``lib``, or
-    of the package's library)."""
-    B, L, H, D = o.shape
-    _check_head_dim(D)
-    o, do = _operand(o, "o", o.shape), _operand(do, "do", o.shape)
-    delta = torch.empty(B, H, L, dtype=torch.float32, device=o.device)
-    err = (lib or _kernels()).edl_attn_bwd_delta(
-        o.data_ptr(), do.data_ptr(), delta.data_ptr(), _strides(o, do),
-        B, H, L, D, _stream(o))
-    _raise_on(err, "edl_attn_bwd_delta")
-    return delta
+def bwd_cluster_smem(bpr: int, dq: bool, lib=None) -> int:
+    """Bytes of dynamic shared memory a launch of the cluster dQ (``dq``)
+    or dK/dV kernel with ``bpr`` 64-column boxes a block takes, from
+    ``lib``'s (or the package library's) ``edl_attn_bwd_smem``; 0 where no
+    such instantiation exists."""
+    return (lib or _kernels()).edl_attn_bwd_smem(bpr, int(dq))
 
 
 def attention_fwd(q, k, v, scale: float):
@@ -350,19 +344,6 @@ def attention_fwd(q, k, v, scale: float):
     out = _run_fwd("edl_attn_fwd", q, k, v, scale, None)
     attention_fwd.launches += 1
     return out
-
-
-def attention_bwd_delta(o, do):
-    """``rowsum(dO * O)`` as :func:`attention_bwd_delta_plain`: the
-    standalone kernel that the dQ entry points run before the wide dQ at
-    head dims above 256 (below, dQ computes delta itself; the dQ wrappers
-    count those launches here too).  Launches ``edl_attn_bwd_delta`` on
-    CUDA."""
-    if _on_cpu(o, do):
-        return attention_bwd_delta_plain(o, do)
-    delta = _run_delta(o, do)
-    attention_bwd_delta.launches += 1
-    return delta
 
 
 def attention_bwd_dkdv(q, k, v, do, lse, delta, scale: float):
@@ -380,8 +361,9 @@ def attention_bwd_dq(q, k, v, o, do, lse, scale: float):
     ``edl_attn_bwd_dq`` on CUDA."""
     if _on_cpu(q, k, v, o, do, lse):
         return attention_bwd_dq_plain(q, k, v, o, do, lse, scale)
-    return _count_dq(attention_bwd_dq, *_run_dq("edl_attn_bwd_dq", q, k, v, o, do, lse, scale,
-                                                 None))
+    out = _run_dq("edl_attn_bwd_dq", q, k, v, o, do, lse, scale, None)
+    attention_bwd_dq.launches += 1
+    return out
 
 
 def flash_fwd(q, k, v, scale: float, causal: bool):
@@ -409,20 +391,13 @@ def flash_bwd_dq(q, k, v, o, do, lse, scale: float, causal: bool):
     ``edl_flash_bwd_dq`` on CUDA."""
     if _on_cpu(q, k, v, o, do, lse):
         return flash_bwd_dq_plain(q, k, v, o, do, lse, scale, causal)
-    return _count_dq(flash_bwd_dq, *_run_dq("edl_flash_bwd_dq", q, k, v, o, do, lse, scale,
-                                             causal))
+    out = _run_dq("edl_flash_bwd_dq", q, k, v, o, do, lse, scale, causal)
+    flash_bwd_dq.launches += 1
+    return out
 
 
-def _count_dq(wrapper, dq, delta, kernels):
-    """Count a dQ entry point's launches: its dQ kernel, and the standalone
-    delta it ran first (above D = 256)."""
-    wrapper.launches += 1
-    attention_bwd_delta.launches += kernels - 1
-    return dq, delta
-
-
-KERNEL_WRAPPERS = (attention_fwd, attention_bwd_delta, attention_bwd_dkdv,
-                   attention_bwd_dq, flash_fwd, flash_bwd_dkdv, flash_bwd_dq)
+KERNEL_WRAPPERS = (attention_fwd, attention_bwd_dkdv, attention_bwd_dq, flash_fwd,
+                   flash_bwd_dkdv, flash_bwd_dq)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 

@@ -85,13 +85,13 @@ def test_plain_matches_splash_interpret_at_384():
     _check_plain_against_splash_interpret(D=384)
 
 
-@pytest.mark.parametrize("D", [640])
+@pytest.mark.parametrize("D", [640, 768])
 def test_plain_matches_splash_interpret_above_512(D):
     """Head dims above 512, whose forward is the Hopper kernel on chunks of
-    the output columns (D = 640: two chunks of 320), and whose backward is
-    the wide dQ and dK/dV: forward, logsumexp and all three gradients
-    against the splash kernel in interpret mode, as at the head dims
-    above."""
+    the output columns (D = 640: two chunks of 320; 768: two of 384), and
+    whose dQ and dK/dV run on thread block clusters that split D (three
+    blocks at both): forward, logsumexp and all three gradients against the
+    splash kernel in interpret mode, as at the head dims above."""
     _check_plain_against_splash_interpret(D)
 
 
@@ -184,15 +184,14 @@ def test_bf16_splash_scales_q_as_jax(D):
 def test_kernel_parts_compose_to_dense_grads(shape):
     """The plain forward and the plain backward parts (the kernels'
     reference functions: dQ with delta, then dK/dV) give dense attention's
-    autograd gradients, at ragged lengths; dQ's delta is the standalone
-    delta's."""
+    autograd gradients, at ragged lengths; dQ's delta is rowsum(dO * O)."""
     rng = np.random.default_rng(sum(shape))
     q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                    for _ in range(4))
     scale = shape[-1] ** -0.5
     o, lse = tattn.attention_fwd(q, k, v, scale)
     dq, delta = tattn.attention_bwd_dq(q, k, v, o, do, lse, scale)
-    torch.testing.assert_close(delta, tattn.attention_bwd_delta(o, do), atol=0, rtol=0)
+    torch.testing.assert_close(delta, tattn.attention_bwd_delta_plain(o, do), atol=0, rtol=0)
     dk, dv = tattn.attention_bwd_dkdv(q, k, v, do, lse, delta, scale)
     qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
     ref = tattn.dense_attention(qa, ka, va, causal=True)
@@ -253,8 +252,8 @@ def test_kernel_gate():
 @pytest.mark.parametrize("path", ["splash", "flash"])
 def test_backward_runs_dq_then_dkdv_with_dqs_delta(path, monkeypatch):
     """The autograd backward launches two kernels: dQ, which computes
-    delta, then dK/dV, which receives that same delta; the standalone delta
-    kernel is not called.  Recorded through the wrappers, on CPU tensors.
+    delta, then dK/dV, which receives that same delta; no other wrapper is
+    called.  Recorded through the wrappers, on CPU tensors.
     The splash path's kernels ran on the pre-scaled q with scale 1, and its
     dq is theirs times the scale (0.125, exact in f32)."""
     calls = []
@@ -270,7 +269,7 @@ def test_backward_runs_dq_then_dkdv_with_dqs_delta(path, monkeypatch):
             return out
         return wrapper
 
-    for name in names + ("attention_bwd_delta",):
+    for name in (w.__name__ for w in tattn.KERNEL_WRAPPERS):
         monkeypatch.setattr(tattn, name, recording(name))
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _qkv((1, 40, 2, 64), (1, 40, 2, 64), seed=12))
@@ -279,6 +278,7 @@ def test_backward_runs_dq_then_dkdv_with_dqs_delta(path, monkeypatch):
         y = tattn.SplashAttention.apply(q, k, v, 0.125)
     else:
         y = tattn.FlashAttention.apply(q, k, v, 0.125, True)
+    calls.clear()   # the forward's
     grads = torch.autograd.grad(y, (q, k, v), do)
     assert [c[0] for c in calls] == list(names)
     (_, dq_args, (dq, delta)), (_, dkdv_args, (dk, dv)) = calls

@@ -58,7 +58,7 @@ PALLAS_CASES = [(False, 128, 128, 64), (False, 128, 256, 128),
                 (True, 128, 256, 256), (False, 256, 128, 256),
                 (False, 128, 128, 192), (True, 256, 128, 192),
                 (False, 128, 128, 320), (True, 128, 128, 320),
-                (True, 128, 256, 384)]
+                (True, 128, 256, 384), (True, 128, 256, 768)]
 
 
 @pytest.mark.parametrize("causal,lq,lk,d", PALLAS_CASES,
@@ -175,7 +175,7 @@ def test_flash_parts_compose_to_dense_grads(shape_q, lk, causal):
     scale = D ** -0.5
     o, lse = tattn.flash_fwd(q, k, v, scale, causal)
     dq, delta = tattn.flash_bwd_dq(q, k, v, o, do, lse, scale, causal)
-    torch.testing.assert_close(delta, tattn.attention_bwd_delta(o, do), atol=0, rtol=0)
+    torch.testing.assert_close(delta, tattn.attention_bwd_delta_plain(o, do), atol=0, rtol=0)
     dk, dv = tattn.flash_bwd_dkdv(q, k, v, do, lse, delta, scale, causal)
     qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
     keep = torch.ones(Lq, lk, dtype=torch.bool).tril() if causal else None
