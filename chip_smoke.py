@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernels,d256
     python3 chip_smoke.py --phases build,kernels,d384
     python3 chip_smoke.py --phases build,kernels,d768
+    python3 chip_smoke.py --phases build,elastic
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -64,6 +65,19 @@ failure exits non-zero:
 9. ``resume``: save at an epoch's end, drop the trainer, restore a new one
    with ``restore_or_create`` and check that step, epoch and the next loss
    continue the uninterrupted run.
+10. ``elastic``: the distributed trainer.  (1) An NCCL process group of
+   one: 3 flagship steps through the gradient all-reduce give parameters
+   and losses equal to the bit to 3 steps without a group, the splash
+   kernels launch 12 times a step each, and the profile of a step shows
+   the NCCL all-reduce kernel(s), their ms and the step's device time;
+   tokens/s with and without the group.  (2) ``python -m
+   edl_tpu_torch.train_lm`` (depth 2) under a launcher-shaped env with no
+   store, 1 epoch then 2: the second resumes at epoch 1 in a world of 1,
+   and neither imports ``msgpack``.  (3) A 2-rank gloo world on the CPU
+   (2 layers, width 128) saves an epoch; the card restores it at world 1
+   under ``EDL_TPU_LR_RESCALE=1``: epoch history [2, 1], LR scale 0.5,
+   and the next loss within the parity phase's bf16 tolerance of the same
+   continuation on the CPU.
 
 It then prints the card's ``nvidia-smi`` name and power limit, one line
 ``{"kernels": [...]}``, and, last, ``{"ok": true, "device": {...}}``.
@@ -79,8 +93,10 @@ import math
 import re
 import sys
 import time
+from pathlib import Path
 
-PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resume")
+PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resume",
+          "elastic")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -185,8 +201,9 @@ def log(phase: str, **nums) -> None:
 def kernel_times(fn, reps: int) -> list[tuple[float, str, int]]:
     """``(device µs, kernel name, launches)`` of every kernel that ``reps``
     calls of ``fn()`` launch, longest first (``torch.profiler``).  A user
-    annotation on the device timeline (the optimizer's ``Optimizer.step#...``)
-    spans kernels that are counted already and is left out."""
+    annotation on the device timeline (the optimizer's ``Optimizer.step#...``,
+    the process group's ``nccl:all_reduce``) spans kernels that are counted
+    already and is left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -197,7 +214,7 @@ def kernel_times(fn, reps: int) -> list[tuple[float, str, int]]:
         torch.cuda.synchronize()
     return sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-                   and not ev.key.startswith("Optimizer.")), reverse=True)
+                   and not ev.key.startswith(("Optimizer.", "nccl:"))), reverse=True)
 
 
 def device_ms(fn, reps: int = 10, warmup: int = 3) -> tuple[float, int]:
@@ -869,7 +886,6 @@ def phase_resume(ctx) -> None:
     """Stop at an epoch's end, restore into a new trainer, and continue:
     the next loss must match an uninterrupted run's."""
     import shutil
-    from pathlib import Path
 
     import torch
 
@@ -920,6 +936,260 @@ def phase_resume(ctx) -> None:
         raise AssertionError("the resumed run does not continue the uninterrupted one")
 
 
+# -- phase 10 --------------------------------------------------------------------
+
+ELASTIC_STEPS = 3
+# the entry point's run (full width, depth cut to 2) and the 2-rank CPU world
+ENTRY_ARGS = FLAGSHIP_ARGS + ["--layers", "2", "--steps_per_epoch", "2"]
+WORLD_ARGS = ["--vocab", "1000", "--layers", "2", "--embed", "128", "--heads", "2",
+              "--mlp", "512", "--seq_len", "256", "--batch_size", "2", "--steps_per_epoch", "2",
+              "--fused_ce", "--ce_block", "256", "--lr", "3e-4"]
+SUBPROCESS_TIMEOUT = 300
+
+
+def _launch_env(rank: int, world: int, port: int, ckpt_dir, **extra) -> dict:
+    """The env the elastic launcher exports to one trainer (one trainer a
+    pod), with no coordination store."""
+    import os
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_TPU_")}
+    root = str(Path(__file__).resolve().parent)
+    env.update({"PYTHONPATH": root, "EDL_TPU_JOB_ID": "chip-smoke",
+                "EDL_TPU_TRAINER_ID": str(rank), "EDL_TPU_TRAINER_RANK_IN_POD": "0",
+                "EDL_TPU_TRAINERS_NUM": str(world), "EDL_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                "EDL_TPU_TRAINER_ENDPOINTS": ",".join(f"127.0.0.1:{port + r}"
+                                                      for r in range(world)),
+                "EDL_TPU_POD_ID": f"pod-{rank}", "EDL_TPU_POD_RANK": str(rank),
+                "EDL_TPU_DEVICE_IDS": "0", "EDL_TPU_CKPT_DIR": str(ckpt_dir), **extra})
+    return env
+
+
+def _run_ranks(argv: list[str], world: int, ckpt_dir, **extra) -> list[tuple[str, str]]:
+    """Run ``python -X importtime -m edl_tpu_torch.train_lm argv`` as
+    ``world`` ranks; returns each rank's (stdout, stderr).  Their output goes
+    to files, so no rank blocks on a full pipe while its peers wait for it
+    in a collective; every process is stopped by the time this returns."""
+    import subprocess
+    import tempfile
+
+    from edl_tpu_torch.utils.network import find_free_port
+    port = find_free_port()
+    root = Path(__file__).resolve().parent
+    files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) for _ in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-X", "importtime", "-m", "edl_tpu_torch.train_lm",
+                               *argv], cwd=root, env=_launch_env(r, world, port, ckpt_dir, **extra),
+                              stdout=out, stderr=err, text=True)
+             for r, (out, err) in enumerate(files)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=SUBPROCESS_TIMEOUT)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outs = []
+    for proc, (out, err) in zip(procs, files):
+        out.seek(0)
+        err.seek(0)
+        outs.append((out.read(), err.read()))
+        out.close()
+        err.close()
+        if proc.returncode != 0:
+            raise AssertionError(f"train_lm {argv} exited {proc.returncode}:\n"
+                                 f"{outs[-1][0][-2000:]}\n{outs[-1][1][-4000:]}")
+    return outs
+
+
+def _imported(importtime_stderr: str) -> set[str]:
+    return {line.split("|")[-1].strip() for line in importtime_stderr.splitlines()
+            if line.startswith("import time:")}
+
+
+def _elastic_group_of_one() -> dict:
+    """3 flagship steps with no process group, then 3 from the same weights
+    in an NCCL group of one: equal to the bit; the profile of a step and
+    tokens/s with and without the group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    from edl_tpu_torch.utils.network import find_free_port
+
+    args = train_lm.parse_args(FLAGSHIP_ARGS)
+    device = torch.device("cuda", 0)
+    ids = np.random.default_rng(2).integers(0, args.vocab, (args.batch_size,
+                                                           args.seq_len + 1)).astype(np.int32)
+
+    def steps(n):
+        cfg, trainer, init_fn, tx = train_lm.build_trainer(args, device)
+        state = trainer.create_state(init_fn, tx)
+        batch = trainer.to_device({"ids": ids})
+        gen = torch.Generator(device=device).manual_seed(3)
+        losses = []
+        for _ in range(n):
+            state, metrics = trainer.step_fn(state, batch, gen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        return cfg, trainer, state, batch, gen, [float(x) for x in losses]
+
+    def tokens_per_s(trainer, state, batch, gen):
+        for _ in range(WARMUP_STEPS):
+            trainer.step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            trainer.step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        return args.batch_size * args.seq_len * TIMED_STEPS / (time.perf_counter() - t0)
+
+    *_, plain_state, _, _, plain_losses = steps(ELASTIC_STEPS)
+    plain = {n: t.detach().clone() for n, t in plain_state.model.state_dict().items()}
+    del plain_state
+    torch.cuda.empty_cache()
+
+    torch.cuda.set_device(device)
+    store = dist.TCPStore("127.0.0.1", find_free_port(), 1, True)
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0, device_id=device)
+    try:
+        A.reset_launch_counts()
+        cfg, trainer, state, batch, gen, losses = steps(ELASTIC_STEPS)
+        launches = A.launch_counts()
+        if trainer.world_size != 1 or dist.get_backend() != "nccl":
+            raise AssertionError(f"world {trainer.world_size}, backend {dist.get_backend()}")
+        differing = [n for n, t in state.model.state_dict().items() if not torch.equal(t, plain[n])]
+        rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=2)
+        with_group = tokens_per_s(trainer, state, batch, gen)
+    finally:
+        dist.destroy_process_group()
+        del store
+    rows_plain = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=2)
+    without_group = tokens_per_s(trainer, state, batch, gen)
+    nccl = {key: (us / 2 / 1e3, count / 2) for us, key, count in rows
+            if re.search(r"nccl|onerank", key, re.I)}
+    plain_keys = {key for _, key, _ in rows_plain}
+    reduction = {key: us / 2 / 1e3 for us, key, _ in rows if key not in plain_keys}
+    out = {"nvidia_smi": smi_name_and_power_limit(), "losses_group": losses,
+           "losses_no_group": plain_losses, "params_differing": differing,
+           "launches": launches, "nccl_kernels": {k: {"ms_per_step": ms, "calls_per_step": n}
+                                                  for k, (ms, n) in nccl.items()},
+           "nccl_ms_per_step": sum(ms for ms, _ in nccl.values()),
+           "reduction_kernels_ms_per_step": reduction,
+           "device_busy_ms_per_step": sum(r[0] for r in rows) / 2 / 1e3,
+           "device_busy_ms_per_step_no_group": sum(r[0] for r in rows_plain) / 2 / 1e3,
+           "tokens_per_s_group": with_group, "tokens_per_s_no_group": without_group}
+    del trainer, state
+    torch.cuda.empty_cache()
+    log("elastic", **out)
+    if losses != plain_losses or differing:
+        raise AssertionError(f"the NCCL group of one changed the step: losses {losses} vs "
+                             f"{plain_losses}, parameters differing: {differing[:5]}")
+    want = {n: cfg.num_layers * ELASTIC_STEPS if n in SPLASH_WRAPPERS else 0 for n in launches}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if not nccl:
+        raise AssertionError(f"no NCCL kernel in the step's profile; kernels the group added: "
+                             f"{sorted(reduction)}")
+    return launches
+
+
+def _elastic_entry_point(ckpt_dir) -> dict:
+    """The entry point under a launcher-shaped env with no store: 1 epoch,
+    then 2, resuming at epoch 1; no msgpack import."""
+    first, = _run_ranks(ENTRY_ARGS + ["--epochs", "1"], 1, ckpt_dir)
+    second, = _run_ranks(ENTRY_ARGS + ["--epochs", "2"], 1, ckpt_dir)
+    out = {}
+    for name, (stdout, stderr) in (("first", first), ("second", second)):
+        lines = [line for line in stdout.splitlines() if line.startswith("[train_lm]")]
+        msgpack = sorted(m for m in _imported(stderr) if m.split(".")[0] == "msgpack")
+        out[name] = {"lines": lines, "msgpack_imports": msgpack}
+        if msgpack:
+            raise AssertionError(f"the {name} run imported {msgpack}")
+    log("elastic", entry_point=out)
+    if ("resume_epoch=0" not in first[0] or "resume_epoch=1" not in second[0]
+            or '"world": 1' not in second[0] or "rank=0/1 device=cuda" not in second[0]):
+        raise AssertionError("the entry point did not resume at epoch 1 in a world of 1")
+    return out
+
+
+def _elastic_world_change(root) -> dict:
+    """A 2-rank gloo world on the CPU saves an epoch; the card and the CPU
+    each restore it at world 1 under EDL_TPU_LR_RESCALE=1 and train the
+    next epoch from the same batches."""
+    import os
+    import shutil
+
+    import torch
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.train import lr as lr_mod
+
+    saved = root / "world2"
+    _run_ranks(WORLD_ARGS + ["--device", "cpu", "--epochs", "1"], 2, saved,
+               EDL_TPU_LR_RESCALE="1", OMP_NUM_THREADS="4")
+    out = {}
+    os.environ["EDL_TPU_LR_RESCALE"] = "1"
+    try:
+        for dev in ("cuda", "cpu"):
+            ckpt = root / f"restore_{dev}"
+            shutil.copytree(saved, ckpt)
+            args = train_lm.parse_args(WORLD_ARGS + ["--device", dev])
+            _, trainer, init_fn, tx = train_lm.build_trainer(args, torch.device(dev), str(ckpt))
+            inner, losses = trainer.loss_fn, []
+
+            def recording(*a, inner=inner, losses=losses):
+                loss, aux = inner(*a)
+                losses.append(loss.detach())
+                return loss, aux
+
+            trainer.loss_fn = recording
+            state, meta = trainer.restore_or_create(init_fn, tx)
+            restored = {"step": state.step, "next_epoch": meta.next_epoch,
+                        "lr_scale": lr_mod.lr_scale(state),
+                        "param_device": str(next(state.model.parameters()).device)}
+
+            def data_fn(epoch, args=args):
+                gen = train_lm.markov_corpus(args, 1000 * (epoch + 1))
+                for _ in range(args.steps_per_epoch):
+                    yield next(gen)
+
+            state, meta = trainer.fit(state, meta, data_fn, epochs=2)
+            out[dev] = {**restored, "losses": [float(x) for x in losses],
+                        "epoch_worlds": [e.world_size for e in meta.epochs],
+                        "final_lr_scale": lr_mod.lr_scale(state)}
+            del trainer, state
+    finally:
+        del os.environ["EDL_TPU_LR_RESCALE"]
+    torch.cuda.empty_cache()
+    card, cpu = out["cuda"], out["cpu"]
+    rel = abs(card["losses"][0] - cpu["losses"][0]) / abs(cpu["losses"][0])
+    log("elastic", world_change=out, next_loss_rel=rel, rtol=PARITY_LOSS_RTOL)
+    for dev, r in out.items():
+        if (r["step"], r["next_epoch"], r["lr_scale"], r["epoch_worlds"]) != (2, 1, 0.5, [2, 1]):
+            raise AssertionError(f"the {dev} restore of the 2-rank checkpoint: {r}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"non-finite loss on {dev}: {r['losses']}")
+    if card["param_device"] != "cuda:0" or rel > PARITY_LOSS_RTOL:
+        raise AssertionError(f"the card's continuation is not the CPU's: rel {rel}")
+    return out
+
+
+def phase_elastic(ctx) -> None:
+    """The distributed trainer: an NCCL group of one, the entry point under a
+    launcher-shaped env, and a restore across a world change."""
+    import shutil
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_elastic"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        ctx["launches_elastic"] = _elastic_group_of_one()
+        _elastic_entry_point(root / "entry")
+        _elastic_world_change(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # -- main ------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -948,7 +1218,8 @@ def main(argv=None) -> int:
     ctx: dict = {}
     runners = {"build": phase_build, "kernels": phase_kernels, "parity": phase_parity,
                "flagship": phase_flagship, "flash": phase_flash, "d256": phase_d256,
-               "d384": phase_d384, "d768": phase_d768, "resume": phase_resume}
+               "d384": phase_d384, "d768": phase_d768, "resume": phase_resume,
+               "elastic": phase_elastic}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

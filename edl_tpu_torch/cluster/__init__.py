@@ -1,1 +1,2 @@
-"""Cluster model copies: the resume ``State`` sidecar and the trainer env contract."""
+"""Cluster model copies: the resume ``State`` sidecar, the trainer env
+contract, and the train-status and heartbeat records the launcher reads."""

@@ -12,6 +12,7 @@ size) can skip processed records and rescale its LR.
 
 from __future__ import annotations
 
+from edl_tpu_torch.cluster import paths
 from edl_tpu_torch.utils import constants
 from edl_tpu_torch.utils.exceptions import EdlTableError
 from edl_tpu_torch.utils.serialization import JsonSerializable, register_serializable
@@ -105,18 +106,18 @@ class State(JsonSerializable):
     # -- persistence ---------------------------------------------------------
     @staticmethod
     def load_from_store(store, job_id: str, name: str) -> "State | None":
-        rec = store.get(constants.key(job_id, constants.ETCD_STATE, name))
+        rec = store.get(paths.key(job_id, constants.ETCD_STATE, name))
         return State().from_json(rec.value.decode()) if rec else None
 
     def save_to_store(self, store, job_id: str, name: str,
                       leader_pod_id: str | None = None) -> None:
         """Leader-guarded when ``leader_pod_id`` given (state.py:186-200)."""
-        key = constants.key(job_id, constants.ETCD_STATE, name)
+        key = paths.key(job_id, constants.ETCD_STATE, name)
         if leader_pod_id is None:
             store.put(key, self.to_json().encode())
             return
         ok = store.put_if_equals(
-            constants.key(job_id, constants.ETCD_POD_RANK, constants.LEADER_KEY),
+            paths.key(job_id, constants.ETCD_POD_RANK, constants.LEADER_KEY),
             leader_pod_id.encode(), key, self.to_json().encode())
         if not ok:
             raise EdlTableError(f"pod {leader_pod_id} not leader; state not saved")

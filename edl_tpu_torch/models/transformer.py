@@ -20,6 +20,7 @@ kept only so that configs read the same in both packages.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, replace
 from typing import Any
@@ -27,7 +28,7 @@ from typing import Any
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from edl_tpu_torch.ops.attention import dot_product_attention
 
@@ -45,7 +46,7 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     attention_impl: str = "auto"      # auto | dense | splash | flash (ring: not ported)
     mesh: Any = None                  # for attention_impl="ring" (not ported)
-    remat: bool = True                # recompute each layer in the backward
+    remat: bool = True                # recompute each layer in the backward, but its projections
     scan_layers: bool = True          # no effect: layers are a Python loop
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
@@ -105,6 +106,19 @@ def auto_layout(cfg: TransformerConfig, per_device_batch: int,
     logits_bytes = 2 * 4 * per_device_batch * seq * cfg.vocab_size
     remat = state_bytes + act_bytes + logits_bytes > 0.9 * hbm_bytes
     return replace(cfg, remat=remat, scan_layers=cfg.num_layers > 16)
+
+
+def _save_projections(ctx, func, *args, **kwargs):
+    """The remat policy: keep the outputs of the products with no batch
+    dims (``aten.mm``/``addmm``: the ``Dense`` layers), recompute the rest
+    (norms, RoPE, activations, attention and its kernels), as the JAX
+    package's ``dots_with_no_batch_dims_saveable``."""
+    if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_CONTEXTS = functools.partial(create_selective_checkpoint_contexts, _save_projections)
 
 
 def rope(x, positions, theta: float):
@@ -226,7 +240,8 @@ class TransformerLM(nn.Module):
         x = F.embedding(ids, self.tok_embed.weight).to(cfg.dtype)
         for layer in self.layers:
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, positions, use_reentrant=False)
+                x = checkpoint(layer, x, positions, use_reentrant=False,
+                               context_fn=_REMAT_CONTEXTS)
             else:
                 x = layer(x, positions)
         x = self.final_norm(x)

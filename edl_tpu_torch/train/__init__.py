@@ -1,1 +1,2 @@
-"""Training: train state, checkpoints and the single-process ElasticTrainer."""
+"""Training: train state, checkpoints, LR schedules, the process group and
+the elastic data-parallel ElasticTrainer."""

@@ -14,7 +14,12 @@ manager becomes plain files with the same guarantees:
   the extra state (tensors and plain containers: it is loaded with
   ``weights_only=True``).
 
-Saves are synchronous and single-process.
+Saves are synchronous.  In a ``torch.distributed`` world (parameters
+replicated, so rank 0 holds the whole state) rank 0 writes and commits,
+and the other ranks wait in a broadcast of its result until the commit is
+visible; rank 0 also decides ``latest_step``, so every rank restores the
+same step.  Those calls are collective: every rank makes them, in the
+same order.  Without a group nothing is exchanged.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import shutil
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from edl_tpu_torch.cluster.state import State
 from edl_tpu_torch.train.state import TrainState
@@ -35,27 +41,51 @@ logger = logging.getLogger(__name__)
 _TMP_PREFIX = ".tmp-"
 
 
+def _from_rank0(value: int | None) -> int | None:
+    """``value`` as rank 0 has it (None travels as -1); the identity
+    without a process group.  Returns only once rank 0 has called it."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return value
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([-1 if value is None else value], dtype=torch.int64, device=device)
+    dist.broadcast(t, src=0)
+    got = int(t.item())
+    return None if got < 0 else got
+
+
+def _is_writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3):
         self._dir = Path(directory).resolve()
         self._dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
-        for stale in self._dir.glob(f"{_TMP_PREFIX}*"):
-            shutil.rmtree(stale, ignore_errors=True)
+        if _is_writer():
+            for stale in self._dir.glob(f"{_TMP_PREFIX}*"):
+                shutil.rmtree(stale, ignore_errors=True)
 
     def all_steps(self) -> list[int]:
         return sorted(int(p.name) for p in self._dir.iterdir()
                       if p.is_dir() and p.name.isdigit())
 
     def latest_step(self) -> int | None:
-        steps = self.all_steps()
-        return steps[-1] if steps else None
+        """The newest committed step, as rank 0 sees it (collective)."""
+        steps = self.all_steps() if _is_writer() else []
+        return _from_rank0(steps[-1] if steps else None)
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state: TrainState, meta: State | None = None,
              force: bool = False) -> bool:
         """Commit ``state`` (and ``meta``) as step ``step``.  An existing
-        step is kept (returns False) unless ``force`` replaces it."""
+        step is kept (returns False) unless ``force`` replaces it.
+        Collective: rank 0 writes, every rank returns its result."""
+        done = self._save(step, state, meta, force) if _is_writer() else None
+        return bool(_from_rank0(done))
+
+    def _save(self, step: int, state: TrainState, meta: State | None, force: bool) -> bool:
         final = self._dir / str(step)
         if final.exists() and not force:
             return False
@@ -81,7 +111,12 @@ class CheckpointManager:
 
     def save_meta(self, step: int, meta: State) -> bool:
         """Atomically rewrite the JSON sidecar of a committed step (for
-        hooks that change ``meta`` after the epoch's save)."""
+        hooks that change ``meta`` after the epoch's save).  Collective,
+        as :meth:`save`."""
+        done = self._save_meta(step, meta) if _is_writer() else None
+        return bool(_from_rank0(done))
+
+    def _save_meta(self, step: int, meta: State) -> bool:
         d = self._dir / str(step) / "meta"
         if not (self._dir / str(step)).exists():
             return False
@@ -94,9 +129,10 @@ class CheckpointManager:
     # -- restore ------------------------------------------------------------
     def restore(self, state: TrainState, step: int | None = None,
                 ) -> tuple[TrainState, State | None] | None:
-        """Load step ``step`` (default the latest) into ``state`` (a freshly
-        built state of the same structure) and return ``(state, meta)``;
-        None when there is no checkpoint."""
+        """Load step ``step`` (default the latest, collective) into
+        ``state`` (a freshly built state of the same structure, on the
+        trainer's device, where the tensors land) and return ``(state,
+        meta)``; None when there is no checkpoint."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None

@@ -27,13 +27,24 @@ from edl_tpu_torch.cluster.state import (  # noqa: F401
 OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
 
 
-def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-          weight_decay: float = 1e-4) -> OptimizerFactory:
+def adamw(lr: float | Callable[[int], float], b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-4) -> OptimizerFactory:
     """AdamW with ``optax.adamw``'s defaults, decaying every parameter.
-    (``torch.optim.AdamW`` itself defaults to ``weight_decay=1e-2``.)"""
+    (``torch.optim.AdamW`` itself defaults to ``weight_decay=1e-2``.)
+    ``lr`` may be a schedule, ``count -> lr`` (``train/lr.py``), read
+    before each step at the number of steps already taken, as optax does;
+    that count is AdamW's own, so it rides the optimizer's state."""
     def make(params):
-        return torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps,
-                                 weight_decay=weight_decay)
+        opt = torch.optim.AdamW(params, lr=lr(0) if callable(lr) else lr, betas=(b1, b2),
+                                eps=eps, weight_decay=weight_decay)
+        if callable(lr):
+            def schedule(*_):
+                first = opt.state.get(opt.param_groups[0]["params"][0], {})
+                count = int(first["step"]) if "step" in first else 0
+                for group in opt.param_groups:
+                    group["lr"] = float(lr(count))
+            opt.register_step_pre_hook(schedule)
+        return opt
     return make
 
 

@@ -1,20 +1,30 @@
-"""ElasticTrainer: the train loop with stop-resume, single process.
+"""ElasticTrainer: the train loop with stop-resume elasticity.
 
-The port of the JAX package's ``train/trainer.py`` for one process on one
-device:
+The port of the JAX package's ``train/trainer.py``, one process per card:
 
 - the step: loss and gradient, then apply the gradients, then add
   ``loss`` to the metrics (the JAX step body); parameters and optimizer
   moments are updated in place;
+- data parallelism over a ``torch.distributed`` world
+  (``train/distributed.py``): parameters replicated, the batch split over
+  processes, and after the backward one all-reduce per gradient dtype of
+  a flat buffer, divided by the world, so the update is the gradient of
+  the mean loss over the global batch (JAX's replicated-parameter mesh);
+  without a process group the step does no extra work;
 - epoch accounting and the data checkpoint in a :class:`State` sidecar
   saved with every checkpoint (per epoch, and every ``save_every_steps``);
 - resume: restore the latest checkpoint and continue from
-  ``State.next_epoch``, with :class:`AdjustRegistry` callbacks on a world
-  size change.
+  ``State.next_epoch``, with :class:`AdjustRegistry` callbacks and, under
+  ``EDL_TPU_LR_RESCALE=1``, the world-derived LR rescale on a world-size
+  change;
+- with a coordination store: train-status reports (RUNNING, NEARTHEEND,
+  SUCCEED), which the launcher's generator reads to stop scaling near
+  the end, and a throttled heartbeat after completed steps for its hang
+  watchdog.  Both are best-effort.
 
-Not here yet (they wait for the distributed slice, ROADMAP.md Queue 1
-item 4): the coordination store, train-status reports, the heartbeat,
-the delta replication plane, live reshard and preemption.
+Not here yet (ROADMAP.md Queue 1 item 4e): preemption, live reshard, the
+delta replication plane and the peer checkpoint cache; the recovery-time
+record and the step metrics wait for the port's observability modules.
 """
 
 from __future__ import annotations
@@ -26,10 +36,16 @@ from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from edl_tpu_torch.cluster import heartbeat
+from edl_tpu_torch.cluster.env import TrainerEnv
 from edl_tpu_torch.cluster.state import AdjustRegistry, DataCheckpoint, State
+from edl_tpu_torch.cluster.train_status import TrainStatus, save_train_status
+from edl_tpu_torch.train import lr as lr_mod
 from edl_tpu_torch.train.checkpoint import CheckpointManager
 from edl_tpu_torch.train.state import OptimizerFactory, TrainState
+from edl_tpu_torch.utils import constants
 from edl_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -46,27 +62,43 @@ class TrainConfig:
     max_to_keep: int = 3
     log_every: int = 100
     global_batch_size: int = 0
+    near_end_epochs: int = 1           # NEARTHEEND window, in epochs
+    # liveness beat to the coordination store after completed steps,
+    # throttled to this period (the launcher's hang watchdog); 0 disables
+    heartbeat_every: float = 10.0
 
 
 class ElasticTrainer:
     def __init__(self, loss_fn: LossFn, config: TrainConfig | None = None,
+                 store=None, tenv: TrainerEnv | None = None,
                  device: str | torch.device = "cuda"):
         self.cfg = config or TrainConfig()
         self.loss_fn = loss_fn
         self.device = resolve_device(device)
+        self.store = store
+        self.tenv = tenv
         self.adjust = AdjustRegistry()
         self.ckpt = (CheckpointManager(self.cfg.checkpoint_dir, self.cfg.max_to_keep)
                      if self.cfg.checkpoint_dir else None)
+        self._run_t0: float | None = None     # fit() start: the first beat's threshold
+        self._last_step_t: float | None = None
+        self._step_ema: float | None = None
+        self._last_beat = 0.0
 
     @property
     def world_size(self) -> int:
-        return 1
+        """The formed process group's size (1 without one)."""
+        return dist.get_world_size() if dist.is_initialized() else 1
 
     # -- state construction --------------------------------------------------
     def create_state(self, init_fn: Callable[[], tuple[torch.nn.Module, Any]],
                      tx: OptimizerFactory) -> TrainState:
         """``init_fn() -> (module, extra)``; the module is moved to the
-        trainer's device before its optimizer is built."""
+        trainer's device before its optimizer is built.  Under
+        ``EDL_TPU_LR_RESCALE=1`` the optimizer carries the world scale
+        (``train/lr.py``), restored with it from every checkpoint."""
+        if constants.lr_rescale():
+            tx = lr_mod.world_scaled(tx)
         model, extra = init_fn()
         return TrainState.create(model.to(self.device), tx, extra)
 
@@ -78,12 +110,23 @@ class ElasticTrainer:
         state, saved_meta = self.ckpt.restore(state)
         if saved_meta is not None:
             meta = saved_meta
-        old_world = _last_world(meta)
-        if old_world and old_world != self.world_size:
+        old_world, new_world = _last_world(meta), self.world_size
+        if old_world and old_world != new_world:
             logger.info("world size %d -> %d; running adjust functions",
-                        old_world, self.world_size)
-            self.adjust.run(old_world, self.world_size, meta)
+                        old_world, new_world)
+            self.adjust.run(old_world, new_world, meta)
+            state = self._world_lr_rescale(state, old_world, new_world)
         return state, meta
+
+    def _world_lr_rescale(self, state, old_world: int, new_world: int):
+        """``EDL_TPU_LR_RESCALE``: multiply the optimizer's world scale by
+        new / old (the linear LR-vs-global-batch rule)."""
+        if not constants.lr_rescale() or not old_world or old_world == new_world:
+            return state
+        factor = new_world / old_world
+        logger.info("LR rescale: world %d -> %d, effective-LR factor %.3f",
+                    old_world, new_world, factor)
+        return lr_mod.rescale_state(state, factor)
 
     # -- the step ------------------------------------------------------------
     def to_device(self, batch):
@@ -104,9 +147,12 @@ class ElasticTrainer:
         state.optimizer.zero_grad(set_to_none=True)
         loss, (new_extra, metrics) = self.loss_fn(state.model, state.extra, batch, gen)
         loss.backward()
+        loss = loss.detach()
+        if dist.is_initialized():
+            loss = _mean_over_world(state.model, loss)
         state.apply_gradients(new_extra)
         metrics = dict(metrics or {})
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = loss
         return state, metrics
 
     # -- the loop ------------------------------------------------------------
@@ -117,11 +163,18 @@ class ElasticTrainer:
         """Run epochs ``meta.next_epoch .. epochs-1``; each ``data_fn(e)``
         yields host batches.  ``on_epoch_end`` runs after the epoch's
         checkpoint commits; what it writes into ``meta`` is patched into
-        that checkpoint's sidecar."""
+        that checkpoint's sidecar.  Reports RUNNING, NEARTHEEND for the
+        last ``near_end_epochs`` epochs, and SUCCEED at the end."""
+        if self._run_t0 is None:
+            self._run_t0 = time.monotonic()
+        self._report(TrainStatus.RUNNING)
         for epoch in range(meta.next_epoch, epochs):
+            if epochs - epoch <= self.cfg.near_end_epochs:
+                self._report(TrainStatus.NEARTHEEND)
             gen = torch.Generator(device=self.device).manual_seed(
                 seed * 1_000_003 + epoch)
             state, meta = self._run_epoch(state, meta, data_fn, epoch, gen, on_epoch_end)
+        self._report(TrainStatus.SUCCEED)
         return state, meta
 
     def _run_epoch(self, state, meta, data_fn, epoch, gen, on_epoch_end=None):
@@ -137,6 +190,8 @@ class ElasticTrainer:
             state, metrics = self.step_fn(state, self.to_device(batch), gen)
             n_steps += 1
             step = start_step + n_steps
+            self._observe_step_time()
+            self._heartbeat()
             if self.cfg.log_every and step % self.cfg.log_every == 0:
                 logger.info("epoch %d step %d: %s", epoch, step,
                             {k: float(v) for k, v in metrics.items()})
@@ -166,12 +221,64 @@ class ElasticTrainer:
         logger.info("epoch %d done: %d steps in %.1fs", epoch, n_steps, dt)
         return state, meta
 
+    # -- liveness and status -------------------------------------------------
+    def _observe_step_time(self) -> None:
+        """EMA of the wall time between completed-step observations.  Steps
+        are queued on the card asynchronously, but the queue is bounded,
+        so the loop's steady rate is the card's step rate."""
+        now = time.monotonic()
+        if self._last_step_t is not None:
+            dt = now - self._last_step_t
+            self._step_ema = dt if self._step_ema is None else 0.9 * self._step_ema + 0.1 * dt
+        self._last_step_t = now
+
+    def _heartbeat(self) -> None:
+        """Throttled liveness beat after a completed step (rank 0 in the
+        pod), for the launcher's hang watchdog.  The first beat comes after
+        step 1, so start-up is never taken for a hang.  Publishes the
+        self-derived stale threshold, max(10 x EMA step, 120 s), the first
+        beat's from the wall time since fit() began, unless
+        ``EDL_TPU_HANG_TIMEOUT`` sets one; beats at least 3x faster than
+        the threshold in force.  Best-effort."""
+        if (self.store is None or self.tenv is None or not self.tenv.pod_id
+                or self.tenv.rank_in_pod != 0 or not self.cfg.heartbeat_every):
+            return
+        hang_timeout = constants.hang_timeout()
+        threshold = None
+        if hang_timeout == 0:
+            ema = self._step_ema
+            if ema is None and self._run_t0 is not None:
+                ema = time.monotonic() - self._run_t0
+            threshold = heartbeat.auto_threshold(ema)
+        every = self.cfg.heartbeat_every
+        effective = hang_timeout if hang_timeout > 0 else threshold
+        if effective:
+            every = min(every, effective / 3.0)
+        now = time.monotonic()
+        if now - self._last_beat < every:
+            return
+        self._last_beat = now
+        try:
+            heartbeat.beat(self.store, self.tenv.job_id, self.tenv.pod_id, threshold=threshold)
+        except Exception:  # noqa: BLE001 — liveness must never fail a job
+            logger.exception("heartbeat write failed")
+
+    def _report(self, status: TrainStatus) -> None:
+        if self.store is None or self.tenv is None or not self.tenv.pod_id:
+            return
+        try:
+            save_train_status(self.store, self.tenv.job_id, self.tenv.pod_id, status)
+        except Exception:  # noqa: BLE001 — reporting is best-effort
+            logger.exception("train-status report failed")
+
     # -- eval ----------------------------------------------------------------
     @torch.no_grad()
     def evaluate(self, state: TrainState, batches: Iterable[Any],
                  metric_fn) -> dict[str, float]:
-        """Sample-weighted means of per-example metrics:
-        ``metric_fn(model, extra, batch) -> {name: (B,) tensor}``."""
+        """Sample-weighted means of per-example metrics over every rank's
+        batches: ``metric_fn(model, extra, batch) -> {name: (B,) tensor}``.
+        Ranks may hold different numbers of batches (none, too); every rank
+        returns the global means."""
         totals: dict[str, torch.Tensor] = {}
         count = 0
         was_training = state.model.training
@@ -184,7 +291,40 @@ class ElasticTrainer:
                 count += len(next(iter(vals.values())))
         finally:
             state.model.train(was_training)
-        return {k: float(v) / max(1, count) for k, v in totals.items()}
+        sums = {k: float(v) for k, v in totals.items()}
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            parts: list = [None] * dist.get_world_size()
+            dist.all_gather_object(parts, (sums, count))
+            sums, count = {}, 0
+            for part_sums, part_count in parts:
+                for k, v in part_sums.items():
+                    sums[k] = sums.get(k, 0.0) + v
+                count += part_count
+        return {k: v / max(1, count) for k, v in sums.items()}
+
+
+def _mean_over_world(model: torch.nn.Module, loss: torch.Tensor) -> torch.Tensor:
+    """Replace every parameter gradient, and ``loss``, by its mean over the
+    process group: one all-reduce per dtype of a flat buffer.  NCCL
+    averages in the collective (its one-rank form premultiplies by 1, so a
+    group of one changes no bit); gloo has no average, so it sums and
+    divides.  Every rank must hold gradients for the same parameters."""
+    tensors = [p.grad for p in model.parameters() if p.grad is not None] + [loss.reshape(1)]
+    average = dist.get_backend() == "nccl"
+    world = dist.get_world_size()
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        group = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in group])
+        if average:
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG)
+        else:
+            dist.all_reduce(flat)
+            flat /= world
+        offset = 0
+        for t in group:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+    return loss
 
 
 def _last_world(meta: State) -> int:

@@ -1,5 +1,4 @@
-"""Elastic LM pretraining on one card: the PyTorch port of
-``examples/lm/train_lm.py``.
+"""Elastic LM pretraining: the PyTorch port of ``examples/lm/train_lm.py``.
 
     python -m edl_tpu_torch.train_lm --layers 12 --embed 768 --heads 6 \\
         --mlp 3072 --vocab 32000 --seq_len 1024 --fused_ce
@@ -7,13 +6,18 @@
 Same flags as the JAX example minus those for meshes, pipelines and MoE
 and ``--scan_layers`` (layers are a Python loop here), with ``--attention``
 limited to the ported ``auto|dense|splash|flash``, plus ``--device`` (default
-``cuda``; ``cpu`` only when asked).  The
-checkpoint directory comes from the launcher's ``EDL_TPU_CKPT_DIR``, so a
-stopped run resumes from its last epoch.  Compute is bf16 on the card and
+``cuda``; ``cpu`` only when asked).  Under the elastic launcher
+(``python -m edl_tpu.collective.launch ... edl_tpu_torch/train_lm.py``) one
+process runs per trainer: the launcher's env forms the data-parallel world
+(NCCL on the card, gloo on the CPU), names the coordination store the
+trainer reports to, and gives the checkpoint directory, so a run stopped
+by a membership change resumes from its last epoch in a world of the new
+size; ``--batch_size`` is per process.  Compute is bf16 on the card and
 f32 on the CPU; the optimizer is AdamW with optax's defaults.  The
 synthetic corpus is the same order-1 Markov chain (numpy, so a seed gives
 the same tokens as the JAX example): the loss must fall well below the
-unigram entropy for a run to count.
+unigram entropy for a run to count.  ``EDL_TPU_DEMO_STEP_SLEEP`` seconds
+of sleep before each step pace a run, as in the JAX example trainers.
 """
 
 from __future__ import annotations
@@ -22,13 +26,14 @@ import argparse
 import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import torch
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="LM pretraining on one card")
+    p = argparse.ArgumentParser(description="elastic LM pretraining")
     p.add_argument("--epochs", type=int, default=3)
     p.add_argument("--steps_per_epoch", type=int, default=20)
     p.add_argument("--batch_size", type=int, default=8)
@@ -117,19 +122,23 @@ def metric_fn(model, extra, batch):
     return {"nll": -tok.mean(dim=-1)}
 
 
-def build_trainer(args, device: torch.device, checkpoint_dir: str = ""):
-    """``(cfg, trainer, init_fn, tx)`` for ``args`` on ``device`` (one
-    process, so the global batch is ``--batch_size``)."""
+def build_trainer(args, device: torch.device, checkpoint_dir: str = "", store=None,
+                  tenv=None):
+    """``(cfg, trainer, init_fn, tx)`` for ``args`` on ``device``; the
+    global batch is ``--batch_size`` times the formed world's size."""
+    import torch.distributed as dist
+
     from edl_tpu_torch.models.transformer import TransformerLM
     from edl_tpu_torch.train.state import adamw
     from edl_tpu_torch.train.trainer import ElasticTrainer, TrainConfig
 
     cfg = build_config(args, device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
     trainer = ElasticTrainer(
         make_loss_fn(args),
-        TrainConfig(checkpoint_dir=checkpoint_dir, global_batch_size=args.batch_size,
+        TrainConfig(checkpoint_dir=checkpoint_dir, global_batch_size=args.batch_size * world,
                     log_every=0),
-        device=device)
+        store=store, tenv=tenv, device=device)
 
     def init_fn():
         return TransformerLM(cfg, torch.Generator().manual_seed(0)), None
@@ -137,22 +146,40 @@ def build_trainer(args, device: torch.device, checkpoint_dir: str = ""):
     return cfg, trainer, init_fn, adamw(args.lr)
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Train; returns the final ``(TrainState, State)``."""
     from edl_tpu_torch.cluster.env import TrainerEnv
+    from edl_tpu_torch.train.distributed import connect_store, initialize_from_env, shutdown
     from edl_tpu_torch.utils.device import resolve_device
 
     args = parse_args(argv)
     device = resolve_device(args.device)
-    tenv = TrainerEnv()
+    tenv = initialize_from_env(TrainerEnv(), device)
+    if device.type == "cuda" and tenv.world_size > 1:
+        device = torch.device("cuda", torch.cuda.current_device())  # bound to this rank
+    store = connect_store(tenv)
+    try:
+        return _train(args, device, tenv, store)
+    finally:
+        if store is not None:
+            store.close()
+        shutdown()
+
+
+def _train(args, device, tenv, store):
     rank = tenv.global_rank
-    cfg, trainer, init_fn, tx = build_trainer(args, device, tenv.checkpoint_dir)
+    cfg, trainer, init_fn, tx = build_trainer(args, device, tenv.checkpoint_dir, store, tenv)
+    world = trainer.world_size
     state, meta = trainer.restore_or_create(init_fn, tx)
-    print(f"[train_lm] device={device} attn={args.attention} remat={cfg.remat} "
-          f"resume_epoch={meta.next_epoch}", flush=True)
+    print(f"[train_lm] rank={rank}/{world} device={device} attn={args.attention} "
+          f"remat={cfg.remat} resume_epoch={meta.next_epoch}", flush=True)
+    step_sleep = float(os.environ.get("EDL_TPU_DEMO_STEP_SLEEP", "0"))
 
     def data_fn(epoch: int):
         gen = markov_corpus(args, 1000 * (epoch + 1) + rank)
         for _ in range(args.steps_per_epoch):
+            if step_sleep:  # launcher tests pace the run so a pod can join mid-run
+                time.sleep(step_sleep)
             yield next(gen)
 
     losses = []
@@ -163,15 +190,17 @@ def main(argv=None) -> None:
         losses.append(round(val["nll"], 4))
         print(f"[train_lm] epoch {epoch}: val_nll={val['nll']:.4f}", flush=True)
 
-    trainer.fit(state, meta, data_fn, epochs=args.epochs, on_epoch_end=on_epoch_end)
+    state, meta = trainer.fit(state, meta, data_fn, epochs=args.epochs,
+                              on_epoch_end=on_epoch_end)
     rec = {"val_nll": losses[-1] if losses else None, "nll_curve": losses,
-           "unigram_nll": round(float(np.log(args.vocab)), 4), "world": 1,
+           "unigram_nll": round(float(np.log(args.vocab)), 4), "world": world,
            "device": str(device)}
     print(f"[train_lm] {json.dumps(rec)}", flush=True)
     marker = os.environ.get("EDL_TPU_DEMO_MARKER")
     if marker:
         with open(marker, "a") as f:
             f.write("done " + json.dumps(rec) + "\n")
+    return state, meta
 
 
 if __name__ == "__main__":

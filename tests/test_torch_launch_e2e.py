@@ -1,0 +1,112 @@
+"""Elastic training end to end with the PyTorch port's trainer under the
+unchanged JAX-package launcher: real launchers, a real coordination
+server, ``edl_tpu_torch/train_lm.py`` trainers on the CPU, a live mid-run
+join with stop-resume.
+
+Pod A trains solo; pod B joins once A has committed two epoch
+checkpoints; A's trainer is restarted into a 2-rank gloo world with B's,
+both resume from the checkpoint at the next epoch, and the epoch history
+records both world sizes (the model of
+``tests/test_elastic_training_e2e.py::test_elastic_join_resumes_training``).
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import pytest
+
+from edl_tpu.cluster.status import Status, load_job_status
+from edl_tpu.cluster.train_status import TrainStatus, load_train_statuses
+from edl_tpu.coord.client import CoordClient
+from edl_tpu_torch.cluster.state import State
+from tests.test_launch_integration import FAST, finish
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAIN = os.path.join(REPO, "edl_tpu_torch", "train_lm.py")
+TRAIN_ARGS = ["--device", "cpu", "--vocab", "64", "--layers", "2", "--embed", "64",
+              "--heads", "2", "--mlp", "128", "--seq_len", "32", "--batch_size", "4",
+              "--steps_per_epoch", "4", "--epochs", "10", "--lr", "1e-2"]
+
+
+def spawn(job_id, coord_ep, tmp, name, ckpt_dir):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_TPU_")}
+    env.update(FAST)
+    env.update({
+        "PYTHONPATH": REPO + os.pathsep + env.get("PYTHONPATH", ""),
+        "JAX_PLATFORMS": "cpu",
+        "EDL_TPU_HOST_IP": "127.0.0.1",
+        # the port forms stop-resume worlds only (live reshard is not ported)
+        "EDL_TPU_RESIZE_DELTA": "0",
+        "EDL_TPU_DEMO_STEP_SLEEP": "0.25",
+        "EDL_TPU_DEMO_MARKER": os.path.join(tmp, f"marker-{name}"),
+        "OMP_NUM_THREADS": "2",
+    })
+    log = open(os.path.join(tmp, f"launcher-{name}.log"), "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "edl_tpu.collective.launch",
+         "--job_id", job_id, "--coord_endpoints", coord_ep,
+         "--nodes_range", "1:2", "--nproc_per_node", "1",
+         "--checkpoint_dir", ckpt_dir,
+         "--log_dir", os.path.join(tmp, f"log-{name}"), TRAIN, "--", *TRAIN_ARGS],
+        env=env, cwd=tmp, stdout=log, stderr=subprocess.STDOUT)
+    proc._logfile = log  # noqa: SLF001
+    return proc
+
+
+def _committed(ckpt):
+    return sorted(int(d) for d in (os.listdir(ckpt) if os.path.isdir(ckpt) else [])
+                  if d.isdigit())
+
+
+@pytest.mark.slow
+def test_torch_trainers_join_and_resume_under_the_launcher(coord_server, tmp_path):
+    ep = f"127.0.0.1:{coord_server.port}"
+    ckpt = str(tmp_path / "ckpt")
+    pa = spawn("torch-e2e", ep, str(tmp_path), "a", ckpt)
+    pb = None
+    try:
+        deadline = time.time() + 180
+        while len(_committed(ckpt)) < 2:
+            assert time.time() < deadline, "pod A never committed 2 epoch checkpoints"
+            assert pa.poll() is None, "pod A died during solo warmup"
+            time.sleep(0.25)
+        pb = spawn("torch-e2e", ep, str(tmp_path), "b", ckpt)
+        assert finish(pa, 300) == 0
+        assert finish(pb, 300) == 0
+    finally:
+        for p in (pa, pb):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+
+    client = CoordClient(ep)
+    try:
+        assert load_job_status(client, "torch-e2e") == Status.SUCCEED
+        statuses = load_train_statuses(client, "torch-e2e")
+        assert statuses and set(statuses.values()) == {TrainStatus.SUCCEED}, statuses
+    finally:
+        client.close()
+
+    # the last checkpoint's sidecar: every epoch once, solo first, then 2 ranks
+    last = _committed(ckpt)[-1]
+    with open(os.path.join(ckpt, str(last), "meta", "metadata")) as f:
+        meta = State().from_json(f.read())
+    worlds = [e.world_size for e in sorted(meta.epochs, key=lambda e: e.epoch_no)]
+    assert [e.epoch_no for e in sorted(meta.epochs, key=lambda e: e.epoch_no)] == list(range(10))
+    assert worlds[0] == 1 and worlds[-1] == 2 and worlds == sorted(worlds), worlds
+
+    # the finishing run was a 2-rank world and learned
+    done = [line for line in (tmp_path / "marker-a").read_text().splitlines()
+            if line.startswith("done")]
+    rec = json.loads(done[-1].split(" ", 1)[1])
+    assert rec["world"] == 2, rec
+    assert rec["val_nll"] < rec["unigram_nll"], rec
+    # A's log shows the resize restart resuming from a nonzero epoch
+    log_a = (tmp_path / "launcher-a.log").read_bytes().decode(errors="replace")
+    resumes = [int(r) for r in re.findall(r"resume_epoch=(\d+)", log_a)]
+    assert len(resumes) >= 2 and resumes[0] == 0 and resumes[-1] > 0, log_a[-3000:]
+    assert "rank=0/2" in log_a, log_a[-3000:]

@@ -3,6 +3,7 @@ weights (carried across by ``edl_tpu_torch.models.convert``): logits,
 hidden states, both losses and every parameter gradient, in f32; and the
 bf16 dtype flow."""
 
+import collections
 import dataclasses
 
 import jax
@@ -10,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from edl_tpu.models import transformer as jtf
 from edl_tpu_torch.models import transformer as ttf
@@ -139,6 +141,40 @@ def test_remat_gives_the_same_grads():
         grads.append([p.grad for p in tm.parameters()])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts the aten ops run under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_keeps_the_projections():
+    """The remat policy (JAX's ``dots_with_no_batch_dims_saveable``) keeps
+    the ``Dense`` outputs: the backward runs as many ``mm``/``addmm`` with
+    remat on as with it off (no projection is run again), while the
+    attention products (``bmm``, batch dims) are recomputed."""
+    _, tc = _configs(vocab_size=257)
+    ids = torch.from_numpy(_ids(257))
+    counts = {}
+    for remat in (False, True):
+        tm = ttf.TransformerLM(dataclasses.replace(tc, remat=remat),
+                               torch.Generator().manual_seed(1))
+        loss = ttf.lm_loss(tm(ids[:, :-1]), ids[:, 1:])
+        with _CountOps() as mode:
+            loss.backward()
+        counts[remat] = mode.counts
+    dense = ("aten.mm.default", "aten.addmm.default")
+    assert [counts[True][op] for op in dense] == [counts[False][op] for op in dense]
+    assert counts[False]["aten.mm.default"] > 0
+    # the recomputed forward: each layer's two attention products
+    assert counts[True]["aten.bmm.default"] == counts[False]["aten.bmm.default"] + 2 * tc.num_layers
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(tie_embeddings=True), dict(num_kv_heads=1)])
