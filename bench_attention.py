@@ -19,18 +19,20 @@ At the flagship shape ``[8, 1024, 6, 128]`` bf16, and at ``[8, 1024, 6,
 ``[8, 1024, 3, 256]`` of ``chip_smoke.py``, ``[8, 1024, 2, 320]``, the
 ``d384`` phase's ``[8, 1024, 2, 384]``, ``[4, 1024, 2, 512]``, ``[4, 1024,
 2, 640]``, the ``d768`` phase's ``[8, 1024, 1, 768]``, ``[4, 1024, 2,
-1024]`` and ``[4, 1024, 2, 448]`` (the last seven run the kernels for head
-dims above 256: the Hopper forward whose consumers split the output
-columns, above 512 on chunks of the columns, with a run-time plan above
-768; the Hopper dQ with delta folded in on a thread block cluster that
-splits D; the Hopper dK/dV whose blocks split the output columns up to
-384, the cluster one above), the script times the earlier and the current
+1024]``, ``[4, 1024, 2, 448]`` and ``[1, 1024, 1, 2112]`` (the last eight
+run the kernels for head dims above 256: the Hopper forward whose
+consumers split the output columns, above 512 on chunks of the columns,
+with a run-time plan above 768; the Hopper dQ with delta folded in on a
+thread block cluster that splits D; the Hopper dK/dV whose blocks split
+the output columns up to 384, the cluster one above; above 2048, past the
+largest portable cluster, the ``mma.sync`` dQ and dK/dV), the script times the earlier and the current
 forward, dQ (with delta) and dK/dV, causal (the splash entry points) and
 non-causal (the flash ones), in turns: earlier, current, current, earlier.
 It checks both against the plain PyTorch versions first. Every time is a
 device time (``torch.profiler``, summed kernel time per call); each row
 carries its bound (the larger of bytes over 3.35 TB/s and operations over
-their type's peak rate, the larger over the types) and the library time of
+their type's peak rate, the larger over the types), the plain PyTorch
+version's time (f32, from the same bf16 inputs) and the library time of
 one PyTorch call for the same function (``scaled_dot_product_attention``,
 its whole backward for dQ and dK/dV), with the SDPA backend that ran, read
 from its longest kernel's name.
@@ -54,7 +56,7 @@ import chip_smoke as cs
 FLAGSHIP = (8, 1024, 6, 128)
 EXTRA = ((8, 1024, 6, 64), (8, 1024, 4, 192), (8, 1024, 4, 256), cs.D256_SHAPE,
          (8, 1024, 2, 320), cs.D384_SHAPE, (4, 1024, 2, 512), (4, 1024, 2, 640),
-         cs.D768_SHAPE, (4, 1024, 2, 1024), (4, 1024, 2, 448))
+         cs.D768_SHAPE, (4, 1024, 2, 1024), (4, 1024, 2, 448), (1, 1024, 1, 2112))
 REPS = 20
 KINDS = ("fwd", "dq", "dkdv")
 WORK = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkdv": "flash_bwd_dkdv"}  # cs._attention_work
@@ -182,9 +184,12 @@ def measure(shape, causal, seed, parent):
             ms, n = cs.device_ms(lambda: fn(*args[kind]), reps=REPS)
             times.setdefault(who, []).append(ms)
             retakes += n
+        plain_ms, n = cs.device_ms(plain[kind], reps=REPS)
+        retakes += n
         bound, by = cs._bound(*work[WORK[kind]])
         rows.append({"kernel": kind, "shape": list(shape), "causal": causal,
                      "ms": times["new"], "earlier_ms": times.get("earlier"),
+                     "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
                      "library": library[kind][0], "rel_err": errs,
                      "profile_retakes": retakes})

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,kernels,d384
     python3 chip_smoke.py --phases build,kernels,d768
     python3 chip_smoke.py --phases build,elastic
+    python3 chip_smoke.py --phases build,serve
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -78,6 +79,23 @@ failure exits non-zero:
    under ``EDL_TPU_LR_RESCALE=1``: epoch history [2, 1], LR scale 0.5,
    and the next loss within the parity phase's bf16 tolerance of the same
    continuation on the CPU.
+11. ``serve``: generation and serving at the flagship's full width (12 x 768,
+   6 heads x 128, MLP 3072, vocab 32,000, max_len 1024, seed-0 weights,
+   bf16).  (a) ``generate`` greedy on [8, 128] prompts, 64 new tokens; the
+   decode path's logits, teacher-forced on the emitted tokens, within
+   ``SERVE_MARGIN / 2`` of the full-prefix dense forward's.  (b) ``python -m
+   edl_tpu_torch.serve_lm --continuous 16`` as a subprocess, output to a
+   file, its endpoint read from its first line; 64 greedy requests over the
+   wire from 16 client threads, prompt lengths 16 to 900 from a seed (those
+   over 512 tokens prefill in chunks); then SIGTERM.  (c) An in-process
+   engine on the same requests: tokens/s, peak memory; decode ms a step at
+   16 live slots and the device-busy share of that loop (``torch.profiler``);
+   prefill ms per bucket.  Every request must return its length, and every
+   emitted token must be the argmax of the full-prefix dense forward (no
+   cache) on the emitted tokens wherever that forward's top-2 margin exceeds
+   ``SERVE_MARGIN``; how many requests equal their isolated ``generate``
+   token for token is reported.  The path computes attention densely, as the
+   JAX package's serving path does, so no attention kernel launches in it.
 
 It then prints the card's ``nvidia-smi`` name and power limit, one line
 ``{"kernels": [...]}``, and, last, ``{"ok": true, "device": {...}}``.
@@ -96,7 +114,7 @@ import time
 from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resume",
-          "elastic")
+          "elastic", "serve")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -1190,6 +1208,285 @@ def phase_elastic(ctx) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 11 --------------------------------------------------------------------
+
+SERVE_ARGS = ["--layers", "12", "--embed", "768", "--heads", "6", "--mlp", "3072",
+              "--vocab", "32000", "--max_len", "1024"]
+SERVE_SLOTS = 16
+SERVE_REQUESTS = 64
+SERVE_NEW = 32
+# a token is held to the full-prefix forward's argmax where that forward's
+# top-2 margin exceeds this (in logits, of unit scale at seed-0 weights: 8
+# bf16 ulps at 4); the decode path's logits must lie within half of it of the
+# full-prefix forward's, so a margin above it cannot flip
+SERVE_MARGIN = 0.25
+
+
+def _serve_model():
+    """The flagship LM at seed-0 weights on the card, bf16, dense attention
+    (serve_lm builds the same from the same seed)."""
+    import torch
+
+    from edl_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    cfg = TransformerConfig(vocab_size=32000, num_layers=12, embed_dim=768, num_heads=6,
+                            mlp_dim=3072, max_len=1024, remat=False, attention_impl="dense",
+                            dtype=torch.bfloat16)
+    model = TransformerLM(cfg, torch.Generator().manual_seed(0)).to("cuda")
+    return model.requires_grad_(False).eval()
+
+
+def _argmax_check(model, prompts, outs) -> dict:
+    """Each emitted token against the argmax of the full-prefix dense
+    forward (no cache) on prompt + the tokens emitted before it, where that
+    forward's top-2 margin exceeds SERVE_MARGIN."""
+    import numpy as np
+    import torch
+    checked = wrong = 0
+    for prompt, out in zip(prompts, outs):
+        seq = np.concatenate([prompt, out[:-1]]).astype(np.int64)
+        with torch.inference_mode():
+            logits = model(torch.from_numpy(seq[None]).cuda())[0, len(prompt) - 1:]
+        top = logits.topk(2, dim=-1)
+        sure = (top.values[:, 0] - top.values[:, 1] > SERVE_MARGIN).cpu().numpy()
+        checked += int(sure.sum())
+        wrong += int((sure & (top.indices[:, 0].cpu().numpy() != out)).sum())
+    return {"tokens": int(sum(len(o) for o in outs)), "checked": checked, "mismatched": wrong}
+
+
+def _serve_generate(model) -> dict:
+    """(a) generate greedy on [8, 128] prompts, 64 new tokens; its decode
+    logits teacher-forced on the emitted tokens against the full forward's."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models.generate import generate
+    from edl_tpu_torch.models.transformer import KVCache, decode_model
+    B, P, N = 8, 128, 64
+    prompt = torch.from_numpy(np.random.default_rng(10).integers(0, 32000, (B, P))).cuda()
+    dm = decode_model(model)
+    generate(dm, prompt, 4, temperature=0)             # first calls: cuBLAS handles
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(dm, prompt, N, temperature=0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if toks.shape != (B, N):
+        raise AssertionError(f"generate returned {tuple(toks.shape)}, want {(B, N)}")
+    seq = torch.cat([prompt, toks[:, :-1].long()], dim=1)
+    with torch.inference_mode():
+        full = model(seq)[:, P - 1:]
+        cache = KVCache.zeros(dm.cfg, B, 256, "cuda")
+        rows = [dm.head(dm(prompt, cache=cache, return_hidden=True)[:, -1])]
+        for t in range(N - 1):
+            rows.append(dm.head(dm(toks[:, t:t + 1], positions=cache.index[:, None],
+                                   cache=cache, return_hidden=True)[:, 0]))
+    dev = float((torch.stack(rows, 1) - full).abs().max())
+    check = _argmax_check(model, list(prompt.cpu().numpy()), list(toks.cpu().numpy()))
+    out = {"batch": B, "prompt": P, "new": N, "seconds": dt, "tokens_per_s": B * N / dt,
+           "decode_vs_full_max_abs_logit": dev, "argmax": check}
+    log("serve_generate", **out)
+    if dev > SERVE_MARGIN / 2:
+        raise AssertionError(f"the decode path's logits are {dev} from the full forward's "
+                             f"(allowed {SERVE_MARGIN / 2})")
+    return check
+
+
+def _kernel_ms(fn, reps: int) -> tuple[float, float]:
+    """Summed device time (ms) of the kernels one call of ``fn()`` launches,
+    and their number, over ``reps`` profiled calls (cuBLAS may pick a kernel
+    per call, so per-kernel counts need not divide by ``reps`` as
+    ``device_ms`` asks)."""
+    rows = kernel_times(fn, reps)
+    return sum(r[0] for r in rows) / reps / 1e3, sum(r[2] for r in rows) / reps
+
+
+def _serve_prompts():
+    import numpy as np
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, 32000, int(n)).astype(np.int32)
+            for n in rng.integers(16, 901, SERVE_REQUESTS)]
+
+
+def _start_server(log_path):
+    """serve_lm --continuous 16 at full width on the card, output to a file."""
+    import os
+    import subprocess
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_TPU_")}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
+    with open(log_path, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "edl_tpu_torch.serve_lm", *SERVE_ARGS, "--continuous",
+             str(SERVE_SLOTS), "--max_new_tokens", str(SERVE_NEW), "--temperature", "0",
+             "--port", "0"],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=f, stderr=subprocess.STDOUT)
+
+
+def _serve_wire(proc, log_path, prompts) -> tuple[list, dict]:
+    """(b) 64 greedy requests over the wire from 16 client threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from edl_tpu_torch.rpc.client import RpcClient
+    from edl_tpu_torch.serve_lm import request
+    deadline = time.monotonic() + SUBPROCESS_TIMEOUT
+    while True:
+        text = log_path.read_text()
+        first = text.splitlines()[0] if text else ""
+        if "[serve_lm] serving on" in first:
+            endpoint = first.split("serving on")[1].split()[0]
+            break
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"serve_lm never announced its endpoint: {text[-3000:]}")
+        time.sleep(0.2)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_SLOTS) as pool:
+        outs = list(pool.map(lambda p: request(endpoint, p[None], timeout=SUBPROCESS_TIMEOUT),
+                             prompts))
+    dt = time.perf_counter() - t0
+    client = RpcClient(endpoint, 30)
+    stats = client.call("stats")
+    client.close()
+    bad = [i for i, o in enumerate(outs) if o.shape != (1, SERVE_NEW)]
+    if bad:
+        raise AssertionError(f"requests {bad} returned the wrong length")
+    out = {"endpoint": endpoint, "requests": len(prompts), "seconds": dt,
+           "tokens_per_s": len(prompts) * SERVE_NEW / dt, "engine_stats": stats}
+    log("serve_wire", **out)
+    if stats["chunked_admissions"] < 1 or stats["requests_done"] != len(prompts):
+        raise AssertionError(f"the server's stats show no chunked admission or lost "
+                             f"requests: {stats}")
+    return [np.asarray(o[0]) for o in outs], out
+
+
+def _serve_engine(model, prompts) -> dict:
+    """(c) an in-process engine on the same requests, and its pieces timed."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models.transformer import KVCache
+    from edl_tpu_torch.serving import ContinuousBatcher
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    engine = ContinuousBatcher(model, slots=SERVE_SLOTS, temperature=0.0)
+    try:
+        engine.warm(128)
+        engine.warm(900)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        futs = [engine.submit(p, SERVE_NEW) for p in prompts]
+        outs = [f.result(timeout=SUBPROCESS_TIMEOUT) for f in futs]
+        dt = time.perf_counter() - t0
+        if any(len(o) != SERVE_NEW for o in outs):
+            raise AssertionError(f"engine outputs of lengths {[len(o) for o in outs]}")
+        stats = engine.stats()
+        peak = torch.cuda.max_memory_allocated()
+        # the decode loop at 16 live slots, at position 512 of a 1024 cache:
+        # one dispatch is steps_per_sync steps, the engine's own _step
+        T = engine._T
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with torch.inference_mode():
+            cache = KVCache.zeros(engine._mcfg, SERVE_SLOTS, 1024, "cuda")
+            cache.index.fill_(512)
+            toks = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
+
+            def dispatch():
+                engine._step(cache, toks, gen)
+
+            dispatch()
+            torch.cuda.synchronize()
+            reps = 4
+            t1 = time.perf_counter()
+            for _ in range(reps):
+                dispatch()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) / reps / T * 1e3
+            busy_ms, launches = _kernel_ms(dispatch, reps=2)
+            busy_ms, launches = busy_ms / T, launches / T
+            prefill = {}
+            for P in engine._buckets:
+                ids, lens = np.zeros((1, P), np.int32), np.full(1, P, np.int32)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                engine._prefill(ids, lens, gen)
+                torch.cuda.synchronize()
+                prefill[P] = {"wall_ms": (time.perf_counter() - t1) * 1e3,
+                              "device_ms": _kernel_ms(lambda: engine._prefill(ids, lens, gen),
+                                                      reps=2)[0]}
+    finally:
+        engine.stop()
+    out = {"nvidia_smi": smi_name_and_power_limit(), "requests": len(prompts),
+           "seconds": dt, "engine_tokens_per_s": len(prompts) * SERVE_NEW / dt,
+           "decode_ms_per_step_16_slots": wall_ms, "decode_device_ms_per_step_16_slots": busy_ms,
+           "decode_device_busy_share": busy_ms / wall_ms,
+           "decode_kernels_per_step": launches, "prefill_ms_by_bucket_k1": prefill,
+           "max_memory_allocated": peak, "steps_per_sync": T,
+           "cache_bytes": KVCache.zeros(engine._mcfg, 1, 1, "meta").nbytes() * SERVE_SLOTS * 1024,
+           "engine_stats": stats}
+    log("serve_engine", **out)
+    return {"outs": outs, **out}
+
+
+def phase_serve(ctx) -> None:
+    """Generation and serving at the flagship's width: generate, the entry
+    point over the wire, an in-process engine; every token held to the
+    full-prefix forward's argmax where its margin allows."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models.generate import generate
+    from edl_tpu_torch.models.transformer import decode_model
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    log_path = root / "serve_lm.log"
+    proc = _start_server(log_path)        # it loads while (a) runs
+    try:
+        A.reset_launch_counts()
+        model = _serve_model()
+        check_a = _serve_generate(model)
+        prompts = _serve_prompts()
+        wire_outs, wire = _serve_wire(proc, log_path, prompts)
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=60) != 0:
+            raise AssertionError(f"serve_lm exited {proc.returncode}: "
+                                 f"{log_path.read_text()[-3000:]}")
+        eng = _serve_engine(model, prompts)
+        launches = A.launch_counts()
+        dm = decode_model(model)
+        alone = [generate(dm, torch.from_numpy(p[None]), SERVE_NEW,
+                          temperature=0).cpu().numpy()[0] for p in prompts]
+        checks = {"generate": check_a, "wire": _argmax_check(model, prompts, wire_outs),
+                  "engine": _argmax_check(model, prompts, eng["outs"])}
+        equal = {"wire": sum(bool(np.array_equal(a, b)) for a, b in zip(wire_outs, alone)),
+                 "engine": sum(bool(np.array_equal(a, b)) for a, b in zip(eng["outs"], alone))}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log("serve", nvidia_smi=smi_name_and_power_limit(), argmax=checks,
+        requests_equal_to_isolated_generate=equal, of=len(prompts), margin=SERVE_MARGIN,
+        attention_kernel_launches=launches,
+        wire_tokens_per_s=wire["tokens_per_s"], engine_tokens_per_s=eng["engine_tokens_per_s"],
+        decode_ms_per_step_16_slots=eng["decode_ms_per_step_16_slots"],
+        decode_device_busy_share=eng["decode_device_busy_share"],
+        decode_kernels_per_step=eng["decode_kernels_per_step"],
+        prefill_ms_by_bucket_k1=eng["prefill_ms_by_bucket_k1"],
+        max_memory_allocated=eng["max_memory_allocated"])
+    shutil.rmtree(root, ignore_errors=True)
+    if any(c["mismatched"] for c in checks.values()):
+        raise AssertionError(f"emitted tokens differ from the full-prefix argmax: {checks}")
+    if any(c["checked"] < 0.1 * c["tokens"] for c in checks.values()):
+        raise AssertionError(f"too few tokens clear the margin to be checked: {checks}")
+    if any(launches.values()):
+        raise AssertionError(f"the serving path launched attention kernels: {launches}")
+
+
 # -- main ------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1219,7 +1516,7 @@ def main(argv=None) -> int:
     runners = {"build": phase_build, "kernels": phase_kernels, "parity": phase_parity,
                "flagship": phase_flagship, "flash": phase_flash, "d256": phase_d256,
                "d384": phase_d384, "d768": phase_d768, "resume": phase_resume,
-               "elastic": phase_elastic}
+               "elastic": phase_elastic, "serve": phase_serve}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

@@ -1,1 +1,1 @@
-"""The coordination-store client and the record types it returns."""
+"""The coordination-store client, the record types it returns, and leased registration."""

@@ -1,5 +1,6 @@
 """Coordination-store client: a KVStore over the RPC wire (a copy of the
-JAX package's ``coord/client.py``, with the operations a trainer uses).
+JAX package's ``coord/client.py``, with the operations a trainer and a
+leased advert use).
 
 The same requests as the JAX client, so it talks to the JAX package's
 coordination server (``python -m edl_tpu.coord.server``) and to the C++
@@ -65,7 +66,21 @@ class CoordClient(KVStore):
     def delete(self, key, _timeout=None):
         return self._call("kv_del", _timeout, key=key)["deleted"]
 
+    # -- leases ------------------------------------------------------------
+    def lease_grant(self, ttl, _timeout=None):
+        return self._call("lease_grant", _timeout, ttl=ttl)["lease_id"]
+
+    def lease_keepalive(self, lease_id, _timeout=None):
+        return self._call("lease_keepalive", _timeout, lease_id=lease_id)["alive"]
+
+    def lease_revoke(self, lease_id, _timeout=None):
+        self._call("lease_revoke", _timeout, lease_id=lease_id)
+
     # -- transactions ------------------------------------------------------
+    def put_if_absent(self, key, value, lease_id=0, _timeout=None):
+        return self._call("txn_put_if_absent", _timeout, key=key, value=value,
+                          lease_id=lease_id)["succeeded"]
+
     def put_if_equals(self, guard_key, guard_value, key, value, lease_id=0, _timeout=None):
         return self._call("txn_put_if_equals", _timeout, guard_key=guard_key,
                           guard_value=guard_value, key=key, value=value,

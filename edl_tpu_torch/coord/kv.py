@@ -1,6 +1,6 @@
 """KV-store interface and the record type its clients return (the part of
-the JAX package's ``coord/kv.py`` that a trainer uses: leases, the
-put-if-absent transaction and watches serve the launcher, not ported).
+the JAX package's ``coord/kv.py`` that a trainer and a leased advert use;
+watches serve the launcher, not ported).
 
 Semantics follow what the reference used from etcd3: flat keys, prefix
 range reads with a store-wide revision, and a guarded put.
@@ -40,6 +40,22 @@ class KVStore:
     def put_if_equals(self, guard_key: str, guard_value: bytes, key: str, value: bytes,
                       lease_id: int = 0) -> bool:
         """Write ``key`` iff ``guard_key`` currently holds ``guard_value``."""
+        raise NotImplementedError
+
+    def put_if_absent(self, key: str, value: bytes, lease_id: int = 0) -> bool:
+        """Write ``key`` iff it does not exist (a seat's seize)."""
+        raise NotImplementedError
+
+    # -- leases: a key put under a lease is deleted when the lease expires
+    def lease_grant(self, ttl: float) -> int:
+        raise NotImplementedError
+
+    def lease_keepalive(self, lease_id: int) -> bool:
+        """Refresh the lease; False when it has already expired."""
+        raise NotImplementedError
+
+    def lease_revoke(self, lease_id: int) -> None:
+        """End the lease now, deleting its keys."""
         raise NotImplementedError
 
     def close(self) -> None:

@@ -1,10 +1,15 @@
 """The flagship decoder-only transformer LM, in PyTorch.
 
-The port of the JAX package's ``models/transformer.py`` in training mode:
-RoPE positions (interleaved pairs), RMSNorm, SwiGLU MLP, grouped-query
-attention, optional tied embeddings, bf16 compute over f32 parameters.
-Attention goes through :func:`edl_tpu_torch.ops.attention.dot_product_attention`,
-so on the card every layer's causal attention runs the CUDA kernels.
+The port of the JAX package's ``models/transformer.py``: RoPE positions
+(interleaved pairs), RMSNorm, SwiGLU MLP, grouped-query attention,
+optional tied embeddings, bf16 compute over f32 parameters.  In training
+mode attention goes through
+:func:`edl_tpu_torch.ops.attention.dot_product_attention`, so on the card
+every layer's causal attention runs the CUDA kernels.  In decode mode
+(``cfg.decode``) every attention call, prefill included, reads and writes
+an explicit :class:`KVCache` and is computed densely, as the JAX package's
+``Block._decode_attention`` computes it (:func:`decode_model` builds such a
+model from a trained one).
 
 The dtype flow follows the reference exactly, including its quirk: RMSNorm
 normalises in f32, casts to the compute dtype, then multiplies by the f32
@@ -53,7 +58,12 @@ class TransformerConfig:
     moe_experts: int = 0              # > 0 is not ported (NotImplementedError)
     moe_top_k: int = 2
     moe_capacity: float = 1.25
-    decode: bool = False              # KV-cache decoding: not ported
+    # KV-cache decoding: attention reads and writes the KVCache passed to
+    # forward (models/generate.py and serving/engine.py drive this)
+    decode: bool = False
+    # multi-token decode calls write K/V at per-example cache indices,
+    # dropping rows past the cache's end, instead of one contiguous slab
+    # at a batch-uniform index
     decode_scatter: bool = False
 
     @property
@@ -76,6 +86,39 @@ def param_count(cfg: TransformerConfig) -> int:
         mlp = 3 * D * M
     head = 0 if cfg.tie_embeddings else D * V
     return V * D + L * (attn + mlp + 2 * D) + head + D
+
+
+@dataclass
+class KVCache:
+    """The decode-mode cache of every layer: keys ``[B, Hk, D, length]``
+    and values ``[B, Hk, length, D]`` in the compute dtype (the JAX
+    package's layouts: each attention product reads its operand with no
+    transpose), and one per-example write index ``[B]`` int32 that every
+    layer shares (the JAX package keeps one per layer, always equal).
+    ``forward`` writes the new keys and values in place and advances
+    ``index`` by the number of tokens it was given."""
+
+    keys: list[torch.Tensor]
+    values: list[torch.Tensor]
+    index: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: TransformerConfig, batch: int, length: int,
+              device: torch.device | str | None = None) -> "KVCache":
+        Hk, Dh = cfg.kv_heads, cfg.head_dim
+        return cls(
+            [torch.zeros(batch, Hk, Dh, length, dtype=cfg.dtype, device=device)
+             for _ in range(cfg.num_layers)],
+            [torch.zeros(batch, Hk, length, Dh, dtype=cfg.dtype, device=device)
+             for _ in range(cfg.num_layers)],
+            torch.zeros(batch, dtype=torch.int32, device=device))
+
+    @property
+    def length(self) -> int:
+        return self.keys[0].shape[-1]
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.keys + self.values)
 
 
 # bf16-equivalent activation values kept per token x layer x embed for the
@@ -121,13 +164,19 @@ def _save_projections(ctx, func, *args, **kwargs):
 _REMAT_CONTEXTS = functools.partial(create_selective_checkpoint_contexts, _save_projections)
 
 
-def rope(x, positions, theta: float):
-    """Rotary position embedding over the last dim of [B, L, H, D],
-    rotating interleaved pairs (x[..., 0::2], x[..., 1::2]); angles in f32."""
-    D = x.shape[-1]
-    freqs = theta ** (-torch.arange(0, D, 2, dtype=torch.float32, device=x.device) / D)
+def rope_tables(positions, D: int, theta: float):
+    """RoPE's ``(cos, sin)`` ``[B, L, 1, D/2]`` at ``positions [B, L]``
+    (angles in f32); a decode forward computes them once for every layer."""
+    freqs = theta ** (-torch.arange(0, D, 2, dtype=torch.float32, device=positions.device) / D)
     angles = positions[..., None].float() * freqs              # [B, L, D/2]
-    cos, sin = torch.cos(angles)[:, :, None], torch.sin(angles)[:, :, None]
+    return torch.cos(angles)[:, :, None], torch.sin(angles)[:, :, None]
+
+
+def rope(x, positions, theta: float, tables=None):
+    """Rotary position embedding over the last dim of [B, L, H, D],
+    rotating interleaved pairs (x[..., 0::2], x[..., 1::2]); angles in f32.
+    ``tables``: :func:`rope_tables` of ``positions``, when already made."""
+    cos, sin = tables if tables is not None else rope_tables(positions, x.shape[-1], theta)
     x1, x2 = x[..., 0::2], x[..., 1::2]
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
@@ -164,8 +213,70 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
 
+def _write_cache(cfg: TransformerConfig, ck, cv, k, v, idx) -> None:
+    """Write the new keys and values ``[B, L, Hk, D]`` into one layer's
+    cache at the per-example index ``idx [B]``, in place.  L == 1 writes
+    each example at its own index, and a lane at or past the cache's end
+    writes nothing (the JAX scatter drops out-of-range updates); with
+    ``cfg.decode_scatter`` each example's L rows land at its own index,
+    rows past the end dropped; otherwise one contiguous slab lands at the
+    batch-uniform ``idx[0]``, its start clamped so that the slab fits (as
+    ``lax.dynamic_update_slice`` clamps)."""
+    B, L = k.shape[:2]
+    M = ck.shape[-1]
+    k, v = k.to(ck.dtype), v.to(cv.dtype)
+    if L == 1:
+        # the advanced indices (dims 0 and 3, or 0 and 2) are not adjacent,
+        # so the indexed shape is [B, Hk, D]: k[:, 0]'s own
+        b = torch.arange(B, device=idx.device)
+        inside = (idx < M)[:, None, None]
+        at = idx.clamp(0, M - 1)
+        ck[b, :, :, at] = torch.where(inside, k[:, 0], ck[b, :, :, at])
+        cv[b, :, at, :] = torch.where(inside, v[:, 0], cv[b, :, at, :])
+    elif cfg.decode_scatter:
+        # the row filter reads the device (a host sync on the card); its
+        # caller, speculative decoding, is not ported yet
+        pos = idx[:, None] + torch.arange(L, device=idx.device)       # [B, L]
+        b, j = (pos < M).nonzero(as_tuple=True)
+        ck[b, :, :, pos[b, j]] = k[b, j]
+        cv[b, :, pos[b, j], :] = v[b, j]
+    else:
+        cols = idx[0].clamp(0, M - L) + torch.arange(L, device=idx.device)
+        ck.index_copy_(3, cols, k.permute(0, 2, 3, 1))
+        cv.index_copy_(2, cols, v.permute(0, 2, 1, 3))
+
+
+def future_mask(idx, L: int, M: int):
+    """``[B, 1, 1, L, M]``: True where cache position m lies past the
+    position ``idx[b] + l`` of query l (what decode attention hides)."""
+    q_pos = idx[:, None] + torch.arange(L, device=idx.device)      # [B, L]
+    return (torch.arange(M, device=idx.device) > q_pos[:, :, None])[:, None, None]
+
+
+def decode_attention(q, ck, cv, idx, hidden=None):
+    """Attention of the queries ``q [B, L, H, D]``, at positions ``idx[b]
+    + l``, against one layer's whole cache (the new keys already written):
+    the JAX package's ``Block._decode_attention`` after its write.  Its
+    precision recipe: products in the input dtype, then ``.float() *
+    scale``, ``-inf`` where the key's position exceeds the query's, an f32
+    softmax cast back to the input dtype, and the second product.  Query
+    head h attends kv head ``h // (H // Hk)``.  ``hidden``: the
+    :func:`future_mask`, when already made."""
+    B, L, H, Dh = q.shape
+    Hk, M = ck.shape[1], ck.shape[-1]
+    G = H // Hk
+    if hidden is None:
+        hidden = future_mask(idx, L, M)
+    qg = q.reshape(B, L, Hk, G, Dh).permute(0, 2, 3, 1, 4).reshape(B, Hk, G * L, Dh)
+    logits = torch.matmul(qg, ck).float() * Dh ** -0.5            # [B, Hk, G L, M]
+    logits = logits.view(B, Hk, G, L, M).masked_fill(hidden, -math.inf)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype).view(B, Hk, G * L, M)
+    out = torch.matmul(weights, cv)                                # [B, Hk, G L, D]
+    return out.view(B, Hk, G, L, Dh).permute(0, 3, 1, 2, 4).reshape(B, L, H, Dh)
+
+
 class Block(nn.Module):
-    """One decoder layer (training mode)."""
+    """One decoder layer."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -181,16 +292,25 @@ class Block(nn.Module):
         self.mlp_in = Dense(D, cfg.mlp_dim, cfg.dtype)
         self.mlp_out = Dense(cfg.mlp_dim, D, cfg.dtype)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, kv=None):
+        """``kv``: in decode mode, this layer's ``(keys, values)`` cache
+        buffers, the shared write index, and the RoPE tables and future
+        mask that every layer of the forward shares."""
         cfg = self.cfg
         H, Hk, Dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         B, L = x.shape[:2]
+        tables = kv[3] if kv is not None else None
         y = self.attn_norm(x)
         q, k, v = self.attn_qkv(y).split([H * Dh, Hk * Dh, Hk * Dh], dim=-1)
-        q = rope(q.reshape(B, L, H, Dh), positions, cfg.rope_theta)
-        k = rope(k.reshape(B, L, Hk, Dh), positions, cfg.rope_theta)
+        q = rope(q.reshape(B, L, H, Dh), positions, cfg.rope_theta, tables)
+        k = rope(k.reshape(B, L, Hk, Dh), positions, cfg.rope_theta, tables)
         v = v.reshape(B, L, Hk, Dh)
-        attn = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl)
+        if kv is not None:
+            ck, cv, idx, _, hidden = kv
+            _write_cache(cfg, ck, cv, k, v, idx)
+            attn = decode_attention(q, ck, cv, idx, hidden)
+        else:
+            attn = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl)
         x = x + self.attn_out(attn.reshape(B, L, H * Dh))
         y = self.mlp_norm(x)
         y = F.silu(self.mlp_gate(y)) * self.mlp_in(y)
@@ -201,13 +321,12 @@ class TransformerLM(nn.Module):
     """Decoder-only LM.  Parameters are f32 and initialised on the CPU from
     ``generator`` (default: seed 0) with flax's default families
     (lecun-normal kernels, fan-in normal embedding, unit norm scales);
-    move the module with ``.to(device)``."""
+    move the module with ``.to(device)``.  ``init=False`` leaves them
+    uninitialised (for a module whose weights are loaded next)."""
 
-    def __init__(self, cfg: TransformerConfig, generator: torch.Generator | None = None):
+    def __init__(self, cfg: TransformerConfig, generator: torch.Generator | None = None,
+                 init: bool = True):
         super().__init__()
-        if cfg.decode:
-            raise NotImplementedError("KV-cache decoding is not ported yet "
-                                      "(ROADMAP.md, Queue 1, item 6)")
         if cfg.moe_experts:
             raise NotImplementedError("the mixture-of-experts MLP is not ported "
                                       "yet (ROADMAP.md, Queue 1, item 7)")
@@ -217,7 +336,8 @@ class TransformerLM(nn.Module):
         self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(D, cfg.dtype)
         self.lm_head = None if cfg.tie_embeddings else Dense(D, V, cfg.dtype)
-        self.reset_parameters(generator or torch.Generator().manual_seed(0))
+        if init:
+            self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -229,38 +349,76 @@ class TransformerLM(nn.Module):
                 mod.scale.fill_(1.0)
 
     def forward(self, ids, positions=None, return_hidden: bool = False,
-                with_aux: bool = False):
+                with_aux: bool = False, cache: KVCache | None = None, token_mask=None):
         """Logits [B, L, V] f32, or with ``return_hidden`` the final-norm
-        hidden states [B, L, D] for :func:`lm_loss_fused`.  ``with_aux``
-        also returns the auxiliary loss (0: no MoE)."""
+        hidden states [B, L, D] for :func:`lm_loss_fused` (or for
+        :meth:`head` on the rows a sampler reads).  ``with_aux`` also
+        returns the auxiliary loss (0: no MoE).  In decode mode ``cache``
+        is required: the ids' keys and values are written at
+        ``cache.index``, which then advances by L.  ``token_mask`` marks
+        the real tokens of a padded batch; it steers only MoE routing, so
+        it has no effect here."""
         cfg = self.cfg
+        del token_mask
+        if cfg.decode != (cache is not None):
+            raise ValueError("a KVCache is passed exactly in decode mode "
+                             f"(cfg.decode={cfg.decode})")
         ids = ids.long()
         if positions is None:
             positions = torch.arange(ids.shape[1], device=ids.device).expand(ids.shape)
         x = F.embedding(ids, self.tok_embed.weight).to(cfg.dtype)
-        for layer in self.layers:
-            if cfg.remat and torch.is_grad_enabled():
+        if cache is not None:
+            shared = (rope_tables(positions, cfg.head_dim, cfg.rope_theta),
+                      future_mask(cache.index, ids.shape[1], cache.length))
+        for i, layer in enumerate(self.layers):
+            if cache is not None:
+                x = layer(x, positions, (cache.keys[i], cache.values[i], cache.index, *shared))
+            elif cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, positions, use_reentrant=False,
                                context_fn=_REMAT_CONTEXTS)
             else:
                 x = layer(x, positions)
+        if cache is not None:
+            cache.index += ids.shape[1]
         x = self.final_norm(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return (x, aux) if with_aux else x
+        logits = self.head(x)
+        return (logits, aux) if with_aux else logits
+
+    def head(self, x):
+        """f32 logits of final-norm hidden states ``[..., D]``."""
+        cfg = self.cfg
         if cfg.tie_embeddings:
             w = self.tok_embed.weight.to(cfg.dtype)
             w = w.to(torch.promote_types(x.dtype, w.dtype))
-            logits = x @ w.t()
-        else:
-            logits = self.lm_head(x)
-        logits = logits.float()
-        return (logits, aux) if with_aux else logits
+            return (x @ w.t()).float()
+        return self.lm_head(x).float()
 
     def head_weight(self) -> torch.Tensor:
         """The output projection as ``[D, V]`` (the flax kernel layout)."""
         w = self.tok_embed.weight if self.cfg.tie_embeddings else self.lm_head.weight
         return w.t()
+
+
+@torch.no_grad()
+def decode_model(model: TransformerLM) -> TransformerLM:
+    """``model`` in decode mode with dense attention, for inference: its
+    weight matrices and embedding cast once to the compute dtype (each
+    use casts them to that dtype anyway, so the numbers are the same,
+    and a decode step no longer converts every weight), the norm scales
+    shared with ``model``.  A model already in decode mode is returned as
+    it is."""
+    if model.cfg.decode:
+        return model
+    cfg = replace(model.cfg, decode=True, attention_impl="dense", mesh=None, remat=False)
+    with torch.device("meta"):
+        out = TransformerLM(cfg, init=False)
+    sd = {name: t.detach().to(cfg.dtype) if name.endswith(".weight") else t.detach()
+          for name, t in model.state_dict().items()}
+    out.load_state_dict(sd, assign=True)
+    return out.requires_grad_(False).eval()
 
 
 def _masked_mean(nll, mask):

@@ -1,1 +1,1 @@
-"""The coordination store's wire: framing and the request/response client."""
+"""The EDL1 wire: framing, the request/response client and the threaded server."""

@@ -1,5 +1,6 @@
-"""Coordination-store names and trainer knobs the port uses (copies of the
-JAX package's ``utils/constants.py`` entries).
+"""Coordination-store names, trainer knobs and serving knobs the port uses
+(copies of the JAX package's ``utils/constants.py`` entries, under the
+same ``EDL_TPU_*`` names and defaults).
 
 The store's table names are the contract with the JAX launcher, which
 reads what a trainer writes; the knobs are read from the environment
@@ -14,6 +15,7 @@ ETCD_STATE = "state"                # train State (data checkpoint etc.)
 ETCD_TRAIN_STATUS = "train_status"  # per-pod TrainStatus
 ETCD_HEARTBEAT = "heartbeat"        # per-pod trainer liveness beats
 LEADER_KEY = "0"                    # rank table key seized by the leader
+TTL_REFRESH_FRACTION = 0.5          # a leased key's keep-alive runs at ttl/2
 
 
 def _env_float(name: str, default: float) -> float:
@@ -38,3 +40,28 @@ def resize_delta() -> bool:
     """``EDL_TPU_RESIZE_DELTA``: the launcher's live-reshard path, on
     unless set to 0 (the JAX package's default)."""
     return bool(int(_env_float("EDL_TPU_RESIZE_DELTA", 1)))
+
+
+def etcd_ttl() -> float:
+    """``EDL_TPU_TTL``: the lease TTL of a registration (s)."""
+    return _env_float("EDL_TPU_TTL", 15.0)
+
+
+def prefill_chunk() -> int:
+    """``EDL_TPU_PREFILL_CHUNK``: the serving engine prefills a prompt
+    longer than this many tokens in chunks of this size, one a tick,
+    between its decode steps (0: every admission in one pass)."""
+    return int(_env_float("EDL_TPU_PREFILL_CHUNK", 512))
+
+
+def spec_k() -> int:
+    """``EDL_TPU_SPEC_K``: draft tokens a round of speculative decoding
+    (0: off; the port's engine raises on anything else, ROADMAP.md Queue
+    1 item 6)."""
+    return int(_env_float("EDL_TPU_SPEC_K", 0))
+
+
+def distill_advert_period() -> float:
+    """``EDL_TPU_DISTILL_ADVERT_PERIOD``: seconds between a teacher's
+    refreshes of its advert (the live ``stats()`` payload)."""
+    return _env_float("EDL_TPU_DISTILL_ADVERT_PERIOD", 1.0)

@@ -28,6 +28,14 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     return dev
 
 
+def enter_device(device: str | torch.device | None) -> None:
+    """Make ``device`` this thread's current CUDA device (a no-op for the
+    CPU or None).  The current device is per thread, and a fresh thread
+    starts on device 0 with no current context."""
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device))
+
+
 def smi_name_and_power_limit() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them
     (``name, power.limit`` CSV, one line per card)."""

@@ -1,6 +1,6 @@
 """The part of the JAX package's error hierarchy that the port uses: its
-base classes, the cluster and store errors, and the wire round trip of
-``utils/exceptions.py``.
+base classes, the cluster, store, registration and serving errors, and the
+wire round trip of ``utils/exceptions.py``.
 
 A server sends an error as ``{"type": <class name>, "detail": ...}``; the
 client raises the class of that name, so a store error reaches the
@@ -8,6 +8,8 @@ caller with the type the JAX server raised.
 """
 
 from __future__ import annotations
+
+import traceback
 
 
 class EdlError(Exception):
@@ -30,8 +32,27 @@ class EdlInternalError(EdlError):
     """Unexpected server-side failure (carries remote traceback)."""
 
 
+class EdlRegisterError(EdlRetryableError):
+    """TTL-leased registration could not be established/refreshed."""
+
+
+class EdlUnavailableError(EdlRetryableError):
+    """This server cannot take or finish the work (draining, stopped
+    mid-generation) — try another replica or retry later."""
+
+
 _REGISTRY = {cls.__name__: cls for cls in (EdlError, EdlRetryableError, EdlCoordError,
-                                            EdlTableError, EdlInternalError)}
+                                            EdlTableError, EdlInternalError, EdlRegisterError,
+                                            EdlUnavailableError)}
+
+
+def serialize(exc: BaseException) -> dict:
+    """Exception -> wire dict: a framework error by its class name, any
+    other as :class:`EdlInternalError` carrying the traceback."""
+    if isinstance(exc, EdlError):
+        return {"type": type(exc).__name__, "detail": str(exc)}
+    return {"type": "EdlInternalError",
+            "detail": "".join(traceback.format_exception(exc))}
 
 
 def deserialize(status: dict | None) -> None:

@@ -206,7 +206,10 @@ def test_init_families():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        ttf.TransformerLM(ttf.TransformerConfig(decode=True))
+    # decode mode is ported (tests/test_torch_generate.py); a decode-mode
+    # model computes only against a KVCache
+    decode = ttf.TransformerLM(ttf.TransformerConfig(decode=True, vocab_size=64, **SMALL))
+    with pytest.raises(ValueError, match="KVCache"):
+        decode(torch.zeros((1, 4), dtype=torch.int64))
     with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
         ttf.TransformerLM(ttf.TransformerConfig(moe_experts=4))
