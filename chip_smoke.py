@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,kernels,d768
     python3 chip_smoke.py --phases build,elastic
     python3 chip_smoke.py --phases build,serve
+    python3 chip_smoke.py --phases build,resnet
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -63,10 +64,28 @@ failure exits non-zero:
    the Hopper forward on chunks of the output columns, the cluster dQ and
    the cluster dK/dV 12 times a step each, and no other attention
    kernel.
-9. ``resume``: save at an epoch's end, drop the trainer, restore a new one
+9. ``resnet``: ResNet50 (width 64, 1000 classes) through
+   ``edl_tpu_torch.train_resnet``'s trainer at bs 128, 224², bf16, on the
+   JAX bench's fixed device batch with its SGD (0.1, momentum 0.9,
+   Nesterov) and train_resnet's label-smoothed loss: 3 warm-up and 20 timed
+   steps; img/s per card, wall ms a step, device ms a step by group from 2
+   profiled steps, MFU (``obs/flops.py``), peak memory, and img/s again
+   with cuDNN's autotuner on; the loss must fall on the memorised batch and
+   no attention kernel may launch.  A uint8 BGR batch through
+   ``device_normalize``, held to its numpy formula to 1e-6.  One ResNet18
+   step (width 16, 32², batch 8, f32) on the card against the CPU: logits,
+   loss, BN buffers and parameters within ``RESNET_CPU_TOL`` of each
+   tensor's largest magnitude.  A checkpoint round trip: the next loss
+   equals the uninterrupted run's and the BN buffers come back as saved.
+   The native record library builds and round-trips 1,000 records; the
+   JPEG pipeline's host img/s is timed only where ``cv2`` imports.
+10. ``resume``: save at an epoch's end, drop the trainer, restore a new one
    with ``restore_or_create`` and check that step, epoch and the next loss
-   continue the uninterrupted run.
-10. ``elastic``: the distributed trainer.  (1) An NCCL process group of
+   continue the uninterrupted run.  The restored trainer runs with a
+   store (a dict) and a launcher's stage, and writes the trainer half of
+   the resize's recovery record once: ``restored_to_first_step`` is
+   printed.
+11. ``elastic``: the distributed trainer.  (1) An NCCL process group of
    one: 3 flagship steps through the gradient all-reduce give parameters
    and losses equal to the bit to 3 steps without a group, the splash
    kernels launch 12 times a step each, and the profile of a step shows
@@ -79,7 +98,7 @@ failure exits non-zero:
    under ``EDL_TPU_LR_RESCALE=1``: epoch history [2, 1], LR scale 0.5,
    and the next loss within the parity phase's bf16 tolerance of the same
    continuation on the CPU.
-11. ``serve``: generation and serving at the flagship's full width (12 x 768,
+12. ``serve``: generation and serving at the flagship's full width (12 x 768,
    6 heads x 128, MLP 3072, vocab 32,000, max_len 1024, seed-0 weights,
    bf16).  (a) ``generate`` greedy on [8, 128] prompts, 64 new tokens; the
    decode path's logits, teacher-forced on the emitted tokens, within
@@ -113,8 +132,8 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resume",
-          "elastic", "serve")
+PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
+          "resume", "elastic", "serve")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -218,21 +237,30 @@ def log(phase: str, **nums) -> None:
 
 def kernel_times(fn, reps: int) -> list[tuple[float, str, int]]:
     """``(device µs, kernel name, launches)`` of every kernel that ``reps``
-    calls of ``fn()`` launch, longest first (``torch.profiler``).  A user
-    annotation on the device timeline (the optimizer's ``Optimizer.step#...``,
-    the process group's ``nccl:all_reduce``) spans kernels that are counted
-    already and is left out."""
+    calls of ``fn()`` launch, longest first (``torch.profiler``), between
+    two spin kernels that are left out.  A user annotation on the device timeline
+    (the optimizer's ``Optimizer.step#...``, the process group's
+    ``nccl:all_reduce``) spans kernels that are counted already and is left
+    out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a window's first or last records can go unrecorded when its
+        # kernels are short (one of ten 20-µs multiplies, every retake, on
+        # one card): spin kernels, left out below, stand at both ends
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
     return sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-                   and not ev.key.startswith(("Optimizer.", "nccl:"))), reverse=True)
+                   and not ev.key.startswith(("Optimizer.", "nccl:"))
+                   and "spin_kernel" not in ev.key), reverse=True)
 
 
 def device_ms(fn, reps: int = 10, warmup: int = 3) -> tuple[float, int]:
@@ -253,6 +281,21 @@ def device_ms(fn, reps: int = 10, warmup: int = 3) -> tuple[float, int]:
               file=sys.stderr, flush=True)
         time.sleep(0.1 * (attempt + 1))
     raise RuntimeError("the profiler lost kernel records in 10 tries")
+
+
+def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn()`` in ms between CUDA events around ``reps``
+    back-to-back calls (launch gaps the host cannot hide count)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def rel_err(got, want) -> float:
@@ -895,9 +938,328 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-# -- phase 6 ---------------------------------------------------------------------
+# -- phase 9 ---------------------------------------------------------------------
+
+RESNET_ARGS = ["--model", "resnet50", "--width", "64", "--num_classes", "1000",
+               "--image_size", "224", "--batch_size", "128"]
+RESNET_WARMUP, RESNET_TIMED, RESNET_PROFILED = 3, 20, 2
+# the card against the CPU: a ResNet18 step in f32 (TF32 off), each tensor
+# within this share of its largest magnitude
+RESNET_CPU_TOL = 1e-4
+NATIVE_RECORDS = 1000
+
+
+def _resnet_group(name: str) -> str:
+    if "batch_norm" in name:
+        return "batch norm"
+    if any(tag in name.lower() for tag in ("conv", "xmma", "implicit", "cutlass", "cudnn",
+                                           "wgrad", "dgrad", "fprop", "gemm", "nvjet")):
+        return "convolution and matmul (cuDNN, cuBLAS)"
+    if "elementwise" in name or "reduce" in name:
+        return "elementwise and reductions"
+    return "other"
+
+
+def _resnet_batch(n, size, dtype, seed=0):
+    """The JAX bench's fixed device batch: images ``normal`` from ``seed``,
+    labels uniform in 1000 from ``seed + 1``."""
+    import numpy as np
+    import torch
+    image = np.random.default_rng(seed).normal(size=(n, size, size, 3)).astype(np.float32)
+    label = np.random.default_rng(seed + 1).integers(0, 1000, (n,)).astype(np.int32)
+    return {"image": torch.from_numpy(image).to("cuda", dtype),
+            "label": torch.from_numpy(label).to("cuda")}
+
+
+def _resnet_steps() -> dict:
+    """ResNet50 at bs 128, 224², bf16, through train_resnet's trainer with
+    the JAX bench's SGD (0.1, momentum 0.9, Nesterov): 3 warm-up and 20
+    timed steps on a fixed batch; img/s, MFU, peak memory, and device ms a
+    step by group from 2 profiled steps.  The fixed batch is memorised, so
+    the loss must fall.  Then a few steps on a uint8 BGR batch through
+    ``device_normalize``, held to its numpy formula."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch import train_resnet
+    from edl_tpu_torch.data import images
+    from edl_tpu_torch.obs.flops import analytic_resnet_flops_per_image, peak_tflops
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.train.state import sgd
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+
+    args = train_resnet.parse_args(RESNET_ARGS)
+    device = torch.device("cuda")
+    init_fn, trainer, _, _ = train_resnet.build_trainer(args, device)
+    state = trainer.create_state(init_fn, sgd(0.1, momentum=0.9, nesterov=True))
+    batch = _resnet_batch(args.batch_size, args.image_size, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(3)
+    losses = []
+    for _ in range(RESNET_WARMUP):
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(RESNET_TIMED):
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = A.launch_counts()
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    img_s = args.batch_size * RESNET_TIMED / dt
+    flops_img = analytic_resnet_flops_per_image(state.model, args.image_size)
+    peak = peak_tflops(torch.cuda.get_device_name(0))
+    rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=RESNET_PROFILED)
+    groups: dict[str, float] = {}
+    for us, key, _ in rows:
+        g = _resnet_group(key)
+        groups[g] = groups.get(g, 0.0) + us / RESNET_PROFILED / 1e3
+    # the same steps with cuDNN's autotuner on (off above, PyTorch's default)
+    torch.backends.cudnn.benchmark = True
+    try:
+        for _ in range(RESNET_WARMUP):
+            trainer.step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RESNET_TIMED):
+            trainer.step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        img_s_tuned = args.batch_size * RESNET_TIMED / (time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    out = {"nvidia_smi": smi_name_and_power_limit(), "model": args.model,
+           "batch": args.batch_size, "image_size": args.image_size, "dtype": "bfloat16",
+           "steps": RESNET_TIMED, "img_s_per_card": img_s, "wall_ms_per_step": dt / RESNET_TIMED * 1e3,
+           "train_flops_per_image": flops_img, "tflops": img_s * flops_img / 1e12,
+           "mfu": (img_s * flops_img / 1e12 / peak) if peak else None,
+           "device_busy_ms_per_step": sum(r[0] for r in rows) / RESNET_PROFILED / 1e3,
+           "device_ms_per_step_by_group": groups, "max_memory_allocated": peak_mem,
+           "losses": losses, "attention_launches": launches,
+           "img_s_per_card_cudnn_benchmark": img_s_tuned}
+    log("resnet", **out)
+    total = sum(r[0] for r in rows)
+    for rank, (us, key, count) in enumerate(rows[:15]):
+        log("resnet_profile", kernel=key[:100], group=_resnet_group(key),
+            ms_per_step=us / RESNET_PROFILED / 1e3, share=us / total,
+            calls_per_step=count / RESNET_PROFILED)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite ResNet loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the ResNet loss did not fall on a fixed batch: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"the ResNet step launched attention kernels: {launches}")
+
+    # the uint8 path: device_normalize on the card against its numpy formula
+    u8 = np.random.default_rng(4).integers(0, 256, (args.batch_size, args.image_size,
+                                                    args.image_size, 3)).astype(np.uint8)
+    batch_u8 = {"image": torch.from_numpy(u8).to(device), "label": batch["label"]}
+    got = images.device_normalize(batch_u8["image"][:8]).cpu().numpy()
+    want = (u8[:8, ..., ::-1].astype(np.float32) - images.IMAGENET_MEAN) / images.IMAGENET_STD
+    norm_err = float(np.abs(got - want).max())
+    u8_losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, metrics = trainer.step_fn(state, batch_u8, gen)
+        u8_losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    u8_ms = (time.perf_counter() - t0) / 3 * 1e3
+    u8_losses = [float(x) for x in u8_losses]
+    norm_ms = event_ms(lambda: images.device_normalize(batch_u8["image"]))
+    log("resnet", uint8_normalize_max_abs_err=norm_err, uint8_normalize_tol=1e-6,
+        uint8_wall_ms_per_step=u8_ms, uint8_losses=u8_losses,
+        device_normalize_event_ms=norm_ms)
+    del trainer, state, batch, batch_u8
+    torch.cuda.empty_cache()
+    if norm_err > 1e-6 or not all(math.isfinite(x) for x in u8_losses):
+        raise AssertionError(f"the uint8 path: normalize error {norm_err}, losses {u8_losses}")
+    return out
+
+
+def _resnet_card_vs_cpu() -> dict:
+    """One ResNet18 (width 16, 32², batch 8, f32) training step on the card
+    and on the CPU from the same weights: logits, loss, the updated BN
+    buffers and the parameters after one SGD step."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from edl_tpu_torch.models import resnet
+    from edl_tpu_torch.train.state import sgd
+
+    x = np.random.default_rng(5).normal(size=(8, 32, 32, 3)).astype(np.float32)
+    y = np.random.default_rng(6).integers(0, 10, (8,))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        model = resnet.ResNet18(num_classes=10, width=16, dtype=torch.float32,
+                                generator=torch.Generator().manual_seed(7)).to(dev)
+        opt = sgd(0.1, momentum=0.9, nesterov=True, weight_decay=1e-4)(model.parameters())
+        logits = model(torch.from_numpy(x).to(dev))
+        loss = F.cross_entropy(logits, torch.from_numpy(y).to(dev), label_smoothing=0.1)
+        loss.backward()
+        opt.step()
+        results[dev] = {"logits": logits.detach().cpu(), "loss": loss.detach().cpu(),
+                        **{k: v.detach().cpu() for k, v in model.state_dict().items()}}
+    errs = {k: float((results["cuda"][k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+            for k, v in results["cpu"].items()}
+    worst = max(errs, key=errs.get)
+    out = {"tensors": len(errs), "logits_err": errs["logits"], "loss_err": errs["loss"],
+           "worst": worst, "worst_err": errs[worst],
+           "bn_buffers_worst_err": max(v for k, v in errs.items() if "running" in k),
+           "params_worst_err": max(v for k, v in errs.items()
+                                   if k not in ("logits", "loss") and "running" not in k),
+           "tol": RESNET_CPU_TOL}
+    log("resnet", card_vs_cpu=out)
+    if errs[worst] > RESNET_CPU_TOL:
+        raise AssertionError(f"the card's ResNet18 step is not the CPU's: {worst} {errs[worst]}")
+    return out
+
+
+def _resnet_resume(root) -> dict:
+    """ResNet50 (bs 32) through train_resnet's trainer: 2 epochs of 2 steps
+    straight, then 1 epoch with a checkpoint and a restore into a fresh
+    trainer for the next: the next loss must equal the uninterrupted run's,
+    and the BN buffers must come back as saved."""
+    import torch
+
+    from edl_tpu_torch import train_resnet
+
+    args = train_resnet.parse_args(RESNET_ARGS + ["--batch_size", "32", "--epochs", "2",
+                                                  "--warmup_epochs", "0.5"])
+    device = torch.device("cuda")
+    batches = [_resnet_batch(args.batch_size, args.image_size, torch.bfloat16, seed=10 + i)
+               for i in range(4)]
+
+    def data_fn(epoch):
+        yield from batches[2 * epoch:2 * epoch + 2]
+
+    def run(epochs, checkpoint_dir):
+        init_fn, trainer, tx, _ = train_resnet.build_trainer(args, device, 2, checkpoint_dir)
+        inner, losses = trainer.loss_fn, []
+
+        def recording(*a):
+            loss, aux = inner(*a)
+            losses.append(loss.detach())
+            return loss, aux
+
+        trainer.loss_fn = recording
+        state, meta = trainer.restore_or_create(init_fn, tx)
+        restored = {k: v.clone() for k, v in state.model.named_buffers()}
+        state, meta = trainer.fit(state, meta, data_fn, epochs=epochs)
+        buffers = {k: v.clone() for k, v in state.model.named_buffers()}
+        out = (state.step, restored, buffers, [float(x) for x in losses])
+        del trainer, state
+        torch.cuda.empty_cache()
+        return out
+
+    _, _, _, straight = run(2, "")
+    step_a, _, saved, first = run(1, str(root))
+    step_b, restored, _, second = run(2, str(root))
+    diff = abs(second[0] - straight[2]) / abs(straight[2])
+    same_buffers = all(torch.equal(restored[k], saved[k]) for k in saved)
+    out = {"uninterrupted_losses": straight, "before_stop": first, "after_restore": second,
+           "saved_step": step_a, "final_step": step_b, "next_loss_rel_diff": diff,
+           "rtol": RESUME_RTOL, "bn_buffers_restored": same_buffers}
+    log("resnet", resume=out)
+    if (step_a, step_b) != (2, 4) or not same_buffers or diff > RESUME_RTOL:
+        raise AssertionError(f"the ResNet run did not continue across the restore: {out}")
+    return out
+
+
+def _resnet_native(root) -> dict:
+    """The native record library builds here and round-trips 1,000 records
+    (native writer, native and Python readers); where ``cv2`` imports, the
+    JPEG pipeline's host img/s on a synthetic set."""
+    import numpy as np
+
+    from edl_tpu_torch.native import build, imagedec, recordio
+
+    if build.ensure_built() is None:
+        raise AssertionError("the native record library did not build")
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(8)
+    recs = [rng.bytes(int(n)) for n in rng.integers(1, 5000, NATIVE_RECORDS)]
+    path = str(root / "records.rec")
+    with recordio.RecordWriter(path, use_native=True) as w:
+        for r in recs:
+            w.write(r)
+    readers = {}
+    for native in (True, False):
+        reader = recordio.RecordReader(path, use_native=native)
+        readers[native] = list(reader)
+        reader.close()
+    out = {"library": build.OUT.name,
+           "records": NATIVE_RECORDS, "round_trip": readers[True] == recs == readers[False],
+           "imagedec": imagedec.available()}
+    try:
+        import cv2  # noqa: F401 — only to learn whether the JPEG path can run here
+    except ImportError:
+        out["jpeg_pipeline"] = "not timed: cv2 does not import on this machine"
+    else:
+        from edl_tpu_torch.data import images
+        files = images.write_synthetic_imagenet(str(root / "synth"), n_files=2, per_file=128,
+                                                size=256, classes=10)
+        it = images.ImageBatches(files, 64, image_size=224, train=True, num_workers=8)
+        t0 = time.perf_counter()
+        n = sum(len(b["label"]) for b in it)
+        out["jpeg_pipeline"] = {"img_s": n / (time.perf_counter() - t0), "images": n,
+                                "decoder": "native" if imagedec.available() else "cv2"}
+    log("resnet", native=out)
+    if not out["round_trip"]:
+        raise AssertionError("the native record files did not round-trip")
+    return out
+
+
+def phase_resnet(ctx) -> None:
+    """ResNet50 training on the card: step timing, the uint8 path, the card
+    against the CPU, a checkpoint round trip, and the native record
+    library."""
+    import shutil
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_resnet"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        ctx["resnet"] = _resnet_steps()
+        _resnet_card_vs_cpu()
+        _resnet_resume(root / "ckpt")
+        _resnet_native(root / "native")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# -- phase 10 --------------------------------------------------------------------
 
 RESUME_RTOL = 1e-4   # the same card, deterministic kernels, a bit-exact restore
+
+
+class DictStore:
+    """A coordination store in a dict (the store interface a trainer uses:
+    put, get, get_prefix, delete, scoped_deadline)."""
+
+    def __init__(self):
+        self.kv: dict[str, bytes] = {}
+
+    def put(self, key, value, lease_id=0):
+        self.kv[key] = value
+        return len(self.kv)
+
+    def get(self, key):
+        from edl_tpu_torch.coord.kv import KVRecord
+        return KVRecord(key, self.kv[key]) if key in self.kv else None
+
+    def get_prefix(self, prefix):
+        from edl_tpu_torch.coord.kv import KVRecord
+        return [KVRecord(k, v) for k, v in sorted(self.kv.items()) if k.startswith(prefix)], 0
+
+    def delete(self, key):
+        return self.kv.pop(key, None) is not None
+
+    def scoped_deadline(self, seconds):
+        import contextlib
+        return contextlib.nullcontext(self)
 
 
 def phase_resume(ctx) -> None:
@@ -908,6 +1270,8 @@ def phase_resume(ctx) -> None:
     import torch
 
     from edl_tpu_torch import train_lm
+    from edl_tpu_torch.cluster import recovery
+    from edl_tpu_torch.cluster.env import TrainerEnv
 
     args = train_lm.parse_args(FLAGSHIP_ARGS + ["--steps_per_epoch", "2"])
     device = torch.device("cuda")
@@ -919,8 +1283,9 @@ def phase_resume(ctx) -> None:
         for _ in range(args.steps_per_epoch):
             yield next(gen)
 
-    def run(epochs, checkpoint_dir):
-        _, trainer, init_fn, tx = train_lm.build_trainer(args, device, checkpoint_dir)
+    def run(epochs, checkpoint_dir, store=None, tenv=None):
+        _, trainer, init_fn, tx = train_lm.build_trainer(args, device, checkpoint_dir, store,
+                                                         tenv)
         inner, losses = trainer.loss_fn, []
 
         def recording(*a):
@@ -937,24 +1302,35 @@ def phase_resume(ctx) -> None:
         torch.cuda.empty_cache()
         return out
 
+    # the restored trainer runs as under the launcher: a store and a stage,
+    # so it writes the trainer half of the resize's recovery record
+    store = DictStore()
+    tenv = TrainerEnv({"EDL_TPU_JOB_ID": "chip-smoke", "EDL_TPU_POD_ID": "pod-0",
+                       "EDL_TPU_CLUSTER_STAGE": "stage-1"})
     _, _, _, straight = run(2, "")
     _, step_a, next_a, first = run(1, str(ckpt_dir))
-    (step_b0, epoch_b0), step_b, next_b, second = run(2, str(ckpt_dir))
+    (step_b0, epoch_b0), step_b, next_b, second = run(2, str(ckpt_dir), store, tenv)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    halves = recovery.load_recovery_records(store, "chip-smoke")
+    half = halves.get("stage-1", {}).get("trainer", {}).get("pod-0")
     n = args.steps_per_epoch
     diff = abs(second[0] - straight[n]) / abs(straight[n])
     log("resume", uninterrupted_losses=straight, before_stop=first, after_restore=second,
         saved_step=step_a, restored_step=step_b0, restored_next_epoch=epoch_b0,
         final_step=step_b, final_next_epoch=next_b, next_loss_rel_diff=diff,
-        rtol=RESUME_RTOL)
+        rtol=RESUME_RTOL, recovery_trainer_half=half,
+        restored_to_first_step=(half["first_step"] - half["restored"]) if half else None)
     if (step_a, next_a) != (n, 1) or (step_b0, epoch_b0) != (n, 1) or (step_b, next_b) != (2 * n, 2):
         raise AssertionError("step / next_epoch did not continue across the restore")
+    if (list(halves) != ["stage-1"] or half is None or half.get("restore_source") != "storage"
+            or not 0 < half["first_step"] - half["restored"] < 60):
+        raise AssertionError(f"the restored trainer's recovery record: {halves}")
     before = max(abs(a - b) / abs(b) for a, b in zip(first, straight[:n]))
     if diff > RESUME_RTOL or before > RESUME_RTOL:
         raise AssertionError("the resumed run does not continue the uninterrupted one")
 
 
-# -- phase 10 --------------------------------------------------------------------
+# -- phase 11 --------------------------------------------------------------------
 
 ELASTIC_STEPS = 3
 # the entry point's run (full width, depth cut to 2) and the 2-rank CPU world
@@ -1208,7 +1584,7 @@ def phase_elastic(ctx) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-# -- phase 11 --------------------------------------------------------------------
+# -- phase 12 --------------------------------------------------------------------
 
 SERVE_ARGS = ["--layers", "12", "--embed", "768", "--heads", "6", "--mlp", "3072",
               "--vocab", "32000", "--max_len", "1024"]
@@ -1515,7 +1891,8 @@ def main(argv=None) -> int:
     ctx: dict = {}
     runners = {"build": phase_build, "kernels": phase_kernels, "parity": phase_parity,
                "flagship": phase_flagship, "flash": phase_flash, "d256": phase_d256,
-               "d384": phase_d384, "d768": phase_d768, "resume": phase_resume,
+               "d384": phase_d384, "d768": phase_d768, "resnet": phase_resnet,
+               "resume": phase_resume,
                "elastic": phase_elastic, "serve": phase_serve}
     for name in PHASES:
         if name in phases:

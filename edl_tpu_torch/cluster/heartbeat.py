@@ -1,6 +1,7 @@
 """Per-pod trainer liveness beats, the trainer's side (a copy of the JAX
 package's ``cluster/heartbeat.py``: ``beat``, ``auto_threshold``,
-``last_beat_info`` and ``clear``).
+``last_beat_info`` and ``clear``), and the stage-scoped incident flags that
+the preemption grace reads (``write_stage_flag``, ``read_stage_flag``).
 
 The trainer's rank-0-in-pod process writes a timestamp after completed
 steps (throttled, ``ElasticTrainer``); the pod's launcher restarts its
@@ -73,3 +74,35 @@ def last_beat_info(store, job_id: str, pod_id: str
 
 def clear(store, job_id: str, pod_id: str) -> None:
     store.delete(_key(job_id, pod_id))
+
+
+# -- stage-scoped incident flags -----------------------------------------
+# ``<name>/<stage>`` under the heartbeat table, value ``<timestamp>
+# <pod_id>``: the JAX launcher's hang watchdog and preemption grace
+# (``cluster/preempt.py``) share one encoding, so the two never drift.
+
+def write_stage_flag(store, job_id: str, name: str, stage: str, pod_id: str) -> float:
+    """Raise the ``name`` flag of ``stage`` for ``pod_id``; returns its time."""
+    t = time.time()
+    store.put(paths.key(job_id, constants.ETCD_HEARTBEAT, f"{name}/{stage}"),
+              f"{t!r} {pod_id}".encode())
+    return t
+
+
+def read_stage_flag(store, job_id: str, name: str, stage: str) -> float | None:
+    """The flag's timestamp, or None when it is not raised."""
+    info = read_stage_flag_info(store, job_id, name, stage)
+    return None if info is None else info[0]
+
+
+def read_stage_flag_info(store, job_id: str, name: str, stage: str
+                         ) -> tuple[float, str] | None:
+    """``(timestamp, flagging pod id)``, or None."""
+    rec = store.get(paths.key(job_id, constants.ETCD_HEARTBEAT, f"{name}/{stage}"))
+    if rec is None or not rec.value:
+        return None
+    try:
+        parts = rec.value.decode().split()
+        return float(parts[0]), parts[1] if len(parts) > 1 else ""
+    except (ValueError, IndexError):
+        return None

@@ -4,19 +4,15 @@ leased advert use).
 
 The same requests as the JAX client, so it talks to the JAX package's
 coordination server (``python -m edl_tpu.coord.server``) and to the C++
-daemon.  ``connect`` seats one client on the first endpoint that answers
-a ping.  The JAX package's resilient client (retry, backoff and endpoint
-failover on every op, ``coord/resilient.py``) is not ported yet (ROADMAP.md
-Queue 1 item 4e): a trainer's store writes are best-effort, and
-:meth:`CoordClient.scoped_deadline` bounds each one as the resilient
-client's does.
+daemon.  :class:`CoordClient` is pinned to one endpoint; ``connect``
+returns a :class:`~edl_tpu_torch.coord.resilient.ResilientCoordClient`
+(retry, backoff and endpoint failover on every op) seated on the first
+endpoint that answers a ping, as the JAX ``connect`` does.
 """
 
 from __future__ import annotations
 
-import contextlib
 import logging
-import threading
 
 from edl_tpu_torch.coord.kv import KVRecord, KVStore
 from edl_tpu_torch.rpc.client import RpcClient
@@ -34,23 +30,11 @@ class CoordClient(KVStore):
         self.endpoint = endpoint
         self._timeout = timeout
         self._rpc = RpcClient(endpoint, timeout)
-        self._scope = threading.local()
 
     def _call(self, method: str, _timeout=None, **kwargs):
-        """One request; the transport bound is ``_timeout``, else this
-        thread's :meth:`scoped_deadline`, else the client default."""
-        if _timeout is None:
-            _timeout = getattr(self._scope, "seconds", None)
+        """One request; the transport bound is ``_timeout`` (the resilient
+        client's share of its deadline), else the client default."""
         return self._rpc.call(method, _timeout=_timeout, **kwargs)
-
-    @contextlib.contextmanager
-    def scoped_deadline(self, seconds: float):
-        prev = getattr(self._scope, "seconds", None)
-        self._scope.seconds = seconds if prev is None else min(prev, seconds)
-        try:
-            yield self
-        finally:
-            self._scope.seconds = prev
 
     # -- kv ----------------------------------------------------------------
     def put(self, key, value, lease_id=0, _timeout=None):
@@ -102,22 +86,25 @@ class CoordClient(KVStore):
         self._rpc.close()
 
 
-def connect(endpoints: str | list[str], timeout: float = 30.0) -> CoordClient:
-    """A client seated on the first endpoint of a comma-separated list
-    that answers a ping; ConnectionError when none does."""
+def connect(endpoints: str | list[str], timeout: float = 30.0) -> KVStore:
+    """A :class:`~edl_tpu_torch.coord.resilient.ResilientCoordClient` over a
+    comma-separated endpoint list, seated on the first endpoint that
+    answers a ping; ConnectionError when none does."""
     if isinstance(endpoints, str):
         endpoints = [e.strip() for e in endpoints.split(",") if e.strip()]
     last_err: Exception | None = None
-    for ep in endpoints:
+    for i, ep in enumerate(endpoints):
         client = CoordClient(ep, timeout)
         ok = False
         try:
             ok = client.ping()
         except exceptions.EdlCoordError as e:
             last_err = e
-        if ok:
-            return client
         client.close()
+        if ok:
+            # deferred import: resilient.py wraps CoordClient
+            from edl_tpu_torch.coord.resilient import ResilientCoordClient
+            return ResilientCoordClient(list(endpoints), timeout, start_index=i)
     raise ConnectionError(f"no reachable coordination endpoint in {endpoints}: {last_err}")
 
 
@@ -130,7 +117,7 @@ def _connect_retryable(endpoints, timeout):
 
 
 def connect_wait(endpoints: str | list[str], timeout: float = 30.0,
-                 wait: float = 60.0) -> CoordClient:
+                 wait: float = 60.0) -> KVStore:
     """``connect`` that tolerates the store booting after this process:
     retries with exponential backoff and jitter for up to ``wait`` s."""
     try:

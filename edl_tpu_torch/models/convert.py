@@ -1,5 +1,5 @@
-"""Carry ``TransformerLM`` weights between the flax tree and the PyTorch
-state dict.
+"""Carry ``TransformerLM`` and ``ResNet`` weights between the flax tree and
+the PyTorch state dict.
 
 The flax tree follows the JAX package's ``LOGICAL_RULES`` paths:
 ``tok_embed/embedding`` ``[V, D]``; per layer ``attn_norm/scale``,
@@ -13,6 +13,14 @@ a leading ``num_layers`` dim, as training writes them) or split
 ``[in, out]`` and a PyTorch weight ``[out, in]``, so kernels are
 transposed; the fused q|k|v kernel keeps its column order as the row order
 of ``attn_qkv.weight``, and the model splits its output the same way.
+
+A ResNet's names are flax's module paths joined by dots (``stem``,
+``stage{i}_block{j}/conv1``, ``bn_shortcut``, ``head``, ...).  flax conv
+kernels are HWIO and PyTorch's OIHW (``transpose(3, 2, 0, 1)``); the head's
+``[in, out]`` kernel is transposed; a BN's ``scale`` and ``bias`` are the
+module's ``weight`` and ``bias``, and its ``batch_stats`` ``mean`` and
+``var`` the ``running_mean`` and ``running_var`` buffers.  Both directions
+only permute, so a round trip is bit-identical.
 """
 
 from __future__ import annotations
@@ -93,3 +101,58 @@ def params_to_jax(state_dict: dict[str, torch.Tensor], cfg: TransformerConfig,
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"kernel": arr("lm_head.weight", True)}
     return tree
+
+
+# ResNet: flax leaf name -> PyTorch name, by collection
+_RESNET_PARAMS = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_RESNET_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _flat(tree: dict[str, Any], prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def resnet_from_jax(params: dict[str, Any], batch_stats: dict[str, Any]
+                    ) -> dict[str, torch.Tensor]:
+    """A ``ResNet`` state dict (f32 CPU tensors) from the flax ``params``
+    and ``batch_stats`` trees."""
+    sd = {}
+    for path, leaf in _flat(params):
+        mod, name = path.rsplit(".", 1)
+        a = np.asarray(leaf, dtype=np.float32)
+        if name == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        sd[f"{mod}.{_RESNET_PARAMS[name]}"] = torch.from_numpy(np.array(a, order="C"))
+    for path, leaf in _flat(batch_stats):
+        mod, name = path.rsplit(".", 1)
+        sd[f"{mod}.{_RESNET_STATS[name]}"] = torch.from_numpy(
+            np.array(np.asarray(leaf, dtype=np.float32), order="C"))
+    return sd
+
+
+def resnet_to_jax(state_dict: dict[str, torch.Tensor]) -> tuple[dict[str, Any], dict[str, Any]]:
+    """``(params, batch_stats)``, flax trees of numpy f32 arrays, of a
+    ``ResNet`` state dict."""
+    params: dict[str, Any] = {}
+    stats: dict[str, Any] = {}
+    for key, t in state_dict.items():
+        mod, name = key.rsplit(".", 1)
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if name in ("running_mean", "running_var"):
+            tree, leaf = stats, "mean" if name == "running_mean" else "var"
+        elif name == "bias":
+            tree, leaf = params, "bias"
+        elif a.ndim == 1:
+            tree, leaf = params, "scale"
+        else:
+            tree, leaf = params, "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = tree
+        for part in mod.split("."):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return params, stats

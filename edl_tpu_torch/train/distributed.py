@@ -13,11 +13,12 @@ same script runs standalone, under tests and under the launcher.
 
 The JAX package's resizable world (``EDL_TPU_RESIZE_DELTA``: trainers
 that survive a membership change and re-form the world in place) is not
-ported (ROADMAP.md Queue 1 item 4e); a trainer asked for it raises
-instead of forming a plain world the launcher would not expect.
+ported (ROADMAP.md Queue 1 item 4e, second part); a trainer asked for it
+raises instead of forming a plain world the launcher would not expect.
 
 :func:`connect_store` imports the store client (and with it ``msgpack``)
-only when the env names a store.
+only when the env names a store; the client it returns retries, backs
+off and fails over on every op (``coord/resilient.py``).
 """
 
 from __future__ import annotations

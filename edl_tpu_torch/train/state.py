@@ -48,6 +48,38 @@ def adamw(lr: float | Callable[[int], float], b1: float = 0.9, b2: float = 0.999
     return make
 
 
+def sgd(lr: float | Callable[[int], float], momentum: float = 0.9, nesterov: bool = True,
+        weight_decay: float = 0.0) -> OptimizerFactory:
+    """SGD with (Nesterov) momentum and coupled L2 weight decay: the JAX
+    examples' ``optax.chain(add_decayed_weights(wd), sgd(lr, momentum,
+    nesterov=True))``.  That chain adds ``wd * p`` to the gradient before
+    the momentum trace, which is what ``torch.optim.SGD(weight_decay=wd)``
+    computes, including the first step (torch's buffer starts at the
+    decayed gradient, optax's trace at 0 plus it); a decoupled decay would
+    compute something else.  ``lr`` may be a schedule, read before each
+    step at the number of steps already taken, as optax does; the count
+    lives in the param groups, so it rides the optimizer's state."""
+    def make(params):
+        opt = torch.optim.SGD(params, lr=lr(0) if callable(lr) else lr, momentum=momentum,
+                              nesterov=nesterov, weight_decay=weight_decay)
+        if callable(lr):
+            for group in opt.param_groups:
+                group["count"] = 0
+
+            def schedule(*_):
+                for group in opt.param_groups:
+                    group["lr"] = float(lr(group["count"]))
+
+            def count(*_):
+                for group in opt.param_groups:
+                    group["count"] += 1
+
+            opt.register_step_pre_hook(schedule)
+            opt.register_step_post_hook(count)
+        return opt
+    return make
+
+
 @dataclass
 class TrainState:
     model: torch.nn.Module

@@ -20,16 +20,22 @@ The port of the JAX package's ``train/trainer.py``, one process per card:
 - with a coordination store: train-status reports (RUNNING, NEARTHEEND,
   SUCCEED), which the launcher's generator reads to stop scaling near
   the end, and a throttled heartbeat after completed steps for its hang
-  watchdog.  Both are best-effort.
+  watchdog.  Both are best-effort;
+- under the launcher: the trainer half of the resize's recovery-time
+  record (checkpoint restored, first step after it; ``cluster/recovery.py``),
+  and the SIGTERM preemption grace: at an agreed step every rank saves a
+  checkpoint and exits ``PREEMPT_EXIT_CODE`` (``cluster/preempt.py``).
 
-Not here yet (ROADMAP.md Queue 1 item 4e): preemption, live reshard, the
-delta replication plane and the peer checkpoint cache; the recovery-time
-record and the step metrics wait for the port's observability modules.
+Not here yet (ROADMAP.md Queue 1 item 4e, second part): the live reshard,
+the delta replication plane and the peer checkpoint cache; the step
+metrics wait for the port's observability modules.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import sys
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable
@@ -38,7 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from edl_tpu_torch.cluster import heartbeat
+from edl_tpu_torch.cluster import heartbeat, preempt, recovery
 from edl_tpu_torch.cluster.env import TrainerEnv
 from edl_tpu_torch.cluster.state import AdjustRegistry, DataCheckpoint, State
 from edl_tpu_torch.cluster.train_status import TrainStatus, save_train_status
@@ -84,6 +90,10 @@ class ElasticTrainer:
         self._last_step_t: float | None = None
         self._step_ema: float | None = None
         self._last_beat = 0.0
+        self._t_restored: float | None = None  # a restore's time, until its first step
+        self._preempt_seen = False
+        self._preempt_next_check: int | None = None  # the agreed next check step (world)
+        self._preempt_last_check_t = 0.0              # the last check's time (solo)
 
     @property
     def world_size(self) -> int:
@@ -108,6 +118,7 @@ class ElasticTrainer:
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return state, meta
         state, saved_meta = self.ckpt.restore(state)
+        self._t_restored = time.time()  # the recovery record's "restored"
         if saved_meta is not None:
             meta = saved_meta
         old_world, new_world = _last_world(meta), self.world_size
@@ -191,7 +202,10 @@ class ElasticTrainer:
             n_steps += 1
             step = start_step + n_steps
             self._observe_step_time()
+            if self._t_restored is not None:
+                self._report_recovery(metrics)
             self._heartbeat()
+            self._maybe_preempt(state, meta, step)
             if self.cfg.log_every and step % self.cfg.log_every == 0:
                 logger.info("epoch %d step %d: %s", epoch, step,
                             {k: float(v) for k, v in metrics.items()})
@@ -262,6 +276,106 @@ class ElasticTrainer:
             heartbeat.beat(self.store, self.tenv.job_id, self.tenv.pod_id, threshold=threshold)
         except Exception:  # noqa: BLE001 — liveness must never fail a job
             logger.exception("heartbeat write failed")
+
+    def _report_recovery(self, metrics) -> None:
+        """Trainer half of the resize's timing record: the checkpoint
+        restored, and the first step after it finished.  The launcher wrote
+        detect/killed/barrier/spawn under the same stage key; the merged
+        record is the recovery time (``cluster/recovery.py``).  Once, on
+        rank 0 of the pod, under the launcher; best-effort."""
+        t_restored, self._t_restored = self._t_restored, None
+        if (self.store is None or self.tenv is None or not self.tenv.cluster_stage
+                or self.tenv.rank_in_pod != 0):
+            return
+        metrics["loss"].item()  # the step truly finished on the device
+        try:
+            recovery.write_trainer_half(self.store, self.tenv.job_id, self.tenv.cluster_stage,
+                                        self.tenv.pod_id, restored=t_restored,
+                                        first_step=time.time(), restore_source="storage")
+        except Exception:  # noqa: BLE001 — metrics must never fail a job
+            logger.exception("recovery record write failed")
+
+    def _maybe_preempt(self, state: TrainState, meta: State, step: int) -> None:
+        """The SIGTERM preemption grace (``cluster/preempt.py``): at a
+        step-aligned cadence, check the stage's preempt flag; on a sighting,
+        checkpoint at this step and exit ``PREEMPT_EXIT_CODE``.
+
+        Who takes part is decided from env facts only, the same for every
+        process the launcher spawned: a process whose store connect failed
+        still enters the collective below, with nothing seen.  Only rank 0
+        of a pod reads the store.  A solo process checks every
+        ``preempt_check_seconds()`` of wall time.  In a world the save is
+        collective, so every rank must check at the same steps: the first
+        check lands on a ``preempt_check_steps()`` multiple, and each check
+        is one all-reduce MAX of ``[seen, proposal]``, which gives every
+        rank any sighting and the largest proposal for the distance to the
+        next check (its step-time EMA's steps in ``preempt_check_seconds()``)."""
+        if self.tenv is None or not self.tenv.pod_id or not self.tenv.cluster_stage:
+            return
+        multi = self.world_size > 1
+        if multi:
+            if self._preempt_next_check is None:
+                if step % max(1, constants.preempt_check_steps()):
+                    return
+            elif step != self._preempt_next_check:
+                return
+        else:
+            now = time.monotonic()
+            if now - self._preempt_last_check_t < constants.preempt_check_seconds():
+                return
+            self._preempt_last_check_t = now
+        if self.store is not None and self.tenv.rank_in_pod == 0 and not self._preempt_seen:
+            try:
+                self._preempt_seen = preempt.get_preempt(
+                    self.store, self.tenv.job_id, self.tenv.cluster_stage) is not None
+            except Exception:  # noqa: BLE001 — a store blip is not a preemption
+                logger.exception("preempt flag read failed")
+        agreed = self._preempt_seen
+        if multi:
+            proposal = constants.preempt_check_steps()
+            if self._step_ema:
+                proposal = round(constants.preempt_check_seconds() / max(self._step_ema, 1e-4))
+            flags = torch.tensor([int(self._preempt_seen), max(1, proposal)],
+                                 dtype=torch.int64, device=self.device)
+            dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+            seen, spacing = flags.tolist()
+            agreed = bool(seen)
+            self._preempt_next_check = step + int(spacing)
+        if agreed:
+            self._preempt_exit(state, meta, step)
+
+    def _preempt_exit(self, state: TrainState, meta: State, step: int) -> None:
+        """Checkpoint at ``step`` (collective), wait until every rank's save
+        has committed, log why, and leave with ``PREEMPT_EXIT_CODE``."""
+        logger.warning("preemption flagged: checkpointing at step %d", step)
+        if self.ckpt is not None:
+            meta.step = step
+            self.ckpt.save(step, state, meta, force=True)
+            logger.info("preempt: checkpoint committed at step %d", step)
+        if self.world_size > 1:
+            dist.barrier()  # no rank leaves before every save has committed
+        # the workerlog says why this pod left: its own per-pod record holds
+        # the eviction reason; a pod leaving on a peer's preemption has none
+        reason = "peer-preempt"
+        if self.store is not None:
+            try:
+                info = preempt.pod_preempt_info(self.store, self.tenv.job_id,
+                                                self.tenv.cluster_stage, self.tenv.pod_id)
+                if info is not None:
+                    reason = info[1]
+            except Exception as e:  # noqa: BLE001 — the reason is best-effort
+                logger.debug("preempt reason read failed: %s", e)
+        logger.warning("preempt: exiting %d (reason=%s)", constants.PREEMPT_EXIT_CODE, reason)
+        # os._exit, not SystemExit: the process group's teardown can hang once
+        # a peer leaving by the same agreement has gone; only buffers remain
+        for h in logging.getLogger().handlers:
+            try:
+                h.flush()
+            except Exception:  # noqa: BLE001 — a last flush before the exit
+                pass
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(constants.PREEMPT_EXIT_CODE)
 
     def _report(self, status: TrainStatus) -> None:
         if self.store is None or self.tenv is None or not self.tenv.pod_id:

@@ -14,8 +14,12 @@ ETCD_POD_RANK = "rank"              # leader seat lives at rank/0
 ETCD_STATE = "state"                # train State (data checkpoint etc.)
 ETCD_TRAIN_STATUS = "train_status"  # per-pod TrainStatus
 ETCD_HEARTBEAT = "heartbeat"        # per-pod trainer liveness beats
+ETCD_RECOVERY = "recovery"          # per-stage resize timing records
 LEADER_KEY = "0"                    # rank table key seized by the leader
 TTL_REFRESH_FRACTION = 0.5          # a leased key's keep-alive runs at ttl/2
+# the exit code of a trainer after its preemption-point checkpoint: the
+# launcher reads it as a clean coordinated departure, not success, not a crash
+PREEMPT_EXIT_CODE = 94
 
 
 def _env_float(name: str, default: float) -> float:
@@ -40,6 +44,36 @@ def resize_delta() -> bool:
     """``EDL_TPU_RESIZE_DELTA``: the launcher's live-reshard path, on
     unless set to 0 (the JAX package's default)."""
     return bool(int(_env_float("EDL_TPU_RESIZE_DELTA", 1)))
+
+
+def preempt_check_steps() -> int:
+    """``EDL_TPU_PREEMPT_CHECK_STEPS``: a world of several processes makes
+    its first preempt-flag check on a multiple of this many steps (the only
+    cadence every process knows before any agreement exists); later checks
+    land on a step the check itself agrees on."""
+    return int(_env_float("EDL_TPU_PREEMPT_CHECK_STEPS", 8))
+
+
+def preempt_check_seconds() -> float:
+    """``EDL_TPU_PREEMPT_CHECK_SECONDS``: the wall time between preempt-flag
+    checks (a solo process's cadence; a world's agreed step spacing)."""
+    return _env_float("EDL_TPU_PREEMPT_CHECK_SECONDS", 2.0)
+
+
+def coord_retry_deadline() -> float:
+    """``EDL_TPU_COORD_RETRY_DEADLINE``: the resilient store client's total
+    retry budget for one op (s), backoff and failover inside it."""
+    return _env_float("EDL_TPU_COORD_RETRY_DEADLINE", 30.0)
+
+
+def coord_backoff_init() -> float:
+    """``EDL_TPU_COORD_BACKOFF_INIT``: its first backoff (s)."""
+    return _env_float("EDL_TPU_COORD_BACKOFF_INIT", 0.05)
+
+
+def coord_backoff_max() -> float:
+    """``EDL_TPU_COORD_BACKOFF_MAX``: its largest backoff (s)."""
+    return _env_float("EDL_TPU_COORD_BACKOFF_MAX", 2.0)
 
 
 def etcd_ttl() -> float:

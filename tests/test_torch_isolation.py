@@ -25,6 +25,14 @@ SERVING_MODULES = (
     "edl_tpu_torch.rpc.server", "edl_tpu_torch.coord.register",
     "edl_tpu_torch.distill", "edl_tpu_torch.distill.predict_client",
     "edl_tpu_torch.distill.balance", "edl_tpu_torch.distill.teacher", "edl_tpu_torch.serve_lm")
+# the modules of the ResNet slice, with the trainer's recovery record,
+# resilient store client and preemption grace
+RESNET_MODULES = (
+    "edl_tpu_torch.cluster.recovery", "edl_tpu_torch.cluster.preempt",
+    "edl_tpu_torch.coord.resilient", "edl_tpu_torch.models.resnet",
+    "edl_tpu_torch.native", "edl_tpu_torch.native.build", "edl_tpu_torch.native.recordio",
+    "edl_tpu_torch.native.imagedec", "edl_tpu_torch.data", "edl_tpu_torch.data.images",
+    "edl_tpu_torch.train_resnet")
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -54,7 +62,8 @@ print(sorted(set(bad()) - before))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout.splitlines()
     names = ast.literal_eval(out[-2])
-    assert len(names) >= 40 and set(DISTRIBUTED_MODULES + SERVING_MODULES) <= set(names), names
+    assert len(names) >= 51 and set(DISTRIBUTED_MODULES + SERVING_MODULES
+                                    + RESNET_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 
@@ -71,7 +80,7 @@ def test_no_source_imports_jax_or_the_jax_package():
             offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
                           for n in names if _forbidden(n)]
     assert not offenders, offenders
-    assert len(_port_sources()) >= 41
+    assert len(_port_sources()) >= 52
 
 
 def test_only_the_store_client_imports_msgpack():
@@ -87,6 +96,17 @@ def test_only_the_store_client_imports_msgpack():
             if any(n.split(".")[0] == "msgpack" for n in names):
                 importers.append(str(path.relative_to(ROOT)))
     assert importers == MSGPACK_IMPORTERS
+
+
+def test_importing_the_resnet_slice_loads_no_cv2():
+    """``cv2`` is imported only inside the functions that decode or encode
+    an image, so a machine without it imports the whole slice."""
+    code = ("import sys; import edl_tpu_torch.data.images, edl_tpu_torch.train_resnet, "
+            "edl_tpu_torch.native.imagedec; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('cv2',) + " + repr(FORBIDDEN) + "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
 
 
 def test_standalone_train_lm_run_imports_no_msgpack(tmp_path):

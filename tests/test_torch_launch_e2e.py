@@ -1,13 +1,19 @@
 """Elastic training end to end with the PyTorch port's trainer under the
 unchanged JAX-package launcher: real launchers, a real coordination
-server, ``edl_tpu_torch/train_lm.py`` trainers on the CPU, a live mid-run
-join with stop-resume.
+server, ``edl_tpu_torch/train_lm.py`` trainers on the CPU.
 
-Pod A trains solo; pod B joins once A has committed two epoch
-checkpoints; A's trainer is restarted into a 2-rank gloo world with B's,
-both resume from the checkpoint at the next epoch, and the epoch history
-records both world sizes (the model of
-``tests/test_elastic_training_e2e.py::test_elastic_join_resumes_training``).
+- A live mid-run join with stop-resume: pod A trains solo; pod B joins
+  once A has committed two epoch checkpoints; A's trainer is restarted
+  into a 2-rank gloo world with B's, both resume from the checkpoint at the
+  next epoch, the epoch history records both world sizes, and the resize's
+  recovery record (the launcher's half and the trainers') is complete (the
+  model of ``tests/test_elastic_training_e2e.py::
+  test_elastic_join_resumes_training``).
+- A SIGTERM preemption: both trainers of a 2-pod world checkpoint at an
+  agreed step and exit ``PREEMPT_EXIT_CODE``, the signalled pod departs,
+  and the survivor stop-resumes solo from the preemption-point checkpoint
+  (the twin of ``tests/test_elastic_training_e2e.py::
+  test_sigterm_preemption_checkpoint``).
 """
 
 import json
@@ -19,6 +25,7 @@ import time
 
 import pytest
 
+from edl_tpu.cluster.recovery import summarize_recovery
 from edl_tpu.cluster.status import Status, load_job_status
 from edl_tpu.cluster.train_status import TrainStatus, load_train_statuses
 from edl_tpu.coord.client import CoordClient
@@ -32,7 +39,7 @@ TRAIN_ARGS = ["--device", "cpu", "--vocab", "64", "--layers", "2", "--embed", "6
               "--steps_per_epoch", "4", "--epochs", "10", "--lr", "1e-2"]
 
 
-def spawn(job_id, coord_ep, tmp, name, ckpt_dir):
+def spawn(job_id, coord_ep, tmp, name, ckpt_dir, args=TRAIN_ARGS, extra_env=None):
     env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_TPU_")}
     env.update(FAST)
     env.update({
@@ -44,6 +51,7 @@ def spawn(job_id, coord_ep, tmp, name, ckpt_dir):
         "EDL_TPU_DEMO_STEP_SLEEP": "0.25",
         "EDL_TPU_DEMO_MARKER": os.path.join(tmp, f"marker-{name}"),
         "OMP_NUM_THREADS": "2",
+        **(extra_env or {}),
     })
     log = open(os.path.join(tmp, f"launcher-{name}.log"), "wb")
     proc = subprocess.Popen(
@@ -51,7 +59,7 @@ def spawn(job_id, coord_ep, tmp, name, ckpt_dir):
          "--job_id", job_id, "--coord_endpoints", coord_ep,
          "--nodes_range", "1:2", "--nproc_per_node", "1",
          "--checkpoint_dir", ckpt_dir,
-         "--log_dir", os.path.join(tmp, f"log-{name}"), TRAIN, "--", *TRAIN_ARGS],
+         "--log_dir", os.path.join(tmp, f"log-{name}"), TRAIN, "--", *args],
         env=env, cwd=tmp, stdout=log, stderr=subprocess.STDOUT)
     proc._logfile = log  # noqa: SLF001
     return proc
@@ -88,8 +96,15 @@ def test_torch_trainers_join_and_resume_under_the_launcher(coord_server, tmp_pat
         assert load_job_status(client, "torch-e2e") == Status.SUCCEED
         statuses = load_train_statuses(client, "torch-e2e")
         assert statuses and set(statuses.values()) == {TrainStatus.SUCCEED}, statuses
+        # the join's resize record: the JAX launcher's half and the torch
+        # trainers' half, merged by the JAX package's summary
+        stages = [s for s in summarize_recovery(client, "torch-e2e") if "total" in s]
     finally:
         client.close()
+    print(f"recovery: {stages}")
+    assert stages, "no complete resize record"
+    assert all(0 < s["restored_to_first_step"] <= s["total"] for s in stages), stages
+    assert {s["restore_source"] for s in stages} == {"storage"}, stages
 
     # the last checkpoint's sidecar: every epoch once, solo first, then 2 ranks
     last = _committed(ckpt)[-1]
@@ -110,3 +125,67 @@ def test_torch_trainers_join_and_resume_under_the_launcher(coord_server, tmp_pat
     resumes = [int(r) for r in re.findall(r"resume_epoch=(\d+)", log_a)]
     assert len(resumes) >= 2 and resumes[0] == 0 and resumes[-1] > 0, log_a[-3000:]
     assert "rank=0/2" in log_a, log_a[-3000:]
+
+
+def _last_meta(ckpt):
+    with open(os.path.join(ckpt, str(_committed(ckpt)[-1]), "meta", "metadata")) as f:
+        return State().from_json(f.read())
+
+
+@pytest.mark.slow
+def test_sigterm_preemption_checkpoint_with_torch_trainers(coord_server, tmp_path):
+    """SIGTERM one pod of a 2-pod world mid-run: its launcher flags the
+    preemption, both torch trainers checkpoint at an agreed step and exit
+    PREEMPT_EXIT_CODE, the signalled pod departs (exit 0), and the survivor
+    stop-resumes solo from the preemption-point checkpoint: every epoch
+    completes once."""
+    import signal
+
+    ep = f"127.0.0.1:{coord_server.port}"
+    ckpt = str(tmp_path / "ckpt")
+    args = [*TRAIN_ARGS, "--epochs", "8"]          # 8 epochs of 4 steps (the last flag wins)
+    env = {"EDL_TPU_PREEMPT_CHECK_STEPS": "2"}
+    pa = spawn("preempt-e2e", ep, str(tmp_path), "a", ckpt, args, env)
+    pb = spawn("preempt-e2e", ep, str(tmp_path), "b", ckpt, args, env)
+    try:
+        deadline = time.time() + 240
+        while not _committed(ckpt):
+            assert time.time() < deadline, "no checkpoint committed before the preemption"
+            assert pa.poll() is None and pb.poll() is None, "a pod died in warm-up"
+            time.sleep(0.25)
+        pb.send_signal(signal.SIGTERM)
+        assert finish(pb, 240) == 0, "the preempted pod must exit cleanly (DESCALED)"
+        assert finish(pa, 300) == 0
+    finally:
+        for p in (pa, pb):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    client = CoordClient(ep)
+    try:
+        assert load_job_status(client, "preempt-e2e") == Status.SUCCEED
+    finally:
+        client.close()
+    lb = (tmp_path / "launcher-b.log").read_bytes().decode(errors="replace")
+    assert "flagging preemption" in lb, lb[-2000:]
+    assert "preemption checkpoint complete; departing" in lb, lb[-2000:]
+    m = re.search(r"preemption flagged: checkpointing at step (\d+)", lb)
+    assert m, lb[-3000:]
+    preempt_step = int(m.group(1))
+    la = (tmp_path / "launcher-a.log").read_bytes().decode(errors="replace")
+    assert "peer preempted; waiting for the shrunk cluster" in la, la[-2000:]
+    assert f"preemption flagged: checkpointing at step {preempt_step}" in la, la[-3000:]
+    # the survivor's restart resumed from the preemption-point checkpoint:
+    # the epoch the preempt step sat in (at an epoch's last step, that epoch)
+    resumes = [int(x) for x in re.findall(r"resume_epoch=(\d+)", la)]
+    assert len(resumes) >= 2, la[-2000:]
+    assert resumes[-1] in (preempt_step // 4, (preempt_step - 1) // 4), (resumes, preempt_step)
+    print(f"preempted at step {preempt_step}; survivor resumed at epoch {resumes[-1]}")
+    meta = _last_meta(ckpt)
+    epochs = sorted(meta.epochs, key=lambda e: e.epoch_no)
+    assert [e.epoch_no for e in epochs] == list(range(8))
+    assert epochs[-1].world_size == 1
+    done = [line for line in (tmp_path / "marker-a").read_text().splitlines()
+            if line.startswith("done")]
+    assert done and json.loads(done[-1].split(" ", 1)[1])["world"] == 1
