@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,elastic
     python3 chip_smoke.py --phases build,serve
     python3 chip_smoke.py --phases build,resnet
+    python3 chip_smoke.py --phases build,data
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -77,6 +78,9 @@ failure exits non-zero:
    loss, BN buffers and parameters within ``RESNET_CPU_TOL`` of each
    tensor's largest magnitude.  A checkpoint round trip: the next loss
    equals the uninterrupted run's and the BN buffers come back as saved.
+   ``--remat``: one step with and without it from the same weights (the same
+   loss and BN running stats, to ``RESUME_RTOL``), then img/s and peak
+   memory over 20 remat steps beside the plain step's.
    The native record library builds and round-trips 1,000 records; the
    JPEG pipeline's host img/s is timed only where ``cv2`` imports.
 10. ``resume``: save at an epoch's end, drop the trainer, restore a new one
@@ -85,7 +89,23 @@ failure exits non-zero:
    store (a dict) and a launcher's stage, and writes the trainer half of
    the resize's recovery record once: ``restored_to_first_step`` is
    printed.
-11. ``elastic``: the distributed trainer.  (1) An NCCL process group of
+11. ``data``: ResNet50 fed by the data service, in one process that plays
+   the launcher's part (a ``MemoryKV`` store, the port's ``DataService`` on
+   the port's ``RpcServer``, a one-pod cluster record naming it the leader):
+   ``train_resnet``'s training function with ``--data_service`` at bs 128,
+   224², bf16, on ``--synthetic`` files of 2 x 330 records (5 full steps and
+   one of 20 rows an epoch), 2 epochs, ``--save_every_steps 2``; the first
+   run stops right after the save at epoch 1's second step, and a fresh
+   trainer restores it in a new cluster stage.  Checks: (a) every record of
+   each epoch trains exactly once and the ragged steps' masks sum to 20;
+   (b) the BN buffers after a masked step equal those before it, and a full
+   step changes them; (c) the resumed epoch trains exactly the records the
+   checkpoint's spans lack; (d) host batches of the same shapes come out of
+   ``device_put_stream`` on the card bit-equal and in order.  Prints img/s
+   a card through the data service, the H2D wait and the time blocked on
+   the input (in total and a step), the host decode rate, and the resnet
+   phase's fixed-batch img/s beside them.
+12. ``elastic``: the distributed trainer.  (1) An NCCL process group of
    one: 3 flagship steps through the gradient all-reduce give parameters
    and losses equal to the bit to 3 steps without a group, the splash
    kernels launch 12 times a step each, and the profile of a step shows
@@ -98,7 +118,7 @@ failure exits non-zero:
    under ``EDL_TPU_LR_RESCALE=1``: epoch history [2, 1], LR scale 0.5,
    and the next loss within the parity phase's bf16 tolerance of the same
    continuation on the CPU.
-12. ``serve``: generation and serving at the flagship's full width (12 x 768,
+13. ``serve``: generation and serving at the flagship's full width (12 x 768,
    6 heads x 128, MLP 3072, vocab 32,000, max_len 1024, seed-0 weights,
    bf16).  (a) ``generate`` greedy on [8, 128] prompts, 64 new tokens; the
    decode path's logits, teacher-forced on the emitted tokens, within
@@ -133,7 +153,7 @@ import time
 from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
-          "resume", "elastic", "serve")
+          "resume", "data", "elastic", "serve")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -713,7 +733,7 @@ def phase_parity(ctx) -> None:
 
             state = tr.create_state(init, adamw(3e-4))
             A.reset_launch_counts()
-            state, metrics = tr.step_fn(state, tr.to_device({"ids": ids}),
+            state, metrics = tr.step_fn(state, {"ids": torch.from_numpy(ids).to(dev)},
                                         torch.Generator(device=dev).manual_seed(0))
             out[dev] = (float(metrics["loss"]),
                         {n: float(p.grad.float().norm()) for n, p in state.model.named_parameters()},
@@ -767,7 +787,7 @@ def _drive_flagship(phase: str, extra_args: list[str], path_wrappers):
     state = trainer.create_state(init_fn, tx)
     ids = np.random.default_rng(2).integers(0, args.vocab, (args.batch_size,
                                                            args.seq_len + 1)).astype(np.int32)
-    batch = trainer.to_device({"ids": ids})
+    batch = {"ids": torch.from_numpy(ids).to(device)}
     gen = torch.Generator(device=device).manual_seed(3)
     losses = []
     for _ in range(WARMUP_STEPS):
@@ -921,7 +941,7 @@ def _first_loss(extra_args: list[str]) -> float:
     ids = np.random.default_rng(2).integers(0, args.vocab, (args.batch_size,
                                                            args.seq_len + 1)).astype(np.int32)
     gen = torch.Generator(device=device).manual_seed(3)
-    _, metrics = trainer.step_fn(state, trainer.to_device({"ids": ids}), gen)
+    _, metrics = trainer.step_fn(state, {"ids": torch.from_numpy(ids).to(device)}, gen)
     loss = float(metrics["loss"])
     del trainer, state
     torch.cuda.empty_cache()
@@ -1080,6 +1100,64 @@ def _resnet_steps() -> dict:
     return out
 
 
+def _resnet_remat(plain: dict) -> dict:
+    """``--remat``: one step from the same weights on the same batch with and
+    without it (the same loss, the same BN running stats: the recomputed
+    forward leaves them alone, and the same parameters after the update: the
+    recomputation's backward gives the plain gradients), then 3 warm-up and
+    20 timed remat steps on the fixed batch: img/s and peak memory beside
+    the plain step's."""
+    import torch
+
+    from edl_tpu_torch import train_resnet
+    from edl_tpu_torch.train.state import sgd
+
+    device = torch.device("cuda")
+    batch = _resnet_batch(128, 224, torch.bfloat16)
+    first = {}
+    for remat in (False, True):
+        args = train_resnet.parse_args(RESNET_ARGS + (["--remat"] if remat else []))
+        init_fn, trainer, _, _ = train_resnet.build_trainer(args, device)
+        state = trainer.create_state(init_fn, sgd(0.1, momentum=0.9, nesterov=True))
+        gen = torch.Generator(device=device).manual_seed(3)
+        state, metrics = trainer.step_fn(state, batch, gen)
+        first[remat] = (float(metrics["loss"]),
+                        torch.cat([b.flatten() for b in state.model.buffers()]),
+                        [p.detach().clone() for p in state.model.parameters()])
+    loss_diff = abs(first[True][0] - first[False][0]) / abs(first[False][0])
+    stats_diff = float((first[True][1] - first[False][1]).abs().max()
+                       / first[False][1].abs().max())
+    # the worst leaf's difference, relative to that leaf's largest magnitude
+    param_diff = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                     for a, b in zip(first[True][2], first[False][2]))
+    del first
+    for _ in range(RESNET_WARMUP):
+        state, metrics = trainer.step_fn(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(RESNET_TIMED):
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = {"img_s_per_card": 128 * RESNET_TIMED / dt, "wall_ms_per_step": dt / RESNET_TIMED * 1e3,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "plain_img_s_per_card": plain["img_s_per_card"],
+           "plain_max_memory_allocated": plain["max_memory_allocated"],
+           "first_loss_rel_diff": loss_diff, "first_step_bn_stats_rel_diff": stats_diff,
+           "first_step_params_rel_diff": param_diff, "tol": RESUME_RTOL}
+    log("resnet", remat=out)
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(float(x)) for x in losses):
+        raise AssertionError(f"non-finite remat losses: {[float(x) for x in losses]}")
+    if max(loss_diff, stats_diff, param_diff) > RESUME_RTOL:
+        raise AssertionError(f"the remat step is not the plain step: {out}")
+    return out
+
+
 def _resnet_card_vs_cpu() -> dict:
     """One ResNet18 (width 16, 32², batch 8, f32) training step on the card
     and on the CPU from the same weights: logits, loss, the updated BN
@@ -1215,14 +1293,15 @@ def _resnet_native(root) -> dict:
 
 
 def phase_resnet(ctx) -> None:
-    """ResNet50 training on the card: step timing, the uint8 path, the card
-    against the CPU, a checkpoint round trip, and the native record
+    """ResNet50 training on the card: step timing, the uint8 path, ``--remat``,
+    the card against the CPU, a checkpoint round trip, and the native record
     library."""
     import shutil
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_resnet"
     shutil.rmtree(root, ignore_errors=True)
     try:
         ctx["resnet"] = _resnet_steps()
+        _resnet_remat(ctx["resnet"])
         _resnet_card_vs_cpu()
         _resnet_resume(root / "ckpt")
         _resnet_native(root / "native")
@@ -1332,6 +1411,245 @@ def phase_resume(ctx) -> None:
 
 # -- phase 11 --------------------------------------------------------------------
 
+# --synthetic files: 2 x 330 records an epoch at bs 128 = 5 full steps and one
+# of 20 rows; the first run stops right after the save at epoch 1's second step
+DATA_FILES, DATA_PER_FILE, DATA_STOP_STEP = 2, 330, 8
+DATA_RECORDS = DATA_FILES * DATA_PER_FILE
+DATA_JOB = "chip-smoke-data"
+
+
+class _StopAfterSave(Exception):
+    pass
+
+
+def _data_stand_in():
+    """What the launcher gives a trainer: a store (``MemoryKV``), the port's
+    ``DataService`` on the port's ``RpcServer``, and a one-pod cluster
+    record naming that server as the leader; ``new_stage()`` writes it again
+    with a new stage."""
+    from edl_tpu_torch.cluster import paths
+    from edl_tpu_torch.cluster.cluster import Cluster
+    from edl_tpu_torch.cluster.pod import Pod
+    from edl_tpu_torch.coord.memory import MemoryKV
+    from edl_tpu_torch.data.data_server import DataService
+    from edl_tpu_torch.rpc.server import RpcServer
+    from edl_tpu_torch.utils import constants
+
+    store = MemoryKV()
+    server = RpcServer("127.0.0.1", 0)
+    server.register_instance(DataService())
+    server.start()
+
+    def new_stage():
+        cluster = Cluster.from_pods([Pod("pod-0", addr="127.0.0.1", port=server.port)])
+        store.put(paths.key(DATA_JOB, constants.ETCD_CLUSTER, "cluster"),
+                  cluster.to_json().encode())
+
+    new_stage()
+    return store, server, new_stage
+
+
+def _check_staged_copy() -> dict:
+    """(d) Host batches of the data service's shapes (f32 images [128, 224,
+    224, 3] from a seed, labels, mask, spans) through ``device_put_stream``
+    on the card: each comes out in order, bit-equal to its host arrays, its
+    spans on the host."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.data.elastic_input import SPANS_KEY, device_put_stream
+
+    rng = np.random.default_rng(12)
+    host = [{"image": rng.normal(size=(128, 224, 224, 3)).astype(np.float32),
+             "label": rng.integers(0, 1000, 128).astype(np.int32),
+             "mask": (np.arange(128) < 128 - 40 * i).astype(np.float32),
+             SPANS_KEY: [[i, 0, 128 - 40 * i]]} for i in range(3)]
+    stream = device_put_stream(iter(host), "cuda")
+    equal, order = [], []
+    for i, (dev, spans) in enumerate(stream):
+        order.append(spans)
+        equal.append(all(dev[k].device.type == "cuda"
+                         and torch.equal(dev[k].cpu(), torch.from_numpy(host[i][k]))
+                         for k in ("image", "label", "mask")))
+    out = {"batches": stream.batches, "bit_equal": equal,
+           "spans_in_order": order == [h[SPANS_KEY] for h in host],
+           "h2d_wait_s": stream.h2d_wait_s}
+    if not (all(equal) and len(equal) == 3 and out["spans_in_order"]):
+        raise AssertionError(f"(d) the staged copy is not the host batch: {out}")
+    return out
+
+
+def phase_data(ctx) -> None:
+    """ResNet50 fed by the data service: ``train_resnet``'s own training
+    function with ``--data_service`` at full width (bs 128, 224², bf16), one
+    pod, the port's DataService as the leader; 2 epochs of 660 records, a
+    stop right after the save at epoch 1's second step, and a restore into a
+    fresh trainer in a new cluster stage.  Checks (a) exactly once and the
+    ragged step's mask, (b) the BN buffers across the masked step, (c) the
+    resumed epoch trains what the checkpoint lacks, (d) the staged copy."""
+    import torch
+
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+
+    _data_run(ctx, torch.device("cuda"), smi_name_and_power_limit())
+    log("data", staged_copy=_check_staged_copy())
+
+
+def _data_run(ctx, device, card: str) -> None:
+    """The two runs of ``phase_data`` on ``device`` and checks (a) to (c)."""
+    import shutil
+
+    import torch
+
+    from edl_tpu_torch import train_resnet
+    from edl_tpu_torch.cluster.env import TrainerEnv
+    from edl_tpu_torch.cluster.state import DataCheckpoint
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.train.checkpoint import CheckpointManager
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = RESNET_ARGS + ["--data_service", "--synthetic", "1000", "--synthetic_files",
+                          str(DATA_FILES), "--synthetic_per_file", str(DATA_PER_FILE),
+                          "--data_dir", str(root / "data"), "--epochs", "2",
+                          "--save_every_steps", "2", "--num_workers", "8"]
+    tenv = TrainerEnv({"EDL_TPU_JOB_ID": DATA_JOB, "EDL_TPU_POD_ID": "pod-0",
+                       "EDL_TPU_CKPT_DIR": str(root / "ckpt")})
+    # what the path did, read through three hooks that are taken out after:
+    # the spans the trainer marks (it marks a batch's spans when it trains
+    # it), each step's mask sum and BN buffers before and after its forward,
+    # and each save's seconds, with a stop right after the mid-epoch save at
+    # DATA_STOP_STEP in the first run
+    trained, steps, saves = [], [], []
+    stop = [DATA_STOP_STEP]
+    mark, make_loss_fn, save = (DataCheckpoint.mark_processed, train_resnet.make_loss_fn,
+                                CheckpointManager.save)
+
+    def marking(self, file_idx, begin, end):
+        trained.append((int(self.reader_name.split("@e")[1].split("@")[0]), file_idx, begin, end))
+        mark(self, file_idx, begin, end)
+
+    def recording_loss_fn(args):
+        inner = make_loss_fn(args)
+
+        def loss_fn(model, extra, batch, gen):
+            t = time.perf_counter()
+            before = torch.cat([b.flatten() for b in model.buffers()])
+            out = inner(model, extra, batch, gen)
+            steps.append((batch["mask"].sum(), before,
+                          torch.cat([b.flatten() for b in model.buffers()]), out[0].detach(), t))
+            return out
+        return loss_fn
+
+    def timed_save(self, step, state, meta=None, force=False):
+        t0 = time.perf_counter()
+        saved = save(self, step, state, meta, force)
+        saves.append((step, time.perf_counter() - t0))
+        if step in stop:
+            raise _StopAfterSave(step)
+        return saved
+
+    store, server, new_stage = _data_stand_in()
+    DataCheckpoint.mark_processed = marking
+    train_resnet.make_loss_fn = recording_loss_fn
+    CheckpointManager.save = timed_save
+    A.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        try:
+            train_resnet.train(train_resnet.parse_args(argv), device, tenv, store)
+            raise AssertionError("the first run did not stop after its mid-epoch save")
+        except _StopAfterSave:
+            pass
+        first_s = time.perf_counter() - t0
+        n_before = len(trained)
+        stop.clear()
+        new_stage()
+        t0 = time.perf_counter()
+        state, meta = train_resnet.train(train_resnet.parse_args(argv), device, tenv, store)
+        second_s = time.perf_counter() - t0
+    finally:
+        DataCheckpoint.mark_processed = mark
+        train_resnet.make_loss_fn = make_loss_fn
+        CheckpointManager.save = save
+        server.stop()
+        store.close()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = A.launch_counts()
+    masks = [int(m) for m, _, _, _, _ in steps]
+    losses = [float(x) for _, _, _, x, _ in steps]
+    bn_kept = [bool(torch.equal(a, b)) for _, a, b, _, _ in steps]
+    # host ms between consecutive steps' starts (a save or an epoch end
+    # between two steps counts in that interval), within each run
+    starts = [t for *_, t in steps]
+    step_ms = [[(b - a) * 1e3 for a, b in zip(run[:-1], run[1:])]
+               for run in (starts[:DATA_STOP_STEP], starts[DATA_STOP_STEP:])]
+    del state
+    torch.cuda.empty_cache()
+
+    # (a) every record of each epoch trained once; the ragged step's mask
+    every = {(f, r) for f in range(DATA_FILES) for r in range(DATA_PER_FILE)}
+    counts = {}
+    for e, f, b, t in trained:
+        for r in range(b, t):
+            counts[(e, f, r)] = counts.get((e, f, r), 0) + 1
+    once = {e: sorted({(f, r) for (ee, f, r) in counts if ee == e}) == sorted(every)
+            and all(c == 1 for (ee, _, _), c in counts.items() if ee == e) for e in (0, 1)}
+    ragged = DATA_RECORDS % 128
+    want_masks = [128] * 5 + [ragged] + [128, 128] + [128] * 3 + [ragged]
+    # (c) the resumed epoch trains exactly what the checkpoint lacks
+    stopped = {(f, r) for e, f, b, t in trained[:n_before] if e == 1 for r in range(b, t)}
+    resumed = {(f, r) for e, f, b, t in trained[n_before:] for r in range(b, t)}
+
+    epochs = {a.epoch_no: a for a in meta.epochs}
+    bench = {r["epoch"]: r for r in meta.user_defined.get("bench", [])}
+    n_steps = sum(a.step_num for a in meta.epochs)
+    # the segments' wall time: epoch 0 (steps 1-6) and the resumed part of
+    # epoch 1 (steps 9-12), with and without the mid-epoch saves in them
+    seg = {0: epochs[0].step_num * epochs[0].avg_step_time,
+           1: (epochs[1].step_num - 2) * epochs[1].avg_step_time}
+    seg_saves = {0: sum(t for step, t in saves if step <= 6),
+                 1: sum(t for step, t in saves if 8 < step <= 12)}
+    h2d = sum(r.get("h2d_wait_s", 0.0) for r in bench.values())
+    input_wait = sum(r.get("input_wait_s", 0.0) for r in bench.values())
+    fixed = ctx.get("resnet", {}).get("img_s_per_card")
+    out = {"nvidia_smi": card, "model": "resnet50", "batch": 128,
+           "image_size": 224, "dtype": "bfloat16", "records_per_epoch": DATA_RECORDS,
+           "img_s_per_card_data_service_epoch0": DATA_RECORDS / seg[0],
+           "img_s_per_card_data_service_resumed_segment": len(resumed) / seg[1],
+           "img_s_per_card_data_service_without_saves": {
+               "epoch0": DATA_RECORDS / (seg[0] - seg_saves[0]),
+               "resumed_segment": len(resumed) / (seg[1] - seg_saves[1])},
+           "saves_step_seconds": saves, "host_ms_between_steps": step_ms,
+           "h2d_wait_s_total": h2d, "h2d_wait_ms_per_step": h2d / n_steps * 1e3,
+           "input_wait_s_total": input_wait, "input_wait_ms_per_step": input_wait / n_steps * 1e3,
+           "host_decode_img_s": {e: r.get("decode_img_s") for e, r in bench.items()},
+           "img_s_per_card_fixed_batch_resnet_phase": fixed,
+           "run_seconds": [first_s, second_s], "steps": n_steps, "masks": masks,
+           "bn_kept_per_step": bn_kept, "losses": losses, "exactly_once": once,
+           "stopped_records": len(stopped), "resumed_records": len(resumed),
+           "attention_launches": launches, "bench": bench}
+    log("data", **out)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses: {losses}")
+    if not all(once.values()) or masks != want_masks:
+        raise AssertionError(f"(a) not exactly once: {once}, masks {masks} != {want_masks}")
+    if bn_kept != [m < 128 for m in masks]:
+        raise AssertionError(f"(b) the BN buffers across the masked steps: {bn_kept}")
+    if len(stopped) != 2 * 128 or resumed != every - stopped:
+        raise AssertionError(f"(c) the resumed epoch: {len(stopped)} stopped, {len(resumed)} "
+                             f"resumed, {len(every - stopped - resumed)} missed")
+    if (meta.next_epoch, n_steps) != (2, 12):
+        raise AssertionError(f"the run did not end at epoch 2 after 12 steps: {out}")
+    if any(launches.values()):
+        raise AssertionError(f"the data path launched attention kernels: {launches}")
+    if fixed is None:
+        log("data", img_s_per_card_fixed_batch_resnet_phase="not measured: the resnet phase "
+            "did not run in this call")
+
+
+# -- phase 12 --------------------------------------------------------------------
+
 ELASTIC_STEPS = 3
 # the entry point's run (full width, depth cut to 2) and the 2-rank CPU world
 ENTRY_ARGS = FLAGSHIP_ARGS + ["--layers", "2", "--steps_per_epoch", "2"]
@@ -1420,7 +1738,7 @@ def _elastic_group_of_one() -> dict:
     def steps(n):
         cfg, trainer, init_fn, tx = train_lm.build_trainer(args, device)
         state = trainer.create_state(init_fn, tx)
-        batch = trainer.to_device({"ids": ids})
+        batch = {"ids": torch.from_numpy(ids).to(device)}
         gen = torch.Generator(device=device).manual_seed(3)
         losses = []
         for _ in range(n):
@@ -1584,7 +1902,7 @@ def phase_elastic(ctx) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-# -- phase 12 --------------------------------------------------------------------
+# -- phase 13 --------------------------------------------------------------------
 
 SERVE_ARGS = ["--layers", "12", "--embed", "768", "--heads", "6", "--mlp", "3072",
               "--vocab", "32000", "--max_len", "1024"]
@@ -1892,7 +2210,7 @@ def main(argv=None) -> int:
     runners = {"build": phase_build, "kernels": phase_kernels, "parity": phase_parity,
                "flagship": phase_flagship, "flash": phase_flash, "d256": phase_d256,
                "d384": phase_d384, "d768": phase_d768, "resnet": phase_resnet,
-               "resume": phase_resume,
+               "resume": phase_resume, "data": phase_data,
                "elastic": phase_elastic, "serve": phase_serve}
     for name in PHASES:
         if name in phases:

@@ -1,1 +1,2 @@
-"""The coordination-store client, the record types it returns, and leased registration."""
+"""The coordination-store client, the record types it returns, leased
+registration, and an in-process store (``memory.py``)."""

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import logging
 
-from edl_tpu_torch.coord.kv import KVRecord, KVStore
+from edl_tpu_torch.coord.kv import KVRecord, KVStore, WaitResult, WatchEvent
 from edl_tpu_torch.rpc.client import RpcClient
 from edl_tpu_torch.utils import exceptions, retry
 
@@ -69,6 +69,16 @@ class CoordClient(KVStore):
         return self._call("txn_put_if_equals", _timeout, guard_key=guard_key,
                           guard_value=guard_value, key=key, value=value,
                           lease_id=lease_id)["succeeded"]
+
+    # -- watch -------------------------------------------------------------
+    def wait(self, prefix, since_revision, timeout, _timeout=None):
+        """The long-poll; its transport bound is ``timeout`` plus slack, at
+        least ``_timeout``."""
+        bound = max(float(timeout) + 10.0, _timeout or 0.0)
+        r = self._call("wait", bound, prefix=prefix, since_revision=since_revision,
+                       timeout=timeout)
+        return WaitResult([WatchEvent(t, _wire_to_rec(w)) for t, w in r["events"]],
+                          r["rev"], snapshot=bool(r.get("snap", False)))
 
     def ping(self) -> bool:
         """True if this endpoint answers a coordination ping.  Transport

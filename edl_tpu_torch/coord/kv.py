@@ -1,15 +1,17 @@
-"""KV-store interface and the record type its clients return (the part of
-the JAX package's ``coord/kv.py`` that a trainer and a leased advert use;
-watches serve the launcher, not ported).
+"""KV-store interface and the record types its clients return (the part of
+the JAX package's ``coord/kv.py`` that a trainer, a leased advert and the
+data service's reader registry use; its ``PrefixWatcher`` serves the
+launcher and is not ported).
 
 Semantics follow what the reference used from etcd3: flat keys, prefix
-range reads with a store-wide revision, and a guarded put.
+range reads with a store-wide revision, a guarded put, and ``wait``, a
+long-poll on a prefix.
 """
 
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -19,6 +21,22 @@ class KVRecord:
     value: bytes
     revision: int = 0          # store revision of last modification
     lease_id: int = 0          # 0 = no lease
+
+
+@dataclass(frozen=True)
+class WatchEvent:
+    type: str                  # "put" | "delete"
+    record: KVRecord
+
+
+@dataclass
+class WaitResult:
+    events: list[WatchEvent] = field(default_factory=list)
+    revision: int = 0          # store revision as of this response
+    # True when ``events`` is a full current-state resync (every live key
+    # under the prefix as a "put"), not a delta: the caller's revision
+    # predated the bounded event log, or the store restarted
+    snapshot: bool = False
 
 
 class KVStore:
@@ -56,6 +74,13 @@ class KVStore:
 
     def lease_revoke(self, lease_id: int) -> None:
         """End the lease now, deleting its keys."""
+        raise NotImplementedError
+
+    def wait(self, prefix: str, since_revision: int, timeout: float) -> WaitResult:
+        """Block until a change under ``prefix`` with revision >
+        ``since_revision``, or ``timeout``; returns the events and the new
+        revision.  A store without watches raises NotImplementedError, and
+        callers poll."""
         raise NotImplementedError
 
     def close(self) -> None:

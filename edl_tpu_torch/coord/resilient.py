@@ -178,6 +178,13 @@ class ResilientCoordClient(KVStore):
     def put_if_equals(self, guard_key, guard_value, key, value, lease_id=0):
         return self._invoke("put_if_equals", guard_key, guard_value, key, value, lease_id)
 
+    def wait(self, prefix, since_revision, timeout):
+        """The long-poll, retried as any op.  After a failover its revision
+        is another store's, so callers use it as a wake-up and re-read what
+        they wait for (the data service's reader registry does), never as a
+        delta to apply."""
+        return self._invoke("wait", prefix, since_revision, timeout)
+
     def ping(self) -> bool:
         """True if any endpoint answers a ping now (no retries)."""
         last_err: Exception | None = None

@@ -18,7 +18,11 @@ The flax model's numerics, kept where a PyTorch default differs:
   convention).  Train mode normalises with the batch statistics in f32 and
   updates the running variance with the *biased* batch variance, as flax
   does (``F.batch_norm`` would take the unbiased one).  The running stats
-  are module buffers, so ``state_dict`` carries them.
+  are module buffers, so ``state_dict`` carries them.  ``ResNet.stat_gate``
+  holds or gates their update: a forward that is recomputed for the
+  backward (``--remat``) must not update them twice, and a padded
+  data-service batch keeps the previous stats (``where(all_real, new,
+  old)`` in the JAX example), its gate a 0-d tensor decided on the card.
 - **Init.** Conv and head kernels are flax's ``lecun_normal`` (a normal
   truncated at two standard deviations, variance 1 / fan_in), drawn from
   an explicit ``torch.Generator``; the head bias is 0; BN scales are 1,
@@ -32,6 +36,7 @@ trees name for name.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import partial
 from typing import Sequence
@@ -105,6 +110,9 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        # the running-stat update's gate: 1.0 updates, 0.0 skips, a 0-d f32
+        # tensor of 1 or 0 decides on the device (set by ResNet.stat_gate)
+        self.stat_gate: float | torch.Tensor = 1.0
 
     def forward(self, x):
         if not self.training:
@@ -114,10 +122,15 @@ class BatchNorm(nn.Module):
         # mean and 1 / sqrt(biased var + eps), from which the update is made
         out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
                                                     True, 0.0, BN_EPS)
-        with torch.no_grad():
-            var = invstd.to(self.running_var.dtype).pow(-2) - BN_EPS
-            self.running_mean.lerp_(mean.to(self.running_mean.dtype), BN_MOMENTUM)
-            self.running_var.lerp_(var.clamp_min(0.0), BN_MOMENTUM)
+        gate = self.stat_gate
+        if isinstance(gate, torch.Tensor) or gate:
+            # a gate of 0 makes the lerp's weight 0: the stats come back as
+            # they were, to the bit
+            weight = BN_MOMENTUM * gate
+            with torch.no_grad():
+                var = invstd.to(self.running_var.dtype).pow(-2) - BN_EPS
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype), weight)
+                self.running_var.lerp_(var.clamp_min(0.0), weight)
         return out
 
 
@@ -217,6 +230,21 @@ class ResNet(nn.Module):
                 cin = width * 2 ** i * block.expansion
         self.head = Dense(cin, num_classes, g)
         self.to(memory_format=torch.channels_last)
+
+    @contextlib.contextmanager
+    def stat_gate(self, gate: float | torch.Tensor):
+        """Within the block, every BN's running-stat update is gated by
+        ``gate`` (see ``BatchNorm.stat_gate``); the previous gates come back
+        after it."""
+        bns = [m for m in self.modules() if isinstance(m, BatchNorm)]
+        prev = [m.stat_gate for m in bns]
+        for m in bns:
+            m.stat_gate = gate
+        try:
+            yield self
+        finally:
+            for m, g in zip(bns, prev):
+                m.stat_gate = g
 
     def blocks(self):
         for i, n_blocks in enumerate(self.stage_sizes):

@@ -6,8 +6,10 @@ repo's sources, shared with the JAX package) into
 ``build/edl_tpu_torch/libedl_native.so`` and loads it with ``ctypes``,
 declaring every entry point's argument and result types.  ``imagedec``
 links ``-ljpeg``; without libjpeg the library is built without it (the
-image pipeline then decodes with ``cv2``).  A failed build leaves the
-pure-Python record IO in place; :func:`ensure_built` returns None.
+image pipeline then decodes with ``cv2``).  A library that is up to date
+but does not load (built on another machine, against libraries this one
+lacks) is built again once.  A failed build leaves the pure-Python record
+IO in place; :func:`ensure_built` returns None.
 """
 
 from __future__ import annotations
@@ -69,6 +71,17 @@ def _stale() -> bool:
     return not OUT.exists() or any(s.stat().st_mtime > OUT.stat().st_mtime for s in SOURCES)
 
 
+def _build() -> None:
+    extra = [f for s in SOURCES for f in _OPTIONAL.get(s.name, [])]
+    try:
+        _compile(SOURCES, extra)
+    except subprocess.CalledProcessError as e:
+        core = [s for s in SOURCES if s.name not in _OPTIONAL]
+        logger.warning("optional native sources dropped (%s): %s",
+                       ", ".join(sorted(_OPTIONAL)), (e.stderr or str(e)).strip()[:300])
+        _compile(core, [])
+
+
 def ensure_built() -> ctypes.CDLL | None:
     """Compile (if stale) and load the library; None when it cannot be
     built (no ``g++``, no sources)."""
@@ -77,16 +90,17 @@ def ensure_built() -> ctypes.CDLL | None:
         if _lib is not None or _failed:
             return _lib
         try:
-            if _stale():
-                extra = [f for s in SOURCES for f in _OPTIONAL.get(s.name, [])]
-                try:
-                    _compile(SOURCES, extra)
-                except subprocess.CalledProcessError as e:
-                    core = [s for s in SOURCES if s.name not in _OPTIONAL]
-                    logger.warning("optional native sources dropped (%s): %s",
-                                   ", ".join(sorted(_OPTIONAL)), (e.stderr or str(e)).strip()[:300])
-                    _compile(core, [])
-            lib = ctypes.CDLL(str(OUT))
+            built = _stale()
+            if built:
+                _build()
+            try:
+                lib = ctypes.CDLL(str(OUT))
+            except OSError as e:
+                if built:
+                    raise
+                logger.warning("the native library does not load (%s); building it again", e)
+                _build()
+                lib = ctypes.CDLL(str(OUT))
             for name, (restype, argtypes) in SIGNATURES.items():
                 if hasattr(lib, name):
                     fn = getattr(lib, name)

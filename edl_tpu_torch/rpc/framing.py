@@ -1,10 +1,11 @@
 """Wire format: ``b"EDL1" | u32_be length | msgpack payload``.
 
 A copy of the JAX package's ``rpc/framing.py`` (the frames its server and
-the C++ daemon speak), for the request/response path: one frame out, one
-frame back.  This module imports ``msgpack``; only the store client
-imports it, and the trainer imports the client only when the launcher's
-environment names a store.
+the C++ daemon speak): one frame out, one frame back, and the streamed
+reply's raw payloads, whose length the envelope frame before them carries.
+This module is the port's only importer of ``msgpack``: the store client,
+the servers and the data plane import it, and a trainer imports them only
+when the launcher's environment names a store.
 """
 
 from __future__ import annotations
@@ -36,6 +37,25 @@ def send_frame(sock: socket.socket, obj) -> None:
     sock.sendall(pack(obj))
 
 
+def unpack(body):
+    """Decode one msgpack body (a raw stream frame that carries a packed
+    record)."""
+    return msgpack.unpackb(body, raw=False, strict_map_key=False)
+
+
+def send_raw(sock: socket.socket, payload) -> None:
+    """Write a bytes-like payload verbatim (no msgpack, no length prefix:
+    the envelope frame before it carried the length)."""
+    sock.sendall(payload)
+
+
+def recv_raw(sock: socket.socket, n: int) -> bytearray:
+    """Counterpart of :func:`send_raw`: read exactly ``n`` payload bytes."""
+    if n > MAX_FRAME:
+        raise FramingError(f"raw payload too large: {n}")
+    return _recv_exact(sock, n)
+
+
 def _recv_exact(sock: socket.socket, n: int) -> bytearray:
     """Read exactly ``n`` bytes into one preallocated buffer."""
     buf = bytearray(n)
@@ -56,5 +76,4 @@ def recv_frame(sock: socket.socket):
         raise FramingError(f"bad magic {magic!r}")
     if length > MAX_FRAME:
         raise FramingError(f"frame too large: {length}")
-    body = _recv_exact(sock, length)
-    return msgpack.unpackb(body, raw=False, strict_map_key=False)
+    return unpack(_recv_exact(sock, length))

@@ -19,6 +19,10 @@ raises instead of forming a plain world the launcher would not expect.
 :func:`connect_store` imports the store client (and with it ``msgpack``)
 only when the env names a store; the client it returns retries, backs
 off and fails over on every op (``coord/resilient.py``).
+
+:func:`allgather_flag` and :func:`allgather_rows` are the small host-value
+gathers of the data service (its per-step has-next agreement and the data
+checkpoint's merge): CPU tensors under gloo, CUDA tensors under NCCL.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import logging
 import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -123,3 +128,29 @@ def shutdown() -> None:
 def is_coordinator(tenv: TrainerEnv | None = None) -> bool:
     tenv = tenv or TrainerEnv()
     return tenv.global_rank == 0
+
+
+def _collective_device() -> torch.device:
+    """Where a collective's tensors live: the current card under NCCL, the
+    CPU under gloo."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def allgather_rows(rows: np.ndarray) -> np.ndarray:
+    """``rows`` ([n, ...] int32, n the same on every rank) from every rank of
+    the process group, stacked in rank order: [world, n, ...]."""
+    local = torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(_collective_device())
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, local)
+    return torch.stack(parts).cpu().numpy()
+
+
+def allgather_flag(flag: int) -> np.ndarray:
+    """Every rank's ``flag`` (one int32 each, in rank order): the data
+    service's per-step has-next agreement.  Without a process group, just
+    this process's."""
+    if not dist.is_initialized():
+        return np.asarray([flag], np.int32)
+    return allgather_rows(np.asarray([flag], np.int32))[:, 0]

@@ -11,8 +11,14 @@ The port of the JAX package's ``train/trainer.py``, one process per card:
   a flat buffer, divided by the world, so the update is the gradient of
   the mean loss over the global batch (JAX's replicated-parameter mesh);
   without a process group the step does no extra work;
+- input staged one batch ahead (``data/elastic_input.py:device_put_stream``:
+  pinned host memory and a side CUDA stream on the card), as the JAX
+  trainer's ``prefetch_batches = 1``; a data-service batch's record spans
+  are marked into the data checkpoint when the batch is trained, never when
+  it is staged;
 - epoch accounting and the data checkpoint in a :class:`State` sidecar
-  saved with every checkpoint (per epoch, and every ``save_every_steps``);
+  saved with every checkpoint (per epoch, and every ``save_every_steps``),
+  every process's spans merged into it before each save;
 - resume: restore the latest checkpoint and continue from
   ``State.next_epoch``, with :class:`AdjustRegistry` callbacks and, under
   ``EDL_TPU_LR_RESCALE=1``, the world-derived LR rescale on a world-size
@@ -40,7 +46,6 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -48,6 +53,7 @@ from edl_tpu_torch.cluster import heartbeat, preempt, recovery
 from edl_tpu_torch.cluster.env import TrainerEnv
 from edl_tpu_torch.cluster.state import AdjustRegistry, DataCheckpoint, State
 from edl_tpu_torch.cluster.train_status import TrainStatus, save_train_status
+from edl_tpu_torch.data.elastic_input import device_put_stream, sync_checkpoint
 from edl_tpu_torch.train import lr as lr_mod
 from edl_tpu_torch.train.checkpoint import CheckpointManager
 from edl_tpu_torch.train.state import OptimizerFactory, TrainState
@@ -75,6 +81,11 @@ class TrainConfig:
 
 
 class ElasticTrainer:
+    """``input_stats`` sums, over every epoch this trainer ran,
+    ``input_wait_s``, the seconds the loop was blocked obtaining a batch
+    (the staging's own wait taken out), and ``h2d_wait_s``, the seconds it
+    waited for a staged copy."""
+
     def __init__(self, loss_fn: LossFn, config: TrainConfig | None = None,
                  store=None, tenv: TrainerEnv | None = None,
                  device: str | torch.device = "cuda"):
@@ -94,6 +105,7 @@ class ElasticTrainer:
         self._preempt_seen = False
         self._preempt_next_check: int | None = None  # the agreed next check step (world)
         self._preempt_last_check_t = 0.0              # the last check's time (solo)
+        self.input_stats = {"input_wait_s": 0.0, "h2d_wait_s": 0.0}
 
     @property
     def world_size(self) -> int:
@@ -140,17 +152,6 @@ class ElasticTrainer:
         return lr_mod.rescale_state(state, factor)
 
     # -- the step ------------------------------------------------------------
-    def to_device(self, batch):
-        """A host batch (numpy arrays, nested in dicts) as tensors on the
-        trainer's device."""
-        if isinstance(batch, dict):
-            return {k: self.to_device(v) for k, v in batch.items()}
-        if isinstance(batch, np.ndarray):
-            batch = torch.from_numpy(batch)
-        if isinstance(batch, torch.Tensor):
-            return batch.to(self.device, non_blocking=True)
-        return batch
-
     def step_fn(self, state: TrainState, batch, gen: torch.Generator):
         """One update on a device batch: ``(state, metrics)`` with
         ``metrics["loss"]`` a device scalar."""
@@ -197,8 +198,22 @@ class ElasticTrainer:
             meta.in_epoch = epoch
             meta.epoch_start_step = start_step
             meta.data_checkpoint = DataCheckpoint()
-        for batch in data_fn(epoch):
-            state, metrics = self.step_fn(state, self.to_device(batch), gen)
+        stream = device_put_stream(data_fn(epoch), self.device)
+        batches = iter(stream)
+        while True:
+            t0, h2d0 = time.perf_counter(), stream.h2d_wait_s
+            item = next(batches, None)
+            self.input_stats["input_wait_s"] += (time.perf_counter() - t0
+                                                 - (stream.h2d_wait_s - h2d0))
+            self.input_stats["h2d_wait_s"] += stream.h2d_wait_s - h2d0
+            if item is None:
+                break
+            batch, spans = item
+            # marked when the batch is trained, so a save holds exactly the
+            # trained records whatever the staging depth
+            for fi, b, e in spans or ():
+                meta.data_checkpoint.mark_processed(fi, b, e)
+            state, metrics = self.step_fn(state, batch, gen)
             n_steps += 1
             step = start_step + n_steps
             self._observe_step_time()
@@ -212,6 +227,7 @@ class ElasticTrainer:
             if (self.ckpt is not None and self.cfg.save_every_steps
                     and step % self.cfg.save_every_steps == 0):
                 meta.step = step
+                self._sync_data_checkpoint(meta)
                 self.ckpt.save(step, state, meta)
         dt = time.monotonic() - t_epoch
         # step_num covers the whole epoch, including segments trained
@@ -222,6 +238,7 @@ class ElasticTrainer:
         meta.epoch_no = epoch
         meta.in_epoch = -1  # epoch complete: next resume starts the next one
         if self.ckpt is not None:
+            self._sync_data_checkpoint(meta)
             if self.cfg.save_every_steps and self.ckpt.latest_step() == state.step:
                 # the last mid-epoch save already holds this step's arrays
                 self.ckpt.save_meta(state.step, meta)
@@ -350,6 +367,7 @@ class ElasticTrainer:
         logger.warning("preemption flagged: checkpointing at step %d", step)
         if self.ckpt is not None:
             meta.step = step
+            self._sync_data_checkpoint(meta)
             self.ckpt.save(step, state, meta, force=True)
             logger.info("preempt: checkpoint committed at step %d", step)
         if self.world_size > 1:
@@ -377,6 +395,12 @@ class ElasticTrainer:
         sys.stderr.flush()
         os._exit(constants.PREEMPT_EXIT_CODE)
 
+    def _sync_data_checkpoint(self, meta: State) -> None:
+        """Before every save, merge all processes' consumed data spans into
+        the sidecar rank 0 writes (``data/elastic_input.py:sync_checkpoint``).
+        Collective: save points are step-aligned across processes."""
+        sync_checkpoint(meta.data_checkpoint)
+
     def _report(self, status: TrainStatus) -> None:
         if self.store is None or self.tenv is None or not self.tenv.pod_id:
             return
@@ -391,15 +415,16 @@ class ElasticTrainer:
                  metric_fn) -> dict[str, float]:
         """Sample-weighted means of per-example metrics over every rank's
         batches: ``metric_fn(model, extra, batch) -> {name: (B,) tensor}``.
-        Ranks may hold different numbers of batches (none, too); every rank
-        returns the global means."""
+        The host batches are staged on the device one ahead, as in training
+        (``device_put_stream``).  Ranks may hold different numbers of
+        batches (none, too); every rank returns the global means."""
         totals: dict[str, torch.Tensor] = {}
         count = 0
         was_training = state.model.training
         state.model.eval()
         try:
-            for batch in batches:
-                vals = metric_fn(state.model, state.extra, self.to_device(batch))
+            for batch, _spans in device_put_stream(batches, self.device):
+                vals = metric_fn(state.model, state.extra, batch)
                 for k, v in vals.items():
                     totals[k] = totals.get(k, 0.0) + v.float().sum()
                 count += len(next(iter(vals.values())))

@@ -12,26 +12,38 @@ label-smoothed cross-entropy, per-epoch eval and a benchmark record per
 epoch kept in the checkpoint's ``State`` sidecar (so an elastic restart
 keeps the records of earlier epochs), dumped by rank 0 with
 ``--bench_dump``.  Each rank reads its round-robin share of the
-``train-*.rec`` files (``data/images.py:shard_files``).  Compute is bf16 on
-the card and f32 on the CPU.  ``--synthetic N`` first writes a learnable
-toy dataset of N classes (once, whatever the number of racing processes;
-it needs ``cv2``).  Under the elastic launcher one process runs per
-trainer, as with ``train_lm``.
+``train-*.rec`` files (``data/images.py:shard_files``), or, with
+``--data_service`` (under the launcher: a store and a pod id), takes records
+from the leader's data service (``data/elastic_input.py``): dynamic file
+handout, a masked ragged epoch end, and exactly-once mid-epoch resume from
+the checkpointed record spans.  On a masked batch the loss and top-1 are
+the masked means of the global batch (every real record weighs the same,
+whatever the ranks' shares) and, if any row of it is padding, the step keeps
+the BN running stats as they were (the forward still normalises with batch
+statistics that include the zero rows, as flax does; each rank's own rows,
+where the JAX mesh normalises over the global batch).  ``--remat``
+recomputes the model's forward in the backward (``torch.utils.checkpoint``
+over the whole forward, the unit ``jax.checkpoint`` wraps, so the peak
+memory does not fall), the recomputation leaving the BN running stats
+alone.  Compute is bf16 on the card and f32 on the CPU.
+``--synthetic N`` first writes a learnable toy dataset of N classes (once,
+whatever the number of racing processes; it needs ``cv2``).  Under the
+elastic launcher one process runs per trainer, as with ``train_lm``.
 
 Not ported yet, each raising ``NotImplementedError``: ``--dgc`` (ROADMAP.md
-Queue 1 item 7), ``--data_service`` (item 5, the data service),
-``--dcn_dp`` (item 4c), ``--profile_steps`` (item 8) and ``--remat`` (item
-5: a recomputed forward would update the BN running stats twice).
+Queue 1 item 7), ``--dcn_dp`` (item 4c) and ``--profile_steps`` (item 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -59,7 +71,9 @@ def parse_args(argv=None):
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--weight_decay", type=float, default=1e-4)
     p.add_argument("--label_smoothing", type=float, default=0.1)
-    p.add_argument("--remat", action="store_true", help="not ported")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the whole forward in the backward (jax.checkpoint's unit; "
+                        "the peak memory does not fall, the step is slower)")
     p.add_argument("--save_every_steps", type=int, default=0,
                    help="mid-epoch checkpoint cadence (0 = per-epoch only)")
     p.add_argument("--dgc", type=float, default=0.0, help="not ported")
@@ -74,14 +88,13 @@ def parse_args(argv=None):
     p.add_argument("--profile_steps", type=str, default="", help="not ported")
     p.add_argument("--profile_dir", type=str, default="")
     p.add_argument("--dcn_dp", type=int, default=0, help="not ported")
-    p.add_argument("--data_service", action="store_true", help="not ported")
+    p.add_argument("--data_service", action="store_true",
+                   help="take records from the launcher's data service (needs the launcher)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     unported = [(args.dgc > 0, "--dgc", "item 7 (train/compress.py)"),
-                (args.data_service, "--data_service", "item 5 (the data service)"),
                 (args.dcn_dp != 0, "--dcn_dp", "item 4c (the mesh)"),
-                (bool(args.profile_steps), "--profile_steps", "item 8 (obs/profile.py)"),
-                (args.remat, "--remat", "item 5 (BN under recompute)")]
+                (bool(args.profile_steps), "--profile_steps", "item 8 (obs/profile.py)")]
     for asked, flag, item in unported:
         if asked:
             raise NotImplementedError(f"{flag} is not ported to edl_tpu_torch yet "
@@ -143,17 +156,56 @@ def make_loss_fn(args):
     model's logits (``optax.smooth_labels`` then softmax CE is
     ``F.cross_entropy(label_smoothing=...)``) and the batch's top-1.  A
     uint8 image batch is BGR, normalised on the device.  The BN running
-    stats are module buffers, so no extra state is threaded."""
+    stats are module buffers, so no extra state is threaded.
+
+    A batch with a ``mask`` (the data service's ragged epoch end, zero-padded)
+    gives the masked means of the global batch, as the JAX example's loss on
+    its sharded batch does: in a world each rank's loss is
+    ``sum(ce * mask) * world / max(n, 1)``, ``n`` the real rows of every
+    rank, so the trainer's world mean of losses and gradients weighs every
+    real record ``1 / n`` whatever the ranks' shares (a rank with none adds
+    nothing), and top-1 is the global masked top-1 on every rank.  If any
+    rank's share holds padding, every rank's forward leaves the BN running
+    stats as they were.  The real rows, the padded shares and the hits are
+    summed by all-reduces on the mask's device, and the gate is a device
+    tensor (``models/resnet.py:ResNet.stat_gate``), so the step does not wait
+    for the card.  With ``--remat`` the forward is recomputed in the
+    backward, the recomputation with the stats' update off."""
+    import torch.distributed as dist
+    from torch.utils.checkpoint import checkpoint
+
     from edl_tpu_torch.data.images import device_normalize
+
+    def forward(model, x):
+        if not args.remat:
+            return model(x)
+        return checkpoint(model, x, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(), model.stat_gate(0.0)))
 
     def loss_fn(model, extra, batch, gen):
         x, labels = batch["image"], batch["label"].long()
         if x.dtype == torch.uint8:
             x = device_normalize(x)
-        logits = model(x)
-        loss = F.cross_entropy(logits, labels, label_smoothing=args.label_smoothing)
-        top1 = (logits.argmax(-1) == labels).float().mean()
-        return loss, (None, {"top1": top1})
+        mask = batch.get("mask")
+        if mask is None:
+            logits = forward(model, x)
+            loss = F.cross_entropy(logits, labels, label_smoothing=args.label_smoothing)
+            top1 = (logits.argmax(-1) == labels).float().mean()
+            return loss, (None, {"top1": top1})
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        # [real rows, shares holding padding], summed over the world
+        facts = torch.stack([mask.sum(), (mask.min() < 1).to(mask.dtype)])
+        if world > 1:
+            dist.all_reduce(facts)
+        n = facts[0].clamp_min(1.0)
+        with model.stat_gate((facts[1] == 0).float()):
+            logits = forward(model, x)
+        ce = F.cross_entropy(logits, labels, label_smoothing=args.label_smoothing,
+                             reduction="none")
+        hits = ((logits.argmax(-1) == labels).to(mask.dtype) * mask).sum()
+        if world > 1:
+            dist.all_reduce(hits)
+        return (ce * mask).sum() * world / n, (None, {"top1": hits / n})
 
     return loss_fn
 
@@ -212,14 +264,54 @@ def main(argv=None):
         device = torch.device("cuda", torch.cuda.current_device())  # bound to this rank
     store = connect_store(tenv)
     try:
-        return _train(args, device, tenv, store)
+        return train(args, device, tenv, store)
     finally:
         if store is not None:
             store.close()
         shutdown()
 
 
-def _train(args, device, tenv, store):
+def _data_service_input(args, tenv, store, train_files):
+    """``(ElasticInput, decode pool, decode stats)`` for ``--data_service``,
+    as the JAX example builds it: records from ``RecordioSplitter``, decoded
+    by a thread pool with one augmentation RNG a batch slot.  The stats dict
+    sums ``images`` decoded and the ``seconds`` the decodes took (wall)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from edl_tpu_torch.data import images
+    from edl_tpu_torch.data.dataset import RecordioSplitter
+    from edl_tpu_torch.data.elastic_input import ElasticInput
+
+    if store is None or not tenv.pod_id:
+        raise SystemExit("--data_service needs the elastic launcher's store and pod id")
+    decode_pool = ThreadPoolExecutor(args.num_workers, thread_name_prefix="decode")
+    decode_rngs = [np.random.default_rng((7, i)) for i in range(args.batch_size)]
+    stats = {"images": 0, "seconds": 0.0}
+
+    def assemble(records: list) -> dict:
+        if not records:
+            return {"image": np.zeros((0, args.image_size, args.image_size, 3), np.float32),
+                    "label": np.zeros((0,), np.int32)}
+        t0 = time.perf_counter()
+        decoded = list(decode_pool.map(
+            lambda ir: images.decode_train(ir[1], args.image_size,
+                                           decode_rngs[ir[0] % args.batch_size]),
+            enumerate(records)))
+        stats["seconds"] += time.perf_counter() - t0
+        stats["images"] += len(records)
+        return {"image": np.stack([d[0] for d in decoded]),
+                "label": np.asarray([d[1] for d in decoded], np.int32)}
+
+    ei = ElasticInput(store, tenv.job_id, tenv.pod_id, "imagenet", train_files,
+                      args.batch_size, RecordioSplitter(), assemble,
+                      distributed=tenv.world_size > 1)
+    return ei, decode_pool, stats
+
+
+def train(args, device, tenv, store):
+    """The training run of ``main`` on a formed world: ``tenv`` (the
+    launcher's env), ``store`` (the coordination store, or None); returns
+    ``(TrainState, State)``."""
     from edl_tpu_torch.data import images
 
     rank = tenv.global_rank
@@ -254,23 +346,40 @@ def _train(args, device, tenv, store):
           f"resumed_spans={resumed_spans} lr={lr:.4f} steps/epoch={steps_per_epoch} "
           f"files={len(my_files)}", flush=True)
     step_sleep = float(os.environ.get("EDL_TPU_DEMO_STEP_SLEEP", "0"))
+    ei = decode_pool = decode = None
+    if args.data_service:
+        ei, decode_pool, decode = _data_service_input(args, tenv, store, train_files)
 
     def data_fn(epoch: int):
-        it = iter(images.ImageBatches(my_files, args.batch_size, image_size=args.image_size,
-                                      train=True, seed=1000 * epoch + rank,
-                                      num_workers=args.num_workers))
+        if ei is not None:
+            # the generation is seeded from the data checkpoint: a mid-epoch
+            # resume trains only the records it lacks
+            it = ei.epoch(epoch, meta.data_checkpoint)
+        else:
+            it = iter(images.ImageBatches(my_files, args.batch_size, image_size=args.image_size,
+                                          train=True, seed=1000 * epoch + rank,
+                                          num_workers=args.num_workers))
         for i, batch in enumerate(it):
             if args.steps_per_epoch and i >= args.steps_per_epoch:
+                it.close()
                 break
             if step_sleep:  # launcher tests pace the run so a kill lands mid-epoch
                 time.sleep(step_sleep)
             yield batch
+
+    seen = dict(trainer.input_stats)
 
     def on_epoch_end(epoch, st, meta_):
         attr = meta_.epoch_attr(epoch)
         n_img = (attr.step_num if attr else 0) * global_batch
         sec = (attr.step_num * attr.avg_step_time) if attr else 0.0
         record = {"epoch": epoch, "sec": round(sec, 2), "img_s": round(n_img / max(sec, 1e-9), 1)}
+        # this segment's time blocked on the input, and on the staged copy
+        for key in ("input_wait_s", "h2d_wait_s"):
+            record[key] = round(trainer.input_stats[key] - seen[key], 4)
+        seen.update(trainer.input_stats)
+        if decode is not None and decode["seconds"]:
+            record["decode_img_s"] = round(decode["images"] / decode["seconds"], 1)
         if args.eval and val_files:
             record.update({k: round(v, 4) for k, v in trainer.evaluate(
                 st, images.ImageBatches(val_files, args.batch_size, image_size=args.image_size,
@@ -282,7 +391,13 @@ def _train(args, device, tenv, store):
         records[:] = [r for r in records if r["epoch"] != epoch] + [record]
         print(f"[train_resnet] {json.dumps(record)}", flush=True)
 
-    state, meta = trainer.fit(state, meta, data_fn, epochs=args.epochs, on_epoch_end=on_epoch_end)
+    try:
+        state, meta = trainer.fit(state, meta, data_fn, epochs=args.epochs,
+                                  on_epoch_end=on_epoch_end)
+    finally:
+        if ei is not None:
+            ei.stop()
+            decode_pool.shutdown()
     bench = sorted(meta.user_defined.get("bench", []), key=lambda r: r["epoch"])
     total = sum(r["sec"] for r in bench)
     if args.bench_dump and rank == 0:

@@ -1,4 +1,4 @@
-"""Coordination-store names, trainer knobs and serving knobs the port uses
+"""Coordination-store names, trainer, data-service and serving knobs the port uses
 (copies of the JAX package's ``utils/constants.py`` entries, under the
 same ``EDL_TPU_*`` names and defaults).
 
@@ -15,11 +15,16 @@ ETCD_STATE = "state"                # train State (data checkpoint etc.)
 ETCD_TRAIN_STATUS = "train_status"  # per-pod TrainStatus
 ETCD_HEARTBEAT = "heartbeat"        # per-pod trainer liveness beats
 ETCD_RECOVERY = "recovery"          # per-stage resize timing records
+ETCD_CLUSTER = "cluster"            # the generated Cluster JSON
+ETCD_READER = "reader"              # distributed-reader registry
 LEADER_KEY = "0"                    # rank table key seized by the leader
 TTL_REFRESH_FRACTION = 0.5          # a leased key's keep-alive runs at ttl/2
 # the exit code of a trainer after its preemption-point checkpoint: the
 # launcher reads it as a clean coordinated departure, not success, not a crash
 PREEMPT_EXIT_CODE = 94
+# a data-service batch carries its consumed record spans under this key;
+# the trainer pops it and marks the DataCheckpoint when it trains the batch
+DATA_SPANS_KEY = "__consumed_spans__"
 
 
 def _env_float(name: str, default: float) -> float:
@@ -99,3 +104,73 @@ def distill_advert_period() -> float:
     """``EDL_TPU_DISTILL_ADVERT_PERIOD``: seconds between a teacher's
     refreshes of its advert (the live ``stats()`` payload)."""
     return _env_float("EDL_TPU_DISTILL_ADVERT_PERIOD", 1.0)
+
+
+def transfer_conns() -> int:
+    """``EDL_TPU_TRANSFER_CONNS``: connections an ``RpcChannelPool`` holds."""
+    return int(_env_float("EDL_TPU_TRANSFER_CONNS", 4))
+
+
+def transfer_window() -> int:
+    """``EDL_TPU_TRANSFER_WINDOW``: requests a pipelined call keeps in flight."""
+    return int(_env_float("EDL_TPU_TRANSFER_WINDOW", 8))
+
+
+# -- the data service (data/) ---------------------------------------------------
+def data_retry_deadline() -> float:
+    """``EDL_TPU_DATA_RETRY_DEADLINE``: a data-plane leader call's total
+    retry budget (s), backoff, leader re-resolution and reattach inside it."""
+    return _env_float("EDL_TPU_DATA_RETRY_DEADLINE", 30.0)
+
+
+def data_backoff_init() -> float:
+    """``EDL_TPU_DATA_BACKOFF_INIT``: its first backoff (s)."""
+    return _env_float("EDL_TPU_DATA_BACKOFF_INIT", 0.05)
+
+
+def data_backoff_max() -> float:
+    """``EDL_TPU_DATA_BACKOFF_MAX``: its largest backoff (s)."""
+    return _env_float("EDL_TPU_DATA_BACKOFF_MAX", 2.0)
+
+
+def data_rebuild_grace() -> float:
+    """``EDL_TPU_DATA_REBUILD_GRACE``: after a generation is rebuilt (or
+    re-seeded by a reattach), the seconds during which parked metas and new
+    file grants are held for reattaching readers."""
+    return _env_float("EDL_TPU_DATA_REBUILD_GRACE", 5.0)
+
+
+def data_prefetch_workers() -> int:
+    """``EDL_TPU_DATA_PREFETCH_WORKERS``: fetch threads a consumer runs, so
+    one dead producer costs them one timeout in parallel, not N in series."""
+    return int(_env_float("EDL_TPU_DATA_PREFETCH_WORKERS", 2))
+
+
+def data_prefetch_depth() -> int:
+    """``EDL_TPU_DATA_PREFETCH_DEPTH``: batches fetched or in flight ahead of
+    the consumer loop (new metas are asked for only below it)."""
+    return int(_env_float("EDL_TPU_DATA_PREFETCH_DEPTH", 16))
+
+
+def data_prefetch_meta() -> int:
+    """``EDL_TPU_DATA_PREFETCH_META``: batch metas asked for per leader round
+    trip."""
+    return int(_env_float("EDL_TPU_DATA_PREFETCH_META", 4))
+
+
+def data_prefetch_stream() -> bool:
+    """``EDL_TPU_DATA_PREFETCH_STREAM``: 1 fetches a producer's batches as
+    one framed stream, 0 forces one request a batch everywhere."""
+    return bool(int(_env_float("EDL_TPU_DATA_PREFETCH_STREAM", 1)))
+
+
+def data_stream_batch() -> int:
+    """``EDL_TPU_DATA_STREAM_BATCH``: batches one ``get_batch_stream``
+    request carries at most."""
+    return int(_env_float("EDL_TPU_DATA_STREAM_BATCH", 8))
+
+
+def data_produce_meta_batch() -> int:
+    """``EDL_TPU_DATA_PRODUCE_META_BATCH``: produced batches a
+    ``report_batch_meta`` call carries at most."""
+    return int(_env_float("EDL_TPU_DATA_PRODUCE_META_BATCH", 8))

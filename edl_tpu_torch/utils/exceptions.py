@@ -1,6 +1,6 @@
 """The part of the JAX package's error hierarchy that the port uses: its
-base classes, the cluster, store, registration and serving errors, and the
-wire round trip of ``utils/exceptions.py``.
+base classes, the cluster, store, registration, serving and data-plane
+errors, and the wire round trip of ``utils/exceptions.py``.
 
 A server sends an error as ``{"type": <class name>, "detail": ...}``; the
 client raises the class of that name, so a store error reaches the
@@ -41,9 +41,33 @@ class EdlUnavailableError(EdlRetryableError):
     mid-generation) — try another replica or retry later."""
 
 
+class EdlStopIteration(EdlError):
+    """Remote signals end-of-data (maps to StopIteration client-side)."""
+
+
+class EdlDataError(EdlRetryableError):
+    """Data-server state not ready, or a reader generation failed (a
+    producer could not read a file; the generation was superseded)."""
+
+
+class EdlReaderGoneError(EdlTableError):
+    """The addressed DataService has no state for this reader generation (a
+    successor leader with no or a torn journal).  Readers reattach, re-seeding
+    the generation from their own checkpoint and claimed spans, instead of
+    plain retrying: a retry alone would loop on the same answer."""
+
+
+class EdlStreamError(EdlError):
+    """Streamed-response protocol violation (sequence gap or duplicate, short
+    stream, or a plain answer where frames were expected).  Not retryable on
+    the same connection: the two ends have desynchronised and the transport
+    is torn down."""
+
+
 _REGISTRY = {cls.__name__: cls for cls in (EdlError, EdlRetryableError, EdlCoordError,
                                             EdlTableError, EdlInternalError, EdlRegisterError,
-                                            EdlUnavailableError)}
+                                            EdlUnavailableError, EdlStopIteration, EdlDataError,
+                                            EdlReaderGoneError, EdlStreamError)}
 
 
 def serialize(exc: BaseException) -> dict:

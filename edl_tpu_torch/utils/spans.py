@@ -1,5 +1,6 @@
-"""Half-open record-span arithmetic for the data checkpoint (a copy of
-the JAX package's ``utils/spans.py:merge_span``)."""
+"""Half-open record-span arithmetic shared by the data checkpoint
+(``cluster/state.py``) and the data service's work queue
+(``data/data_server.py``); a copy of the JAX package's ``utils/spans.py``."""
 
 from __future__ import annotations
 
@@ -19,3 +20,25 @@ def merge_span(spans: list[list[int]], begin: int, end: int) -> None:
     out.append([begin, end])
     out.sort()
     spans[:] = out
+
+
+def in_spans(spans: list[list[int]], record_no: int) -> bool:
+    return any(b <= record_no < e for b, e in spans)
+
+
+def intersect_spans(a: list[list[int]], b: list[list[int]]) -> list[list[int]]:
+    """Merged intersection of two span lists (each need not be sorted
+    or disjoint)."""
+    am: list[list[int]] = []
+    for begin, end in a:
+        merge_span(am, begin, end)
+    bm: list[list[int]] = []
+    for begin, end in b:
+        merge_span(bm, begin, end)
+    out: list[list[int]] = []
+    for ab, ae in am:
+        for bb, be in bm:
+            lo, hi = max(ab, bb), min(ae, be)
+            if lo < hi:
+                merge_span(out, lo, hi)
+    return out

@@ -21,6 +21,7 @@ import torch.distributed as dist
 
 from edl_tpu_torch import train_lm
 from edl_tpu_torch.cluster.env import TrainerEnv
+from edl_tpu_torch.data.elastic_input import device_put_stream
 from edl_tpu_torch.models.transformer import TransformerLM
 from edl_tpu_torch.train import lr as lr_mod
 from edl_tpu_torch.train.distributed import initialize_from_env, shutdown
@@ -41,9 +42,9 @@ def steps(io_dir, argv):
     state = trainer.create_state(init, tx)
     gen = torch.Generator().manual_seed(0)
     losses = []
-    for ids in data["batches"]:
-        local = ids.chunk(world)[rank].numpy()
-        state, metrics = trainer.step_fn(state, trainer.to_device({"ids": local}), gen)
+    local = ({"ids": ids.chunk(world)[rank]} for ids in data["batches"])
+    for batch, _ in device_put_stream(local, trainer.device):
+        state, metrics = trainer.step_fn(state, batch, gen)
         losses.append(float(metrics["loss"]))
     shard = [{"ids": b.numpy()} for b in data["eval"][rank::world]]
     val = trainer.evaluate(state, shard, train_lm.metric_fn)

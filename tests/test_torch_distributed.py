@@ -29,6 +29,7 @@ from edl_tpu_torch import train_lm
 from edl_tpu_torch.cluster import heartbeat, train_status
 from edl_tpu_torch.cluster.env import TrainerEnv
 from edl_tpu_torch.coord.client import CoordClient, connect, connect_wait
+from edl_tpu_torch.data.elastic_input import device_put_stream
 from edl_tpu_torch.models import transformer as ttf
 from edl_tpu_torch.models.convert import params_from_jax
 from edl_tpu_torch.rpc import framing
@@ -150,9 +151,8 @@ def test_two_rank_gloo_world_matches_one_process_and_jax(tmp_path):
 
     state = trainer.create_state(init, tx)
     losses = []
-    for ids in batches:
-        state, metrics = trainer.step_fn(state, trainer.to_device({"ids": ids}),
-                                         torch.Generator().manual_seed(0))
+    for batch, _ in device_put_stream(({"ids": ids} for ids in batches), trainer.device):
+        state, metrics = trainer.step_fn(state, batch, torch.Generator().manual_seed(0))
         losses.append(float(metrics["loss"]))
     np.testing.assert_allclose(out0["losses"], losses, rtol=LOSS_RTOL, atol=0)
     for name, p in state.model.state_dict().items():

@@ -205,3 +205,18 @@ def test_shuffled_stream_is_deterministic(synth):
             h.update(b["label"].tobytes())
         digests.append(h.hexdigest())
     assert len(set(digests)) == 1, digests
+
+
+def test_a_library_that_does_not_load_is_built_again(tmp_path, monkeypatch):
+    """A library newer than its sources that does not load (as one built on
+    another machine against libraries this one lacks) is built again once,
+    not taken as the sign that the native build is unavailable."""
+    out = tmp_path / "libedl_native.so"
+    out.write_bytes(b"not a shared object")
+    monkeypatch.setattr(build, "OUT", out)
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "_failed", False)
+    assert not build._stale()
+    lib = build.ensure_built()
+    assert lib is not None and hasattr(lib, "edl_recordio_reader_open")
+    assert out.read_bytes()[:4] == b"\x7fELF"

@@ -33,6 +33,12 @@ RESNET_MODULES = (
     "edl_tpu_torch.native", "edl_tpu_torch.native.build", "edl_tpu_torch.native.recordio",
     "edl_tpu_torch.native.imagedec", "edl_tpu_torch.data", "edl_tpu_torch.data.images",
     "edl_tpu_torch.train_resnet")
+# the modules of the data-service slice
+DATA_SERVICE_MODULES = (
+    "edl_tpu_torch.cluster.pod", "edl_tpu_torch.cluster.cluster", "edl_tpu_torch.coord.memory",
+    "edl_tpu_torch.data.dataset", "edl_tpu_torch.data.registry", "edl_tpu_torch.data.resilient",
+    "edl_tpu_torch.data.data_server", "edl_tpu_torch.data.distribute_reader",
+    "edl_tpu_torch.data.elastic_input")
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -62,8 +68,8 @@ print(sorted(set(bad()) - before))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout.splitlines()
     names = ast.literal_eval(out[-2])
-    assert len(names) >= 51 and set(DISTRIBUTED_MODULES + SERVING_MODULES
-                                    + RESNET_MODULES) <= set(names), names
+    assert len(names) >= 60 and set(DISTRIBUTED_MODULES + SERVING_MODULES + RESNET_MODULES
+                                    + DATA_SERVICE_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 
@@ -80,7 +86,7 @@ def test_no_source_imports_jax_or_the_jax_package():
             offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
                           for n in names if _forbidden(n)]
     assert not offenders, offenders
-    assert len(_port_sources()) >= 52
+    assert len(_port_sources()) >= 61
 
 
 def test_only_the_store_client_imports_msgpack():

@@ -14,6 +14,13 @@ server, ``edl_tpu_torch/train_lm.py`` trainers on the CPU.
   and the survivor stop-resumes solo from the preemption-point checkpoint
   (the twin of ``tests/test_elastic_training_e2e.py::
   test_sigterm_preemption_checkpoint``).
+- ``edl_tpu_torch/train_resnet.py --data_service`` against the JAX
+  launcher's ``DataService``: two pods train both epochs in one 2-rank
+  world (the twin of ``tests/test_resnet_example.py::
+  test_two_pod_resnet_data_service``), and after a hard kill of one pod
+  mid-epoch the survivor resumes solo in the same epoch from the
+  checkpointed record spans (the twin of
+  ``test_resnet_data_service_survives_mid_epoch_kill``).
 """
 
 import json
@@ -34,12 +41,14 @@ from tests.test_launch_integration import FAST, finish
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN = os.path.join(REPO, "edl_tpu_torch", "train_lm.py")
+TRAIN_RESNET = os.path.join(REPO, "edl_tpu_torch", "train_resnet.py")
 TRAIN_ARGS = ["--device", "cpu", "--vocab", "64", "--layers", "2", "--embed", "64",
               "--heads", "2", "--mlp", "128", "--seq_len", "32", "--batch_size", "4",
               "--steps_per_epoch", "4", "--epochs", "10", "--lr", "1e-2"]
 
 
-def spawn(job_id, coord_ep, tmp, name, ckpt_dir, args=TRAIN_ARGS, extra_env=None):
+def spawn(job_id, coord_ep, tmp, name, ckpt_dir, args=TRAIN_ARGS, extra_env=None,
+          trainer=TRAIN, nodes_range="1:2"):
     env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_TPU_")}
     env.update(FAST)
     env.update({
@@ -57,9 +66,9 @@ def spawn(job_id, coord_ep, tmp, name, ckpt_dir, args=TRAIN_ARGS, extra_env=None
     proc = subprocess.Popen(
         [sys.executable, "-m", "edl_tpu.collective.launch",
          "--job_id", job_id, "--coord_endpoints", coord_ep,
-         "--nodes_range", "1:2", "--nproc_per_node", "1",
+         "--nodes_range", nodes_range, "--nproc_per_node", "1",
          "--checkpoint_dir", ckpt_dir,
-         "--log_dir", os.path.join(tmp, f"log-{name}"), TRAIN, "--", *args],
+         "--log_dir", os.path.join(tmp, f"log-{name}"), trainer, "--", *args],
         env=env, cwd=tmp, stdout=log, stderr=subprocess.STDOUT)
     proc._logfile = log  # noqa: SLF001
     return proc
@@ -189,3 +198,101 @@ def test_sigterm_preemption_checkpoint_with_torch_trainers(coord_server, tmp_pat
     done = [line for line in (tmp_path / "marker-a").read_text().splitlines()
             if line.startswith("done")]
     assert done and json.loads(done[-1].split(" ", 1)[1])["world"] == 1
+
+
+def _resnet_args(data, bench, *extra):
+    return ["--device", "cpu", "--data_service", "--synthetic", "4", "--synthetic_per_file", "48",
+            "--synthetic_files", "2", "--data_dir", data, "--model", "resnet18", "--width", "16",
+            "--image_size", "32", "--epochs", "2", "--batch_size", "8", "--steps_per_epoch", "0",
+            "--base_lr", "0.05", "--warmup_epochs", "0", "--num_workers", "2",
+            "--bench_dump", bench, *extra]
+
+
+def _logs(tmp):
+    out = []
+    for root, _, names in os.walk(tmp):
+        for n in names:
+            if n.endswith(".log") or n.startswith("workerlog"):
+                p = os.path.join(root, n)
+                out.append(f"==== {p} ====\n" + open(p, errors="replace").read())
+    return "\n".join(out)
+
+
+@pytest.mark.slow
+def test_two_pod_torch_resnet_data_service(coord_server, tmp_path):
+    """Two pods feed torch ResNet trainers from the JAX launcher's
+    DataService: dynamic file handout and the masked ragged tail in one
+    2-rank gloo world; both epochs, job SUCCEED."""
+    ep = f"127.0.0.1:{coord_server.port}"
+    tmp = str(tmp_path)
+    args = _resnet_args(os.path.join(tmp, "data"), os.path.join(tmp, "bench.json"))
+    procs = [spawn("rn-ds-torch", ep, tmp, name, os.path.join(tmp, "ckpt"), args,
+                   trainer=TRAIN_RESNET, nodes_range="2:2") for name in ("a", "b")]
+    try:
+        for p in procs:
+            assert finish(p, 420) == 0, _logs(tmp)[-6000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    client = CoordClient(ep)
+    try:
+        assert load_job_status(client, "rn-ds-torch") == Status.SUCCEED
+    finally:
+        client.close()
+    for name in ("a", "b"):
+        marker = (tmp_path / f"marker-{name}").read_text()
+        assert "world=2" in marker and "epochs=[0, 1]" in marker, marker
+    dump = json.load(open(tmp_path / "bench.json"))
+    assert dump["world"] == 2 and len(dump["epochs"]) == 2
+    assert all("val_top1" in e and "decode_img_s" in e for e in dump["epochs"]), dump
+
+
+@pytest.mark.slow
+def test_torch_resnet_data_service_survives_mid_epoch_kill(coord_server, tmp_path):
+    """A hard kill of one pod inside epoch 1: the survivor stop-resumes solo,
+    re-enters the same epoch from the checkpointed record spans, and
+    finishes the job."""
+    from tests.helpers.harness import kill_tree
+
+    ep = f"127.0.0.1:{coord_server.port}"
+    tmp = str(tmp_path)
+    ckpt = os.path.join(tmp, "ckpt")
+    # 16 paced steps an epoch, no eval, a mid-epoch save every 4 steps
+    args = _resnet_args(os.path.join(tmp, "data"), os.path.join(tmp, "bench.json"),
+                        "--epochs", "3", "--synthetic_per_file", "128", "--no-eval",
+                        "--save_every_steps", "4")
+    pa = spawn("rn-kill-torch", ep, tmp, "a", ckpt, args, trainer=TRAIN_RESNET)
+    pb = spawn("rn-kill-torch", ep, tmp, "b", ckpt, args, trainer=TRAIN_RESNET)
+    la = tmp_path / "launcher-a.log"
+    try:
+        deadline = time.monotonic() + 300
+        while not (la.exists() and '"epoch": 0,' in la.read_text(errors="replace")):
+            assert time.monotonic() < deadline, "epoch 0 never completed: " + _logs(tmp)[-3000:]
+            time.sleep(0.25)
+        # kill once a mid-epoch save past epoch 0's 16 steps has committed
+        deadline = time.monotonic() + 120
+        while not any(s > 16 for s in _committed(ckpt)):
+            assert time.monotonic() < deadline, "no mid-epoch-1 save: " + _logs(tmp)[-3000:]
+            time.sleep(0.25)
+        kill_tree(pb)
+        assert finish(pa, 420) == 0, _logs(tmp)[-6000:]
+    finally:
+        for p in (pa, pb):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    client = CoordClient(ep)
+    try:
+        assert load_job_status(client, "rn-kill-torch") == Status.SUCCEED
+    finally:
+        client.close()
+    marker = (tmp_path / "marker-a").read_text()
+    assert "epochs=[0, 1, 2]" in marker and "world=1" in marker, marker
+    text = la.read_text(errors="replace")
+    resumes = re.findall(r"resume_epoch=(\d+) in_epoch=(-?\d+) resumed_spans=(\d+)", text)
+    assert len(resumes) >= 2, text[-2000:]
+    # the restart after the kill resumed from a committed checkpoint with its
+    # record spans, never a cold start
+    assert any((int(e) >= 1 or int(ie) >= 0) and int(sp) > 0 for e, ie, sp in resumes[1:]), resumes

@@ -23,6 +23,7 @@ from edl_tpu.train.state import TrainState as JaxTrainState
 from edl_tpu_torch import train_lm
 from edl_tpu_torch.cluster.env import TrainerEnv
 from edl_tpu_torch.cluster.state import State
+from edl_tpu_torch.data.elastic_input import device_put_stream
 from edl_tpu_torch.models import transformer as ttf
 from edl_tpu_torch.models.convert import params_from_jax
 from edl_tpu_torch.obs import flops
@@ -77,8 +78,8 @@ def test_adamw_trajectory_matches_jax_step():
     state = trainer.create_state(init, adamw(lr))
     tlosses = []
     gen = torch.Generator().manual_seed(0)
-    for ids in batches:
-        state, metrics = trainer.step_fn(state, trainer.to_device({"ids": ids}), gen)
+    for batch, _ in device_put_stream(({"ids": ids} for ids in batches), trainer.device):
+        state, metrics = trainer.step_fn(state, batch, gen)
         tlosses.append(float(metrics["loss"]))
     assert state.step == 5
     np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4, atol=0)
