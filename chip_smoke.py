@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,serve
     python3 chip_smoke.py --phases build,resnet
     python3 chip_smoke.py --phases build,data
+    python3 chip_smoke.py --phases distill
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -135,6 +136,27 @@ failure exits non-zero:
    ``SERVE_MARGIN``; how many requests equal their isolated ``generate``
    token for token is reported.  The path computes attention densely, as the
    JAX package's serving path does, so no attention kernel launches in it.
+14. ``distill``: image distillation on one card, through
+   ``edl_tpu_torch.train_image_distill``.  A ResNet152 teacher (width 64,
+   1,000 classes, bf16) takes 20 SGD steps through ``train_teacher`` on four
+   pre-decoded f32 batches [128, 224, 224, 3] (from a seed, cycled); two
+   ``TeacherServer``s over ``module_teacher`` share it and register with a
+   ``DiscoveryServer`` in a ``MemoryKV``.  A ResNet50vd student (bs 128)
+   trains through ``train_student`` on ``make_distill_source`` (dynamic
+   teachers): 2 warm-up and at least 16 timed steps; server A stops after
+   timed step 4, server C starts after step 8, and the student steps on
+   until C has served rows (30 s at most).  Then the same student step
+   without the teacher.  Checks: every batch's logits equal the teacher's own
+   forward on its rows at bucket 16 (relative max error 1e-2) and miss the
+   next batch's by at least 10 times that; batches arrive in order with
+   their labels, none lost or duplicated; the rows served cover every
+   batch; C serves rows; the loss equals a float64 evaluation on the same
+   logits (1e-3) and falls; both models' parameters and every teacher
+   forward are on the card.  Prints img/s with the teacher and alone, the
+   time blocked on the reader, teacher rows/s, passes and rows a pass,
+   forward ms by bucket, wire MB/s, the nop reader's QPS at these rows,
+   peak memory, the longest step interval around the leave and C's
+   registration to its first row.
 
 It then prints the card's ``nvidia-smi`` name and power limit, one line
 ``{"kernels": [...]}``, and, last, ``{"ok": true, "device": {...}}``.
@@ -153,7 +175,7 @@ import time
 from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
-          "resume", "data", "elastic", "serve")
+          "resume", "data", "elastic", "serve", "distill")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -2181,6 +2203,355 @@ def phase_serve(ctx) -> None:
         raise AssertionError(f"the serving path launched attention kernels: {launches}")
 
 
+# -- phase 14 --------------------------------------------------------------------
+
+# the teacher (ResNet152) and the student (ResNet50vd), width 64, 1,000
+# classes, 224², bf16 over f32 weights; a student batch of 128, a teacher
+# batch of 16 (the reader's default)
+DISTILL_ARGV = ["--device", "cuda", "--teacher_model", "resnet152", "--student_model",
+                "resnet50vd", "--width", "64", "--classes", "1000", "--image_size", "224",
+                "--batch_size", "128", "--teacher_batch_size", "16", "--teacher_epochs", "1",
+                "--student_epochs", "1", "--service", "image-teacher"]
+DISTILL_BATCHES = 4              # distinct pre-decoded host batches, cycled
+DISTILL_TEACHER_STEPS = 20
+DISTILL_WARMUP, DISTILL_TIMED = 2, 16
+DISTILL_LEAVE, DISTILL_JOIN = 4, 8   # timed steps after which A stops and C starts
+DISTILL_JOIN_BOUND_S = 30.0      # C must serve rows within this of its start
+DISTILL_PAIR_TOL = 1e-2          # relative max error of the logits that came back
+DISTILL_LOSS_RTOL = 1e-3         # the card's loss against float64 on the same logits
+DISTILL_ROW_BYTES = 224 * 224 * 3 * 4 + 1000 * 4   # one row over the wire, in and out
+
+
+def _distill_batches():
+    """Four distinct pre-decoded f32 NHWC batches [128, 224, 224, 3] (standard
+    normal, as the normalised output of ``images.py`` is) and 1,000-class
+    labels, from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(13)
+    return [{"image": rng.standard_normal((128, 224, 224, 3), dtype=np.float32),
+             "label": rng.integers(0, 1000, 128).astype(np.int32)}
+            for _ in range(DISTILL_BATCHES)]
+
+
+def _rel(got, want) -> float:
+    import numpy as np
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _float64_loss(logits, labels, teacher, alpha, T) -> float:
+    """The student loss, ``alpha * CE + (1 - alpha) * T² * CE(logits / T,
+    softmax(teacher / T))``, in float64 on the host."""
+    import torch
+    lg = logits.double().cpu()
+    hard = torch.nn.functional.cross_entropy(lg, labels.long().cpu())
+    if teacher is None:
+        return float(hard)
+    p = torch.softmax(teacher.double().cpu() / T, -1)
+    soft = -(p * torch.log_softmax(lg / T, -1)).sum(-1).mean() * T * T
+    return float(alpha * hard + (1 - alpha) * soft)
+
+
+class _CountRecords:
+    """A logging handler that counts the records of some loggers."""
+
+    def __init__(self, names):
+        import logging
+        self.counts = dict.fromkeys(names, 0)
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda rec: self.counts.__setitem__(
+            rec.name, self.counts.get(rec.name, 0) + 1)
+        self.loggers = [logging.getLogger(n) for n in names]
+
+    def __enter__(self):
+        for lg in self.loggers:
+            lg.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        for lg in self.loggers:
+            lg.removeHandler(self.handler)
+
+
+def phase_distill(ctx) -> None:
+    """Image distillation on one card: a ResNet152 teacher (20 SGD steps
+    through ``train_teacher``) served by two ``TeacherServer``s behind a
+    ``DiscoveryServer``; a ResNet50vd student through ``train_student`` with
+    ``make_distill_source`` (2 warm-up and at least 16 timed steps); server A
+    stops after timed step 4 and server C starts after step 8, and the
+    student keeps stepping until C has served rows (30 s at most); then the
+    same student step without the teacher.  Checks: pairing (with its
+    control), order, rows served, the leave and the join, the loss against
+    float64, the device."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch import train_image_distill as tid
+    from edl_tpu_torch.coord.memory import MemoryKV
+    from edl_tpu_torch.distill import teacher as teacher_mod
+    from edl_tpu_torch.distill.discovery import DiscoveryServer
+    from edl_tpu_torch.distill.predict_pool import PredictPool
+    from edl_tpu_torch.distill.qps import run_probe
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+
+    device = torch.device("cuda")
+    args = tid.parse_args(DISTILL_ARGV)
+    T, alpha = args.temperature, args.alpha
+    t_phase = time.perf_counter()
+    batches = _distill_batches()
+    t0 = time.perf_counter()
+
+    def teacher_data(epoch):
+        for i in range(DISTILL_TEACHER_STEPS):
+            yield batches[i % DISTILL_BATCHES]
+
+    tmodel, tstate = tid.train_teacher(args, [], device, data_fn=teacher_data)
+    torch.cuda.synchronize()
+    teacher_train_s = time.perf_counter() - t0
+    del tstate
+    torch.cuda.empty_cache()
+
+    # the teacher's own forward at the served bucket (16 rows), which is
+    # also each bucket's first call on the card
+    own = teacher_mod.module_teacher(tmodel, device=device)
+    ref = [np.concatenate([own({"image": b["image"][r:r + 16]})["logits"]
+                           for r in range(0, 128, 16)]) for b in batches]
+    x16 = torch.from_numpy(batches[0]["image"][:16]).to(device)
+    with torch.inference_mode():
+        forward16_ms = event_ms(lambda: tmodel(x16), reps=10)
+        # its device time and launches, against the events' wall (host launches)
+        forward16_device_ms, forward16_launches = _kernel_ms(lambda: tmodel(x16), reps=3)
+    del x16
+
+    # every predict the servers run: (server, rows, start, wall ms, event ms,
+    # current device, inference mode)
+    records, made = [], [0]
+    module_teacher = teacher_mod.module_teacher
+
+    def timed_module_teacher(module, fetch_name="logits", device=None, mesh=None):
+        inner, index = module_teacher(module, fetch_name, device, mesh), made[0]
+        made[0] += 1
+
+        def predict(feed):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            out = inner(feed)
+            end.record()
+            end.synchronize()
+            records.append((index, len(feed["image"]), t, (time.perf_counter() - t) * 1e3,
+                            start.elapsed_time(end), torch.cuda.current_device(),
+                            torch.is_inference_mode_enabled()))
+            return out
+        return predict
+
+    requeues = [0]
+    requeue = PredictPool._requeue
+
+    def counting_requeue(self, task):
+        requeues[0] += 1
+        return requeue(self, task)
+
+    # the student: every loss call's host time and its inputs
+    steps = []
+    distill_loss = tid.distill_loss
+
+    def recording_loss(logits, labels, teacher_logits, alpha_, temperature):
+        loss = distill_loss(logits, labels, teacher_logits, alpha_, temperature)
+        steps.append((time.perf_counter(), logits.detach().clone(), labels.clone(),
+                      None if teacher_logits is None else teacher_logits.clone(),
+                      loss.detach()))
+        return loss
+
+    store = MemoryKV(sweep_period=0.2)
+    disc = DiscoveryServer(store, host="127.0.0.1")
+    servers, stoppers = [], []
+    fed, got, wait_s = [0], [], [0.0]
+    done = threading.Event()
+    churn = {}
+
+    def feed(epoch):
+        # read by the pool's reader thread, ahead of the trainer
+        while not done.is_set() and fed[0] < 200:
+            b = batches[fed[0] % DISTILL_BATCHES]
+            fed[0] += 1
+            yield b
+
+    build = tid.make_distill_source(args, [], source=feed)
+
+    def distill_source(epoch):
+        it = build(epoch)
+        i = 0
+        while True:
+            t = time.perf_counter()
+            b = next(it, None)
+            wait_s[0] += time.perf_counter() - t
+            if b is None:
+                return
+            k = i % DISTILL_BATCHES
+            got.append({"order": bool(np.array_equal(b["label"], batches[k]["label"])
+                                      and np.array_equal(b["image"][:, ::16, ::16],
+                                                         batches[k]["image"][:, ::16, ::16])),
+                        "pair": _rel(b["teacher_logits"], ref[k]),
+                        "control": _rel(b["teacher_logits"], ref[(k + 1) % DISTILL_BATCHES])})
+            timed = i - DISTILL_WARMUP + 1
+            if timed == DISTILL_LEAVE and "leave" not in churn:
+                churn["leave"] = (i, time.perf_counter())
+                stopper = threading.Thread(target=servers[0].stop, name="stop-A")
+                stopper.start()
+                stoppers.append(stopper)
+            if timed == DISTILL_JOIN and "join" not in churn:
+                servers.append(tid.serve_teacher(args, store, device, model=tmodel, block=False))
+                churn["join"] = (i, time.perf_counter())
+            if timed >= DISTILL_TIMED and "join" in churn:
+                if servers[2].stats()["rows"] > 0:
+                    done.set()
+                elif time.perf_counter() - churn["join"][1] > DISTILL_JOIN_BOUND_S:
+                    done.set()
+            i += 1
+            yield b
+
+    teacher_mod.module_teacher = timed_module_teacher
+    tid.distill_loss = recording_loss
+    PredictPool._requeue = counting_requeue
+    A.reset_launch_counts()
+    try:
+        servers += [tid.serve_teacher(args, store, device, model=tmodel, block=False)
+                    for _ in range(2)]
+        args.discovery = disc.endpoint
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _CountRecords(["edl_tpu_torch.distill.predict_client",
+                            "edl_tpu_torch.distill.predict_pool"]) as warnings_:
+            t0 = time.perf_counter()
+            sstate, _, _ = tid.train_student(args, [], [], device, distill_source=distill_source)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        for s in stoppers:
+            s.join(timeout=30)
+        stats = [s.stats() for s in servers]
+        distill_steps = list(steps)
+        steps.clear()
+        student_params = str(next(sstate.model.parameters()).device)
+        del sstate
+        torch.cuda.empty_cache()
+
+        # the same student step without the teacher, on the same batches
+        def plain_source(epoch):
+            for i in range(DISTILL_WARMUP + DISTILL_TIMED):
+                yield batches[i % DISTILL_BATCHES]
+
+        t0_alone = time.perf_counter()
+        astate, _, _ = tid.train_student(args, [], [], device, distill_source=plain_source)
+        torch.cuda.synchronize()
+        t_end_alone = time.perf_counter()
+        alone_steps = list(steps)
+        del astate
+    finally:
+        teacher_mod.module_teacher = module_teacher
+        tid.distill_loss = distill_loss
+        PredictPool._requeue = requeue
+        done.set()
+        for s in servers[1:] if stoppers else servers:
+            s.stop()
+        disc.stop()
+        store.close()
+    launches = A.launch_counts()
+    torch.cuda.empty_cache()
+    nop = run_probe(nop=True, batches=12, batch_size=128, sample_shape=(224, 224, 3),
+                    teacher_batch_size=16, warmup=2)
+
+    # the numbers
+    n = len(distill_steps)
+    starts = [s[0] for s in distill_steps]
+    t_timed = starts[DISTILL_WARMUP]
+    img_s = (n - DISTILL_WARMUP) * 128 / (t_end - t_timed)
+    alone_starts = [s[0] for s in alone_steps]
+    img_s_alone = DISTILL_TIMED * 128 / (t_end_alone - alone_starts[DISTILL_WARMUP])
+    intervals = [(b - a) * 1e3 for a, b in zip(starts[:-1], starts[1:])]
+    leave_i = churn["leave"][0]
+    around_leave = intervals[max(0, leave_i - 1):leave_i + 6]
+    in_window = [r for r in records if t_timed <= r[2] <= t_end]
+    window_rows = sum(r[1] for r in in_window)
+    by_bucket: dict[int, list] = {}
+    for r in records:
+        by_bucket.setdefault(r[1], []).append(r)
+    c_rows = [r[2] for r in records if r[0] == 2]
+    c_first_row_s = (min(c_rows) - churn["join"][1]) if c_rows else None
+    pairs = [g["pair"] for g in got]
+    controls = [g["control"] for g in got]
+    loss_errs = []
+    for _, lg, lb, tl, loss in distill_steps + alone_steps:
+        want = _float64_loss(lg, lb, tl, alpha, T)
+        loss_errs.append(abs(float(loss) - want) / abs(want))
+    losses = [float(s[4]) for s in distill_steps]
+    alone_losses = [float(s[4]) for s in alone_steps]
+    rows_served = sum(s["rows"] for s in stats)
+    out = {
+        "nvidia_smi": smi_name_and_power_limit(),
+        "teacher": "resnet152", "student": "resnet50vd", "batch": 128, "teacher_batch": 16,
+        "image_size": 224, "dtype": "bfloat16",
+        "teacher_train_steps": DISTILL_TEACHER_STEPS, "teacher_train_s": teacher_train_s,
+        "steps": n, "timed_steps": n - DISTILL_WARMUP,
+        "student_img_s_with_teacher": img_s, "student_img_s_alone": img_s_alone,
+        "blocked_on_reader_ms_per_step": wait_s[0] / n * 1e3,
+        "teacher_rows_per_s_timed": window_rows / (t_end - t_timed),
+        "teacher_forward_passes": sum(s["forward_passes"] for s in stats),
+        "teacher_rows": rows_served,
+        "mean_rows_a_pass": rows_served / max(1, sum(s["forward_passes"] for s in stats)),
+        "teacher_forward_ms_by_bucket": {
+            b: {"passes": len(rs), "wall_ms_mean": float(np.mean([r[3] for r in rs])),
+                "event_ms_mean": float(np.mean([r[4] for r in rs]))}
+            for b, rs in sorted(by_bucket.items())},
+        "teacher_forward16_event_ms_alone": forward16_ms,
+        "teacher_forward16_device_ms_alone": forward16_device_ms,
+        "teacher_forward16_launches": forward16_launches,
+        "wire_mb_s": window_rows * DISTILL_ROW_BYTES / (t_end - t_timed) / 1e6,
+        "nop_reader_qps": nop["value"],
+        "max_memory_allocated_both_models": peak,
+        "longest_step_interval_ms_around_leave": max(around_leave),
+        "step_intervals_ms": intervals,
+        "c_registration_to_first_row_s": c_first_row_s,
+        "server_stats": stats, "predict_retries_logged": warnings_.counts,
+        "requeues": requeues[0],
+        "pairing_rel_max": max(pairs), "control_rel_min": min(controls),
+        "order_ok": all(g["order"] for g in got), "batches_fed": fed[0],
+        "batches_trained": n, "loss_rel_err_max": max(loss_errs), "losses": losses,
+        "alone_losses": alone_losses, "attention_launches": launches,
+        "teacher_param_device": str(next(tmodel.parameters()).device),
+        "student_param_device": student_params,
+        "teacher_predict_devices": sorted({r[5] for r in records}),
+        "teacher_inference_mode": all(r[6] for r in records),
+        "phase_s": time.perf_counter() - t_phase}
+    log("distill", **out)
+    del tmodel, own, batches
+    torch.cuda.empty_cache()
+    if len(got) != n or fed[0] != n or not out["order_ok"]:
+        raise AssertionError(f"order: {n} trained, {len(got)} read, {fed[0]} fed, "
+                             f"in order {out['order_ok']}")
+    if max(pairs) > DISTILL_PAIR_TOL or min(controls) < 10 * DISTILL_PAIR_TOL:
+        raise AssertionError(f"pairing: {max(pairs)} (limit {DISTILL_PAIR_TOL}), control "
+                             f"{min(controls)} (at least {10 * DISTILL_PAIR_TOL})")
+    if rows_served < n * 128:
+        raise AssertionError(f"rows served {rows_served} < {n} x 128")
+    if n - DISTILL_WARMUP < DISTILL_TIMED or not c_rows or stats[0]["rows"] == 0:
+        raise AssertionError(f"churn: {n} steps, C's rows {len(c_rows)}, A's {stats[0]['rows']}")
+    if max(loss_errs) > DISTILL_LOSS_RTOL or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"loss against float64: {max(loss_errs)}; losses {losses}")
+    if not np.mean(losses[-4:]) < losses[0]:
+        raise AssertionError(f"the distillation loss did not fall: {losses}")
+    if (out["teacher_param_device"], out["student_param_device"]) != ("cuda:0", "cuda:0") \
+            or out["teacher_predict_devices"] != [0] or not out["teacher_inference_mode"] \
+            or not all(r[4] > 0 for r in records):
+        raise AssertionError(f"device: {out['teacher_param_device']}, "
+                             f"{out['student_param_device']}, {out['teacher_predict_devices']}")
+    if any(launches.values()):
+        raise AssertionError(f"the distillation path launched attention kernels: {launches}")
+
+
 # -- main ------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -2211,7 +2582,7 @@ def main(argv=None) -> int:
                "flagship": phase_flagship, "flash": phase_flash, "d256": phase_d256,
                "d384": phase_d384, "d768": phase_d768, "resnet": phase_resnet,
                "resume": phase_resume, "data": phase_data,
-               "elastic": phase_elastic, "serve": phase_serve}
+               "elastic": phase_elastic, "serve": phase_serve, "distill": phase_distill}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

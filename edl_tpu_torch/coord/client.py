@@ -1,6 +1,6 @@
 """Coordination-store client: a KVStore over the RPC wire (a copy of the
-JAX package's ``coord/client.py``, with the operations a trainer and a
-leased advert use).
+JAX package's ``coord/client.py``, with the operations a trainer, a
+leased advert and a prefix watch use).
 
 The same requests as the JAX client, so it talks to the JAX package's
 coordination server (``python -m edl_tpu.coord.server``) and to the C++
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import logging
 
-from edl_tpu_torch.coord.kv import KVRecord, KVStore, WaitResult, WatchEvent
+from edl_tpu_torch.coord.kv import KVRecord, KVStore, PrefixWatcher, WaitResult, WatchEvent
 from edl_tpu_torch.rpc.client import RpcClient
 from edl_tpu_torch.utils import exceptions, retry
 
@@ -91,6 +91,18 @@ class CoordClient(KVStore):
         except exceptions.EdlError as e:
             logger.debug("ping handler error on %s: %s", self.endpoint, e)
             return False
+
+    def watch_prefix(self, prefix, callback, period: float = 5.0):
+        """A callback watch over a client of its own, so its long-polls do
+        not hold up this client's ops; the watcher closes it on stop()."""
+        dedicated = CoordClient(self.endpoint, self._timeout)
+        try:
+            w = PrefixWatcher(dedicated, prefix, callback, period, close_store=True)
+        except BaseException:
+            dedicated.close()
+            raise
+        w.start()
+        return w
 
     def close(self):
         self._rpc.close()

@@ -1,18 +1,18 @@
-"""KV-store interface and the record types its clients return (the part of
-the JAX package's ``coord/kv.py`` that a trainer, a leased advert and the
-data service's reader registry use; its ``PrefixWatcher`` serves the
-launcher and is not ported).
+"""KV-store interface, the record types its clients return, and the
+prefix watcher (a copy of the JAX package's ``coord/kv.py``).
 
 Semantics follow what the reference used from etcd3: flat keys, prefix
 range reads with a store-wide revision, a guarded put, and ``wait``, a
-long-poll on a prefix.
+long-poll on a prefix, which :class:`PrefixWatcher` turns into callbacks
+(the distillation balance table watches its teachers with it).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 
 @dataclass(frozen=True)
@@ -92,3 +92,71 @@ class KVStore:
         beats use it: a missed beat is recoverable, a stalled step is
         not).  A no-op here; clients override it."""
         yield self
+
+    def watch_prefix(self, prefix: str, callback: Callable[[list[WatchEvent]], None],
+                     period: float = 5.0) -> "PrefixWatcher":
+        """Start a thread that long-polls ``wait`` and calls ``callback``
+        with each batch of events."""
+        w = PrefixWatcher(self, prefix, callback, period)
+        w.start()
+        return w
+
+
+class PrefixWatcher(threading.Thread):
+    """Long-polls ``wait`` and feeds the callback incremental events.
+
+    Tracks the set of live keys it has reported, so a **snapshot** result
+    (``WaitResult.snapshot``: the watcher's revision fell out of the
+    bounded event log, or the store restarted) replaces the view instead
+    of merging: keys it knew of that the snapshot lacks surface as
+    synthetic ``delete`` events, and no consumer keeps a phantom entry
+    whose tombstone was compacted away.
+    """
+
+    def __init__(self, store: KVStore, prefix: str, callback, period: float,
+                 close_store: bool = False):
+        super().__init__(daemon=True, name=f"watch:{prefix}")
+        self._store = store
+        self._prefix = prefix
+        self._callback = callback
+        self._period = period
+        self._close_store = close_store  # the store is this watcher's own
+        self._halt = threading.Event()
+        recs, self._revision = store.get_prefix(prefix)
+        self._known: set[str] = {r.key for r in recs}
+
+    def _resync(self, events: list[WatchEvent]) -> list[WatchEvent]:
+        """A snapshot result as a delta against the known view: deletes of
+        the vanished keys first, then the snapshot's puts."""
+        live = {e.record.key for e in events if e.type == "put"}
+        gone = sorted(self._known - live)
+        deletes = [WatchEvent("delete", KVRecord(k, b"")) for k in gone]
+        self._known = live
+        return deletes + events
+
+    def run(self):
+        while not self._halt.is_set():
+            try:
+                res = self._store.wait(self._prefix, self._revision, self._period)
+            except Exception:  # noqa: BLE001 — a store blip: poll again
+                if self._halt.is_set():
+                    return
+                self._halt.wait(1.0)
+                continue
+            self._revision = res.revision
+            events = res.events
+            if res.snapshot:
+                events = self._resync(events)
+            else:
+                for e in events:
+                    if e.type == "put":
+                        self._known.add(e.record.key)
+                    else:
+                        self._known.discard(e.record.key)
+            if events:
+                self._callback(events)
+
+    def stop(self):
+        self._halt.set()
+        if self._close_store:
+            self._store.close()

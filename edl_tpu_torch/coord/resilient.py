@@ -33,7 +33,7 @@ import threading
 import time
 
 from edl_tpu_torch.coord.client import CoordClient
-from edl_tpu_torch.coord.kv import KVStore
+from edl_tpu_torch.coord.kv import KVStore, PrefixWatcher
 from edl_tpu_torch.utils import constants
 from edl_tpu_torch.utils.exceptions import EdlCoordError
 
@@ -201,6 +201,22 @@ class ResilientCoordClient(KVStore):
         if last_err is not None:
             logger.debug("ping failed on all endpoints: %s", last_err)
         return False
+
+    def watch_prefix(self, prefix, callback, period: float = 5.0):
+        """A callback watch over a resilient client of its own (long-polls
+        must not hold up regular ops), seated where this one is."""
+        with self._lock:
+            cur = self._cur
+        dedicated = ResilientCoordClient(
+            self.endpoints, self._timeout, retry_deadline=self._deadline,
+            backoff_init=self._backoff_init, backoff_max=self._backoff_max, start_index=cur)
+        try:
+            w = PrefixWatcher(dedicated, prefix, callback, period, close_store=True)
+        except BaseException:
+            dedicated.close()
+            raise
+        w.start()
+        return w
 
     def close(self):
         with self._lock:

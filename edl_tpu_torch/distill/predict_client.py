@@ -5,6 +5,8 @@ Arrays cross the EDL1 wire as ``{"d": dtype, "s": shape, "b": bytes}``;
 ``predict`` tries ``retries`` times before it declares the teacher dead.
 The first calls get ``first_timeout`` (a teacher's first calls per batch
 bucket may compile or warm up), later ones ``timeout``.
+:class:`NopPredictClient` is the test stand-in that answers without a
+server.
 """
 
 from __future__ import annotations
@@ -59,3 +61,27 @@ class TeacherClient:
 
     def close(self) -> None:
         self._rpc.close()
+
+
+class NopPredictClient:
+    """Test stand-in (reference _TestNopPaddlePredictServer,
+    distill_worker.py:324-333): returns zeros shaped [n, 1] per fetch, so
+    the whole pool runs with no server; ``fail_every`` raises on every
+    n-th call."""
+
+    def __init__(self, endpoint: str = "nop", fetch: list[str] | None = None,
+                 fail_every: int = 0):
+        self.endpoint = endpoint
+        self._fetch = list(fetch or ["prediction"])
+        self._fail_every = fail_every
+        self._calls = 0
+
+    def predict(self, feed: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        self._calls += 1
+        if self._fail_every and self._calls % self._fail_every == 0:
+            raise ConnectionError(f"injected failure on call {self._calls}")
+        n = len(next(iter(feed.values())))
+        return {name: np.zeros((n, 1), np.float32) for name in self._fetch}
+
+    def close(self) -> None:
+        pass

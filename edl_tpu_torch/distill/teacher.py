@@ -15,9 +15,11 @@ The inference thread enters ``torch.inference_mode`` and, given a CUDA
 ``device``, makes it the thread's current device: both are per thread,
 and a fresh thread has neither.
 
-Not ported: ``jit_teacher`` (a flax apply behind the wire), whose
-counterpart waits for the first non-LM teacher (ROADMAP.md Queue 1
-item 5), and the shared multi-key session of ``register``.
+Two ``predict_fn`` makers: :func:`module_teacher` (an ``nn.Module``
+forward, the counterpart of the JAX ``jit_teacher``) and
+:func:`lm_teacher` (a serving engine).  Not ported: the shared multi-key
+session of ``register`` (ROADMAP.md Queue 1 item 6.4) and a teacher
+sharded over a mesh (item 4c).
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ class TeacherServer:
     """Serve ``predict_fn(feed_dict) -> fetch_dict``; padding, bucketing and
     coalescing are handled here, so ``predict_fn`` always sees one of
     ``buckets`` batch sizes.  ``device``: the inference thread's current
-    device."""
+    device (``"cuda"`` is the constructing thread's current card)."""
 
     def __init__(self, predict_fn: Callable[[dict], dict], host: str | None = None,
                  port: int = 0, buckets: tuple[int, ...] = DEFAULT_BUCKETS,
@@ -73,6 +75,10 @@ class TeacherServer:
         self._extra_stats = extra_stats
         self._buckets = tuple(sorted(buckets))
         self._wait = coalesce_wait_ms / 1000.0
+        if device is not None and torch.device(device) == torch.device("cuda"):
+            # set_device needs an index, and the inference thread's own
+            # current card would be 0
+            device = torch.device("cuda", torch.cuda.current_device())
         self._device = device
         self._queue: queue.Queue[_Request | None] = queue.Queue()
         self._stopping = False
@@ -146,7 +152,14 @@ class TeacherServer:
 
     # -- inference side ------------------------------------------------------
     def _serve_loop(self) -> None:
-        enter_device(self._device)
+        try:
+            enter_device(self._device)
+        except Exception:  # noqa: BLE001 — refuse requests instead of hanging them
+            logger.exception("teacher inference thread cannot enter %s", self._device)
+            with self._enqueue_lock:
+                self._stopping = True
+            self._fail_queued(RuntimeError(f"teacher server cannot enter {self._device}"))
+            return
         with torch.inference_mode():
             while True:
                 req = self._queue.get()
@@ -254,15 +267,20 @@ class TeacherServer:
             self._stopping = True
         self._queue.put(None)
         self._worker.join(timeout=5.0)
+        self._fail_queued(RuntimeError("teacher server stopped"))
+        self._rpc.stop()
+
+    def _fail_queued(self, error: Exception) -> None:
+        """Release every queued request with ``error`` (call once no more
+        can be enqueued)."""
         while True:
             try:
                 req = self._queue.get_nowait()
             except queue.Empty:
-                break
+                return
             if req is not None:
-                req.error = RuntimeError("teacher server stopped")
+                req.error = error
                 req.done.set()
-        self._rpc.stop()
 
 
 def _pad_to(a: np.ndarray, n: int) -> np.ndarray:
@@ -287,5 +305,33 @@ def lm_teacher(engine, max_new: int = 8) -> Callable[[dict], dict]:
             toks = np.asarray(f.result(), np.int32)[:max_new]
             out[i, :len(toks)] = toks
         return {"tokens": out}
+
+    return predict
+
+
+def module_teacher(module: torch.nn.Module, fetch_name: str = "logits",
+                   device: torch.device | str | None = None,
+                   mesh=None) -> Callable[[dict], dict]:
+    """A teacher ``predict_fn`` over ``module``'s forward in ``eval()`` mode
+    (BN on its running statistics) under ``torch.inference_mode``: the feeds
+    go in positionally, in sorted key order, as the JAX ``jit_teacher``
+    passes them, and ``{fetch_name: f32 numpy}`` comes out (the ResNets
+    return f32 logits).  ``device``: where the module runs (moved there);
+    None keeps it where its parameters are.  Call it on the server's
+    inference thread, whose current device is that device (``TeacherServer(
+    ..., device=...)``).  ``mesh`` (a teacher sharded over a mesh) raises."""
+    if mesh is not None:
+        raise NotImplementedError("a teacher sharded over a mesh is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 4c)")
+    if device is not None:
+        module.to(device)
+    dev = next(module.parameters()).device
+    module.eval()
+
+    def predict(feed: dict) -> dict:
+        args = [torch.from_numpy(np.ascontiguousarray(feed[k])).to(dev) for k in sorted(feed)]
+        with torch.inference_mode():
+            out = module(*args)
+        return {fetch_name: out.float().cpu().numpy()}
 
     return predict

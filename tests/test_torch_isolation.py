@@ -39,6 +39,13 @@ DATA_SERVICE_MODULES = (
     "edl_tpu_torch.data.dataset", "edl_tpu_torch.data.registry", "edl_tpu_torch.data.resilient",
     "edl_tpu_torch.data.data_server", "edl_tpu_torch.data.distribute_reader",
     "edl_tpu_torch.data.elastic_input")
+# the modules of the image-distillation slice
+DISTILL_MODULES = (
+    "edl_tpu_torch.coord.consistent_hash", "edl_tpu_torch.distill.tasks",
+    "edl_tpu_torch.distill.timeline", "edl_tpu_torch.distill.predict_pool",
+    "edl_tpu_torch.distill.reader", "edl_tpu_torch.distill.discovery",
+    "edl_tpu_torch.distill.lite_discovery", "edl_tpu_torch.distill.qps",
+    "edl_tpu_torch.train_image_distill")
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -69,7 +76,7 @@ print(sorted(set(bad()) - before))
                          text=True, timeout=120, check=True).stdout.splitlines()
     names = ast.literal_eval(out[-2])
     assert len(names) >= 60 and set(DISTRIBUTED_MODULES + SERVING_MODULES + RESNET_MODULES
-                                    + DATA_SERVICE_MODULES) <= set(names), names
+                                    + DATA_SERVICE_MODULES + DISTILL_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 
@@ -109,6 +116,18 @@ def test_importing_the_resnet_slice_loads_no_cv2():
     an image, so a machine without it imports the whole slice."""
     code = ("import sys; import edl_tpu_torch.data.images, edl_tpu_torch.train_resnet, "
             "edl_tpu_torch.native.imagedec; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('cv2',) + " + repr(FORBIDDEN) + "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_distill_slice_loads_no_jax_and_no_cv2():
+    """The distillation modules and the image-distillation entry point
+    load neither JAX nor ``cv2`` (only writing the synthetic data needs
+    it, inside the function that writes)."""
+    code = ("import sys, importlib; [importlib.import_module(m) for m in "
+            + repr(DISTILL_MODULES) + "]; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('cv2',) + " + repr(FORBIDDEN) + "))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
