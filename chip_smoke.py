@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,kernels,d768
     python3 chip_smoke.py --phases build,elastic
     python3 chip_smoke.py --phases build,serve
+    python3 chip_smoke.py --phases fleet
     python3 chip_smoke.py --phases build,resnet
     python3 chip_smoke.py --phases build,data
     python3 chip_smoke.py --phases distill
@@ -136,7 +137,32 @@ failure exits non-zero:
    ``SERVE_MARGIN``; how many requests equal their isolated ``generate``
    token for token is reported.  The path computes attention densely, as the
    JAX package's serving path does, so no attention kernel launches in it.
-14. ``distill``: image distillation on one card, through
+14. ``fleet``: the LM serving fleet at the serve phase's width and weights,
+   16 slots an engine, ``kv_block`` 16, the default pool, ``prefill_chunk``
+   512.  (a) 32 requests, one shared 512-token system prompt (seed 21) plus
+   a 16-256 token suffix each, 32 new tokens, through a paged and an
+   unpaged engine (the first alone, then 31 at once): tokens/s of each,
+   the share of prefill tokens skipped, hits and misses, and one 640-token
+   admission's wall and device ms and launches cold and from the committed
+   prompt, and its 32-block gather's.  (b) Two
+   ``ReplicaServer``s, each over its own engine on the card, behind one
+   ``Gateway`` over loopback RPC on a ``MemoryKV``: 8 sessions of 3 turns
+   (turn n+1 is turn n's prompt, its 32 tokens and a new 32-128 token
+   suffix) and 32 one-shot requests; after turn 2 the replica pinning the
+   most sessions drains, and its sessions must be re-pinned to the
+   survivor, their turn 3 skip more than the system prompt there, and no
+   request be lost; the gateway's p50/p99 latency, hedges, failovers, the
+   drain's seconds and the blocks migrated.  (c) 16 prompts of 16-256
+   tokens, 64 new, ``spec_k`` 3, with a self-draft and an adversarial
+   2-layer draft (seed 1) beside the plain engine: acceptance rate,
+   tokens/s, and a round's and a verify pass's wall and device ms and
+   launches; one verify call from a lane at the cache's last two columns
+   and one past its end, against the same call on a CPU copy, must leave
+   every unwritten column's bits alone.  (d)
+   The phase's peak device memory.  Every token of (a), (b) and (c) is
+   held to the full-prefix argmax by the serve phase's margin rule, and no
+   attention kernel launches.
+15. ``distill``: image distillation on one card, through
    ``edl_tpu_torch.train_image_distill``.  A ResNet152 teacher (width 64,
    1,000 classes, bf16) takes 20 SGD steps through ``train_teacher`` on four
    pre-decoded f32 batches [128, 224, 224, 3] (from a seed, cycled); two
@@ -166,6 +192,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import math
@@ -175,7 +202,7 @@ import time
 from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
-          "resume", "data", "elastic", "serve", "distill")
+          "resume", "data", "elastic", "serve", "fleet", "distill")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -2205,6 +2232,394 @@ def phase_serve(ctx) -> None:
 
 # -- phase 14 --------------------------------------------------------------------
 
+FLEET_SLOTS = 16
+FLEET_BLOCK = 16
+FLEET_SYSTEM = 512               # the shared system prompt, tokens (seed 21)
+FLEET_NEW = 32
+FLEET_REQUESTS = 32              # (a): one shared prompt + a 16-256 token suffix each
+FLEET_SESSIONS, FLEET_TURNS = 8, 3
+FLEET_ONE_SHOTS = 32             # (b): beside the sessions, half with each of turns 1 and 2
+SPEC_PROMPTS, SPEC_NEW, SPEC_K = 16, 64, 3
+SPEC_REPS = 3                    # timed dispatches of a speculative round
+
+
+def _fleet_engine(model, **kw):
+    from edl_tpu_torch.serving import ContinuousBatcher
+    return ContinuousBatcher(model, slots=FLEET_SLOTS, temperature=0.0, **kw)
+
+
+def _wall_and_device_ms(fn, reps: int = 5) -> dict:
+    """Mean wall ms of ``reps`` back-to-back calls of ``fn()`` after a first
+    one, and the device ms and the number of the kernels one call launches
+    (``torch.profiler``)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    device, launches = _kernel_ms(fn, reps=2)
+    return {"wall": wall, "device": device, "launches": launches}
+
+
+def _fleet_paged(model, system) -> dict:
+    """(a) The shared-prompt traffic through a paged and an unpaged engine:
+    one request alone (it commits the system prompt), then the other 31 at
+    once."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models.transformer import KVCache
+    rng = np.random.default_rng(22)
+    prompts = [np.concatenate([system, rng.integers(0, 32000, int(n)).astype(np.int32)])
+               for n in rng.integers(16, 257, FLEET_REQUESTS)]
+    out = {}
+    for name, kw in (("paged", {"kv_block": FLEET_BLOCK}), ("unpaged", {})):
+        engine = _fleet_engine(model, **kw)
+        try:
+            engine.warm(FLEET_SYSTEM + 256)
+            engine.warm(256)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [engine.generate(prompts[0], FLEET_NEW, timeout=SUBPROCESS_TIMEOUT)]
+            futs = [engine.submit(p, FLEET_NEW) for p in prompts[1:]]
+            outs += [f.result(timeout=SUBPROCESS_TIMEOUT) for f in futs]
+            dt = time.perf_counter() - t0
+            stats = engine.stats()
+            res = {"seconds": dt, "tokens_per_s": sum(len(o) for o in outs) / dt,
+                   "engine_stats": stats, "outs": outs}
+            if name == "paged":
+                res["skipped_share"] = (stats["kv_prefill_tokens_skipped"]
+                                        / stats["kv_prefill_tokens"])
+                # one admission of a 640-token prompt: cold (a 512 chunk, then
+                # the 128 suffix at its bucket), and from the committed system
+                # prompt (its 32 blocks gathered, then the same suffix)
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                suffix = np.ones(128, np.int32)
+                kv = engine._kv
+                chain = kv.match(np.concatenate([system, suffix]))
+                if len(chain) * FLEET_BLOCK != FLEET_SYSTEM:
+                    raise AssertionError(f"the system prompt matched {len(chain)} blocks")
+                ids = [nd.block_id for nd in chain]
+
+                def cold():
+                    slab = KVCache.zeros(engine._mcfg, 1, engine._cache_len, "cuda")
+                    engine._chunk_mid(slab, system, 0)
+                    engine._chunk_final(slab, suffix, FLEET_SYSTEM, gen)
+
+                def hit():
+                    slab = KVCache.zeros(engine._mcfg, 1, engine._cache_len, "cuda")
+                    kv.load_prefix_into(slab, ids, FLEET_SYSTEM)
+                    engine._chunk_final(slab, suffix, FLEET_SYSTEM, gen)
+
+                slab = KVCache.zeros(engine._mcfg, 1, engine._cache_len, "cuda")
+                with torch.inference_mode():
+                    res["admission_ms"] = {
+                        "cold": _wall_and_device_ms(cold), "hit": _wall_and_device_ms(hit),
+                        "gather": _wall_and_device_ms(
+                            lambda: kv.load_prefix_into(slab, ids, FLEET_SYSTEM))}
+        finally:
+            engine.stop()
+        out[name] = res
+    stats = out["paged"]["engine_stats"]
+    if stats["kv_prefix_hits"] < FLEET_REQUESTS // 2 or stats["kv_prefill_tokens_skipped"] <= 0:
+        raise AssertionError(f"the paged engine reused too little: {stats}")
+    if any(len(o) != FLEET_NEW for r in out.values() for o in r["outs"]):
+        raise AssertionError("an engine returned the wrong length")
+    out["equal_paged_unpaged"] = sum(bool(np.array_equal(a, b)) for a, b in
+                                     zip(out["paged"]["outs"], out["unpaged"]["outs"]))
+    out["prompts"] = prompts
+    return out
+
+
+def _fleet_replicas(model, system) -> dict:
+    """(b) Two ReplicaServers on the card behind one Gateway over loopback
+    RPC, on a MemoryKV: 8 sessions of 3 turns and 32 one-shot requests;
+    after turn 2 the replica pinning the most sessions drains, migrating
+    them to the survivor, which takes turn 3 from the migrated chains."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from edl_tpu_torch.coord.memory import MemoryKV
+    from edl_tpu_torch.gateway import Gateway, GatewayConfig, fleet
+    from edl_tpu_torch.serving import ReplicaServer
+    rng = np.random.default_rng(23)
+    store = MemoryKV(sweep_period=0.1)
+    servers = {}
+    for rid in ("replica-a", "replica-b"):
+        engine = _fleet_engine(model, kv_block=FLEET_BLOCK)
+        engine.warm(FLEET_SYSTEM + 128)
+        servers[rid] = ReplicaServer(store, "fleet", engine, replica_id=rid, host="127.0.0.1",
+                                     ttl=10.0, advert_period=0.2)
+    gw = Gateway(store, "fleet", GatewayConfig(max_inflight=64, max_queue=64,
+                                               request_timeout_s=SUBPROCESS_TIMEOUT,
+                                               hedge_after_s=10.0, poll_period_s=0.05,
+                                               wait_slice_s=0.05))
+    sessions = [f"conversation-{i}" for i in range(FLEET_SESSIONS)]
+    prompts = {s: np.concatenate([system, rng.integers(0, 32000, int(rng.integers(32, 129)))
+                                  .astype(np.int32)]) for s in sessions}
+    held, done = [], []                # (prompt, out) pairs for the margin rule
+    try:
+        if not gw.wait_for_replicas(2, 30):
+            raise AssertionError("the gateway never saw both replicas")
+
+        def turn(shots):
+            futs = {s: gw.submit(prompts[s], FLEET_NEW, session=s) for s in sessions}
+            one = [np.concatenate([system, rng.integers(0, 32000, int(rng.integers(16, 257)))
+                                   .astype(np.int32)]) for _ in range(shots)]
+            ofuts = [gw.submit(p, FLEET_NEW) for p in one]
+            outs = {s: f.result(timeout=SUBPROCESS_TIMEOUT) for s, f in futs.items()}
+            done.extend(zip(one, [f.result(timeout=SUBPROCESS_TIMEOUT) for f in ofuts]))
+            return outs
+
+        t0 = time.perf_counter()
+        for _ in range(2):
+            outs = turn(FLEET_ONE_SHOTS // 2)
+            for s in sessions:
+                held.append((prompts[s], outs[s]))
+                prompts[s] = np.concatenate([prompts[s], outs[s], rng.integers(
+                    0, 32000, int(rng.integers(32, 129))).astype(np.int32)])
+        pinned = {rid: set(srv._engine.kv_pinned_sessions() or ()) for rid, srv in
+                  servers.items()}
+        victim = max(pinned, key=lambda r: (len(pinned[r]), r))
+        survivor = next(r for r in servers if r != victim)
+        t1 = time.perf_counter()
+        if not servers[victim].drain(timeout=SUBPROCESS_TIMEOUT):
+            raise AssertionError(f"{victim} did not drain")
+        migration_s = time.perf_counter() - t1
+        pins = fleet.list_session_pins(store, "fleet")
+        moved = sorted(pinned[victim])
+        if not moved or any(pins.get(s) != survivor for s in moved):
+            raise AssertionError(f"the drained sessions {moved} are not pinned to {survivor}: "
+                                 f"{pins}")
+        gw._fleet.refresh()
+        seng = servers[survivor]._engine
+        skips = {}
+        for s in moved:                # turn 3 of each migrated session, alone
+            before = seng.stats()["kv_prefill_tokens_skipped"]
+            out = gw.generate(prompts[s], FLEET_NEW, session=s, timeout=SUBPROCESS_TIMEOUT)
+            skips[s] = seng.stats()["kv_prefill_tokens_skipped"] - before
+            held.append((prompts[s], out))
+        if any(v <= FLEET_SYSTEM for v in skips.values()):
+            raise AssertionError(f"a migrated session's turn 3 skipped no more than the "
+                                 f"system prompt: {skips}")
+        with ThreadPoolExecutor(FLEET_SESSIONS) as pool:
+            rest = [s for s in sessions if s not in moved]
+            held.extend(zip([prompts[s] for s in rest], pool.map(
+                lambda s: gw.generate(prompts[s], FLEET_NEW, session=s,
+                                      timeout=SUBPROCESS_TIMEOUT), rest)))
+        seconds = time.perf_counter() - t0
+        stats = gw.stats()
+        lat = np.asarray(gw.latencies())
+        mig_out = servers[victim].serve_stats()["migration"]
+        mig_in = servers[survivor].serve_stats()["migration"]
+        engine_stats = {rid: srv._engine.stats() for rid, srv in servers.items()}
+    finally:
+        gw.close()
+        for srv in servers.values():
+            srv.close()
+        store.close()
+    every = held + done
+    lost = FLEET_SESSIONS * FLEET_TURNS + FLEET_ONE_SHOTS - len(every)
+    counts = stats["counts"]
+    if lost or counts.get("requests_error", 0) or any(len(o) != FLEET_NEW for _, o in every):
+        raise AssertionError(f"requests lost or short: {lost} missing, counts {counts}")
+    if mig_in["sessions_in"] != len(moved) or mig_out["sessions_out"] != len(moved):
+        raise AssertionError(f"migration counts {mig_out} / {mig_in} for {len(moved)} sessions")
+    return {"pairs": every, "seconds": seconds, "requests": len(every),
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p99_s": float(np.percentile(lat, 99)),
+            "hedges": counts.get("hedges", 0), "failovers": counts.get("retries", 0),
+            "drained": victim, "migrated_sessions": len(moved), "migration_seconds": migration_s,
+            "migration": {"out": mig_out, "in": mig_in}, "turn3_skipped_tokens": skips,
+            "engine_stats": engine_stats}
+
+
+def _scatter_check(vmodel, M: int) -> dict:
+    """The verify model's ``decode_scatter`` write on the card at its rows'
+    edge: one verify call of L = SPEC_K + 1 tokens from a lane at M-2 (two
+    rows kept, the last at M-1, two dropped) and a lane past M (all
+    dropped), over a seeded cache, against the same call on a CPU copy of
+    the model.  Every column not written must keep its bits, on the card
+    and on the CPU, and the written ones must agree with the CPU's."""
+    import copy
+
+    import torch
+
+    from edl_tpu_torch.models.transformer import KVCache
+    L = SPEC_K + 1
+    g = torch.Generator().manual_seed(25)
+    idx = torch.tensor([M - 2, M + 3], dtype=torch.int32)
+    ids = torch.randint(0, vmodel.cfg.vocab_size, (2, L), generator=g, dtype=torch.int32)
+    pos = idx[:, None] + torch.arange(L)
+    init = KVCache.zeros(vmodel.cfg, 2, M)
+    for t in init.keys + init.values:
+        t.copy_(torch.randn(t.shape, generator=g).to(t.dtype))
+
+    def run(model, device):
+        cache = KVCache([t.to(device, copy=True) for t in init.keys],
+                        [t.to(device, copy=True) for t in init.values], idx.to(device, copy=True))
+        with torch.inference_mode():
+            model(ids.to(device), positions=pos.to(device), cache=cache, return_hidden=True)
+        return cache
+
+    card = run(vmodel, "cuda")
+    torch.cuda.synchronize()
+    host = run(copy.deepcopy(vmodel).to("cpu"), "cpu")
+    written = torch.zeros(2, M, dtype=torch.bool)
+    written[0, M - 2:] = True
+    moved = {"card": 0, "cpu": 0}
+    for where, got in (("card", card), ("cpu", host)):
+        for a, i in zip(got.keys + got.values, init.keys + init.values):
+            cols = written[:, None, None, :] if a.shape[-1] == M else written[:, None, :, None]
+            moved[where] += int(((a.cpu() != i) & ~cols).sum())
+    # layer 0's rows are one projection of the embedding, so the card and
+    # the CPU differ there by bf16 rounding alone; deeper layers also carry
+    # the two attentions' rounding and are held to the bit rule only
+    a, b = card.keys[0][0, :, :, M - 2:].cpu().float(), host.keys[0][0, :, :, M - 2:].float()
+    rel = float((a - b).abs().max() / b.abs().max())
+    res = {"idx": idx.tolist(), "L": L, "cache_len": M, "unwritten_changed": moved,
+           "layer0_written_rel_err_vs_cpu": rel, "kept_at_end_changed": bool(
+               (card.keys[0][0, :, :, M - 1].cpu() != init.keys[0][0, :, :, M - 1]).any()),
+           "index": card.index.tolist()}
+    if any(moved.values()) or not res["kept_at_end_changed"] or res["index"] != (
+            idx + L).tolist():
+        raise AssertionError(f"decode_scatter wrote outside its kept rows: {res}")
+    if rel > 0.02:
+        raise AssertionError(f"decode_scatter on the card disagrees with the CPU: {res}")
+    return res
+
+
+def _fleet_spec(model) -> dict:
+    """(c) Speculative decoding with a self-draft and an adversarial 2-layer
+    draft (seed 1), against the plain engine on the same prompts."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models.transformer import KVCache, TransformerLM
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, 32000, int(n)).astype(np.int32)
+               for n in rng.integers(16, 257, SPEC_PROMPTS)]
+    bad = TransformerLM(dataclasses.replace(model.cfg, num_layers=2),
+                        torch.Generator().manual_seed(1)).to("cuda").requires_grad_(False).eval()
+    out = {}
+    for name, kw in (("plain", {}), ("self_draft", {"spec_k": SPEC_K, "draft_model": model}),
+                     ("adversarial", {"spec_k": SPEC_K, "draft_model": bad})):
+        engine = _fleet_engine(model, **kw)
+        try:
+            engine.warm(256)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            futs = [engine.submit(p, SPEC_NEW) for p in prompts]
+            outs = [f.result(timeout=SUBPROCESS_TIMEOUT) for f in futs]
+            dt = time.perf_counter() - t0
+            res = {"seconds": dt, "tokens_per_s": sum(len(o) for o in outs) / dt,
+                   "engine_stats": engine.stats(), "outs": outs}
+            if name != "plain":
+                B, R = FLEET_SLOTS, engine._spec_rounds
+                with torch.inference_mode():
+                    cache = KVCache.zeros(engine._mcfg, B, engine._cache_len, "cuda")
+                    dcache = KVCache.zeros(engine._dcfg, B, engine._cache_len, "cuda")
+                    toks = torch.zeros(B, dtype=torch.int32, device="cuda")
+
+                    def dispatch():
+                        cache.index.fill_(512)
+                        engine._spec(cache, dcache, toks)
+
+                    j = torch.arange(SPEC_K + 1, device="cuda")
+                    feed = torch.zeros(B, SPEC_K + 1, dtype=torch.int32, device="cuda")
+
+                    def verify():
+                        cache.index.fill_(512)
+                        engine._vmodel.head(engine._vmodel(
+                            feed, positions=cache.index[:, None] + j, cache=cache,
+                            return_hidden=True)).argmax(-1)
+
+                    rnd, ver = _wall_and_device_ms(dispatch), _wall_and_device_ms(verify)
+                res.update(round_wall_ms=rnd["wall"] / R, round_device_ms=rnd["device"] / R,
+                           round_launches=rnd["launches"] / R, rounds_a_dispatch=R,
+                           verify_wall_ms=ver["wall"], verify_device_ms=ver["device"],
+                           verify_launches=ver["launches"],
+                           accept_rate=res["engine_stats"]["spec_accept_rate"])
+                if name == "self_draft":
+                    res["scatter_edge"] = _scatter_check(engine._vmodel, engine._cache_len)
+        finally:
+            engine.stop()
+        out[name] = res
+    for name in ("self_draft", "adversarial"):
+        out[name]["equal_to_plain"] = sum(bool(np.array_equal(a, b)) for a, b in
+                                          zip(out[name]["outs"], out["plain"]["outs"]))
+        if any(len(o) != SPEC_NEW for o in out[name]["outs"]):
+            raise AssertionError(f"{name} returned the wrong length")
+    if out["self_draft"]["accept_rate"] < 0.5:
+        raise AssertionError(f"the self-draft accepted {out['self_draft']['accept_rate']}")
+    out["prompts"] = prompts
+    return out
+
+
+def phase_fleet(ctx) -> None:
+    """The LM serving fleet at the flagship's width: the paged pool against
+    the unpaged engine, two replicas behind the gateway with a drain that
+    migrates sessions, and speculative decoding; every token held to the
+    full-prefix argmax where its margin allows."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    model = _serve_model()
+    system = np.random.default_rng(21).integers(0, 32000, FLEET_SYSTEM).astype(np.int32)
+    paged = _fleet_paged(model, system)
+    reps = _fleet_replicas(model, system)
+    spec = _fleet_spec(model)
+    launches = A.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    checks = {"paged": _argmax_check(model, paged["prompts"], paged["paged"]["outs"]),
+              "unpaged": _argmax_check(model, paged["prompts"], paged["unpaged"]["outs"]),
+              "fleet": _argmax_check(model, *zip(*reps["pairs"])),
+              "plain": _argmax_check(model, spec["prompts"], spec["plain"]["outs"]),
+              "self_draft": _argmax_check(model, spec["prompts"], spec["self_draft"]["outs"]),
+              "adversarial": _argmax_check(model, spec["prompts"], spec["adversarial"]["outs"])}
+    drop = ("outs", "engine_stats")
+    log("fleet_paged", **{k: ({kk: vv for kk, vv in v.items() if kk != "outs"}
+                              if isinstance(v, dict) else v)
+                          for k, v in paged.items() if k != "prompts"})
+    log("fleet_replicas", **{k: v for k, v in reps.items() if k != "pairs"})
+    log("fleet_spec", **{k: ({kk: vv for kk, vv in v.items() if kk != "outs"}
+                             if isinstance(v, dict) else v)
+                         for k, v in spec.items() if k != "prompts"})
+    pstats = paged["paged"]["engine_stats"]
+    log("fleet", nvidia_smi=smi_name_and_power_limit(), argmax=checks, margin=SERVE_MARGIN,
+        attention_kernel_launches=launches,
+        paged_tokens_per_s=paged["paged"]["tokens_per_s"],
+        unpaged_tokens_per_s=paged["unpaged"]["tokens_per_s"],
+        prefill_skipped_share=paged["paged"]["skipped_share"],
+        kv_prefix_hits=pstats["kv_prefix_hits"], kv_prefix_misses=pstats["kv_prefix_misses"],
+        admission_ms=paged["paged"]["admission_ms"],
+        equal_paged_unpaged=paged["equal_paged_unpaged"], of=FLEET_REQUESTS,
+        gateway_p50_s=reps["latency_p50_s"], gateway_p99_s=reps["latency_p99_s"],
+        hedges=reps["hedges"], failovers=reps["failovers"],
+        migrated_sessions=reps["migrated_sessions"], migration_seconds=reps["migration_seconds"],
+        blocks_migrated=reps["migration"]["out"]["blocks_out"],
+        spec={n: {k: v for k, v in spec[n].items() if k not in drop}
+              for n in ("plain", "self_draft", "adversarial")},
+        max_memory_allocated=peak)
+    if any(c["mismatched"] for c in checks.values()):
+        raise AssertionError(f"emitted tokens differ from the full-prefix argmax: {checks}")
+    if any(c["checked"] < 0.1 * c["tokens"] for c in checks.values()):
+        raise AssertionError(f"too few tokens clear the margin to be checked: {checks}")
+    if any(launches.values()):
+        raise AssertionError(f"the serving path launched attention kernels: {launches}")
+
+
+# -- phase 15 --------------------------------------------------------------------
+
 # the teacher (ResNet152) and the student (ResNet50vd), width 64, 1,000
 # classes, 224², bf16 over f32 weights; a student batch of 128, a teacher
 # batch of 16 (the reader's default)
@@ -2582,7 +2997,8 @@ def main(argv=None) -> int:
                "flagship": phase_flagship, "flash": phase_flash, "d256": phase_d256,
                "d384": phase_d384, "d768": phase_d768, "resnet": phase_resnet,
                "resume": phase_resume, "data": phase_data,
-               "elastic": phase_elastic, "serve": phase_serve, "distill": phase_distill}
+               "elastic": phase_elastic, "serve": phase_serve, "fleet": phase_fleet,
+               "distill": phase_distill}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

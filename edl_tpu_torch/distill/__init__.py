@@ -18,8 +18,8 @@ own batch fields:
   (an ``nn.Module`` forward) and ``lm_teacher`` (a serving engine).
 
 Not ported: ``DistillFleet``, ``TeacherReplica`` and ``StudentFeed``, which
-ride the gateway's fleet and a shared ``CoordSession`` (ROADMAP.md Queue 1
-item 6.4).
+ride the gateway's fleet view and the shared ``CoordSession`` (both in the
+port now) and ``cluster/scale`` (ROADMAP.md Queue 1 item 6.4).
 """
 
 from edl_tpu_torch.distill.predict_client import NopPredictClient, TeacherClient

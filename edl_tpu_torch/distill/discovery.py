@@ -10,9 +10,9 @@ ring.  Client = register, then a 2 s heartbeat thread maintaining a
 versioned teacher list; it handles OK / NO_READY / REDIRECT /
 UNREGISTERED (discovery_client.py:70-142).
 
-Not ported: a discovery server whose ring advert rides a shared
-multi-key ``CoordSession`` (``session=`` raises; ROADMAP.md Queue 1 item
-6.4, with the replica fleet).
+Not ported: a discovery server whose ring advert rides a caller's shared
+``CoordSession`` (``session=`` raises; ROADMAP.md Queue 1 item 6.4, with
+the distillation fleet).
 """
 
 from __future__ import annotations
@@ -43,8 +43,9 @@ class DiscoveryServer:
                  ttl: float | None = None, client_ttl: float | None = None,
                  session=None):
         if session is not None:
-            raise NotImplementedError("a shared CoordSession is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 6.4)")
+            raise NotImplementedError("a DiscoveryServer on a shared CoordSession is not "
+                                      "ported yet (ROADMAP.md Queue 1 item 6.4, with the "
+                                      "distillation fleet)")
         host = host or local_ip(getattr(store, "endpoint", None))
         self._rpc = RpcServer(host="0.0.0.0", port=port)
         self.endpoint = f"{host}:{self._rpc.port}"

@@ -17,9 +17,9 @@ and a fresh thread has neither.
 
 Two ``predict_fn`` makers: :func:`module_teacher` (an ``nn.Module``
 forward, the counterpart of the JAX ``jit_teacher``) and
-:func:`lm_teacher` (a serving engine).  Not ported: the shared multi-key
-session of ``register`` (ROADMAP.md Queue 1 item 6.4) and a teacher
-sharded over a mesh (item 4c).
+:func:`lm_teacher` (a serving engine).  Not ported: ``register`` on a
+caller's shared ``CoordSession`` (ROADMAP.md Queue 1 item 6.4, with the
+distillation fleet) and a teacher sharded over a mesh (item 4c).
 """
 
 from __future__ import annotations

@@ -234,12 +234,19 @@ def _write_cache(cfg: TransformerConfig, ck, cv, k, v, idx) -> None:
         ck[b, :, :, at] = torch.where(inside, k[:, 0], ck[b, :, :, at])
         cv[b, :, at, :] = torch.where(inside, v[:, 0], cv[b, :, at, :])
     elif cfg.decode_scatter:
-        # the row filter reads the device (a host sync on the card); its
-        # caller, speculative decoding, is not ported yet
+        # rows past the end are dropped without a host read: each row is
+        # aimed at column pos mod M, and a dropped row writes back what its
+        # column holds.  An example's L <= M columns are then all distinct
+        # (its kept ones run from idx to M-1, its dropped ones from 0 up to
+        # below idx), so no two writes of one call share a target
+        if L > M:
+            raise ValueError(f"decode_scatter writes {L} rows into a cache of {M}")
         pos = idx[:, None] + torch.arange(L, device=idx.device)       # [B, L]
-        b, j = (pos < M).nonzero(as_tuple=True)
-        ck[b, :, :, pos[b, j]] = k[b, j]
-        cv[b, :, pos[b, j], :] = v[b, j]
+        kept = (pos < M)[..., None, None]
+        at = pos % M
+        b = torch.arange(B, device=idx.device)[:, None].expand(B, L)
+        ck[b, :, :, at] = torch.where(kept, k, ck[b, :, :, at])
+        cv[b, :, at, :] = torch.where(kept, v, cv[b, :, at, :])
     else:
         cols = idx[0].clamp(0, M - L) + torch.arange(L, device=idx.device)
         ck.index_copy_(3, cols, k.permute(0, 2, 3, 1))
@@ -403,16 +410,19 @@ class TransformerLM(nn.Module):
 
 
 @torch.no_grad()
-def decode_model(model: TransformerLM) -> TransformerLM:
+def decode_model(model: TransformerLM, decode_scatter: bool = False) -> TransformerLM:
     """``model`` in decode mode with dense attention, for inference: its
     weight matrices and embedding cast once to the compute dtype (each
     use casts them to that dtype anyway, so the numbers are the same,
     and a decode step no longer converts every weight), the norm scales
-    shared with ``model``.  A model already in decode mode is returned as
-    it is."""
-    if model.cfg.decode:
+    shared with ``model``.  ``decode_scatter``: multi-token calls write
+    at per-example indices (speculative decoding's verify model).  A model
+    already in that mode is returned as it is; a decode model in the other
+    mode shares its tensors with the one returned."""
+    if model.cfg.decode and model.cfg.decode_scatter == decode_scatter:
         return model
-    cfg = replace(model.cfg, decode=True, attention_impl="dense", mesh=None, remat=False)
+    cfg = replace(model.cfg, decode=True, attention_impl="dense", mesh=None, remat=False,
+                  decode_scatter=decode_scatter)
     with torch.device("meta"):
         out = TransformerLM(cfg, init=False)
     sd = {name: t.detach().to(cfg.dtype) if name.endswith(".weight") else t.detach()

@@ -1,6 +1,5 @@
 """Slot-based continuous batching for TransformerLM decode (the port of the
-JAX package's ``serving/engine.py:ContinuousBatcher``, without mesh,
-paging or speculative decoding).
+JAX package's ``serving/engine.py:ContinuousBatcher``, without mesh).
 
 A fixed pool of ``slots`` decode lanes shares ONE persistent
 :class:`~edl_tpu_torch.models.transformer.KVCache`:
@@ -22,6 +21,17 @@ A fixed pool of ``slots`` decode lanes shares ONE persistent
   ``EDL_TPU_PREFILL_CHUNK`` = 512): a prompt longer than the chunk
   prefills into a private one-lane cache one chunk a tick, between the
   decode dispatches; its last chunk rides the shared insert path;
+- **paged KV with prefix reuse** (``kv_block > 0``, :mod:`.kv_cache`):
+  a finished request's full KV blocks persist in a block pool, and an
+  admission whose prompt extends a committed chain gathers it into its
+  slot and prefills only the suffix; ``submit(..., session=)`` pins the
+  conversation's chain, which :meth:`ContinuousBatcher.export_sessions`
+  and :meth:`ContinuousBatcher.import_session` move between replicas;
+- **speculative decoding** (``spec_k > 0`` with a draft model over the
+  same vocabulary, greedy only): each tick runs draft-k / verify-once
+  rounds; the target checks all k+1 positions in one multi-token pass
+  and keeps the longest prefix equal to its own argmax plus its next
+  token, so the emitted stream is the plain greedy one;
 - a finished slot (token budget or ``eos_id``) frees at once and the next
   queued request takes it.
 
@@ -35,10 +45,8 @@ engine thread owns the device state (the pool cache, the last tokens,
 the generator).  That thread enters ``torch.inference_mode`` and makes the
 model's device its current one, since both are per thread.
 
-Not ported (ROADMAP.md Queue 1 item 6): the paged KV pool with prefix
-reuse and session export/import (``kv_block > 0``), speculative decoding
-(``spec_k > 0``), and mesh serving (``mesh``, after item 4c); each raises
-``NotImplementedError``.
+Not ported: mesh serving (``mesh``, ROADMAP.md Queue 1 item 6.5, after
+item 4c), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ import torch
 
 from edl_tpu_torch.models.generate import sample_logits
 from edl_tpu_torch.models.transformer import KVCache, TransformerLM, decode_model
+from edl_tpu_torch.serving.kv_cache import PagedKVCache
 from edl_tpu_torch.utils import constants
 from edl_tpu_torch.utils.device import enter_device
 
@@ -77,11 +86,12 @@ class _Slot:
 
 
 class _Request:
-    __slots__ = ("ids", "max_new", "future")
+    __slots__ = ("ids", "max_new", "future", "session")
 
-    def __init__(self, ids: np.ndarray, max_new: int):
+    def __init__(self, ids: np.ndarray, max_new: int, session: str | None = None):
         self.ids = ids
         self.max_new = max_new
+        self.session = session
         self.future: Future = Future()
 
 
@@ -109,13 +119,15 @@ class _Task:
 
 class _Admission(NamedTuple):
     """A dispatched prefill: its one-lane-per-request cache and first
-    tokens (on the device), and where they go."""
+    tokens (on the device), and where they go; with speculative decoding
+    also the draft's cache of the same prompts."""
 
     slab: KVCache
     toks: torch.Tensor
     slots: list[int]
     reqs: list[_Request]
     lens: list[int]
+    dslab: KVCache | None = None
 
 
 class ContinuousBatcher:
@@ -128,23 +140,28 @@ class ContinuousBatcher:
     ..., max_len]``.  ``steps_per_sync`` trades scheduling latency for
     fewer host round trips: a finished slot wastes at most
     ``steps_per_sync - 1`` lane-steps before the host notices.
+
+    ``kv_block > 0`` pages the KV state in blocks of that many tokens
+    (``kv_pool_blocks``: the pool, default ``2 * slots * max_len //
+    kv_block + 1``; ``kv_max_sessions``: pinned session chains, default
+    ``EDL_TPU_KV_SESSIONS``; ``prefix_reuse=False`` commits and pins but
+    prefills every admission cold).  ``spec_k > 0`` (default
+    ``EDL_TPU_SPEC_K``) needs ``draft_model``, a model over the same
+    vocabulary on the same device, and a greedy engine (``temperature <=
+    0``): acceptance compares the draft with the target's argmax.
     """
 
     def __init__(self, model: TransformerLM, *, slots: int = 8, max_len: int | None = None,
                  prefill_buckets: tuple[int, ...] = DEFAULT_PREFILL_BUCKETS,
                  temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
                  eos_id: int | None = None, steps_per_sync: int = 8, rng_seed: int = 20_26,
-                 mesh=None, kv_block: int = 0, prefill_chunk: int | None = None,
-                 spec_k: int | None = None):
+                 mesh=None, kv_block: int = 0, kv_pool_blocks: int = 0,
+                 prefix_reuse: bool = True, kv_max_sessions: int | None = None,
+                 prefill_chunk: int | None = None, spec_k: int | None = None,
+                 draft_model: TransformerLM | None = None):
         if mesh is not None:
             raise NotImplementedError("mesh serving is not ported yet (ROADMAP.md Queue 1 "
-                                      "item 6, after item 4c)")
-        if kv_block > 0:
-            raise NotImplementedError("the paged KV cache is not ported yet (ROADMAP.md "
-                                      "Queue 1 item 6: serving/kv_cache.py)")
-        if (constants.spec_k() if spec_k is None else int(spec_k)) > 0:
-            raise NotImplementedError("speculative decoding is not ported yet (ROADMAP.md "
-                                      "Queue 1 item 6)")
+                                      "item 6.5, after item 4c)")
         cache_len = max_len or model.cfg.max_len
         self.cfg = model.cfg
         self._model = decode_model(model)
@@ -169,6 +186,21 @@ class ContinuousBatcher:
         self._gen = torch.Generator(device=self._device).manual_seed(rng_seed)
         self._cache = KVCache.zeros(self._mcfg, slots, cache_len, self._device)
         self._toks = torch.zeros(slots, dtype=torch.int32, device=self._device)
+        # -- the paged KV pool and its prefix index (kv_cache.py); with
+        # kv_block=0 the engine runs exactly the unpaged path
+        self._kv: PagedKVCache | None = None
+        self._reuse = bool(prefix_reuse)
+        if kv_block > 0:
+            blocks_per_slot = max(1, cache_len // kv_block)
+            self._kv = PagedKVCache(
+                self._mcfg, cache_len, kv_block,
+                kv_pool_blocks or (2 * slots * blocks_per_slot + 1),
+                constants.kv_sessions() if kv_max_sessions is None else kv_max_sessions,
+                self._device)
+        self._kv_hits = 0
+        self._kv_misses = 0
+        self._prefill_tokens = 0
+        self._prefill_tokens_skipped = 0
         chunk = constants.prefill_chunk() if prefill_chunk is None else prefill_chunk
         self._chunk_tokens = max(0, int(chunk))
         self._chunking: _ChunkState | None = None
@@ -189,14 +221,44 @@ class ContinuousBatcher:
         self._active_lane_steps = 0   # of those, slots with live requests
         self._prefill_stall_s = 0.0   # prefill dispatch time with lanes live
         self._t0 = time.monotonic()
+        # -- speculative decoding (draft-k / verify-once rounds)
+        self._spec_k = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_rounds_run = 0
+        k = constants.spec_k() if spec_k is None else int(spec_k)
+        if k > 0:
+            if draft_model is None:
+                raise ValueError("spec_k > 0 requires a draft model (a smaller model over "
+                                 "the same vocabulary)")
+            if temperature > 0:
+                raise ValueError("speculative decoding is greedy-only (temperature <= 0): "
+                                 "acceptance compares the draft against the target's "
+                                 "argmax, which keeps the output that of plain decode")
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(f"draft vocab {draft_model.cfg.vocab_size} != target "
+                                 f"vocab {model.cfg.vocab_size}")
+            self._spec_k = k
+            # rounds per tick sized so a tick still consumes about
+            # steps_per_sync tokens at full acceptance
+            self._spec_rounds = max(1, self._T // (k + 1))
+            self._draft = decode_model(draft_model)
+            self._dcfg = self._draft.cfg
+            self._draft_cache = KVCache.zeros(self._dcfg, slots, cache_len, self._device)
+            # the verify model shares the target's weights and cache layout
+            # but writes multi-token calls at per-example indices
+            self._vmodel = decode_model(self._model, decode_scatter=True)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="continuous-batcher")
         self._thread.start()
 
     # -- public --------------------------------------------------------------
-    def submit(self, prompt: np.ndarray, max_new_tokens: int) -> Future:
+    def submit(self, prompt: np.ndarray, max_new_tokens: int,
+               session: str | None = None) -> Future:
         """Queue one prompt (1-D int32).  The future resolves to the
-        generated tokens (<= max_new_tokens; truncated after eos_id)."""
+        generated tokens (<= max_new_tokens; truncated after eos_id).
+        ``session`` (paged engines) pins the finished conversation's KV
+        chain, so its next turn resumes from it and a drain migrates it."""
         ids = np.asarray(prompt, np.int32).reshape(-1)
         cache_len = self._cache_len
         if len(ids) == 0:
@@ -209,7 +271,7 @@ class ContinuousBatcher:
         if len(ids) + max_new_tokens > cache_len:
             raise ValueError(f"prompt {len(ids)} + new {max_new_tokens} exceeds max_len "
                              f"{cache_len}")
-        req = _Request(ids, max_new_tokens)
+        req = _Request(ids, max_new_tokens, session)
         with self._enqueue_lock:
             if self._stopping:
                 raise RuntimeError("engine stopping")
@@ -234,6 +296,41 @@ class ContinuousBatcher:
             self._queue.put(task)
         return task.future.result(timeout)
 
+    def import_session(self, session: str, tokens: list[int], meta: dict,
+                       blob: bytes) -> int:
+        """Adopt one migrated session chain on the engine thread; returns
+        the blocks newly uploaded.  Raises on an unpaged engine or a layout
+        mismatch (the exporter lets the session cold-start elsewhere)."""
+        if self._kv is None:
+            raise RuntimeError("paged KV cache disabled on this engine")
+        return self.run_on_engine(lambda: self._kv.import_chain(session, tokens, meta, blob))
+
+    def kv_pinned_sessions(self) -> list[str] | None:
+        """A snapshot of pinned session ids from any thread ([] unpaged);
+        None when an engine-thread pin raced the read (retry later)."""
+        if self._kv is None:
+            return []
+        try:
+            return self._kv.sessions()
+        except RuntimeError:
+            return None
+
+    def export_sessions(self) -> list[tuple[str, list[int], dict, bytes]]:
+        """``[(session, tokens, meta, blob)]`` for every pinned chain.  Only
+        legal once the engine thread has stopped (after :meth:`drain`)."""
+        if self._kv is None:
+            return []
+        if self._thread.is_alive():
+            raise RuntimeError("export_sessions() requires a stopped engine (call "
+                               "drain() first)")
+        out = []
+        for session in self._kv.sessions():
+            chain = self._kv.chain_of(session)
+            if chain:
+                meta, blob = self._kv.export_chain(chain)
+                out.append((session, self._kv.chain_tokens(chain), meta, blob))
+        return out
+
     def _in_flight(self) -> int:
         with self._enqueue_lock, self._stats_lock:
             return self._submitted_requests - self._done_requests - self._failed_requests
@@ -241,8 +338,10 @@ class ContinuousBatcher:
     def warm(self, prompt_len: int) -> None:
         """Run, before traffic arrives, every computation that serving
         ``prompt_len``-class prompts reaches: the prefill at each
-        ``PREFILL_KS`` sub-batch size, a decode step, and the chunk pair
-        when the prompt would be chunked, on scratch caches (the card's
+        ``PREFILL_KS`` sub-batch size, a decode step, the chunk pair
+        when the prompt would be chunked, a prefix-hit prefill at each
+        suffix bucket (paged engines), and the draft's prefills and a
+        speculative dispatch (``spec_k``), on scratch caches (the card's
         first call of a shape picks its library kernels and grows the
         allocator's pools).  Only legal while no request is in flight,
         and enforced: a request submitted but not finished raises."""
@@ -267,6 +366,20 @@ class ContinuousBatcher:
                     slab = KVCache.zeros(self._mcfg, 1, self._cache_len, self._device)
                     self._chunk_mid(slab, np.zeros(C, np.int32), 0)
                     self._chunk_final(slab, np.ones(prompt_len - off, np.int32), C, gen)
+            if self._kv is not None and self._reuse:
+                # a one-block hit from the scratch block at every suffix bucket
+                for Pb in (b for b in self._buckets if b <= P):
+                    if self._kv.block + Pb <= self._cache_len:
+                        slab = KVCache.zeros(self._mcfg, 1, self._cache_len, self._device)
+                        self._kv.load_prefix_into(slab, [0], self._kv.block)
+                        self._chunk_final(slab, np.ones(Pb, np.int32), self._kv.block, gen)
+            if self._spec_k:
+                for K in self.PREFILL_KS:
+                    self._draft_prefill(np.zeros((K, P), np.int32))
+                B = len(self._slots)
+                self._spec(KVCache.zeros(self._mcfg, B, self._cache_len, self._device),
+                           KVCache.zeros(self._dcfg, B, self._cache_len, self._device),
+                           torch.zeros(B, dtype=torch.int32, device=self._device))
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)
 
@@ -290,7 +403,29 @@ class ContinuousBatcher:
                 "prefill_chunk": self._chunk_tokens,
                 "prefill_chunks": self._prefill_chunks,
                 "chunked_admissions": self._chunked_admissions,
+                **self._kv_stats(),
+                **self._spec_stats(),
             }
+
+    def _spec_stats(self) -> dict:
+        """Speculative-decoding counters (none when it is off)."""
+        if not self._spec_k:
+            return {}
+        return {"spec_k": self._spec_k, "spec_proposed": self._spec_proposed,
+                "spec_accepted": self._spec_accepted,
+                "spec_accept_rate": round(self._spec_accepted / max(1, self._spec_proposed), 3),
+                "spec_rounds": self._spec_rounds_run}
+
+    def _kv_stats(self) -> dict:
+        """Paged-KV counters (none when paging is off)."""
+        if self._kv is None:
+            return {}
+        return {"kv_block": self._kv.block, "kv_blocks_used": self._kv.blocks_used(),
+                "kv_blocks_free": self._kv.blocks_free(), "kv_prefix_hits": self._kv_hits,
+                "kv_prefix_misses": self._kv_misses, "kv_prefill_tokens": self._prefill_tokens,
+                "kv_prefill_tokens_skipped": self._prefill_tokens_skipped,
+                "kv_evictions": self._kv.evictions, "kv_commit_skips": self._kv.commit_skips,
+                "kv_sessions": self._kv.session_count()}
 
     def drain(self, timeout: float | None = None) -> bool:
         """Graceful shutdown: stop admission (submit() raises), let every
@@ -373,15 +508,78 @@ class ContinuousBatcher:
             out.append(toks)
         return torch.stack(out, dim=1), toks
 
+    def _draft_prefill(self, ids: np.ndarray) -> KVCache:
+        """The draft's cache of the padded prompts ``ids [K, P]`` (no
+        sampling: the draft always continues from the target's token)."""
+        slab = KVCache.zeros(self._dcfg, ids.shape[0], self._cache_len, self._device)
+        self._draft(self._to_device(ids), cache=slab, return_hidden=True)
+        return slab
+
+    def _draft_slab_for(self, req: _Request) -> KVCache:
+        """A one-lane draft prefill of the whole prompt, for the admissions
+        that never fed the draft (prefix hits, chunked prompts).  The draft
+        has no pool: its state moves the accept rate, never the tokens."""
+        ids = np.zeros((1, self._bucket(len(req.ids))), np.int32)
+        ids[0, :len(req.ids)] = req.ids
+        return self._draft_prefill(ids)
+
+    def _spec(self, cache: KVCache, dcache: KVCache, toks: torch.Tensor):
+        """``_spec_rounds`` draft-k / verify-once rounds for every lane, on
+        the device.  A round puts the draft on the target's frontier, runs
+        k greedy draft steps (and writes the last draft token's KV too, so
+        a perfect draft does not attend to a hole next round), feeds the
+        last token and the k drafts through the verify model at each lane's
+        own positions, accepts the longest prefix equal to the target's
+        argmax and adds the target's next token (the bonus), then sets both
+        caches' indices to the accepted frontier; the stale K/V beyond it is
+        overwritten before any mask reaches it.  Returns ``out [R, slots,
+        k+1]`` and ``counts [R, slots]`` (tokens of ``out`` to consume) and
+        the last tokens."""
+        k = self._spec_k
+        j = torch.arange(k + 1, device=self._device)
+        outs, counts = [], []
+        for _ in range(self._spec_rounds):
+            idx = cache.index.clone()
+            dcache.index.copy_(idx)
+            last, drafts = toks, []
+            for _ in range(k):
+                hidden = self._draft(last[:, None], positions=dcache.index[:, None],
+                                     cache=dcache, return_hidden=True)
+                last = self._draft.head(hidden[:, 0]).argmax(-1).to(torch.int32)
+                drafts.append(last)
+            self._draft(last[:, None], positions=dcache.index[:, None], cache=dcache,
+                        return_hidden=True)                           # the last draft's KV
+            drafts = torch.stack(drafts, dim=1)                       # [B, k]
+            feed = torch.cat([toks[:, None], drafts], dim=1)
+            hidden = self._vmodel(feed, positions=idx[:, None] + j, cache=cache,
+                                  return_hidden=True)
+            greedy = self._vmodel.head(hidden).argmax(-1).to(torch.int32)   # [B, k+1]
+            n_acc = (greedy[:, :k] == drafts).to(torch.int32).cumprod(dim=1).sum(dim=1)
+            bonus = greedy.gather(1, n_acc[:, None].long())
+            dpad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+            out = torch.where(j < n_acc[:, None], dpad,
+                              torch.where(j == n_acc[:, None], bonus, 0))
+            new_idx = idx + n_acc + 1
+            cache.index.copy_(new_idx)
+            dcache.index.copy_(new_idx)
+            toks = bonus[:, 0]
+            outs.append(out)
+            counts.append(n_acc + 1)
+        return torch.stack(outs), torch.stack(counts), toks
+
     def _insert(self, adm: _Admission) -> None:
         """Copy the admitted lanes into their pool slots (never aliasing
         the slab) and set those slots' indices to the true prompt
         lengths and their last tokens to the sampled ones."""
         at = self._to_device(np.asarray(adm.slots, np.int64))
-        for big, small in zip(self._cache.keys + self._cache.values,
-                              adm.slab.keys + adm.slab.values):
-            big.index_copy_(0, at, small)
-        self._cache.index.index_copy_(0, at, self._to_device(np.asarray(adm.lens, np.int32)))
+        lens = self._to_device(np.asarray(adm.lens, np.int32))
+        pairs = [(self._cache, adm.slab)]
+        if adm.dslab is not None:
+            pairs.append((self._draft_cache, adm.dslab))
+        for cache, slab in pairs:
+            for big, small in zip(cache.keys + cache.values, slab.keys + slab.values):
+                big.index_copy_(0, at, small)
+            cache.index.index_copy_(0, at, lens)
         self._toks.index_copy_(0, at, adm.toks)
 
     def _chunk_mid(self, slab: KVCache, ids: np.ndarray, offset: int) -> None:
@@ -434,9 +632,11 @@ class ContinuousBatcher:
             block = False
 
     def _tick(self) -> None:
-        """One engine tick: at most one admission dispatch (a prefill group,
-        or one chunk of the chunked admission), the decode chunk for the
-        lanes already live, the insert, then one read back to the host."""
+        """One engine tick: every prefix hit at the queue's front and at
+        most one cold admission dispatch (a prefill group, or one chunk of
+        the chunked admission), the decode chunk for the lanes already live
+        (speculative rounds with ``spec_k``), the inserts, then one read
+        back to the host."""
         while self._tasks:
             task = self._tasks.popleft()
             try:
@@ -446,10 +646,18 @@ class ContinuousBatcher:
         active = [i for i, s in enumerate(self._slots) if not s.free]
         pres: list[_Admission] = []
         t0 = time.monotonic()
-        taken: set[int] = set()
+        taken: set[int] = set()       # slots this tick's admissions claimed
         if self._chunking is not None:
             taken.add(self._chunking.slot)
-        else:
+        # every consecutive prefix hit at the queue's front: each is a cheap
+        # one-lane suffix prefill, and a shared-prefix burst must not admit
+        # one request a tick
+        while (reuse := self._next_reuse(taken)) is not None:
+            pre = self._dispatch_reuse(*reuse)
+            if pre is not None:
+                taken.add(reuse[0])
+                pres.append(pre)
+        if self._chunking is None:
             self._maybe_start_chunk(taken)
         if self._chunking is not None:
             pre = self._advance_chunk()
@@ -464,14 +672,19 @@ class ContinuousBatcher:
         # from here to the read, an error leaves admitted requests in no
         # slot, where _fail_all cannot see them: fail them before re-raising
         try:
-            dec = None
+            dec = counts = None
             if active:
-                dec, self._toks = self._step(self._cache, self._toks, self._gen)
+                if self._spec_k:
+                    dec, counts, self._toks = self._spec(self._cache, self._draft_cache,
+                                                         self._toks)
+                else:
+                    dec, self._toks = self._step(self._cache, self._toks, self._gen)
             for adm in pres:
                 self._insert(adm)
-            # the tick's one device-to-host copy: the decode chunk and every
-            # admission's first tokens
-            parts = ([dec.reshape(-1)] if dec is not None else []) + [a.toks for a in pres]
+            # the tick's one device-to-host copy: the decode chunk (and the
+            # speculative counts) and every admission's first tokens
+            parts = [t.reshape(-1) for t in (dec, counts) if t is not None]
+            parts += [a.toks for a in pres]
             host = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
         except Exception as e:  # noqa: BLE001
             for adm in pres:
@@ -483,7 +696,12 @@ class ContinuousBatcher:
         at = 0
         if dec is not None:
             at = dec.numel()
-            self._finish_decode(host[:at].reshape(dec.shape), len(active))
+            if counts is not None:
+                self._finish_spec(host[:at].reshape(dec.shape),
+                                  host[at:at + counts.numel()].reshape(counts.shape), len(active))
+                at += counts.numel()
+            else:
+                self._finish_decode(host[:at].reshape(dec.shape), len(active))
         for adm in pres:
             self._finish_prefill(adm.slots, adm.reqs, host[at:at + len(adm.reqs)])
             at += len(adm.reqs)
@@ -533,6 +751,9 @@ class ContinuousBatcher:
         """Dispatch (not read) one prefill group; on an error this group's
         futures fail here and None is returned."""
         K = len(reqs)
+        if self._kv is not None:
+            self._kv_misses += K
+            self._prefill_tokens += sum(len(r.ids) for r in reqs)
         try:
             ids = np.zeros((K, P), np.int32)
             lens = np.zeros(K, np.int32)
@@ -540,7 +761,8 @@ class ContinuousBatcher:
                 ids[i, :len(req.ids)] = req.ids
                 lens[i] = len(req.ids)
             slab, toks = self._prefill(ids, lens, self._gen)
-            return _Admission(slab, toks, slots, reqs, lens.tolist())
+            dslab = self._draft_prefill(ids) if self._spec_k else None
+            return _Admission(slab, toks, slots, reqs, lens.tolist(), dslab)
         except Exception as e:  # noqa: BLE001 — fail THIS group only
             logger.exception("prefill failed (bucket %d, %d reqs)", P, K)
             for req in reqs:
@@ -569,6 +791,10 @@ class ContinuousBatcher:
         if slot is None:
             return
         req = self._pending.popleft()
+        if self._kv is not None:
+            # one cold admission, counted once at its start
+            self._kv_misses += 1
+            self._prefill_tokens += len(req.ids)
         self._chunking = _ChunkState(req, slot,
                                      KVCache.zeros(self._mcfg, 1, self._cache_len, self._device),
                                      0)
@@ -594,11 +820,60 @@ class ContinuousBatcher:
             self._chunking = None
             with self._stats_lock:
                 self._prefill_chunks += 1
-            return _Admission(st.slab, toks, [st.slot], [st.req], [len(ids)])
+            dslab = self._draft_slab_for(st.req) if self._spec_k else None
+            return _Admission(st.slab, toks, [st.slot], [st.req], [len(ids)], dslab)
         except Exception as e:  # noqa: BLE001 — fail THIS request only
             logger.exception("chunked prefill failed (offset %d of %d)", st.offset, len(ids))
             st.req.future.set_exception(e)
             self._chunking = None
+            with self._stats_lock:
+                self._failed_requests += 1
+            return None
+
+    # -- prefix reuse (paged engines) -----------------------------------------
+    def _next_reuse(self, taken: set[int]) -> tuple[int, _Request, list] | None:
+        """The front pending request as a one-lane reuse admission when it
+        extends a committed chain (FIFO kept: a miss at the front falls
+        through to the cold path unchanged)."""
+        if self._kv is None or not self._reuse or self._stopping or not self._pending:
+            return None
+        free = next((i for i, s in enumerate(self._slots) if s.free and i not in taken), None)
+        if free is None:
+            return None
+        req0 = self._pending[0]
+        chain = self._kv.match(req0.ids)
+        while chain:
+            # the suffix pads to its bucket and the cache write clamps its
+            # start to fit: an overhanging suffix would slide back over the
+            # gathered prefix and poison the pool at commit.  Shorten the
+            # chain until prefix + suffix bucket fits (no chain: the cold
+            # path, which always fits)
+            prefix = len(chain) * self._kv.block
+            if prefix + self._bucket(len(req0.ids) - prefix) <= self._cache_len:
+                break
+            chain.pop()
+        if not chain:
+            return None
+        return free, self._pending.popleft(), chain
+
+    def _dispatch_reuse(self, slot: int, req: _Request, chain: list) -> _Admission | None:
+        """Dispatch one prefix hit: gather the chain into a fresh one-lane
+        slab and prefill only the suffix, padded to its bucket."""
+        prefix_len = len(chain) * self._kv.block
+        suffix = req.ids[prefix_len:]
+        self._kv_hits += 1
+        self._prefill_tokens += len(req.ids)
+        self._prefill_tokens_skipped += prefix_len
+        try:
+            slab = KVCache.zeros(self._mcfg, 1, self._cache_len, self._device)
+            self._kv.load_prefix_into(slab, [nd.block_id for nd in chain], prefix_len)
+            toks = self._chunk_final(slab, suffix, prefix_len, self._gen)
+            dslab = self._draft_slab_for(req) if self._spec_k else None
+            return _Admission(slab, toks, [slot], [req], [len(req.ids)], dslab)
+        except Exception as e:  # noqa: BLE001 — fail THIS request only
+            logger.exception("reuse prefill failed (suffix %d, %d blocks)", len(suffix),
+                             len(chain))
+            req.future.set_exception(e)
             with self._stats_lock:
                 self._failed_requests += 1
             return None
@@ -634,6 +909,39 @@ class ContinuousBatcher:
                     self._finish(i)
                     break
 
+    def _finish_spec(self, toks: np.ndarray, counts: np.ndarray, n_active: int) -> None:
+        """Consume one speculative chunk ``toks [R, slots, k+1]``, of which
+        ``counts[r, i]`` tokens a round are a lane's (the
+        :meth:`_finish_decode` contract, ragged per round)."""
+        R = toks.shape[0]
+        lane_tokens = R * (self._spec_k + 1)
+        with self._stats_lock:
+            self._lane_steps += len(self._slots) * lane_tokens
+            self._active_lane_steps += n_active * lane_tokens
+            self._spec_rounds_run += R
+        for i, s in enumerate(self._slots):
+            if s.free:
+                continue
+            with self._stats_lock:
+                # counts - 1 drafts accepted of k proposed, a round
+                self._spec_proposed += R * self._spec_k
+                self._spec_accepted += int(counts[:, i].sum()) - R
+            done = False
+            for r in range(R):
+                for t in range(int(counts[r, i])):
+                    if s.remaining <= 0:
+                        done = True
+                        break
+                    tok = int(toks[r, i, t])
+                    s.emitted.append(tok)
+                    s.remaining -= 1
+                    if tok == self._eos or s.remaining == 0:
+                        self._finish(i)
+                        done = True
+                        break
+                if done:
+                    break
+
     def _finish(self, slot: int) -> None:
         s = self._slots[slot]
         req = s.request
@@ -641,9 +949,25 @@ class ContinuousBatcher:
         out = np.asarray(s.emitted, np.int32)
         if self._eos is not None and self._eos in s.emitted:
             out = out[:s.emitted.index(self._eos) + 1]
+        if self._kv is not None:
+            try:
+                self._kv_commit(slot, req, s.emitted)
+            except Exception:  # noqa: BLE001 — the pool is an accelerator
+                logger.exception("kv commit failed for slot %d (request unaffected)", slot)
         with self._stats_lock:
             self._done_requests += 1
             self._emitted_tokens += len(out)
         s.request = None
         s.emitted = []
         req.future.set_result(out)
+
+    def _kv_commit(self, slot: int, req: _Request, emitted: list[int]) -> None:
+        """Persist the finished lane's full KV blocks into the pool and pin
+        the chain for the request's session.  The lane holds KV for every
+        processed token, the prompt and each emitted token fed back, so the
+        committed sequence is ``prompt + emitted[:-1]``."""
+        seq = np.concatenate([req.ids, np.asarray(emitted[:-1], np.int32)])
+        start_block, new_ids, tail = self._kv.commit(seq)
+        self._kv.store_blocks(self._cache, slot, start_block, new_ids)
+        if req.session is not None and tail is not None:
+            self._kv.pin_session(req.session, tail)

@@ -17,6 +17,7 @@ ETCD_HEARTBEAT = "heartbeat"        # per-pod trainer liveness beats
 ETCD_RECOVERY = "recovery"          # per-stage resize timing records
 ETCD_CLUSTER = "cluster"            # the generated Cluster JSON
 ETCD_READER = "reader"              # distributed-reader registry
+ETCD_SERVING = "serving"            # leased LM replica adverts (gateway fleet)
 LEADER_KEY = "0"                    # rank table key seized by the leader
 TTL_REFRESH_FRACTION = 0.5          # a leased key's keep-alive runs at ttl/2
 # the exit code of a trainer after its preemption-point checkpoint: the
@@ -95,9 +96,70 @@ def prefill_chunk() -> int:
 
 def spec_k() -> int:
     """``EDL_TPU_SPEC_K``: draft tokens a round of speculative decoding
-    (0: off; the port's engine raises on anything else, ROADMAP.md Queue
-    1 item 6)."""
+    proposes, verified by the target in one multi-token pass (0: off;
+    greedy engines only)."""
     return int(_env_float("EDL_TPU_SPEC_K", 0))
+
+
+# -- the paged KV pool and the serving fleet (serving/, gateway/) ---------------
+def kv_block() -> int:
+    """``EDL_TPU_KV_BLOCK``: the replica CLI's paged-KV block size in tokens
+    (0: contiguous slabs, no prefix reuse, no migration)."""
+    return int(_env_float("EDL_TPU_KV_BLOCK", 16))
+
+
+def kv_pool_blocks() -> int:
+    """``EDL_TPU_KV_POOL_BLOCKS``: the pool's blocks (0: twice the slot
+    pool's worth, plus the scratch block)."""
+    return int(_env_float("EDL_TPU_KV_POOL_BLOCKS", 0))
+
+
+def kv_reuse() -> bool:
+    """``EDL_TPU_KV_REUSE``: prefix reuse on admission (0: commit and
+    migrate only, every admission prefills cold)."""
+    return bool(int(_env_float("EDL_TPU_KV_REUSE", 1)))
+
+
+def kv_migrate() -> bool:
+    """``EDL_TPU_KV_MIGRATE``: a draining replica pushes its pinned session
+    chains to an adoptive replica."""
+    return bool(int(_env_float("EDL_TPU_KV_MIGRATE", 1)))
+
+
+def kv_sessions() -> int:
+    """``EDL_TPU_KV_SESSIONS``: pinned session chains a replica keeps (LRU
+    unpin beyond)."""
+    return int(_env_float("EDL_TPU_KV_SESSIONS", 64))
+
+
+def serving_advert_period() -> float:
+    """``EDL_TPU_SERVING_ADVERT_PERIOD``: seconds between a replica's
+    refreshes of its leased advert (live engine stats)."""
+    return _env_float("EDL_TPU_SERVING_ADVERT_PERIOD", 1.0)
+
+
+def gateway_poll_period() -> float:
+    """``EDL_TPU_GATEWAY_POLL_PERIOD``: the gateway's fleet-view refresh
+    period (s); a routing failure also refreshes at once."""
+    return _env_float("EDL_TPU_GATEWAY_POLL_PERIOD", 0.25)
+
+
+def gateway_quarantine() -> float:
+    """``EDL_TPU_GATEWAY_QUARANTINE``: seconds a replica stays out of
+    routing after a transport failure (its advert may outlive it by a TTL)."""
+    return _env_float("EDL_TPU_GATEWAY_QUARANTINE", 5.0)
+
+
+def serving_result_ttl() -> float:
+    """``EDL_TPU_SERVING_RESULT_TTL``: seconds a replica keeps a finished
+    generation nobody released (a gateway died mid-fetch)."""
+    return _env_float("EDL_TPU_SERVING_RESULT_TTL", 600.0)
+
+
+def chunk_bytes() -> int:
+    """``EDL_TPU_MEMSTATE_CHUNK_BYTES``: the chunk size of a chunked byte
+    transfer (``rpc/chunks.py``)."""
+    return int(_env_float("EDL_TPU_MEMSTATE_CHUNK_BYTES", 4 << 20))
 
 
 def distill_advert_period() -> float:

@@ -1,6 +1,6 @@
 """The part of the JAX package's error hierarchy that the port uses: its
-base classes, the cluster, store, registration, serving and data-plane
-errors, and the wire round trip of ``utils/exceptions.py``.
+base classes, the cluster, store, registration, serving (admission
+overload included) and data-plane errors, and the wire round trip of ``utils/exceptions.py``.
 
 A server sends an error as ``{"type": <class name>, "detail": ...}``; the
 client raises the class of that name, so a store error reaches the
@@ -9,6 +9,7 @@ caller with the type the JAX server raised.
 
 from __future__ import annotations
 
+import re
 import traceback
 
 
@@ -41,6 +42,20 @@ class EdlUnavailableError(EdlRetryableError):
     mid-generation) — try another replica or retry later."""
 
 
+class EdlOverloadedError(EdlRetryableError):
+    """Admission control rejected the request (queue full, rate limit).
+    Carries ``retry_after`` seconds; only the (type, detail) pair crosses
+    the wire, so the constructor recovers it from a ``retry_after=N``
+    token in the detail, which the gateway writes there."""
+
+    def __init__(self, detail: str = "", retry_after: float | None = None):
+        super().__init__(detail)
+        if retry_after is None:
+            m = re.search(r"retry_after=([0-9.]+)", detail)
+            retry_after = float(m.group(1)) if m else 1.0
+        self.retry_after = float(retry_after)
+
+
 class EdlStopIteration(EdlError):
     """Remote signals end-of-data (maps to StopIteration client-side)."""
 
@@ -67,7 +82,8 @@ class EdlStreamError(EdlError):
 _REGISTRY = {cls.__name__: cls for cls in (EdlError, EdlRetryableError, EdlCoordError,
                                             EdlTableError, EdlInternalError, EdlRegisterError,
                                             EdlUnavailableError, EdlStopIteration, EdlDataError,
-                                            EdlReaderGoneError, EdlStreamError)}
+                                            EdlReaderGoneError, EdlStreamError,
+                                            EdlOverloadedError)}
 
 
 def serialize(exc: BaseException) -> dict:

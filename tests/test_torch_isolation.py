@@ -46,6 +46,12 @@ DISTILL_MODULES = (
     "edl_tpu_torch.distill.reader", "edl_tpu_torch.distill.discovery",
     "edl_tpu_torch.distill.lite_discovery", "edl_tpu_torch.distill.qps",
     "edl_tpu_torch.train_image_distill")
+# the modules of the serving-fleet slice
+FLEET_MODULES = (
+    "edl_tpu_torch.serving.kv_cache", "edl_tpu_torch.serving.replica",
+    "edl_tpu_torch.coord.session", "edl_tpu_torch.rpc.chunks", "edl_tpu_torch.gateway",
+    "edl_tpu_torch.gateway.fleet", "edl_tpu_torch.gateway.gateway",
+    "edl_tpu_torch.gateway.__main__")
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -76,7 +82,8 @@ print(sorted(set(bad()) - before))
                          text=True, timeout=120, check=True).stdout.splitlines()
     names = ast.literal_eval(out[-2])
     assert len(names) >= 60 and set(DISTRIBUTED_MODULES + SERVING_MODULES + RESNET_MODULES
-                                    + DATA_SERVICE_MODULES + DISTILL_MODULES) <= set(names), names
+                                    + DATA_SERVICE_MODULES + DISTILL_MODULES
+                                    + FLEET_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 
@@ -129,6 +136,17 @@ def test_importing_the_distill_slice_loads_no_jax_and_no_cv2():
     code = ("import sys, importlib; [importlib.import_module(m) for m in "
             + repr(DISTILL_MODULES) + "]; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('cv2',) + " + repr(FORBIDDEN) + "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_fleet_slice_loads_no_jax():
+    """The paged pool, the replica, the gateway and the shared lease load
+    no JAX."""
+    code = ("import sys, importlib; [importlib.import_module(m) for m in "
+            + repr(FLEET_MODULES) + "]; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]"

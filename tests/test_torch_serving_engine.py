@@ -5,7 +5,8 @@ on the CPU in f32: greedy tokens equal to the JAX package's
 ``tests/test_serving_engine.py`` asserts it for the JAX engine); then the
 engine's scheduling, chunked prefill and lifecycle, mirroring
 ``tests/test_serving_engine.py`` and ``tests/test_serving_fastpath.py``
-without mesh, MoE, paging or speculative decoding."""
+without mesh and MoE (paging and speculative decoding have files of their
+own)."""
 
 import threading
 import time
@@ -125,17 +126,23 @@ def test_submit_validation(small):
 
 
 @pytest.mark.parametrize("kw,match", [({"mesh": object()}, "mesh"),
-                                      ({"kv_block": 16}, "paged"),
-                                      ({"spec_k": 2}, "speculative")],
+                                      ({"kv_block": 16, "mesh": object()}, "mesh"),
+                                      ({"spec_k": 2, "temperature": 0.0, "mesh": object()},
+                                       "mesh")],
                          ids=["mesh", "paging", "spec"])
 def test_unported_options_raise(small, kw, match):
+    """Mesh serving is the one option still unported: it raises alone and
+    beside paging or speculative decoding (tests/test_torch_serving_kv.py
+    and test_torch_spec.py cover those two)."""
     with pytest.raises(NotImplementedError, match=match):
-        ContinuousBatcher(small, **kw)
+        ContinuousBatcher(small, **{**kw, "draft_model": small})
 
 
 def test_spec_from_the_environment_raises(small, monkeypatch):
+    """``EDL_TPU_SPEC_K`` turns speculative decoding on, which then needs a
+    draft model."""
     monkeypatch.setenv("EDL_TPU_SPEC_K", "2")
-    with pytest.raises(NotImplementedError, match="speculative"):
+    with pytest.raises(ValueError, match="draft"):
         ContinuousBatcher(small)
 
 
