@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases build,resnet
     python3 chip_smoke.py --phases build,data
     python3 chip_smoke.py --phases distill
+    python3 chip_smoke.py --phases build,reshard
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -183,6 +184,24 @@ failure exits non-zero:
    forward ms by bucket, wire MB/s, the nop reader's QPS at these rows,
    peak memory, the longest step interval around the leave and C's
    registration to its first row.
+16. ``reshard``: the resizable world at the flagship's full width (seed-0
+   weights, the fixed batch), in one process that plays the launcher's
+   part: a ``MemoryKV`` store, the port's ``StateCacheService`` on its
+   ``RpcServer`` and a one-pod cluster record.  (a) 4 steps and a save at
+   step 4, teed and sealed; a fresh trainer restores cache-first
+   (``peer``), bit-identical to the storage restore, and its next losses
+   equal an uninterrupted run's (``RESUME_RTOL``).  (b) With
+   ``EDL_TPU_DELTA_EVERY=2`` it trains to step 8 and stops; a fresh trainer
+   rolls forward over the delta chain to step 8 (``delta``) and its next
+   loss equals the uninterrupted run's; tokens/s with the delta plane off
+   and on, in turns.  (c) A grow flag and a go record to a second stage: the
+   same trainer pauses at the agreed step, reshards from its local snapshot
+   (``delta``, 0 wire bytes), writes its done record and trains on with the
+   uninterrupted run's losses; the splash kernels launch 12 times a step
+   each after the reshard.  (d) An NCCL group of one forms through the
+   store rendezvous and all-reduces, then again under a new nonce.  Prints
+   restore seconds by source and bytes, the synchronous stage ms, the push
+   seconds, detect to first step, and the formation ms.
 
 It then prints the card's ``nvidia-smi`` name and power limit, one line
 ``{"kernels": [...]}``, and, last, ``{"ok": true, "device": {...}}``.
@@ -202,7 +221,7 @@ import time
 from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
-          "resume", "data", "elastic", "serve", "fleet", "distill")
+          "resume", "data", "elastic", "serve", "fleet", "distill", "reshard")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -2969,6 +2988,314 @@ def phase_distill(ctx) -> None:
 
 # -- main ------------------------------------------------------------------------
 
+# -- phase 16 --------------------------------------------------------------------
+
+RESHARD_JOB = "chip-smoke-reshard"
+RESHARD_STEPS = 14        # the uninterrupted run: the longest any check reads
+
+
+class _StopAt(Exception):
+    pass
+
+
+def _reshard_stand_in():
+    """The launcher's part: a store, the port's cache service on its RPC
+    server, advertised, and a one-pod cluster record at stage ``st-1``."""
+    from edl_tpu_torch.coord.memory import MemoryKV
+    from edl_tpu_torch.memstate import advert
+    from edl_tpu_torch.memstate.service import StateCacheService
+    from edl_tpu_torch.rpc.server import RpcServer
+
+    store = MemoryKV()
+    service = StateCacheService(store, RESHARD_JOB, "pod-0")
+    server = RpcServer("127.0.0.1", 0)
+    server.register_instance(service)
+    server.start()
+    reg = advert.advertise(store, RESHARD_JOB, "pod-0", f"127.0.0.1:{server.port}", ttl=60)
+    _save_cluster(store, "st-1")
+    return store, service, server, reg
+
+
+def _save_cluster(store, stage):
+    from edl_tpu_torch.cluster.cluster import Cluster
+    from edl_tpu_torch.cluster.paths import key
+    from edl_tpu_torch.cluster.pod import Pod, Trainer
+
+    pod = Pod(pod_id="pod-0")
+    pod.trainers = [Trainer(endpoint="127.0.0.1:1")]
+    cluster = Cluster.from_pods([pod])
+    cluster.stage = stage
+    store.put(key(RESHARD_JOB, "cluster", "cluster"), cluster.to_json().encode())
+
+
+def _reshard_trainer(args, device, ckpt_dir, store, stop_at=None):
+    """train_lm's trainer under the stand-in (pod-0 at stage st-1), its
+    loss_fn recording each loss; it raises ``_StopAt`` when asked for its
+    ``stop_at``-th loss (every earlier step's hooks have run)."""
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.cluster.env import TrainerEnv
+
+    tenv = TrainerEnv({"EDL_TPU_JOB_ID": RESHARD_JOB, "EDL_TPU_POD_ID": "pod-0",
+                       "EDL_TPU_CLUSTER_STAGE": "st-1", "EDL_TPU_COORD_ENDPOINTS": "memory"})
+    _, trainer, init_fn, tx = train_lm.build_trainer(args, device, str(ckpt_dir), store, tenv)
+    inner, losses = trainer.loss_fn, []
+
+    def recording(*a):
+        if stop_at is not None and len(losses) + 1 >= stop_at:
+            raise _StopAt(stop_at)
+        loss, aux = inner(*a)
+        losses.append(loss.detach())
+        return loss, aux
+
+    trainer.loss_fn = recording
+    return trainer, init_fn, tx, losses
+
+
+def _fixed_data(args, steps: int):
+    """``steps`` batches an epoch, each the fixed batch (the flagship
+    phase's)."""
+    import numpy as np
+
+    ids = np.random.default_rng(2).integers(0, args.vocab, (args.batch_size, args.seq_len + 1)
+                                            ).astype(np.int32)
+
+    def data_fn(_epoch):
+        for _ in range(steps):
+            yield {"ids": ids}
+    return data_fn
+
+
+def _delta_tokens_per_s(trainer, state, meta, batch, steps: int) -> dict:
+    """tokens/s of ``steps`` steps with the delta plane off and on, in turns
+    (off, on, on, off), through the trainer's step and its delta hook (the
+    epoch loop's: ``want`` then ``stage``, every ``EDL_TPU_DELTA_EVERY``
+    steps); the replicator drains between turns."""
+    import torch
+
+    rep = trainer._delta_rep
+    gen = torch.Generator(device=trainer.device).manual_seed(3)
+    out: dict = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = trainer.step_fn(state, batch, gen)
+            if mode == "on" and rep.want(state.step):
+                meta.step = state.step
+                rep.stage(state.step, state, meta)
+        torch.cuda.synchronize()
+        out[mode].append(steps * batch["ids"].shape[0] * (batch["ids"].shape[1] - 1)
+                         / (time.perf_counter() - t0))
+        if not rep.flush(timeout=120):
+            raise AssertionError("the delta replicator did not drain")
+    return out
+
+
+def phase_reshard(ctx) -> None:
+    """The resizable world on the card: the cache restore, the delta chain,
+    a live grow at world 1 and the store rendezvous of an NCCL group."""
+    import os
+    import shutil
+
+    import torch
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.cluster import recovery, resize
+    from edl_tpu_torch.cluster.env import TrainerEnv
+    from edl_tpu_torch.memstate import advert
+    from edl_tpu_torch.memstate import restore as ms_restore
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.train import distributed
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+
+    card = smi_name_and_power_limit()
+    device = torch.device("cuda")
+    args = train_lm.parse_args(FLAGSHIP_ARGS + ["--steps_per_epoch", "4"])
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_reshard"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    data_fn = _fixed_data(args, 4)
+    store, service, server, reg = _reshard_stand_in()
+    saved_env = {k: os.environ.get(k) for k in ("EDL_TPU_DELTA_EVERY",)}
+
+    def free(*trainers):
+        for tr in trainers:
+            if tr._delta_rep is not None:
+                tr._delta_rep.close()
+            if tr.ckpt is not None:
+                tr.ckpt.close()
+        torch.cuda.empty_cache()
+
+    def rel(got, want):
+        return max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(got, want))
+
+    try:
+        # the uninterrupted run: seed-0 weights, the fixed batch
+        _, straight, init_fn, tx = train_lm.build_trainer(args, device)
+        state = straight.create_state(init_fn, tx)
+        gen = torch.Generator(device=device).manual_seed(0)
+        batch = {"ids": torch.from_numpy(next(data_fn(0))["ids"]).to(device)}
+        ref = []
+        for _ in range(RESHARD_STEPS):
+            state, metrics = straight.step_fn(state, batch, gen)
+            ref.append(metrics["loss"])
+        ref = [float(x) for x in ref]
+        del straight, state
+        torch.cuda.empty_cache()
+
+        # (a) 4 steps and the epoch's save at step 4, teed and sealed
+        tr_a, init_fn, tx, losses_a = _reshard_trainer(args, device, ckpt_dir, store)
+        st, meta = tr_a.restore_or_create(init_fn, tx)
+        st, meta = tr_a.fit(st, meta, data_fn, epochs=1)
+        tee_a = dict(tr_a.ckpt._tee.stats)
+        committed = advert.read_committed_step(store, RESHARD_JOB)
+        del st
+        free(tr_a)
+        # a fresh trainer restores cache-first, then the same state from storage
+        os.environ["EDL_TPU_DELTA_EVERY"] = "2"
+        tr_b, init_fn, tx, losses_b = _reshard_trainer(args, device, ckpt_dir, store, stop_at=5)
+        st_b, meta_b = tr_b.restore_or_create(init_fn, tx)
+        peer = tr_b.restores[-1]
+        t0 = time.perf_counter()
+        stored, _ = tr_b.ckpt.restore(tr_b.create_state(init_fn, tx), step=4)
+        storage_s = time.perf_counter() - t0
+        ms_restore.assert_bit_identical(st_b, stored)
+        del stored
+        torch.cuda.empty_cache()
+        # (b) on to step 8 with a delta record every 2 steps, then stop
+        try:
+            tr_b.fit(st_b, meta_b, _fixed_data(args, 8), epochs=2)
+        except _StopAt:
+            pass
+        if not tr_b._delta_rep.flush(timeout=120):
+            raise AssertionError("the delta replicator did not drain")
+        delta_b = dict(tr_b._delta_rep.stats)
+        chains = service.cache_delta_manifest()
+        del st_b
+        free(tr_b)
+        log("reshard", nvidia_smi=card, part="a", committed_step=committed,
+            tee_stage_ms=tee_a["stage_s"] * 1e3, tee_push_s=tee_a["push_s"],
+            tee_pushed_bytes=tee_a["pushed_bytes"], restore_source=peer["source"],
+            restore_s=peer["seconds"], restore_bytes=peer["bytes"],
+            storage_restore_s=storage_s, losses_after_restore=[float(x) for x in losses_b],
+            uninterrupted=ref[4:8], rel_diff=rel(losses_b, ref[4:8]), rtol=RESUME_RTOL)
+        if rel(losses_a, ref[:4]) > RESUME_RTOL:
+            raise AssertionError("(a) the first 4 steps do not match the uninterrupted run")
+        if committed != 4 or peer["source"] != "peer" or peer["step"] != 4:
+            raise AssertionError(f"(a) cache restore: committed {committed}, {peer}")
+        if len(losses_b) != 4 or rel(losses_b, ref[4:8]) > RESUME_RTOL:
+            raise AssertionError("(a) the restored run does not continue the uninterrupted one")
+
+        # (b) a fresh trainer rolls forward over the chain to step 8; after
+        # the reshard it streams no records ((c) ends without a save)
+        tr_c, init_fn, tx, losses_c = _reshard_trainer(args, device, ckpt_dir, store,
+                                                       stop_at=6)
+        st_c, meta_c = tr_c.restore_or_create(init_fn, tx)
+        os.environ["EDL_TPU_DELTA_EVERY"] = "0"
+        delta = tr_c.restores[-1]
+        log("reshard", nvidia_smi=card, part="b", chain_steps=[
+                [r["step"] for r in ch["records"]] for ch in chains.values()],
+            delta_records=delta_b["records"], delta_bytes=delta_b["bytes"],
+            delta_coalesced=delta_b["coalesced"], delta_stage_ms=delta_b["stage_s"] * 1e3,
+            delta_push_s=delta_b["push_s"], restore_source=delta["source"],
+            restore_step=delta["step"], restore_s=delta["seconds"], restore_bytes=delta["bytes"])
+        if delta["source"] != "delta" or st_c.step != 8 or delta_b["failed"]:
+            raise AssertionError(f"(b) delta restore: {delta}, step {st_c.step}, {delta_b}")
+
+        # (c) a live grow at world 1: flag, then go to st-2 with its record
+        resize.flag_resize(store, RESHARD_JOB, "st-1", "grow", "st-2", "pod-0")
+        resize.write_go(store, RESHARD_JOB, "st-1", "st-2", "grow")
+        _save_cluster(store, "st-2")
+        live = tr_c._live_reshard
+        tr_c_state = (st_c, meta_c)
+
+        def counted(*a):
+            out = live(*a)
+            A.reset_launch_counts()     # the path after the reshard
+            return out
+
+        tr_c._live_reshard = counted
+        del st_c      # the trainer frees the old state's tensors at the reshard
+        try:          # step 9, the pause, steps 10-13; stopped before step 14
+            tr_c.fit(*tr_c_state, _fixed_data(args, 8), epochs=2)
+        except _StopAt:
+            pass
+        launches = A.launch_counts()
+        A.reset_launch_counts()
+        reshard = tr_c.reshards[-1] if tr_c.reshards else {}
+        steps_after = len(losses_c) - 1
+        done = resize.load_done(store, RESHARD_JOB, "st-2")
+        half = recovery.load_recovery_records(store, RESHARD_JOB).get("st-2", {}).get(
+            "trainer", {}).get("pod-0")
+        detect_to_first = (half["first_step"] - half["restored"]) if half else None
+        got = [float(x) for x in losses_c]
+        want = ref[8:8 + len(got)]
+        per_step = args.layers * steps_after
+        log("reshard", nvidia_smi=card, part="c", reshard=reshard, done=done,
+            restore_fallbacks=tr_c.restore_fallbacks,
+            tenv_stage=tr_c.tenv.cluster_stage, detect_to_first_step_s=detect_to_first,
+            losses=got, uninterrupted=want, rel_diff=rel(got, want), launches=launches,
+            steps_after_reshard=steps_after)
+        if (reshard.get("mode") != "grow" or reshard.get("source") != "delta"
+                or tr_c.restore_fallbacks
+                or reshard.get("wire_bytes") != 0 or "pod-0" not in done
+                or tr_c.tenv.cluster_stage != "st-2" or detect_to_first is None):
+            raise AssertionError(f"(c) live grow: {reshard}, {done}")
+        if rel(got, want) > RESUME_RTOL or len(got) < 3:
+            raise AssertionError("(c) the resharded run does not continue the uninterrupted one")
+        want_launches = {n: per_step if n in SPLASH_WRAPPERS else 0 for n in launches}
+        if steps_after < 1 or launches != want_launches:
+            raise AssertionError(f"(c) launches after the reshard {launches} != {want_launches}")
+        ctx["launches_reshard"] = launches
+
+        # tokens/s with the delta plane off and on, from the committed state
+        os.environ["EDL_TPU_DELTA_EVERY"] = "2"
+        del tr_c_state
+        free(tr_c)
+        tr_d, init_fn, tx, _ = _reshard_trainer(args, device, ckpt_dir, store)
+        st_d, meta_d = tr_d.restore_or_create(init_fn, tx)
+        rates = _delta_tokens_per_s(tr_d, st_d, meta_d, batch, 8)
+        stats_d = dict(tr_d._delta_rep.stats)
+        del st_d
+        free(tr_d)
+        log("reshard", nvidia_smi=card, part="b_tokens_per_s", delta_every=2,
+            tokens_per_s_off=rates["off"], tokens_per_s_on=rates["on"],
+            on_over_off=sum(rates["on"]) / sum(rates["off"]), delta=stats_d)
+
+        # (d) an NCCL group of one through the store rendezvous, twice
+        formed = []
+        for n in range(2):
+            t_pub = time.time()
+            resize.publish_world_service(store, RESHARD_JOB, "rdzv", f"127.0.0.1:{n + 1}", 1)
+            tenv = TrainerEnv({"EDL_TPU_JOB_ID": RESHARD_JOB, "EDL_TPU_CLUSTER_STAGE": "rdzv",
+                               "EDL_TPU_TRAINERS_NUM": "1", "EDL_TPU_TRAINER_ID": "0"})
+            seconds = distributed.form_world(tenv, store, "cuda", timeout=60.0,
+                                             min_ts=t_pub - 1.0)
+            x = torch.ones(1024, device=device)
+            torch.distributed.all_reduce(x)
+            torch.cuda.synchronize()
+            ok = bool(torch.all(x == 1).item())
+            gate = json.loads(store.get(f"/edl_tpu/{RESHARD_JOB}/torchworld/rdzv/gate").value)
+            backend = torch.distributed.get_backend()
+            distributed.leak_world()
+            formed.append({"ms": seconds * 1e3, "nonce": gate["nonce"], "backend": backend,
+                           "all_reduce_ok": ok})
+        log("reshard", nvidia_smi=card, part="d", formations=formed)
+        if (not all(f["all_reduce_ok"] and f["backend"] == "nccl" for f in formed)
+                or formed[0]["nonce"] == formed[1]["nonce"]
+                or torch.distributed.is_initialized()):
+            raise AssertionError(f"(d) the store rendezvous: {formed}")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reg.stop()
+        server.stop()
+        store.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -2998,7 +3325,7 @@ def main(argv=None) -> int:
                "d384": phase_d384, "d768": phase_d768, "resnet": phase_resnet,
                "resume": phase_resume, "data": phase_data,
                "elastic": phase_elastic, "serve": phase_serve, "fleet": phase_fleet,
-               "distill": phase_distill}
+               "distill": phase_distill, "reshard": phase_reshard}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

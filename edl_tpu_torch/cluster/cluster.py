@@ -46,6 +46,17 @@ class Cluster(JsonSerializable):
     def pod_ids(self) -> list[str]:
         return [p.pod_id for p in self.pods]
 
+    def get_pod(self, pod_id: str) -> Pod | None:
+        return next((p for p in self.pods if p.pod_id == pod_id), None)
+
+    def get_trainers_endpoints(self) -> list[str]:
+        """Every trainer's endpoint, in global-rank order."""
+        return [t.endpoint for p in self.pods for t in p.trainers]
+
+    @property
+    def world_size(self) -> int:
+        return sum(len(p.trainers) for p in self.pods)
+
     @staticmethod
     def load_from_store(store, job_id: str) -> "Cluster | None":
         rec = store.get(paths.key(job_id, constants.ETCD_CLUSTER, "cluster"))

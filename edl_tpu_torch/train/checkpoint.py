@@ -14,7 +14,14 @@ manager becomes plain files with the same guarantees:
   the extra state (tensors and plain containers: it is loaded with
   ``weights_only=True``).
 
-Saves are synchronous.  In a ``torch.distributed`` world (parameters
+Saves are synchronous.  With a ``tee`` (``memstate/tee.py``, under the
+launcher) every committed save is also staged into the pod's in-RAM peer
+checkpoint cache by the writing rank, and :meth:`CheckpointManager.wait`
+seals what was staged and advances the job's committed-step record, as the
+JAX manager's ``wait`` does after its asynchronous save drains.  The cache
+is best-effort: a tee failure costs a cache miss, never the checkpoint.
+
+In a ``torch.distributed`` world (parameters
 replicated, so rank 0 holds the whole state) rank 0 writes and commits,
 and the other ranks wait in a broadcast of its result until the commit is
 visible; rank 0 also decides ``latest_step``, so every rank restores the
@@ -59,7 +66,8 @@ def _is_writer() -> bool:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, tee=None):
+        self._tee = tee
         self._dir = Path(directory).resolve()
         self._dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
@@ -83,7 +91,24 @@ class CheckpointManager:
         step is kept (returns False) unless ``force`` replaces it.
         Collective: rank 0 writes, every rank returns its result."""
         done = self._save(step, state, meta, force) if _is_writer() else None
+        if done and self._tee is not None:
+            try:
+                self._tee.stage(step, state, meta)
+            except Exception:  # noqa: BLE001 — the cache is best-effort
+                logger.exception("memstate tee stage failed (step %d)", step)
         return bool(_from_rank0(done))
+
+    def wait(self) -> None:
+        """Every save so far is durable (they are synchronous): seal the
+        tee's staged sets and advance the committed-step record."""
+        if self._tee is not None:
+            self._tee.mark_committed()
+
+    def close(self) -> None:
+        """Stop the tee (its staged, unsealed sets are dropped)."""
+        if self._tee is not None:
+            tee, self._tee = self._tee, None
+            tee.close()
 
     def _save(self, step: int, state: TrainState, meta: State | None, force: bool) -> bool:
         final = self._dir / str(step)
@@ -114,6 +139,11 @@ class CheckpointManager:
         hooks that change ``meta`` after the epoch's save).  Collective,
         as :meth:`save`."""
         done = self._save_meta(step, meta) if _is_writer() else None
+        if done and self._tee is not None:
+            try:
+                self._tee.update_meta(step, meta)
+            except Exception:  # noqa: BLE001 — the cache is best-effort
+                logger.exception("memstate tee meta update failed (step %d)", step)
         return bool(_from_rank0(done))
 
     def _save_meta(self, step: int, meta: State) -> bool:

@@ -12,7 +12,7 @@ checkpoint's JSON sidecar.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable
 
 import torch
@@ -86,6 +86,9 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
     extra: Any = None            # state a step threads through (None for the LM)
+    # events of host copies in flight (memstate/shards.py) that the next
+    # in-place optimizer update must wait for
+    fences: list = field(default_factory=list, repr=False, compare=False)
 
     @classmethod
     def create(cls, model: torch.nn.Module, tx: OptimizerFactory,
@@ -93,7 +96,11 @@ class TrainState:
         return cls(model=model, optimizer=tx(model.parameters()), extra=extra)
 
     def apply_gradients(self, extra: Any = None) -> "TrainState":
-        """Apply the gradients held in the parameters' ``.grad``."""
+        """Apply the gradients held in the parameters' ``.grad``, once every
+        host copy of the state in flight has read it."""
+        for ev in self.fences:
+            ev.wait()               # the current stream waits; the host does not
+        self.fences.clear()
         self.optimizer.step()
         self.step += 1
         if extra is not None:

@@ -28,21 +28,39 @@ The port of the JAX package's ``train/trainer.py``, one process per card:
   the end, and a throttled heartbeat after completed steps for its hang
   watchdog.  Both are best-effort;
 - under the launcher: the trainer half of the resize's recovery-time
-  record (checkpoint restored, first step after it; ``cluster/recovery.py``),
-  and the SIGTERM preemption grace: at an agreed step every rank saves a
-  checkpoint and exits ``PREEMPT_EXIT_CODE`` (``cluster/preempt.py``).
+  record (checkpoint restored, first step after it, where the state came
+  from; ``cluster/recovery.py``), and the SIGTERM preemption grace: at an
+  agreed step every rank saves a checkpoint and exits ``PREEMPT_EXIT_CODE``
+  (``cluster/preempt.py``);
+- under the launcher with the peer checkpoint cache (``EDL_TPU_MEMSTATE``,
+  on by default): every committed save is teed into the pod's cache
+  service, every ``EDL_TPU_DELTA_EVERY`` steps a delta record of the
+  changed shards streams to it and to the ring replica, and a restore
+  tries the cache (and the freshest world-agreed delta chain) before
+  storage (``memstate/``);
+- the live reshard (``EDL_TPU_RESIZE_DELTA``, on by default): on the
+  launcher's grow flag the world pauses at an agreed step, commits a
+  checkpoint and re-forms in the same processes
+  (``train/distributed.py:reform_world``), restoring from the local
+  snapshot and the caches; a failed collective becomes a shrink reshard
+  that rolls back to the committed step or forward along the freshest
+  agreed chain.  Each pod's rank 0 then writes ``done/<stage>/<pod>`` for
+  the launcher's barrier, and any failure exits nonzero, which the
+  launcher answers with stop-resume.  Survivors and joiners run the same
+  collectives in the same order: the checkpoint's latest step, the delta
+  target agreement, the restore, the all-ok vote.
 
-Not here yet (ROADMAP.md Queue 1 item 4e, second part): the live reshard,
-the delta replication plane and the peer checkpoint cache; the step
-metrics wait for the port's observability modules.
+The step metrics wait for the port's observability modules.
 """
 
 from __future__ import annotations
 
+import gc
 import logging
 import os
 import sys
 import time
+import traceback
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable
 
@@ -54,6 +72,7 @@ from edl_tpu_torch.cluster.env import TrainerEnv
 from edl_tpu_torch.cluster.state import AdjustRegistry, DataCheckpoint, State
 from edl_tpu_torch.cluster.train_status import TrainStatus, save_train_status
 from edl_tpu_torch.data.elastic_input import device_put_stream, sync_checkpoint
+from edl_tpu_torch.train import distributed as edl_dist
 from edl_tpu_torch.train import lr as lr_mod
 from edl_tpu_torch.train.checkpoint import CheckpointManager
 from edl_tpu_torch.train.state import OptimizerFactory, TrainState
@@ -65,6 +84,28 @@ logger = logging.getLogger(__name__)
 # loss_fn(model, extra, batch, generator) -> (loss, (new_extra, metrics))
 LossFn = Callable[[torch.nn.Module, Any, Any, torch.Generator],
                   tuple[torch.Tensor, tuple[Any, dict]]]
+
+
+@dataclass
+class _ReshardPayload:
+    """The epoch loop's hand-off to the live reshard, host-side only."""
+
+    mode: str                    # "grow" (paused and saved) | "shrink" (roll back)
+    local: dict | None = None    # {key: (manifest entry, bytes)} at ``step``
+    step: int | None = None      # the paused step (grow)
+
+
+class _PeerLost(RuntimeError):
+    """A shrink flag seen under NCCL: the communicator was aborted."""
+
+
+class _LiveReshard(Exception):
+    """Raised at a step boundary to unwind the epoch loop into
+    ``ElasticTrainer._live_reshard``."""
+
+    def __init__(self, payload: _ReshardPayload):
+        super().__init__(payload.mode)
+        self.payload = payload
 
 
 @dataclass
@@ -84,19 +125,31 @@ class ElasticTrainer:
     """``input_stats`` sums, over every epoch this trainer ran,
     ``input_wait_s``, the seconds the loop was blocked obtaining a batch
     (the staging's own wait taken out), and ``h2d_wait_s``, the seconds it
-    waited for a staged copy."""
+    waited for a staged copy.  ``restores`` lists each restore as
+    ``{"source", "seconds", "step", "bytes", "wire_bytes", "local_bytes"}``
+    and ``reshards`` each live reshard (mode, source, step, seconds, and
+    the bytes kept local and moved); ``restore_fallbacks`` counts the
+    cache restores that fell back to storage."""
 
     def __init__(self, loss_fn: LossFn, config: TrainConfig | None = None,
                  store=None, tenv: TrainerEnv | None = None,
                  device: str | torch.device = "cuda"):
         self.cfg = config or TrainConfig()
         self.loss_fn = loss_fn
+        if tenv is not None and tenv.pod_id:
+            _log_to_stderr()   # under the launcher stderr is the workerlog
         self.device = resolve_device(device)
         self.store = store
         self.tenv = tenv
         self.adjust = AdjustRegistry()
-        self.ckpt = (CheckpointManager(self.cfg.checkpoint_dir, self.cfg.max_to_keep)
-                     if self.cfg.checkpoint_dir else None)
+        self._delta_rep = None                 # memstate/delta.py, built with the manager
+        self.ckpt = self._build_ckpt()
+        self._build_fns = None                 # (init_fn, tx): a reshard's restore target
+        self._restore_source: str | None = None   # "peer" | "delta" | "storage"
+        self._reshard_seen = False
+        self.restores: list[dict] = []
+        self.reshards: list[dict] = []
+        self.restore_fallbacks = 0
         self._run_t0: float | None = None     # fit() start: the first beat's threshold
         self._last_step_t: float | None = None
         self._step_ema: float | None = None
@@ -112,6 +165,27 @@ class ElasticTrainer:
         """The formed process group's size (1 without one)."""
         return dist.get_world_size() if dist.is_initialized() else 1
 
+    def _build_ckpt(self) -> CheckpointManager | None:
+        """The checkpoint manager, with the memstate tee and the delta
+        replicator under the launcher.  Built at start and again after each
+        live reshard (the old replicator targets the old membership)."""
+        if self._delta_rep is not None:
+            self._delta_rep.close(wait=False)
+            self._delta_rep = None
+        if not self.cfg.checkpoint_dir:
+            return None
+        tee = None
+        if self.store is not None and self.tenv is not None and self.tenv.pod_id:
+            from edl_tpu_torch import memstate
+            if memstate.enabled():
+                from edl_tpu_torch.memstate.tee import StateCacheTee
+                tee = StateCacheTee(self.store, self.tenv.job_id, self.tenv.pod_id)
+                if memstate.delta_enabled():
+                    from edl_tpu_torch.memstate.delta import DeltaReplicator
+                    self._delta_rep = DeltaReplicator(self.store, self.tenv.job_id,
+                                                      self.tenv.pod_id)
+        return CheckpointManager(self.cfg.checkpoint_dir, self.cfg.max_to_keep, tee=tee)
+
     # -- state construction --------------------------------------------------
     def create_state(self, init_fn: Callable[[], tuple[torch.nn.Module, Any]],
                      tx: OptimizerFactory) -> TrainState:
@@ -119,17 +193,27 @@ class ElasticTrainer:
         trainer's device before its optimizer is built.  Under
         ``EDL_TPU_LR_RESCALE=1`` the optimizer carries the world scale
         (``train/lr.py``), restored with it from every checkpoint."""
+        self._build_fns = (init_fn, tx)
         if constants.lr_rescale():
             tx = lr_mod.world_scaled(tx)
         model, extra = init_fn()
         return TrainState.create(model.to(self.device), tx, extra)
 
     def restore_or_create(self, init_fn, tx) -> tuple[TrainState, State]:
+        """The latest checkpoint (collective) restored into a fresh state:
+        from the peer cache when it holds that step (or a world-agreed
+        delta chain past it), else from storage; a fresh state when there
+        is none."""
         meta = State(total_batch_size=self.cfg.global_batch_size)
         state = self.create_state(init_fn, tx)
-        if self.ckpt is None or self.ckpt.latest_step() is None:
+        latest = self.ckpt.latest_step() if self.ckpt is not None else None
+        if latest is None:
             return state, meta
-        state, saved_meta = self.ckpt.restore(state)
+        restored, saved_meta = self._cache_first_restore(state, latest)
+        if restored is None:
+            t0 = time.perf_counter()
+            state, saved_meta = self.ckpt.restore(state, step=latest)
+            self._note_restore("storage", time.perf_counter() - t0, latest)
         self._t_restored = time.time()  # the recovery record's "restored"
         if saved_meta is not None:
             meta = saved_meta
@@ -139,7 +223,95 @@ class ElasticTrainer:
                         old_world, new_world)
             self.adjust.run(old_world, new_world, meta)
             state = self._world_lr_rescale(state, old_world, new_world)
+        if self._delta_rep is not None and self._restore_source != "delta":
+            # re-anchor the chain on the restored committed step; after a
+            # chain overlay the landed step has no base until the next save
+            self._delta_rep.rebase(state.step, state)
         return state, meta
+
+    def _note_restore(self, source: str, seconds: float, step: int, info=None) -> None:
+        self._restore_source = source
+        info = info or {}
+        self.restores.append({"source": source, "seconds": seconds, "step": step,
+                              "bytes": info.get("bytes", 0),
+                              "wire_bytes": info.get("wire_bytes", 0),
+                              "local_bytes": info.get("local_bytes", 0)})
+        logger.info("restored step %d (restore_source=%s) in %.3fs", step, source, seconds)
+
+    def _cache_first_restore(self, state: TrainState, latest: int):
+        """``(state, meta)`` from the peer cache, or ``(None, None)`` on any
+        miss (the reason is logged; the caller restores from storage).  A
+        delta chain past ``latest`` is used only when the whole world agrees
+        on it and every rank restored it.  ``EDL_TPU_MEMSTATE_VERIFY=1``
+        also restores from storage and asserts the two bit-identical."""
+        if self.store is None or self.tenv is None or not self.tenv.pod_id:
+            return None, None
+        from edl_tpu_torch import memstate
+        if not memstate.enabled():
+            return None, None
+        from edl_tpu_torch.memstate import restore as ms_restore
+        t0 = time.perf_counter()
+        delta_step = self._agree_delta_target(latest)
+        res = None
+        if delta_step is not None:
+            try:
+                res = ms_restore.try_restore(self.store, self.tenv.job_id, state,
+                                             expect_step=latest, delta_step=delta_step)
+            except Exception:  # noqa: BLE001 — every rank demotes to the base restore
+                logger.exception("delta-chain restore errored")
+            if not self._agree_flag(res is not None):
+                res = None
+        source = "delta" if res is not None else "peer"
+        if res is None:
+            try:
+                res = ms_restore.try_restore(self.store, self.tenv.job_id, state,
+                                             expect_step=latest)
+            except Exception:  # noqa: BLE001 — the cache never fails a restore
+                logger.exception("peer-cache restore errored; restoring from storage")
+                res = None
+        if res is None:
+            self.restore_fallbacks += 1
+            return None, None
+        state, meta_json, info = res
+        if os.environ.get("EDL_TPU_MEMSTATE_VERIFY") == "1" and info["step"] == latest:
+            stored, _ = self.ckpt.restore(self.create_state(*self._build_fns), step=latest)
+            ms_restore.assert_bit_identical(state, stored)
+            del stored
+            logger.info("memstate: peer restore verified bit-identical to storage (step %d)",
+                        latest)
+        self._note_restore(source, time.perf_counter() - t0, info["step"], info)
+        return state, State().from_json(meta_json)
+
+    def _agree_delta_target(self, expect: int | None) -> int | None:
+        """The world-agreed delta restore target past ``expect``, or None:
+        every rank probes the freshest recoverable step and the world's
+        minimum wins (-1 from any rank demotes all).  Collective whenever
+        the delta plane is on: every rank calls it at the same point."""
+        from edl_tpu_torch import memstate
+        if not memstate.delta_enabled():
+            return None
+        committed = freshest = None
+        try:
+            from edl_tpu_torch.memstate.delta import probe_freshest
+            committed, freshest = probe_freshest(self.store, self.tenv.job_id)
+        except Exception:  # noqa: BLE001 — a failed probe (or no store) is no delta
+            logger.exception("delta freshness probe failed")
+        cand = -1
+        if expect is not None and committed == expect and freshest is not None \
+                and freshest > expect:
+            cand = int(freshest)
+        if self.world_size > 1:
+            cand = int(edl_dist.allgather_flag(cand).min())
+        if cand < 0 or (expect is not None and cand <= expect):
+            return None
+        logger.info("delta restore target agreed: step %d (base %s)", cand, expect)
+        return cand
+
+    def _agree_flag(self, ok: bool) -> bool:
+        """Every rank's ``ok``, and-ed (the identity without a world)."""
+        if self.world_size <= 1:
+            return bool(ok)
+        return bool(edl_dist.allgather_flag(int(bool(ok))).min())
 
     def _world_lr_rescale(self, state, old_world: int, new_world: int):
         """``EDL_TPU_LR_RESCALE``: multiply the optimizer's world scale by
@@ -180,12 +352,46 @@ class ElasticTrainer:
         if self._run_t0 is None:
             self._run_t0 = time.monotonic()
         self._report(TrainStatus.RUNNING)
-        for epoch in range(meta.next_epoch, epochs):
-            if epochs - epoch <= self.cfg.near_end_epochs:
-                self._report(TrainStatus.NEARTHEEND)
-            gen = torch.Generator(device=self.device).manual_seed(
-                seed * 1_000_003 + epoch)
-            state, meta = self._run_epoch(state, meta, data_fn, epoch, gen, on_epoch_end)
+        while True:
+            payload = crash_exc = crash = None
+            try:
+                for epoch in range(meta.next_epoch, epochs):
+                    if epochs - epoch <= self.cfg.near_end_epochs:
+                        self._report(TrainStatus.NEARTHEEND)
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        seed * 1_000_003 + epoch)
+                    state, meta = self._run_epoch(state, meta, data_fn, epoch, gen,
+                                                  on_epoch_end)
+                break
+            except _LiveReshard as sig:
+                payload = sig.payload
+            except Exception as exc:  # noqa: BLE001 — maybe a peer died
+                # a peer's death fails this rank's collective before the
+                # membership change is visible: under the live reshard it
+                # becomes a shrink (only in a world: a solo trainer's failure
+                # is its own).  The traceback is formatted, then the whole
+                # cause/context chain is cleared: its frames pin the epoch's
+                # device tensors
+                if not (self._delta_ready()
+                        and (dist.is_initialized() or isinstance(exc, _PeerLost))):
+                    raise
+                crash = "".join(traceback.format_exception(type(exc), exc, exc.__traceback__))
+                link, hops = exc, 0
+                while link is not None and hops < 20:
+                    link.__traceback__ = None
+                    nxt = link.__cause__ or link.__context__
+                    link.__cause__ = link.__context__ = None
+                    link, hops = nxt, hops + 1
+                crash_exc = exc
+            # the old state's memory goes before the restore builds the new
+            # one, even where a caller still holds the object
+            _release(state)
+            state = None
+            if crash_exc is not None:
+                payload = self._reshard_on_failure(crash_exc, crash)
+            state, meta = self._live_reshard(payload, meta)
+        if self.ckpt is not None:
+            self.ckpt.wait()
         self._report(TrainStatus.SUCCEED)
         return state, meta
 
@@ -224,11 +430,20 @@ class ElasticTrainer:
             if self.cfg.log_every and step % self.cfg.log_every == 0:
                 logger.info("epoch %d step %d: %s", epoch, step,
                             {k: float(v) for k, v in metrics.items()})
-            if (self.ckpt is not None and self.cfg.save_every_steps
-                    and step % self.cfg.save_every_steps == 0):
+            saving = (self.ckpt is not None and self.cfg.save_every_steps
+                      and step % self.cfg.save_every_steps == 0)
+            if not saving and self._delta_rep is not None and self._delta_rep.want(step):
+                # a delta record of this step: the host snapshot starts here,
+                # the diff and the push run on the replicator's thread
+                meta.step = step
+                self._sync_data_checkpoint(meta)
+                self._delta_rep.stage(step, state, meta)
+            if saving:
                 meta.step = step
                 self._sync_data_checkpoint(meta)
                 self.ckpt.save(step, state, meta)
+                if self._delta_rep is not None:
+                    self._delta_rep.rebase(step, state)   # a new base: re-anchor
         dt = time.monotonic() - t_epoch
         # step_num covers the whole epoch, including segments trained
         # before a mid-epoch stop-resume; avg time reflects this segment
@@ -244,6 +459,12 @@ class ElasticTrainer:
                 self.ckpt.save_meta(state.step, meta)
             else:
                 self.ckpt.save(state.step, state, meta, force=True)
+                if self._delta_rep is not None:
+                    self._delta_rep.rebase(state.step, state)
+            if self.tenv is not None and self.tenv.pod_id:
+                # seal the epoch's sets in the cache: a resize between epochs
+                # then restores this step from the surviving pods' RAM
+                self.ckpt.wait()
         if on_epoch_end is not None:
             before = meta.to_json()
             on_epoch_end(epoch, state, meta)
@@ -308,7 +529,8 @@ class ElasticTrainer:
         try:
             recovery.write_trainer_half(self.store, self.tenv.job_id, self.tenv.cluster_stage,
                                         self.tenv.pod_id, restored=t_restored,
-                                        first_step=time.time(), restore_source="storage")
+                                        first_step=time.time(),
+                                        restore_source=self._restore_source or "storage")
         except Exception:  # noqa: BLE001 — metrics must never fail a job
             logger.exception("recovery record write failed")
 
@@ -341,25 +563,57 @@ class ElasticTrainer:
             if now - self._preempt_last_check_t < constants.preempt_check_seconds():
                 return
             self._preempt_last_check_t = now
-        if self.store is not None and self.tenv.rank_in_pod == 0 and not self._preempt_seen:
-            try:
-                self._preempt_seen = preempt.get_preempt(
-                    self.store, self.tenv.job_id, self.tenv.cluster_stage) is not None
-            except Exception:  # noqa: BLE001 — a store blip is not a preemption
-                logger.exception("preempt flag read failed")
+        if self.store is not None and self.tenv.rank_in_pod == 0:
+            if not self._preempt_seen:
+                try:
+                    self._preempt_seen = preempt.get_preempt(
+                        self.store, self.tenv.job_id, self.tenv.cluster_stage) is not None
+                except Exception:  # noqa: BLE001 — a store blip is not a preemption
+                    logger.exception("preempt flag read failed")
+            if not self._reshard_seen and self._delta_ready():
+                self._reshard_seen = self._read_grow_flag()
         agreed = self._preempt_seen
+        reshard = self._reshard_seen and self._delta_ready()
         if multi:
             proposal = constants.preempt_check_steps()
             if self._step_ema:
                 proposal = round(constants.preempt_check_seconds() / max(self._step_ema, 1e-4))
-            flags = torch.tensor([int(self._preempt_seen), max(1, proposal)],
-                                 dtype=torch.int64, device=self.device)
+            # one all-reduce MAX carries the sightings and the cadence proposal;
+            # the resize sighting rides along where every rank can reshard live
+            # (decided from the env and the config, so the same on every rank)
+            flags = [int(self._preempt_seen), max(1, proposal)]
+            if self._live_capable():
+                flags.append(int(reshard))
+            flags = torch.tensor(flags, dtype=torch.int64, device=self.device)
             dist.all_reduce(flags, op=dist.ReduceOp.MAX)
-            seen, spacing = flags.tolist()
-            agreed = bool(seen)
+            seen, spacing, *grow = flags.tolist()
+            agreed, reshard = bool(seen), bool(grow and grow[0])
             self._preempt_next_check = step + int(spacing)
         if agreed:
             self._preempt_exit(state, meta, step)
+        elif reshard:
+            # the whole world agreed to pause at this step (a preemption wins)
+            self._pause_for_reshard(state, meta, step)
+
+    def _read_grow_flag(self) -> bool:
+        """Whether the launcher flagged a grow of this stage.  Only a grow
+        starts the cooperative pause, whose save is collective and safe only
+        while every member lives.  A shrink flag means a member is gone:
+        under gloo the failed collective converts into the reshard; under
+        NCCL, whose collectives wait for their timeout instead of failing,
+        the communicator is aborted here so the step fails now."""
+        from edl_tpu_torch.cluster import resize
+        try:
+            flag = resize.read_resize_flag(self.store, self.tenv.job_id,
+                                           self.tenv.cluster_stage)
+        except Exception:  # noqa: BLE001 — a store blip is not a resize
+            logger.exception("resize flag read failed")
+            return False
+        if flag is not None and flag.get("mode") == "shrink" and dist.is_initialized() \
+                and dist.get_backend() == "nccl":
+            edl_dist.leak_world(abort=True)
+            raise _PeerLost("a member left the world (shrink flag): NCCL group aborted")
+        return flag is not None and flag.get("mode") == "grow"
 
     def _preempt_exit(self, state: TrainState, meta: State, step: int) -> None:
         """Checkpoint at ``step`` (collective), wait until every rank's save
@@ -369,6 +623,7 @@ class ElasticTrainer:
             meta.step = step
             self._sync_data_checkpoint(meta)
             self.ckpt.save(step, state, meta, force=True)
+            self.ckpt.wait()   # sealed in the cache: the survivors restore from RAM
             logger.info("preempt: checkpoint committed at step %d", step)
         if self.world_size > 1:
             dist.barrier()  # no rank leaves before every save has committed
@@ -394,6 +649,185 @@ class ElasticTrainer:
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(constants.PREEMPT_EXIT_CODE)
+
+    # -- the live reshard ----------------------------------------------------
+    def _live_capable(self) -> bool:
+        """The knob, the launcher's context, a checkpoint manager (the
+        pause's save, the roll-back target) and a state this trainer knows
+        how to rebuild: the same answer on every rank of a launched world."""
+        return bool(constants.resize_delta() and self.ckpt is not None
+                    and self.tenv is not None and self.tenv.pod_id
+                    and self.tenv.cluster_stage and self._build_fns is not None)
+
+    def _delta_ready(self) -> bool:
+        """Can this trainer reshard live: capable, with the store."""
+        return self._live_capable() and self.store is not None
+
+    def _pause_for_reshard(self, state: TrainState, meta: State, step: int) -> None:
+        """The cooperative (grow) pause: commit a world-wide checkpoint at the
+        agreed step, take this process's host copy of the state (the local,
+        zero-wire source of the reshard's restore) and unwind.  Raises
+        :class:`_LiveReshard`."""
+        from edl_tpu_torch.memstate import shards
+
+        logger.warning("live reshard flagged: pausing at step %d", step)
+        meta.step = step
+        self._sync_data_checkpoint(meta)
+        self.ckpt.save(step, state, meta, force=True)
+        self.ckpt.wait()    # joiners and peers restore this step
+        local = shards.local_source(state)
+        if self.world_size > 1:
+            edl_dist.allgather_flag(1)   # no rank tears down before every save committed
+        raise _LiveReshard(_ReshardPayload(mode="grow", local=local, step=step))
+
+    def _reshard_on_failure(self, exc: Exception, detail: str) -> _ReshardPayload:
+        """A failed step under the live reshard: tear the group down at once
+        (peers blocked on this process then fail too), wait up to
+        ``EDL_TPU_RESIZE_RESHARD_TIMEOUT`` for the launcher's handshake and
+        turn the crash into a shrink; without one, re-raise (the process
+        exits nonzero and the launcher stop-resumes)."""
+        from edl_tpu_torch.cluster import resize
+
+        timeout = constants.resize_reshard_timeout()
+        logger.warning("step failed; waiting up to %.0fs for the resize handshake\n%s",
+                       timeout, detail)
+        edl_dist.leak_world(abort=True)
+        deadline = time.monotonic() + timeout
+        old_stage = self.tenv.cluster_stage
+        while time.monotonic() < deadline:
+            try:
+                if (resize.read_go(self.store, self.tenv.job_id, old_stage) is not None
+                        or resize.read_resize_flag(self.store, self.tenv.job_id,
+                                                   old_stage) is not None):
+                    # no save: the dead pod's live state is gone.  The restore
+                    # rolls forward along the freshest agreed chain, or back
+                    # to the committed step
+                    return _ReshardPayload(mode="shrink")
+            except Exception:  # noqa: BLE001 — a store blip: keep polling
+                logger.exception("resize handshake poll failed")
+            time.sleep(0.5)
+        raise exc
+
+    def _live_reshard(self, payload: _ReshardPayload, meta: State):
+        """Re-form the world in this process and rebuild the state, moving
+        only the bytes this process does not hold.  Any failure raises:
+        the process exits nonzero and the launcher stop-resumes."""
+        from edl_tpu_torch.cluster import resize
+        from edl_tpu_torch.cluster.cluster import Cluster
+        from edl_tpu_torch.memstate import restore as ms_restore
+
+        t0 = time.monotonic()
+        t_detect = time.time()
+        old_stage, old_world = self.tenv.cluster_stage, self.tenv.world_size
+        edl_dist.leak_world()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # 1. the definitive target stage and its cluster record
+        timeout = constants.resize_reshard_timeout()
+        deadline = time.monotonic() + timeout
+        go = None
+        while time.monotonic() < deadline:
+            go = resize.read_go(self.store, self.tenv.job_id, old_stage)
+            if go is not None:
+                break
+            time.sleep(0.2)
+        if go is None:
+            raise RuntimeError(f"no reshard go record for stage {old_stage[:8]} within "
+                               f"{timeout:.0f}s")
+        cluster = None
+        while time.monotonic() < deadline:
+            cluster = Cluster.load_from_store(self.store, self.tenv.job_id)
+            if cluster is not None and cluster.stage == go["new_stage"]:
+                break
+            go = resize.read_go(self.store, self.tenv.job_id, old_stage) or go
+            time.sleep(0.2)
+        if cluster is None or cluster.stage != go["new_stage"]:
+            raise RuntimeError(f"cluster record never reached go stage {go['new_stage'][:8]}")
+
+        # 2. the new world, then the new manager (and replicator) in it
+        if self.ckpt is not None:
+            self.ckpt.close()
+        edl_dist.reform_world(self.tenv, self.store, cluster, self.device)
+        self.ckpt = self._build_ckpt()
+        target = self.create_state(*self._build_fns)
+
+        # 3. the restore: local snapshot, own pod's cache, then peers; the
+        # collectives in the joiners' order (restore_or_create): the latest
+        # step, the delta target, the restore, the all-ok vote
+        t_restore = time.monotonic()
+        expect = self.ckpt.latest_step()
+        delta_step = self._agree_delta_target(expect)
+        res = None
+        if delta_step is not None:
+            try:
+                res = ms_restore.try_restore(self.store, self.tenv.job_id, target,
+                                             expect_step=expect, local=payload.local,
+                                             prefer_pod=self.tenv.pod_id,
+                                             delta_step=delta_step)
+            except Exception:  # noqa: BLE001 — demote to the base
+                logger.exception("reshard delta-chain restore errored")
+            if not self._agree_flag(res is not None):
+                res = None
+        if res is None:
+            try:
+                res = ms_restore.try_restore(self.store, self.tenv.job_id, target,
+                                             expect_step=expect, local=payload.local,
+                                             prefer_pod=self.tenv.pod_id)
+            except Exception:  # noqa: BLE001 — storage below
+                logger.exception("reshard cache restore errored")
+                res = None
+        payload.local = None
+        if res is not None:
+            state, meta_json, info = res
+            meta = State().from_json(meta_json)
+            source = "delta"
+        else:
+            # a cache miss demotes the restore to storage, not the reshard
+            self.restore_fallbacks += 1
+            if expect is None:
+                raise RuntimeError("no checkpoint to reshard from")
+            state, saved_meta = self.ckpt.restore(target, step=expect)
+            meta = saved_meta if saved_meta is not None else meta
+            source, info = "storage", {"step": expect}
+        if (os.environ.get("EDL_TPU_MEMSTATE_VERIFY") == "1" and source == "delta"
+                and delta_step is None):
+            stored, _ = self.ckpt.restore(self.create_state(*self._build_fns), step=expect)
+            ms_restore.assert_bit_identical(state, stored)
+            del stored
+            logger.info("reshard restore verified bit-identical to storage (step %s)", expect)
+        self._note_restore(source, time.monotonic() - t_restore, info["step"], info)
+
+        # 4. bookkeeping: adjust hooks, cadence state (joiners start fresh),
+        # the recovery record's times, the done record for the launcher
+        new_world = self.tenv.world_size
+        if old_world != new_world:
+            logger.info("world size %d -> %d (live); running adjust functions", old_world,
+                        new_world)
+            self.adjust.run(old_world, new_world, meta)
+            state = self._world_lr_rescale(state, old_world, new_world)
+        self._reshard_seen = self._preempt_seen = False
+        self._preempt_next_check = None
+        self._last_step_t = None
+        self._t_restored = t_detect
+        seconds = time.monotonic() - t0
+        self.reshards.append({"mode": payload.mode, "source": source, "step": state.step,
+                              "seconds": seconds, "world": new_world,
+                              "local_bytes": info.get("local_bytes", 0),
+                              "wire_bytes": info.get("wire_bytes", 0)})
+        if self.tenv.rank_in_pod == 0:
+            try:
+                resize.write_done(self.store, self.tenv.job_id, cluster.stage, self.tenv.pod_id,
+                                  {"mode": payload.mode, "source": source,
+                                   "seconds": round(seconds, 3)})
+            except Exception:  # noqa: BLE001 — the launcher's deadline decides
+                logger.exception("reshard done record write failed")
+        if self._delta_rep is not None and delta_step is None:
+            self._delta_rep.rebase(state.step, state)
+        logger.info("live reshard complete: stage %s, world %d, %.2fs (source=%s, step %d)",
+                    cluster.stage[:8], new_world, seconds, source, state.step)
+        return state, meta
 
     def _sync_data_checkpoint(self, meta: State) -> None:
         """Before every save, merge all processes' consumed data spans into
@@ -440,6 +874,30 @@ class ElasticTrainer:
                     sums[k] = sums.get(k, 0.0) + v
                 count += part_count
         return {k: v / max(1, count) for k, v in sums.items()}
+
+
+def _release(state: TrainState | None) -> None:
+    """Free a replaced state's tensors (parameters, gradients, buffers,
+    optimizer moments): garbage by contract, since the live reshard
+    rebuilds the state, so the card never holds two copies."""
+    if state is None:
+        return
+    state.optimizer.state.clear()
+    for t in list(state.model.parameters()) + list(state.model.buffers()):
+        t.grad = None
+        t.data = torch.empty(0, dtype=t.dtype, device=t.device)
+    state.fences.clear()
+
+
+def _log_to_stderr() -> None:
+    """The port's INFO lines (restores and their source, reshards, the
+    cache) on stderr, once per process."""
+    root = logging.getLogger("edl_tpu_torch")
+    if not root.handlers:
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s [%(name)s] %(message)s"))
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
 
 
 def _mean_over_world(model: torch.nn.Module, loss: torch.Tensor) -> torch.Tensor:

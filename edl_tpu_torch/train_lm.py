@@ -10,9 +10,12 @@ limited to the ported ``auto|dense|splash|flash``, plus ``--device`` (default
 (``python -m edl_tpu.collective.launch ... edl_tpu_torch/train_lm.py``) one
 process runs per trainer: the launcher's env forms the data-parallel world
 (NCCL on the card, gloo on the CPU), names the coordination store the
-trainer reports to, and gives the checkpoint directory, so a run stopped
-by a membership change resumes from its last epoch in a world of the new
-size; ``--batch_size`` is per process.  Compute is bf16 on the card and
+trainer reports to, and gives the checkpoint directory.  Under the
+launcher's defaults a membership change reshards the world live, in the
+same processes, restoring from the pods' in-RAM checkpoint caches
+(``train/trainer.py``); with ``EDL_TPU_RESIZE_DELTA=0`` a run stopped by
+it resumes from its last checkpoint in a world of the new size.
+``--batch_size`` is per process.  Compute is bf16 on the card and
 f32 on the CPU; the optimizer is AdamW with optax's defaults.  The
 synthetic corpus is the same order-1 Markov chain (numpy, so a seed gives
 the same tokens as the JAX example): the loss must fall well below the
@@ -176,7 +179,8 @@ def _train(args, device, tenv, store):
     step_sleep = float(os.environ.get("EDL_TPU_DEMO_STEP_SLEEP", "0"))
 
     def data_fn(epoch: int):
-        gen = markov_corpus(args, 1000 * (epoch + 1) + rank)
+        # the rank read at each epoch: a live reshard re-ranks this process
+        gen = markov_corpus(args, 1000 * (epoch + 1) + tenv.global_rank)
         for _ in range(args.steps_per_epoch):
             if step_sleep:  # launcher tests pace the run so a pod can join mid-run
                 time.sleep(step_sleep)
@@ -193,7 +197,7 @@ def _train(args, device, tenv, store):
     state, meta = trainer.fit(state, meta, data_fn, epochs=args.epochs,
                               on_epoch_end=on_epoch_end)
     rec = {"val_nll": losses[-1] if losses else None, "nll_curve": losses,
-           "unigram_nll": round(float(np.log(args.vocab)), 4), "world": world,
+           "unigram_nll": round(float(np.log(args.vocab)), 4), "world": trainer.world_size,
            "device": str(device)}
     print(f"[train_lm] {json.dumps(rec)}", flush=True)
     marker = os.environ.get("EDL_TPU_DEMO_MARKER")

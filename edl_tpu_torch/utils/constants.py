@@ -18,6 +18,9 @@ ETCD_RECOVERY = "recovery"          # per-stage resize timing records
 ETCD_CLUSTER = "cluster"            # the generated Cluster JSON
 ETCD_READER = "reader"              # distributed-reader registry
 ETCD_SERVING = "serving"            # leased LM replica adverts (gateway fleet)
+ETCD_MEMSTATE = "memstate"          # peer checkpoint-cache adverts + commit record
+ETCD_RESHARD = "reshard"            # live-reshard handshake (flag/go/done/worldsvc)
+ETCD_TORCH_WORLD = "torchworld"     # the port's process-group rendezvous keys
 LEADER_KEY = "0"                    # rank table key seized by the leader
 TTL_REFRESH_FRACTION = 0.5          # a leased key's keep-alive runs at ttl/2
 # the exit code of a trainer after its preemption-point checkpoint: the
@@ -50,6 +53,63 @@ def resize_delta() -> bool:
     """``EDL_TPU_RESIZE_DELTA``: the launcher's live-reshard path, on
     unless set to 0 (the JAX package's default)."""
     return bool(int(_env_float("EDL_TPU_RESIZE_DELTA", 1)))
+
+
+def resize_reshard_timeout() -> float:
+    """``EDL_TPU_RESIZE_RESHARD_TIMEOUT``: bounds a trainer's wait for the
+    live reshard's go record and re-formed world (the launcher waits as
+    long, plus 10 s, for the done records before it stop-resumes)."""
+    return _env_float("EDL_TPU_RESIZE_RESHARD_TIMEOUT", 60.0)
+
+
+def resize_min_delta() -> float:
+    """``EDL_TPU_RESIZE_MIN_DELTA``: the least fraction of cached bytes that
+    must stay on surviving owners for the launcher to reshard live (0:
+    always)."""
+    return _env_float("EDL_TPU_RESIZE_MIN_DELTA", 0.0)
+
+
+# -- the peer checkpoint cache and the delta plane (memstate/) -----------------
+def memstate() -> bool:
+    """``EDL_TPU_MEMSTATE``: committed saves tee into the pod's in-RAM
+    checkpoint cache and restores try it before storage (on unless 0)."""
+    return bool(int(_env_float("EDL_TPU_MEMSTATE", 1)))
+
+
+def memstate_max_bytes() -> int:
+    """``EDL_TPU_MEMSTATE_MAX_BYTES``: the bytes a cache service holds,
+    staged and committed (0: no cap); an over-cap push is rejected."""
+    return int(_env_float("EDL_TPU_MEMSTATE_MAX_BYTES", 0))
+
+
+def delta_every() -> int:
+    """``EDL_TPU_DELTA_EVERY``: a delta record of the changed shards is
+    streamed to the ring replica every this many steps (0: no delta plane)."""
+    return int(_env_float("EDL_TPU_DELTA_EVERY", 10))
+
+
+def delta_max_chain() -> int:
+    """``EDL_TPU_DELTA_MAX_CHAIN``: records a chain holds before the
+    producer stops staging until the next checkpoint."""
+    return int(_env_float("EDL_TPU_DELTA_MAX_CHAIN", 64))
+
+
+def transfer_workers() -> int:
+    """``EDL_TPU_TRANSFER_WORKERS``: threads a shard push or restore fans
+    distinct shards across."""
+    return int(_env_float("EDL_TPU_TRANSFER_WORKERS", 4))
+
+
+def stripe_min_bytes() -> int:
+    """``EDL_TPU_STRIPE_MIN_BYTES``: a shard at least this large is fetched
+    in ranges striped over every holder."""
+    return int(_env_float("EDL_TPU_STRIPE_MIN_BYTES", 8 << 20))
+
+
+def transfer_budget_bytes() -> int:
+    """``EDL_TPU_TRANSFER_BUDGET_BYTES``: fetched bytes a restore holds on
+    the host before it moves them to the device (0: no bound)."""
+    return int(_env_float("EDL_TPU_TRANSFER_BUDGET_BYTES", 1 << 30))
 
 
 def preempt_check_steps() -> int:

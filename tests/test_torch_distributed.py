@@ -5,6 +5,7 @@ train-status and heartbeat records against the JAX package's store, and
 ``initialize_from_env``'s gates.  Each worker process has its own time
 limit, so a hung rendezvous fails its test."""
 
+import json
 import os
 import pathlib
 import shutil
@@ -39,6 +40,7 @@ from edl_tpu_torch.utils.network import find_free_port
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "helpers" / "torch_dp_worker.py"
+REFORM_WORKER = ROOT / "tests" / "helpers" / "torch_reform_worker.py"
 WORKER_TIMEOUT = 120      # seconds per worker process
 # the 2-rank world's shape: 2 layers, width 64, 2 rows a rank
 SMALL = dict(vocab_size=97, num_layers=2, embed_dim=64, num_heads=2, mlp_dim=128, max_len=16)
@@ -291,10 +293,14 @@ def test_trainer_reports_status_and_beats(coord_server):
         store.close()
 
 
-def test_initialize_from_env_gates(monkeypatch):
-    """(d) World 1 forms no group; the launcher's live-reshard path
-    (EDL_TPU_RESIZE_DELTA, on unless 0) raises; a world with no
+def test_initialize_from_env_gates(monkeypatch, memkv):
+    """(d) World 1 forms no group; under the launcher's live-reshard path
+    (EDL_TPU_RESIZE_DELTA, on unless 0) world 1 still forms none, and the
+    resizable world forms (a group of one here) through the store, gated by
+    the stage's world record the JAX package publishes; a world with no
     coordinator raises."""
+    from edl_tpu.cluster import resize as jax_resize
+
     base = {"EDL_TPU_TRAINERS_NUM": "1", "EDL_TPU_TRAINER_ID": "0"}
     for var in [k for k in os.environ if k.startswith("EDL_TPU_")]:
         monkeypatch.delenv(var)
@@ -302,16 +308,161 @@ def test_initialize_from_env_gates(monkeypatch):
     assert tenv.world_size == 1 and not dist.is_initialized()
     assert distributed.connect_store(tenv) is None and distributed.is_coordinator(tenv)
 
-    launched = {**base, "EDL_TPU_CLUSTER_STAGE": "s1", "EDL_TPU_COORD_ENDPOINTS": "127.0.0.1:1"}
+    launched = {**base, "EDL_TPU_CLUSTER_STAGE": "s1", "EDL_TPU_COORD_ENDPOINTS": "127.0.0.1:1",
+                "EDL_TPU_JOB_ID": "gate"}
     for value in ("1", None):
         if value is None:
             monkeypatch.delenv("EDL_TPU_RESIZE_DELTA")
         else:
             monkeypatch.setenv("EDL_TPU_RESIZE_DELTA", value)
-        with pytest.raises(RuntimeError, match="item 4e"):
-            distributed.initialize_from_env(TrainerEnv(launched), "cpu")
+        assert distributed.initialize_from_env(TrainerEnv(launched), "cpu").world_size == 1
+        assert not dist.is_initialized()
+        jax_resize.publish_world_service(memkv, "gate", "s1", f"10.0.0.1:{value}", 1)
+        distributed.form_world(TrainerEnv(launched), memkv, "cpu", timeout=30.0)
+        try:
+            assert dist.is_initialized() and dist.get_world_size() == 1
+            t = torch.ones(3)
+            dist.all_reduce(t)
+            assert t.tolist() == [1.0, 1.0, 1.0]
+            gate = json.loads(memkv.get("/edl_tpu/gate/torchworld/s1/gate").value)
+            assert gate["nonce"] == f"10.0.0.1:{value}" and gate["world"] == 1
+        finally:
+            distributed.leak_world()
+        assert not dist.is_initialized()
     monkeypatch.setenv("EDL_TPU_RESIZE_DELTA", "0")
     assert distributed.initialize_from_env(TrainerEnv(launched), "cpu").world_size == 1
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="no coordinator"):
         distributed.initialize_from_env(TrainerEnv({"EDL_TPU_TRAINERS_NUM": "2"}), "cpu")
+
+
+def test_resizable_world_reforms_in_place(coord_server, tmp_path):
+    """(e) The resizable world through the store rendezvous, as the launcher
+    drives it: a gloo world of 2 forms from the launcher's env (gated by the
+    stage's world record the JAX package publishes), re-forms in place to 3
+    when a third process joins, forms the same stage again under a new
+    nonce, and shrinks to 1.  The same processes throughout (pids), a
+    correct all-reduce after each formation, and the env updated in place;
+    each process under its 120 s limit."""
+    import time
+
+    from edl_tpu.cluster import resize as jax_resize
+    from edl_tpu_torch.cluster.cluster import Cluster
+    from edl_tpu_torch.cluster.pod import Pod, Trainer
+
+    ep = f"127.0.0.1:{coord_server.port}"
+    kv = JaxCoordClient(ep)
+    job = "reform"
+    base = f"/edl_tpu/{job}"
+
+    def env(pod, rank, world, stage):
+        e = {k: v for k, v in os.environ.items() if not k.startswith("EDL_TPU_")}
+        e.update({"PYTHONPATH": str(ROOT), "EDL_TPU_JOB_ID": job, "EDL_TPU_POD_ID": pod,
+                  "EDL_TPU_TRAINER_ID": str(rank), "EDL_TPU_TRAINER_RANK_IN_POD": "0",
+                  "EDL_TPU_TRAINERS_NUM": str(world), "EDL_TPU_CLUSTER_STAGE": stage,
+                  "EDL_TPU_COORD_ENDPOINTS": ep, "EDL_TPU_SPAWN_TS": repr(time.time()),
+                  "OMP_NUM_THREADS": "1"})
+        return e
+
+    def cluster(stage, pods):
+        ps = []
+        for name in pods:
+            p = Pod(pod_id=name)
+            p.trainers = [Trainer(endpoint=f"127.0.0.1:{find_free_port()}")]
+            ps.append(p)
+        c = Cluster.from_pods(ps)
+        c.stage = stage
+        kv.put(f"{base}/cluster/cluster", c.to_json().encode())
+
+    def outputs(n, pods):
+        deadline = time.monotonic() + WORKER_TIMEOUT
+        while True:
+            got = {p: kv.get(f"{base}/test/out/{n}/{p}") for p in pods}
+            if all(v is not None for v in got.values()):
+                return {p: json.loads(v.value) for p, v in got.items()}
+            assert time.monotonic() < deadline, f"phase {n} never reported: {got}"
+            for proc, log in procs.values():
+                assert proc.poll() in (None, 0), log.read_text()[-3000:]
+            time.sleep(0.1)
+
+    procs = {}
+
+    def spawn(pod, rank, world, stage):
+        log = tmp_path / f"{pod}.txt"
+        procs[pod] = (subprocess.Popen([sys.executable, str(REFORM_WORKER)],
+                                       env=env(pod, rank, world, stage), cwd=ROOT,
+                                       stdout=open(log, "w"), stderr=subprocess.STDOUT), log)
+
+    try:
+        jax_resize.publish_world_service(kv, job, "s1", "10.0.0.1:1", 2)
+        cluster("s1", ["p0", "p1"])
+        spawn("p0", 0, 2, "s1")
+        spawn("p1", 1, 2, "s1")
+        first = outputs(0, ["p0", "p1"])
+        assert [first[p]["sum"] for p in ("p0", "p1")] == [3.0, 3.0], first
+        assert {r["nonce"] for r in first.values()} == {"10.0.0.1:1"}
+
+        # grow: a third process joins stage s2; the two re-form in place
+        jax_resize.publish_world_service(kv, job, "s2", "10.0.0.1:2", 3)
+        cluster("s2", ["p0", "p1", "p2"])
+        spawn("p2", 2, 3, "s2")
+        kv.put(f"{base}/test/step/1", json.dumps({"stage": "s2"}).encode())
+        grown = outputs(1, ["p0", "p1"])
+        grown["p2"] = outputs(0, ["p2"])["p2"]
+        assert {p: (r["rank"], r["world"], r["sum"]) for p, r in grown.items()} == {
+            "p0": (0, 3, 6.0), "p1": (1, 3, 6.0), "p2": (2, 3, 6.0)}, grown
+        assert all(grown[p]["pid"] == first[p]["pid"] for p in ("p0", "p1"))
+        assert grown["p1"]["env_world"] == "3"
+
+        # the same stage formed again under the launcher's new record
+        t_again = time.time()
+        jax_resize.publish_world_service(kv, job, "s2", "10.0.0.1:3", 3)
+        kv.put(f"{base}/test/step/2",
+               json.dumps({"stage": "s2", "again": True, "ts": t_again - 1.0}).encode())
+        again = outputs(2, ["p0", "p1", "p2"])
+        assert {r["sum"] for r in again.values()} == {6.0}, again
+        assert {r["nonce"] for r in again.values()} == {"10.0.0.1:3"}
+
+        # shrink: only p0 stays; a world of 1 forms no group
+        cluster("s3", ["p0"])
+        kv.put(f"{base}/test/step/3", json.dumps({"stage": "s3"}).encode())
+        shrunk = outputs(3, ["p0", "p1", "p2"])
+        assert shrunk["p1"].get("left") and shrunk["p2"].get("left"), shrunk
+        p0 = shrunk["p0"]
+        assert (p0["pid"], p0["rank"], p0["world"], p0["initialized"]) == (
+            first["p0"]["pid"], 0, 1, False), p0
+        kv.put(f"{base}/test/step/4", json.dumps({"end": True}).encode())
+        for pod, (proc, log) in procs.items():
+            assert proc.wait(timeout=WORKER_TIMEOUT) == 0, log.read_text()[-3000:]
+    finally:
+        for proc, _log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        kv.close()
+
+
+def test_coord_rendezvous_store_answers_as_torch_hash_store(memkv):
+    """The store the resizable world forms through gives torch's in-process
+    ``HashStore`` answers for the same calls: set/get, add (a counter),
+    compare_set on an absent, an equal and a different value, check,
+    delete_key and num_keys; a get of an unset key times out."""
+    import datetime
+
+    ours = distributed.CoordRendezvousStore(memkv, "/edl_tpu/j/torchworld/s/n/", 0.3)
+    ref = dist.HashStore()
+    ref.set_timeout(datetime.timedelta(seconds=0.3))
+    for st in (ours, ref):
+        st.set("a", b"1")
+    assert ours.get("a") == ref.get("a") == b"1"
+    assert [ours.add("c", 2), ours.add("c", 3)] == [ref.add("c", 2), ref.add("c", 3)] == [2, 5]
+    assert ours.get("c") == ref.get("c") == b"5"
+    for expected, desired in ((b"", b"x"), (b"x", b"y"), (b"nope", b"z")):
+        assert ours.compare_set("k", expected, desired) == ref.compare_set("k", expected, desired)
+    assert ours.compare_set("absent", b"e", b"d") == ref.compare_set("absent", b"e", b"d")
+    assert ours.check(["a", "k"]) and not ours.check(["a", "none"])
+    assert ours.num_keys() == 3
+    assert ours.delete_key("a") and not ours.check(["a"])
+    with pytest.raises(RuntimeError):
+        ours.get("none")
+    ours.wait(["c", "k"])

@@ -52,6 +52,15 @@ FLEET_MODULES = (
     "edl_tpu_torch.coord.session", "edl_tpu_torch.rpc.chunks", "edl_tpu_torch.gateway",
     "edl_tpu_torch.gateway.fleet", "edl_tpu_torch.gateway.gateway",
     "edl_tpu_torch.gateway.__main__")
+# the modules of the resizable-world slice: the peer checkpoint cache, the
+# delta plane and the live reshard's records and transfers
+RESHARD_MODULES = (
+    "edl_tpu_torch.memstate", "edl_tpu_torch.memstate.advert",
+    "edl_tpu_torch.memstate.placement", "edl_tpu_torch.memstate.reshard",
+    "edl_tpu_torch.memstate.shards", "edl_tpu_torch.memstate.service",
+    "edl_tpu_torch.memstate.tee", "edl_tpu_torch.memstate.restore",
+    "edl_tpu_torch.memstate.delta", "edl_tpu_torch.cluster.resize",
+    "edl_tpu_torch.rpc.transfer")
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -83,7 +92,7 @@ print(sorted(set(bad()) - before))
     names = ast.literal_eval(out[-2])
     assert len(names) >= 60 and set(DISTRIBUTED_MODULES + SERVING_MODULES + RESNET_MODULES
                                     + DATA_SERVICE_MODULES + DISTILL_MODULES
-                                    + FLEET_MODULES) <= set(names), names
+                                    + FLEET_MODULES + RESHARD_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 
@@ -146,6 +155,17 @@ def test_importing_the_fleet_slice_loads_no_jax():
     no JAX."""
     code = ("import sys, importlib; [importlib.import_module(m) for m in "
             + repr(FLEET_MODULES) + "]; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_reshard_slice_loads_no_jax():
+    """The cache, the delta plane, the resize records and the striped
+    transfer load no JAX and nothing of the JAX package."""
+    code = ("import sys, importlib; [importlib.import_module(m) for m in "
+            + repr(RESHARD_MODULES) + "]; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)

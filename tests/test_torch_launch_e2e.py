@@ -2,6 +2,11 @@
 unchanged JAX-package launcher: real launchers, a real coordination
 server, ``edl_tpu_torch/train_lm.py`` trainers on the CPU.
 
+- The launcher's defaults (the live reshard, the peer checkpoint cache and
+  the delta plane on): pod B joins pod A's run and A's trainer re-forms the
+  world in place; then B is killed and A's failed collective becomes a
+  shrink reshard, again in the same process (the twin of
+  ``scripts/resize_smoke.py``'s grow and shrink).
 - A live mid-run join with stop-resume: pod A trains solo; pod B joins
   once A has committed two epoch checkpoints; A's trainer is restarted
   into a 2-rank gloo world with B's, both resume from the checkpoint at the
@@ -48,15 +53,16 @@ TRAIN_ARGS = ["--device", "cpu", "--vocab", "64", "--layers", "2", "--embed", "6
 
 
 def spawn(job_id, coord_ep, tmp, name, ckpt_dir, args=TRAIN_ARGS, extra_env=None,
-          trainer=TRAIN, nodes_range="1:2"):
+          trainer=TRAIN, nodes_range="1:2", live=False):
+    """A launcher with one trainer; ``live``: the launcher's defaults,
+    else stop-resume (``EDL_TPU_RESIZE_DELTA=0``)."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_TPU_")}
     env.update(FAST)
     env.update({
         "PYTHONPATH": REPO + os.pathsep + env.get("PYTHONPATH", ""),
         "JAX_PLATFORMS": "cpu",
         "EDL_TPU_HOST_IP": "127.0.0.1",
-        # the port forms stop-resume worlds only (live reshard is not ported)
-        "EDL_TPU_RESIZE_DELTA": "0",
+        **({} if live else {"EDL_TPU_RESIZE_DELTA": "0"}),
         "EDL_TPU_DEMO_STEP_SLEEP": "0.25",
         "EDL_TPU_DEMO_MARKER": os.path.join(tmp, f"marker-{name}"),
         "OMP_NUM_THREADS": "2",
@@ -77,6 +83,88 @@ def spawn(job_id, coord_ep, tmp, name, ckpt_dir, args=TRAIN_ARGS, extra_env=None
 def _committed(ckpt):
     return sorted(int(d) for d in (os.listdir(ckpt) if os.path.isdir(ckpt) else [])
                   if d.isdigit())
+
+
+def _spawns(log: str) -> list[int]:
+    return [int(p) for p in re.findall(r"spawned trainer global_rank=\d+ pid=(\d+)", log)]
+
+
+@pytest.mark.slow
+def test_torch_trainers_reshard_live_under_the_launcher_defaults(coord_server, tmp_path):
+    """The unchanged launcher with its defaults: pod B joins (1 -> 2), B is
+    SIGKILLed (2 -> 1).  Pod A's trainer process survives both (one spawn),
+    A writes the done record of each new stage, both resizes are live with a
+    cache source, every epoch completes once, and the run learns."""
+    from edl_tpu.cluster import resize as jax_resize
+    from edl_tpu.memstate.advert import read_committed_step
+    from tests.helpers.harness import kill_tree
+
+    ep = f"127.0.0.1:{coord_server.port}"
+    ckpt = str(tmp_path / "ckpt")
+    args = [*TRAIN_ARGS, "--epochs", "24"]
+    env = {"EDL_TPU_PREEMPT_CHECK_SECONDS": "1", "EDL_TPU_PREEMPT_CHECK_STEPS": "2"}
+    la = tmp_path / "launcher-a.log"
+    pa = spawn("torch-live", ep, str(tmp_path), "a", ckpt, args, env, live=True)
+    pb = None
+    try:
+        deadline = time.time() + 180
+        while len(_committed(ckpt)) < 2:
+            assert time.time() < deadline, "pod A never committed 2 epoch checkpoints"
+            assert pa.poll() is None, "pod A died during solo warmup"
+            time.sleep(0.25)
+        pb = spawn("torch-live", ep, str(tmp_path), "b", ckpt, args, env, live=True)
+        deadline = time.time() + 120
+        while "live reshard complete" not in _logs(str(tmp_path)):
+            assert time.time() < deadline, "no live grow: " + _logs(str(tmp_path))[-6000:]
+            assert pa.poll() is None and pb.poll() is None, _logs(str(tmp_path))[-6000:]
+            time.sleep(0.25)
+        grown = max(_committed(ckpt))
+        watch = CoordClient(ep)
+        try:
+            # an epoch of the 2-rank world, saved and sealed in the cache: the
+            # kill then lands inside an epoch, not between a save and its seal
+            while not (max(_committed(ckpt)) > grown and read_committed_step(
+                    watch, "torch-live") == max(_committed(ckpt))):
+                assert time.time() < deadline, "the grown world sealed no epoch"
+                time.sleep(0.05)
+        finally:
+            watch.close()
+        kill_tree(pb)
+        assert finish(pa, 300) == 0, _logs(str(tmp_path))[-8000:]
+    finally:
+        for p in (pa, pb):
+            if p is not None and p.poll() is None:
+                kill_tree(p)
+                p.wait()
+
+    logs = _logs(str(tmp_path))
+    log_a = la.read_text(errors="replace")
+    assert len(_spawns(log_a)) == 1, log_a[-3000:]     # A's trainer survived both
+    client = CoordClient(ep)
+    try:
+        assert load_job_status(client, "torch-live") == Status.SUCCEED
+        stages = [s for s in summarize_recovery(client, "torch-live") if "total" in s]
+        pod_a = json.loads(client.get(f"/edl_tpu/torch-live/cluster/cluster").value)["pods"][0][
+            "pod_id"]
+        done = {s["stage"]: jax_resize.load_done(client, "torch-live", s["stage"])
+                for s in stages}
+    finally:
+        client.close()
+    print(f"recovery: {stages}")
+    assert [s["resize_mode"] for s in stages] == ["delta", "delta"], stages
+    assert all(s["restore_source"] in ("peer", "delta") for s in stages), stages
+    assert all(set(d) == {pod_a} and d[pod_a]["source"] == "delta" for d in done.values()), done
+    worker_a = next((tmp_path / "log-a").rglob("workerlog.0")).read_text(errors="replace")
+    assert worker_a.count("live reshard complete") == 2, worker_a[-6000:]
+    meta = _last_meta(ckpt)
+    epochs = sorted(meta.epochs, key=lambda e: e.epoch_no)
+    assert [e.epoch_no for e in epochs] == list(range(24)), epochs
+    worlds = [e.world_size for e in epochs]
+    assert worlds[0] == 1 and 2 in worlds and worlds[-1] == 1, worlds
+    done_a = [line for line in (tmp_path / "marker-a").read_text().splitlines()
+              if line.startswith("done")]
+    rec = json.loads(done_a[-1].split(" ", 1)[1])
+    assert rec["world"] == 1 and rec["val_nll"] < rec["unigram_nll"], rec
 
 
 @pytest.mark.slow
@@ -113,7 +201,14 @@ def test_torch_trainers_join_and_resume_under_the_launcher(coord_server, tmp_pat
     print(f"recovery: {stages}")
     assert stages, "no complete resize record"
     assert all(0 < s["restored_to_first_step"] <= s["total"] for s in stages), stages
-    assert {s["restore_source"] for s in stages} == {"storage"}, stages
+    # the trainers restore from the launchers' peer checkpoint cache (on by
+    # default; the committed set, or rolled forward along a delta chain);
+    # storage only when the kill landed between a save and its seal in the
+    # cache, a stale cached step the restore refuses and logs
+    sources = {s["restore_source"] for s in stages}
+    assert sources and sources <= {"peer", "delta", "storage"}, stages
+    if "storage" in sources:
+        assert "cache miss (stale" in _logs(str(tmp_path)), stages
 
     # the last checkpoint's sidecar: every epoch once, solo first, then 2 ranks
     last = _committed(ckpt)[-1]
