@@ -83,7 +83,11 @@ failure exits non-zero:
    equals the uninterrupted run's and the BN buffers come back as saved.
    ``--remat``: one step with and without it from the same weights (the same
    loss and BN running stats, to ``RESUME_RTOL``), then img/s and peak
-   memory over 20 remat steps beside the plain step's.
+   memory over 20 remat steps beside the plain step's.  BN's world-1 branch:
+   3 steps in an NCCL group of one equal 3 steps with no group to the bit
+   (losses, BN running stats, parameters; cuDNN deterministic for both),
+   and a step's profile holds only the gradient reduction's NCCL kernels;
+   img/s with and without the group.
    The native record library builds and round-trips 1,000 records; the
    JPEG pipeline's host img/s is timed only where ``cv2`` imports.
 10. ``resume``: save at an epoch's end, drop the trainer, restore a new one
@@ -93,9 +97,10 @@ failure exits non-zero:
    the resize's recovery record once: ``restored_to_first_step`` is
    printed.
 11. ``data``: ResNet50 fed by the data service, in one process that plays
-   the launcher's part (a ``MemoryKV`` store, the port's ``DataService`` on
-   the port's ``RpcServer``, a one-pod cluster record naming it the leader):
-   ``train_resnet``'s training function with ``--data_service`` at bs 128,
+   the deployment's part (a ``MemoryKV`` store, the port's journaled
+   ``DataService`` hosted by an elected ``DataLeaderHost`` on the port's
+   ``RpcServer``, a one-pod cluster record): ``train_resnet``'s training
+   function with ``--data_service --data_leader`` at bs 128,
    224², bf16, on ``--synthetic`` files of 2 x 330 records (5 full steps and
    one of 20 rows an epoch), 2 epochs, ``--save_every_steps 2``; the first
    run stops right after the save at epoch 1's second step, and a fresh
@@ -104,10 +109,14 @@ failure exits non-zero:
    (b) the BN buffers after a masked step equal those before it, and a full
    step changes them; (c) the resumed epoch trains exactly the records the
    checkpoint's spans lack; (d) host batches of the same shapes come out of
-   ``device_put_stream`` on the card bit-equal and in order.  Prints img/s
-   a card through the data service, the H2D wait and the time blocked on
-   the input (in total and a step), the host decode rate, and the resnet
-   phase's fixed-batch img/s beside them.
+   ``device_put_stream`` on the card bit-equal and in order; (e) after
+   epoch 0's second step the seated data leader stops and a standby takes
+   the seat and rebuilds from the journal while the trainer steps on (every
+   record still trains exactly once, by (a)).  Prints img/s a card through
+   the data service, the H2D wait and the time blocked on the input (in
+   total and a step), the host decode rate, the resnet phase's fixed-batch
+   img/s beside them, and the leader-gone-to-next-step and
+   leader-gone-to-successor's-first-batch seconds.
 12. ``elastic``: the distributed trainer.  (1) An NCCL process group of
    one: 3 flagship steps through the gradient all-reduce give parameters
    and losses equal to the bit to 3 steps without a group, the splash
@@ -183,7 +192,17 @@ failure exits non-zero:
    time blocked on the reader, teacher rows/s, passes and rows a pass,
    forward ms by bucket, wire MB/s, the nop reader's QPS at these rows,
    peak memory, the longest step interval around the leave and C's
-   registration to its first row.
+   registration to its first row.  (d) The teacher fleet on the same store
+   and teacher: two ``TeacherReplica``s of one job behind a
+   ``DistillFleet``; a third server's balance advert and a
+   ``DiscoveryServer`` on one shared ``CoordSession`` must ride one lease;
+   one routed, hedged predict; the student reads through
+   ``make_distill_source`` with the fleet's ``endpoints_fn()`` wrapped in a
+   ``StudentFeed`` (2 warm-up and 10 timed steps), replica 0 stops after
+   timed step 4: no batch lost or mispaired, the pairing audit and its
+   control hold, the backlog record is read while the student runs and is
+   gone after.  Prints img/s through the fleet against through discovery,
+   the fleet's retries and hedges, the stop's stall and the backlog rows.
 16. ``reshard``: the resizable world at the flagship's full width (seed-0
    weights, the fixed batch), in one process that plays the launcher's
    part: a ``MemoryKV`` store, the port's ``StateCacheService`` on its
@@ -1226,6 +1245,196 @@ def _resnet_remat(plain: dict) -> dict:
     return out
 
 
+RESNET_GROUP_STEPS, RESNET_GROUP_TIMED = 3, 10
+
+
+def _world_bn_on_card(model, images) -> dict:
+    """The BN of a world of 2 or more (``_WorldBatchNorm``), run in the NCCL
+    group of one the caller has formed, at every BN shape of a ResNet50 step
+    (bs 128, 224², bf16, channels_last, read from ``model``'s forward on
+    ``images``), against ``torch.native_batch_norm`` (the world-1 path) on
+    the same inputs from a seed: out and dx within 1e-2 of the native one's
+    largest magnitude (bf16), dweight and dbias within 1e-3 (f32); and the
+    wall ms of forward and backward of each (CUDA events over 5 calls after
+    2, so the host's launches count where the card waits on them), summed
+    over the step's BN layers."""
+    from collections import Counter
+
+    import torch
+
+    from edl_tpu_torch.models.resnet import BN_EPS, BatchNorm, _WorldBatchNorm
+
+    shapes: Counter = Counter()
+    hooks = [m.register_forward_pre_hook(lambda _m, a: shapes.update([tuple(a[0].shape)]))
+             for m in model.modules() if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def normal(shape, dtype=torch.bfloat16):
+        t = torch.randn(shape, generator=gen, device="cuda")
+        return t.to(dtype).contiguous(memory_format=torch.channels_last) if len(shape) == 4 \
+            else t
+
+    def fwd_bwd(world, x, w, b, dy):
+        x, w, b = (t.detach().requires_grad_() for t in (x, w, b))
+        if world:
+            out, _, _ = _WorldBatchNorm.apply(x, w, b)
+        else:
+            out, _, _ = torch.native_batch_norm(x, w, b, None, None, True, 0.0, BN_EPS)
+        out.backward(dy)
+        return out, x.grad, w.grad, b.grad
+
+    def ms(fn):
+        for _ in range(2):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 5
+
+    rows, errs = [], {"out": 0.0, "dx": 0.0, "dweight": 0.0, "dbias": 0.0}
+    for shape, layers in sorted(shapes.items()):
+        c = shape[1]
+        x = (normal(shape, torch.float32) * 2 + 0.5).to(torch.bfloat16)
+        w, b, dy = normal((c,), torch.float32) * 0.5 + 1, normal((c,), torch.float32), normal(shape)
+        got, ref = fwd_bwd(True, x, w, b, dy), fwd_bwd(False, x, w, b, dy)
+        for key, g, r in zip(errs, got, ref):
+            errs[key] = max(errs[key], float((g.float() - r.float()).abs().max()
+                                             / r.float().abs().max()))
+        rows.append({"shape": list(shape), "layers": layers,
+                     "world_wall_ms": ms(lambda: fwd_bwd(True, x, w, b, dy)),
+                     "native_wall_ms": ms(lambda: fwd_bwd(False, x, w, b, dy))})
+        del x, dy, got, ref
+    out = {"shapes": rows, "rel_err": errs,
+           "world_wall_ms_per_step": sum(r["world_wall_ms"] * r["layers"] for r in rows),
+           "native_wall_ms_per_step": sum(r["native_wall_ms"] * r["layers"] for r in rows)}
+    out["world_over_native_wall"] = out["world_wall_ms_per_step"] / out["native_wall_ms_per_step"]
+    if sum(r["layers"] for r in rows) != 53:
+        raise AssertionError(f"ResNet50 has 53 BN layers, the forward ran {rows}")
+    if errs["out"] > 1e-2 or errs["dx"] > 1e-2 or errs["dweight"] > 1e-3 \
+            or errs["dbias"] > 1e-3:
+        raise AssertionError(f"the world BN disagrees with native_batch_norm: {errs}")
+    return out
+
+
+def _resnet_group_of_one(plain_img_s: float | None) -> dict:
+    """BN's world-1 branch: 3 ResNet50 steps (bs 128, 224², bf16, the fixed
+    batch) with no process group, then 3 from the same weights in an NCCL
+    group of one, formed as the elastic phase forms it, with cuDNN's
+    deterministic algorithms on for both: the losses, the BN running stats
+    and the parameters equal to the bit, and the profile of a step holds as
+    many NCCL kernels as the gradient reduction issues (one a gradient
+    dtype), so BN adds none.  img/s over 10 steps with and without the
+    group, beside the phase's fixed-batch figure.  In the group, the BN of
+    a larger world held to the native one (``_world_bn_on_card``), and the
+    step's img/s and device ms with every BN on that branch."""
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch import train_resnet
+    from edl_tpu_torch.models import resnet as resnet_model
+    from edl_tpu_torch.train.state import sgd
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    from edl_tpu_torch.utils.network import find_free_port
+
+    t_part = time.perf_counter()
+    args = train_resnet.parse_args(RESNET_ARGS)
+    device = torch.device("cuda", 0)
+    batch = _resnet_batch(args.batch_size, args.image_size, torch.bfloat16)
+
+    def steps():
+        init_fn, trainer, _, _ = train_resnet.build_trainer(args, device)
+        state = trainer.create_state(init_fn, sgd(0.1, momentum=0.9, nesterov=True))
+        gen = torch.Generator(device=device).manual_seed(3)
+        losses = []
+        for _ in range(RESNET_GROUP_STEPS):
+            state, metrics = trainer.step_fn(state, batch, gen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        return trainer, state, gen, [float(x) for x in losses]
+
+    def img_s(trainer, state, gen):
+        trainer.step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RESNET_GROUP_TIMED):
+            trainer.step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        return args.batch_size * RESNET_GROUP_TIMED / (time.perf_counter() - t0)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer, state, gen, plain_losses = steps()
+        plain = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        del trainer, state
+        torch.cuda.empty_cache()
+        torch.cuda.set_device(device)
+        store = dist.TCPStore("127.0.0.1", find_free_port(), 1, True)
+        dist.init_process_group("nccl", store=store, world_size=1, rank=0, device_id=device)
+        try:
+            trainer, state, gen, losses = steps()
+            if trainer.world_size != 1 or dist.get_backend() != "nccl":
+                raise AssertionError(f"world {trainer.world_size}, backend {dist.get_backend()}")
+            differing = [k for k, v in state.model.state_dict().items()
+                         if not torch.equal(v, plain[k])]
+            grad_dtypes = {p.grad.dtype for p in state.model.parameters() if p.grad is not None}
+            rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=2)
+            torch.backends.cudnn.deterministic = deterministic
+            with_group = img_s(trainer, state, gen)
+            world_bn = _world_bn_on_card(state.model, batch["image"])
+            # the whole step with every BN on the world branch: in a group
+            # of one its all-reduces are the identity and its statistics
+            # are this rank's, so only its speed differs
+            world = resnet_model._world
+            resnet_model._world = lambda: 2
+            try:
+                rows_world = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=2)
+                world_bn["step"] = {
+                    "img_s_per_card_world_bn": img_s(trainer, state, gen),
+                    "img_s_per_card_native_bn": with_group,
+                    "device_ms_world_bn": sum(us for us, _, _ in rows_world) / 2e3,
+                    "device_ms_native_bn": sum(us for us, _, _ in rows) / 2e3,
+                    "launches_world_bn": sum(n for _, _, n in rows_world) / 2,
+                    "launches_native_bn": sum(n for _, _, n in rows) / 2}
+            finally:
+                resnet_model._world = world
+        finally:
+            dist.destroy_process_group()
+            del store
+        without_group = img_s(trainer, state, gen)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    nccl = {key: count / 2 for _, key, count in rows if re.search(r"nccl|onerank", key, re.I)}
+    # the flat gradient buffer of each dtype, the loss riding the f32 one
+    want_nccl = len(grad_dtypes | {torch.float32})
+    out = {"nvidia_smi": smi_name_and_power_limit(), "model": "resnet50", "batch": 128,
+           "losses_group": losses, "losses_no_group": plain_losses,
+           "state_tensors_differing": differing, "nccl_kernels_per_step": nccl,
+           "nccl_calls_per_step": sum(nccl.values()), "nccl_calls_want": want_nccl,
+           "img_s_per_card_group_of_one": with_group, "img_s_per_card_no_group": without_group,
+           "img_s_per_card_fixed_batch": plain_img_s, "world_bn": world_bn,
+           "seconds": time.perf_counter() - t_part}
+    log("resnet", group_of_one=out)
+    del trainer, state
+    torch.cuda.empty_cache()
+    if losses != plain_losses or differing:
+        raise AssertionError(f"the NCCL group of one changed the ResNet step: losses {losses} "
+                             f"vs {plain_losses}, state differing: {differing[:5]}")
+    if sum(nccl.values()) != want_nccl:
+        raise AssertionError(f"NCCL kernels a step {nccl} != the gradient reduction's "
+                             f"{want_nccl}: BN issued a collective at world 1")
+    return out
+
+
 def _resnet_card_vs_cpu() -> dict:
     """One ResNet18 (width 16, 32², batch 8, f32) training step on the card
     and on the CPU from the same weights: logits, loss, the updated BN
@@ -1361,14 +1570,15 @@ def _resnet_native(root) -> dict:
 
 
 def phase_resnet(ctx) -> None:
-    """ResNet50 training on the card: step timing, the uint8 path, ``--remat``,
-    the card against the CPU, a checkpoint round trip, and the native record
-    library."""
+    """ResNet50 training on the card: step timing, the uint8 path, BN in an
+    NCCL group of one, ``--remat``, the card against the CPU, a checkpoint
+    round trip, and the native record library."""
     import shutil
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_resnet"
     shutil.rmtree(root, ignore_errors=True)
     try:
         ctx["resnet"] = _resnet_steps()
+        _resnet_group_of_one(ctx["resnet"]["img_s_per_card"])
         _resnet_remat(ctx["resnet"])
         _resnet_card_vs_cpu()
         _resnet_resume(root / "ckpt")
@@ -1484,37 +1694,87 @@ def phase_resume(ctx) -> None:
 DATA_FILES, DATA_PER_FILE, DATA_STOP_STEP = 2, 330, 8
 DATA_RECORDS = DATA_FILES * DATA_PER_FILE
 DATA_JOB = "chip-smoke-data"
+DATA_FAILOVER_STEP = 2    # epoch 0's steps trained before the data leader stops (of 6)
 
 
 class _StopAfterSave(Exception):
     pass
 
 
+class _DataLeaders:
+    """The data service as a standalone deployment hosts it: elected
+    ``DataLeaderHost`` candidates, each a journaled ``DataService`` on the
+    port's ``RpcServer``, contending for the job's seat on the phase's store.
+    ``failover()`` starts a standby, stops the seated leader and returns the
+    time its server was down and its seat free, the time the standby took
+    the seat, and the standby's endpoint."""
+
+    def __init__(self, store):
+        self.store = store
+        self.hosts, self.threads = [], []
+
+    def start(self):
+        import threading
+
+        from edl_tpu_torch.data.leader import DataLeaderHost
+
+        host = DataLeaderHost(self.store, DATA_JOB, host="127.0.0.1")
+        self.hosts.append(host)
+        self.threads.append(threading.Thread(target=host.run, daemon=True,
+                                             name=f"data-leader-{len(self.hosts)}"))
+        self.threads[-1].start()
+        return host
+
+    def wait_seated(self, host, timeout=30.0):
+        deadline = time.monotonic() + timeout
+        while host.service is None:
+            if time.monotonic() > deadline:
+                raise AssertionError("the data leader did not take its seat")
+            time.sleep(0.01)
+
+    def failover(self) -> tuple[float, float, str]:
+        seated = [i for i, h in enumerate(self.hosts) if h.service is not None]
+        standby = self.start()
+        for i in seated:
+            self.hosts[i].stop()
+            self.threads[i].join(timeout=30)
+        gone = time.perf_counter()
+        self.wait_seated(standby)
+        return gone, time.perf_counter(), standby.endpoint
+
+    def stop(self):
+        for h in self.hosts:
+            h.stop()
+        for t in self.threads:
+            t.join(timeout=30)
+
+
 def _data_stand_in():
-    """What the launcher gives a trainer: a store (``MemoryKV``), the port's
-    ``DataService`` on the port's ``RpcServer``, and a one-pod cluster
-    record naming that server as the leader; ``new_stage()`` writes it again
-    with a new stage."""
+    """What a trainer is given: a store (``MemoryKV``), the job's elected data
+    leader (``_DataLeaders``: a trainer given ``--data_leader`` resolves it
+    with ``resolve_data_leader``), and a one-pod cluster record naming the
+    seated leader's endpoint as the pod's, which a trainer without the flag
+    resolves as the launcher's leader; ``new_stage(endpoint)`` writes the
+    record again with a new stage and that endpoint."""
     from edl_tpu_torch.cluster import paths
     from edl_tpu_torch.cluster.cluster import Cluster
     from edl_tpu_torch.cluster.pod import Pod
     from edl_tpu_torch.coord.memory import MemoryKV
-    from edl_tpu_torch.data.data_server import DataService
-    from edl_tpu_torch.rpc.server import RpcServer
     from edl_tpu_torch.utils import constants
 
     store = MemoryKV()
-    server = RpcServer("127.0.0.1", 0)
-    server.register_instance(DataService())
-    server.start()
+    leaders = _DataLeaders(store)
+    first = leaders.start()
+    leaders.wait_seated(first)
 
-    def new_stage():
-        cluster = Cluster.from_pods([Pod("pod-0", addr="127.0.0.1", port=server.port)])
+    def new_stage(endpoint: str):
+        addr, port = endpoint.rsplit(":", 1)
+        cluster = Cluster.from_pods([Pod("pod-0", addr=addr, port=int(port))])
         store.put(paths.key(DATA_JOB, constants.ETCD_CLUSTER, "cluster"),
                   cluster.to_json().encode())
 
-    new_stage()
-    return store, server, new_stage
+    new_stage(first.endpoint)
+    return store, leaders, new_stage
 
 
 def _check_staged_copy() -> dict:
@@ -1550,11 +1810,17 @@ def _check_staged_copy() -> dict:
 def phase_data(ctx) -> None:
     """ResNet50 fed by the data service: ``train_resnet``'s own training
     function with ``--data_service`` at full width (bs 128, 224², bf16), one
-    pod, the port's DataService as the leader; 2 epochs of 660 records, a
-    stop right after the save at epoch 1's second step, and a restore into a
-    fresh trainer in a new cluster stage.  Checks (a) exactly once and the
-    ragged step's mask, (b) the BN buffers across the masked step, (c) the
-    resumed epoch trains what the checkpoint lacks, (d) the staged copy."""
+    pod, the port's journaled DataService hosted by an elected
+    ``DataLeaderHost``; 2 epochs of 660 records.  The first run resolves the
+    service with ``--data_leader``; its seated leader is stopped after epoch
+    0's second step and a standby takes the seat, and the run stops right
+    after the save at epoch 1's second step.  The restore into a fresh
+    trainer runs without the flag in a new cluster stage whose record names
+    the successor as the pod's endpoint, so it resolves the service as a
+    trainer under the launcher does.  Checks (a) exactly once and the ragged
+    step's mask, (b) the BN buffers across the masked step, (c) the resumed
+    epoch trains what the checkpoint lacks, (d) the staged copy, (e) the
+    failover: the successor seated and serving, the trainer stepping on."""
     import torch
 
     from edl_tpu_torch.utils.device import smi_name_and_power_limit
@@ -1564,16 +1830,20 @@ def phase_data(ctx) -> None:
 
 
 def _data_run(ctx, device, card: str) -> None:
-    """The two runs of ``phase_data`` on ``device`` and checks (a) to (c)."""
+    """The two runs of ``phase_data`` on ``device``, the leader failover in
+    the first, and checks (a) to (c) and (e)."""
     import shutil
+    import threading
 
     import torch
 
     from edl_tpu_torch import train_resnet
     from edl_tpu_torch.cluster.env import TrainerEnv
     from edl_tpu_torch.cluster.state import DataCheckpoint
+    from edl_tpu_torch.data.data_server import DataService
     from edl_tpu_torch.ops import attention as A
     from edl_tpu_torch.train.checkpoint import CheckpointManager
+    from edl_tpu_torch.utils import constants
 
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
     shutil.rmtree(root, ignore_errors=True)
@@ -1588,10 +1858,18 @@ def _data_run(ctx, device, card: str) -> None:
     # it), each step's mask sum and BN buffers before and after its forward,
     # and each save's seconds, with a stop right after the mid-epoch save at
     # DATA_STOP_STEP in the first run
-    trained, steps, saves = [], [], []
+    trained, steps, saves, metas_served = [], [], [], []
     stop = [DATA_STOP_STEP]
-    mark, make_loss_fn, save = (DataCheckpoint.mark_processed, train_resnet.make_loss_fn,
-                                CheckpointManager.save)
+    failover: dict = {}
+    mark, make_loss_fn, save, get_batch_meta = (
+        DataCheckpoint.mark_processed, train_resnet.make_loss_fn, CheckpointManager.save,
+        DataService.get_batch_meta)
+
+    def serving(self, *a, **kw):
+        out = get_batch_meta(self, *a, **kw)
+        if out.get("metas"):
+            metas_served.append((id(self), time.perf_counter()))
+        return out
 
     def marking(self, file_idx, begin, end):
         trained.append((int(self.reader_name.split("@e")[1].split("@")[0]), file_idx, begin, end))
@@ -1602,6 +1880,14 @@ def _data_run(ctx, device, card: str) -> None:
 
         def loss_fn(model, extra, batch, gen):
             t = time.perf_counter()
+            if len(steps) == DATA_FAILOVER_STEP and not failover:
+                # the seated data leader stops a third of the way into epoch
+                # 0; a standby takes the seat while the trainer steps on
+                failover["thread"] = threading.Thread(
+                    target=lambda: failover.update(zip(("gone", "seated", "successor"),
+                                                       leaders.failover())),
+                    name="data-failover")
+                failover["thread"].start()
             before = torch.cat([b.flatten() for b in model.buffers()])
             out = inner(model, extra, batch, gen)
             steps.append((batch["mask"].sum(), before,
@@ -1617,30 +1903,41 @@ def _data_run(ctx, device, card: str) -> None:
             raise _StopAfterSave(step)
         return saved
 
-    store, server, new_stage = _data_stand_in()
+    store, leaders, new_stage = _data_stand_in()
     DataCheckpoint.mark_processed = marking
     train_resnet.make_loss_fn = recording_loss_fn
     CheckpointManager.save = timed_save
+    DataService.get_batch_meta = serving
     A.reset_launch_counts()
     try:
         t0 = time.perf_counter()
         try:
-            train_resnet.train(train_resnet.parse_args(argv), device, tenv, store)
+            train_resnet.train(train_resnet.parse_args(argv + ["--data_leader"]), device, tenv,
+                               store)
             raise AssertionError("the first run did not stop after its mid-epoch save")
         except _StopAfterSave:
             pass
         first_s = time.perf_counter() - t0
         n_before = len(trained)
         stop.clear()
-        new_stage()
+        if "thread" in failover:
+            failover["thread"].join(timeout=60)
+        if not failover.get("successor"):
+            raise AssertionError(f"(e) no standby took the data leader's seat: {failover}")
+        new_stage(failover["successor"])
+        successor = id(leaders.hosts[-1].service)
         t0 = time.perf_counter()
         state, meta = train_resnet.train(train_resnet.parse_args(argv), device, tenv, store)
         second_s = time.perf_counter() - t0
+        second_served = {sid for sid, t in metas_served if t > t0}
     finally:
         DataCheckpoint.mark_processed = mark
         train_resnet.make_loss_fn = make_loss_fn
         CheckpointManager.save = save
-        server.stop()
+        DataService.get_batch_meta = get_batch_meta
+        if "thread" in failover:
+            failover["thread"].join(timeout=60)
+        leaders.stop()
         store.close()
         shutil.rmtree(root, ignore_errors=True)
     launches = A.launch_counts()
@@ -1681,6 +1978,23 @@ def _data_run(ctx, device, card: str) -> None:
     h2d = sum(r.get("h2d_wait_s", 0.0) for r in bench.values())
     input_wait = sum(r.get("input_wait_s", 0.0) for r in bench.values())
     fixed = ctx.get("resnet", {}).get("img_s_per_card")
+    # (e) the data leader's failover in epoch 0: leader gone (its server
+    # down, its seat free) to the trainer's next step, and to the first batch
+    # meta the successor served
+    gone = failover.get("gone")
+    after = [t for t in starts if gone is not None and t > gone]
+    served_after = [t for _, t in metas_served if gone is not None and t > gone]
+    out_failover = {
+        "at_step": DATA_FAILOVER_STEP, "successor": failover.get("successor"),
+        "leader_gone_to_seated_s": (failover["seated"] - gone) if gone else None,
+        "leader_gone_to_next_step_s": (after[0] - gone) if after else None,
+        "leader_gone_to_successor_first_meta_s": (served_after[0] - gone) if served_after
+        else None,
+        "rebuild_grace_s": constants.data_rebuild_grace(),
+        "resumed_run_resolves": "cluster record", "resumed_run_served_by_successor":
+        second_served == {successor},
+        "host_ms_around_failover": step_ms[0][max(0, DATA_FAILOVER_STEP - 2):
+                                              DATA_FAILOVER_STEP + 3]}
     out = {"nvidia_smi": card, "model": "resnet50", "batch": 128,
            "image_size": 224, "dtype": "bfloat16", "records_per_epoch": DATA_RECORDS,
            "img_s_per_card_data_service_epoch0": DATA_RECORDS / seg[0],
@@ -1696,7 +2010,7 @@ def _data_run(ctx, device, card: str) -> None:
            "run_seconds": [first_s, second_s], "steps": n_steps, "masks": masks,
            "bn_kept_per_step": bn_kept, "losses": losses, "exactly_once": once,
            "stopped_records": len(stopped), "resumed_records": len(resumed),
-           "attention_launches": launches, "bench": bench}
+           "attention_launches": launches, "leader_failover": out_failover, "bench": bench}
     log("data", **out)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses: {losses}")
@@ -1709,6 +2023,11 @@ def _data_run(ctx, device, card: str) -> None:
                              f"resumed, {len(every - stopped - resumed)} missed")
     if (meta.next_epoch, n_steps) != (2, 12):
         raise AssertionError(f"the run did not end at epoch 2 after 12 steps: {out}")
+    if gone is None or not failover.get("successor") or not after or not served_after:
+        raise AssertionError(f"(e) the data leader's failover: {out_failover}")
+    if second_served != {successor}:
+        raise AssertionError("(e) the resumed run, resolving the service through the cluster "
+                             "record, was not served by the seated successor alone")
     if any(launches.values()):
         raise AssertionError(f"the data path launched attention kernels: {launches}")
     if fixed is None:
@@ -2401,8 +2720,32 @@ def _fleet_replicas(model, system) -> dict:
                 held.append((prompts[s], outs[s]))
                 prompts[s] = np.concatenate([prompts[s], outs[s], rng.integers(
                     0, 32000, int(rng.integers(32, 129))).astype(np.int32)])
-        pinned = {rid: set(srv._engine.kv_pinned_sessions() or ()) for rid, srv in
-                  servers.items()}
+        def pins():
+            out = {}
+            for rid, srv in servers.items():
+                while (sessions_now := srv._engine.kv_pinned_sessions()) is None:
+                    time.sleep(0.01)    # an engine-thread pin raced the read
+                out[rid] = set(sessions_now)
+            return out
+
+        # an engine pins a session before it answers, so every answered
+        # turn is pinned by now; a request still running (a hedge's losing
+        # leg) pins its session where it finishes: read the pins once both
+        # engines are idle, and log what came in while they were not
+        t_read = time.perf_counter()
+        early = pins()
+        after_turn2 = {"hedges": gw.stats()["counts"].get("hedges", 0),
+                       "busy": {rid: [st["active_slots"], st["queue_depth"]] for rid, st in
+                                ((r, srv._engine.stats()) for r, srv in servers.items())}}
+        deadline = time.monotonic() + SUBPROCESS_TIMEOUT
+        while any(st["active_slots"] or st["queue_depth"]
+                  for st in (srv._engine.stats() for srv in servers.values())):
+            if time.monotonic() > deadline:
+                raise AssertionError("the replicas did not go idle after turn 2")
+            time.sleep(0.05)
+        pinned = pins()
+        after_turn2.update(idle_after_s=time.perf_counter() - t_read,
+                           late_pins={rid: sorted(pinned[rid] - early[rid]) for rid in servers})
         victim = max(pinned, key=lambda r: (len(pinned[r]), r))
         survivor = next(r for r in servers if r != victim)
         t1 = time.perf_counter()
@@ -2447,12 +2790,14 @@ def _fleet_replicas(model, system) -> dict:
     if lost or counts.get("requests_error", 0) or any(len(o) != FLEET_NEW for _, o in every):
         raise AssertionError(f"requests lost or short: {lost} missing, counts {counts}")
     if mig_in["sessions_in"] != len(moved) or mig_out["sessions_out"] != len(moved):
-        raise AssertionError(f"migration counts {mig_out} / {mig_in} for {len(moved)} sessions")
+        raise AssertionError(f"migration counts {mig_out} / {mig_in} for {len(moved)} sessions "
+                             f"(after turn 2: {after_turn2})")
     return {"pairs": every, "seconds": seconds, "requests": len(every),
             "latency_p50_s": float(np.percentile(lat, 50)),
             "latency_p99_s": float(np.percentile(lat, 99)),
             "hedges": counts.get("hedges", 0), "failovers": counts.get("retries", 0),
             "drained": victim, "migrated_sessions": len(moved), "migration_seconds": migration_s,
+            "pins_after_turn2": after_turn2,
             "migration": {"out": mig_out, "in": mig_in}, "turn3_skipped_tokens": skips,
             "engine_stats": engine_stats}
 
@@ -2892,7 +3237,6 @@ def phase_distill(ctx) -> None:
         for s in servers[1:] if stoppers else servers:
             s.stop()
         disc.stop()
-        store.close()
     launches = A.launch_counts()
     torch.cuda.empty_cache()
     nop = run_probe(nop=True, batches=12, batch_size=128, sample_shape=(224, 224, 3),
@@ -2961,7 +3305,7 @@ def phase_distill(ctx) -> None:
         "teacher_inference_mode": all(r[6] for r in records),
         "phase_s": time.perf_counter() - t_phase}
     log("distill", **out)
-    del tmodel, own, batches
+    del own
     torch.cuda.empty_cache()
     if len(got) != n or fed[0] != n or not out["order_ok"]:
         raise AssertionError(f"order: {n} trained, {len(got)} read, {fed[0]} fed, "
@@ -2984,6 +3328,171 @@ def phase_distill(ctx) -> None:
                              f"{out['student_param_device']}, {out['teacher_predict_devices']}")
     if any(launches.values()):
         raise AssertionError(f"the distillation path launched attention kernels: {launches}")
+    try:
+        _distill_fleet(args, store, tmodel, batches, ref, device, img_s)
+    finally:
+        store.close()
+        del tmodel, batches
+        torch.cuda.empty_cache()
+
+
+DISTILL_FLEET_JOB = "chip-smoke-teachers"
+DISTILL_FLEET_STUDENT = "chip-smoke-student"
+DISTILL_FLEET_TIMED, DISTILL_FLEET_STOP = 10, 4   # timed steps; the one after which a replica stops
+
+
+def _distill_fleet(args, store, tmodel, batches, ref, device, discovery_img_s) -> dict:
+    """(d) The teacher fleet on the phase's store and teacher: two
+    ``TeacherReplica``s of one job behind a ``DistillFleet``; a third server's
+    balance advert and a ``DiscoveryServer`` on one shared ``CoordSession``
+    (one lease for both); one routed, hedged predict of 16 rows; then the
+    student through ``make_distill_source`` with the fleet's
+    ``endpoints_fn()`` and a ``StudentFeed`` (2 warm-up and 10 timed steps,
+    replica 0 stopping after timed step 4).  Checks: no batch lost,
+    reordered or mispaired (the pairing audit and its control), the
+    survivor serves after the stop, the backlog record is read while the
+    student runs and is gone after, the routed predict's logits pair."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch import train_image_distill as tid
+    from edl_tpu_torch.cluster import scale
+    from edl_tpu_torch.coord.session import CoordSession
+    from edl_tpu_torch.distill import teacher as teacher_mod
+    from edl_tpu_torch.distill.backlog import StudentFeed
+    from edl_tpu_torch.distill.balance import BALANCE_SERVICE, server_key
+    from edl_tpu_torch.distill.discovery import DiscoveryServer
+    from edl_tpu_torch.distill.fleet import DistillFleet, TeacherReplica
+    from edl_tpu_torch.distill.predict_pool import PredictPool
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+
+    t_part = time.perf_counter()
+    service = args.service + "-fleet"
+
+    def new_server():
+        return teacher_mod.TeacherServer(
+            teacher_mod.module_teacher(tmodel, fetch_name="logits", device=device),
+            host="127.0.0.1", device=device)
+
+    # one shared lease: a teacher's balance advert and a discovery server
+    session = CoordSession(store, name="teacher-and-discovery")
+    third = new_server().register(store, service + "-shared", session=session)
+    disc = DiscoveryServer(store, host="127.0.0.1", session=session)
+    leases = {store.get(server_key(service + "-shared", third.endpoint)).lease_id,
+              store.get(server_key(BALANCE_SERVICE, disc.endpoint)).lease_id}
+    one_lease = leases == {session.lease_id}
+    disc.stop()
+    third.stop()
+    session.close()
+
+    replicas = [TeacherReplica(store, DISTILL_FLEET_JOB, new_server(), service,
+                               replica_id=f"teacher-{i}") for i in range(2)]
+    probe = fleet = None
+    stoppers, feeds, got, starts, backlog = [], [], [], [], []
+    fed, requeues = [0], [0]
+    done = threading.Event()
+    requeue = PredictPool._requeue
+
+    def counting_requeue(self, task):
+        requeues[0] += 1
+        return requeue(self, task)
+
+    def source(epoch):
+        while not done.is_set() and fed[0] < 200:
+            fed[0] += 1
+            yield batches[(fed[0] - 1) % DISTILL_BATCHES]
+
+    def wrap(reader):
+        feeds.append(StudentFeed(store, DISTILL_FLEET_JOB, reader,
+                                 student_id=DISTILL_FLEET_STUDENT, period=0.25))
+        return feeds[-1]
+
+    PredictPool._requeue = counting_requeue
+    try:
+        probe = DistillFleet(store, DISTILL_FLEET_JOB)
+        fleet = DistillFleet(store, DISTILL_FLEET_JOB)
+        if not (probe.wait_for(2, 10.0) and fleet.wait_for(2, 10.0)):
+            raise AssertionError(f"the fleet did not see both replicas: {fleet.teachers()}")
+        t0 = time.perf_counter()
+        routed = probe.predict({"image": batches[0]["image"][:16]}, ["logits"],
+                               hedge_after_s=1.0)["logits"]
+        routed_ms = (time.perf_counter() - t0) * 1e3
+        build = tid.make_distill_source(args, [], source=source, servers_fn=fleet.endpoints_fn(),
+                                        wrap_reader=wrap)
+
+        def distill_source(epoch):
+            for i, b in enumerate(build(epoch)):
+                starts.append(time.perf_counter())
+                k = i % DISTILL_BATCHES
+                got.append({"order": bool(np.array_equal(b["label"], batches[k]["label"])),
+                            "pair": _rel(b["teacher_logits"], ref[k]),
+                            "control": _rel(b["teacher_logits"], ref[(k + 1) % DISTILL_BATCHES])})
+                rec = scale.load_backlogs(store, DISTILL_FLEET_JOB).get(DISTILL_FLEET_STUDENT)
+                backlog.append((feeds[0].backlog_rows(), rec and rec["queued_rows"]))
+                timed = i - DISTILL_WARMUP + 1
+                if timed == DISTILL_FLEET_STOP:
+                    stoppers.append(threading.Thread(target=replicas[0].stop, name="stop-0"))
+                    stoppers[-1].start()
+                if timed >= DISTILL_FLEET_TIMED:
+                    done.set()
+                yield b
+
+        stats_before = [r.server.stats()["rows"] for r in replicas]
+        sstate, _, _ = tid.train_student(args, [], [], device, distill_source=distill_source)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        for s in stoppers:
+            s.join(timeout=30)
+        record_after = scale.load_backlogs(store, DISTILL_FLEET_JOB)
+        stats = [r.server.stats() for r in replicas]
+        del sstate
+        torch.cuda.empty_cache()
+    finally:
+        PredictPool._requeue = requeue
+        done.set()
+        for r in replicas[1:] if stoppers else replicas:
+            r.stop()
+        for f in (probe, fleet):
+            if f is not None:
+                f.stop()
+    n = len(got)
+    intervals = [(b - a) * 1e3 for a, b in zip(starts[:-1], starts[1:])]
+    stop_i = DISTILL_WARMUP + DISTILL_FLEET_STOP - 1
+    pairs, controls = [g["pair"] for g in got], [g["control"] for g in got]
+    out = {"nvidia_smi": smi_name_and_power_limit(), "replicas": 2, "steps": n,
+           "batches_fed": fed[0],
+           "student_img_s_through_fleet": (n - DISTILL_WARMUP) * 128
+           / (t_end - starts[DISTILL_WARMUP]),
+           "student_img_s_through_discovery": discovery_img_s,
+           "replica_stop_stall_ms": max(intervals[stop_i:stop_i + 6]),
+           "median_step_interval_ms": float(np.median(intervals)),
+           "step_intervals_ms": intervals, "requeues": requeues[0],
+           "fleet_counts": dict(fleet.counts), "routed_predict_counts": dict(probe.counts),
+           "routed_predict_ms": routed_ms, "routed_predict_pair": _rel(routed, ref[0][:16]),
+           "rows_by_replica": [s["rows"] - b for s, b in zip(stats, stats_before)],
+           "backlog_rows_max": max(b for b, _ in backlog),
+           "backlog_record_rows": [r for _, r in backlog],
+           "backlog_record_seen": any(r is not None for _, r in backlog),
+           "backlog_record_after_stop": record_after, "one_lease_teacher_and_discovery": one_lease,
+           "pairing_rel_max": max(pairs), "control_rel_min": min(controls),
+           "order_ok": all(g["order"] for g in got), "part_s": time.perf_counter() - t_part}
+    log("distill", fleet=out)
+    if n != fed[0] or n < DISTILL_WARMUP + DISTILL_FLEET_TIMED or not out["order_ok"]:
+        raise AssertionError(f"(d) {n} trained, {fed[0]} fed, in order {out['order_ok']}")
+    if max(pairs) > DISTILL_PAIR_TOL or min(controls) < 10 * DISTILL_PAIR_TOL \
+            or out["routed_predict_pair"] > DISTILL_PAIR_TOL:
+        raise AssertionError(f"(d) pairing {max(pairs)}, control {min(controls)}, routed "
+                             f"{out['routed_predict_pair']} (limit {DISTILL_PAIR_TOL})")
+    if not one_lease:
+        raise AssertionError(f"(d) the shared session's adverts ride leases {leases}")
+    if not out["backlog_record_seen"] or DISTILL_FLEET_STUDENT in record_after:
+        raise AssertionError(f"(d) the backlog record: seen {out['backlog_record_seen']}, "
+                             f"after the stop {record_after}")
+    if min(out["rows_by_replica"]) <= 0 or stats[1]["rows"] <= stats_before[1]:
+        raise AssertionError(f"(d) rows by replica {out['rows_by_replica']}")
+    return out
 
 
 # -- main ------------------------------------------------------------------------

@@ -50,6 +50,9 @@ class CoordClient(KVStore):
     def delete(self, key, _timeout=None):
         return self._call("kv_del", _timeout, key=key)["deleted"]
 
+    def delete_prefix(self, prefix, _timeout=None):
+        return self._call("kv_del_range", _timeout, prefix=prefix)["n"]
+
     # -- leases ------------------------------------------------------------
     def lease_grant(self, ttl, _timeout=None):
         return self._call("lease_grant", _timeout, ttl=ttl)["lease_id"]

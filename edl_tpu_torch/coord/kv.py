@@ -55,6 +55,10 @@ class KVStore:
     def delete(self, key: str) -> bool:
         raise NotImplementedError
 
+    def delete_prefix(self, prefix: str) -> int:
+        """Delete every key under ``prefix``; returns how many went."""
+        raise NotImplementedError
+
     def put_if_equals(self, guard_key: str, guard_value: bytes, key: str, value: bytes,
                       lease_id: int = 0) -> bool:
         """Write ``key`` iff ``guard_key`` currently holds ``guard_value``."""

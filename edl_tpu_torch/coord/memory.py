@@ -120,6 +120,14 @@ class MemoryKV(KVStore):
             self._expire_locked(time.monotonic())
             return self._delete_locked(key)
 
+    def delete_prefix(self, prefix: str) -> int:
+        with self._lock:
+            self._expire_locked(time.monotonic())
+            keys = [k for k in self._data if k.startswith(prefix)]
+            for k in keys:
+                self._delete_locked(k)
+            return len(keys)
+
     # -- leases ------------------------------------------------------------
     def lease_grant(self, ttl: float) -> int:
         with self._lock:

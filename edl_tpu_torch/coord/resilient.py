@@ -159,6 +159,9 @@ class ResilientCoordClient(KVStore):
     def delete(self, key):
         return self._invoke("delete", key)
 
+    def delete_prefix(self, prefix):
+        return self._invoke("delete_prefix", prefix)
+
     def lease_grant(self, ttl):
         return self._invoke("lease_grant", ttl)
 

@@ -2,4 +2,5 @@
 the elastic data service (``data_server``, ``distribute_reader``,
 ``elastic_input`` and what they use), which feeds a job's trainers records
 with dynamic file handout, a masked ragged epoch end and exactly-once
-mid-epoch resume."""
+mid-epoch resume; its coordination-store journal (``journal``) and the
+standalone elected leader that hosts a journaled service (``leader``)."""

@@ -20,8 +20,8 @@ The leader runs a **span-aware work queue**:
   a stop-resume restart (same or other world size) resumes mid-epoch
   exactly once.
 
-With a ``journal`` (the JAX package's ``DataJournal`` interface: not
-ported yet, ROADMAP.md Queue 1 item 5) every generation mutation is
+With a ``journal`` (``data/journal.py``, whose records are the JAX
+package's, so either package's successor rebuilds) every generation mutation is
 written ahead into the coordination store and a successor leader rebuilds
 generations lazily (``_lookup``), parks the journaled unacked metas and
 holds new grants for a rebuild grace, so reattaching readers reclaim their
@@ -166,7 +166,7 @@ class _ReaderGen:
 class DataService:
     """Leader-hosted; registered on the pod's launcher RPC server.
 
-    ``journal`` (a :class:`~edl_tpu.data.journal.DataJournal`) makes
+    ``journal`` (a :class:`~edl_tpu_torch.data.journal.DataJournal`) makes
     generation state survive this process; ``rebuild_grace`` is the
     post-rebuild window during which parked metas and new grants are
     held for reattaching readers."""

@@ -193,11 +193,16 @@ class ElasticInput:
     empty list: a process whose buffer ran dry pads a whole batch); a short
     batch is zero-padded and masked.  The reader's prefetch tuning comes
     from the ``EDL_TPU_DATA_PREFETCH_*`` knobs.  The pod's batch cache
-    (``PodDataServer``) serves from construction until :meth:`stop`."""
+    (``PodDataServer``) serves from construction until :meth:`stop`.
+    ``leader``: a zero-argument resolver of the data service's endpoint
+    (``lambda: resolve_data_leader(store, job_id)`` for a standalone
+    elected leader, ``data/leader.py``); by default the current cluster
+    record's leader."""
 
     def __init__(self, store, job_id: str, pod_id: str, reader_base: str,
                  files: list[str], batch_size: int, splitter, assemble: Assemble,
-                 distributed: bool = False, cache_cap: int = 256):
+                 distributed: bool = False, cache_cap: int = 256,
+                 leader: Callable[[], str] | None = None):
         from edl_tpu_torch.data.data_server import PodDataServer
 
         self._store = store
@@ -209,6 +214,7 @@ class ElasticInput:
         self._splitter = splitter
         self._assemble = assemble
         self._distributed = distributed
+        self._leader = leader
         self.server = PodDataServer(pod_id, cache_cap=cache_cap)
 
     def _leader_resolver(self):
@@ -216,6 +222,9 @@ class ElasticInput:
         current cluster record on every failover, so a successor hosting the
         service is found without restarting the epoch."""
         from edl_tpu_torch.cluster.cluster import Cluster
+
+        if self._leader is not None:
+            return self._leader
 
         def resolve() -> str:
             cluster = Cluster.load_from_store(self._store, self._job_id)

@@ -15,14 +15,20 @@ own batch fields:
   behind a length-prefixed JSON wire;
 - :mod:`~edl_tpu_torch.distill.teacher`: the teacher server (padding,
   bucketing and coalescing behind the EDL1 wire) with ``module_teacher``
-  (an ``nn.Module`` forward) and ``lm_teacher`` (a serving engine).
-
-Not ported: ``DistillFleet``, ``TeacherReplica`` and ``StudentFeed``, which
-ride the gateway's fleet view and the shared ``CoordSession`` (both in the
-port now) and ``cluster/scale`` (ROADMAP.md Queue 1 item 6.4).
+  (an ``nn.Module`` forward) and ``lm_teacher`` (a serving engine);
+- :mod:`~edl_tpu_torch.distill.fleet`: teacher fleets as serving jobs,
+  ``TeacherReplica`` (a server advertised in the serving and balance
+  tables on one lease) and ``DistillFleet`` (the routed, least-loaded view
+  a reader takes its teachers from);
+- :mod:`~edl_tpu_torch.distill.backlog`: ``StudentFeed``, a reader that
+  publishes its backlog record (``cluster/scale.py``) for the controller's
+  autoscaler.
 """
 
+from edl_tpu_torch.distill.backlog import StudentFeed
+from edl_tpu_torch.distill.fleet import DistillFleet, TeacherReplica
 from edl_tpu_torch.distill.predict_client import NopPredictClient, TeacherClient
 from edl_tpu_torch.distill.reader import DistillReader
 
-__all__ = ["DistillReader", "TeacherClient", "NopPredictClient"]
+__all__ = ["DistillReader", "TeacherClient", "NopPredictClient", "DistillFleet",
+           "TeacherReplica", "StudentFeed"]

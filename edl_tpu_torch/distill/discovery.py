@@ -8,11 +8,8 @@ Server = a BalanceTable behind the EDL1 RPC wire, self-registered in
 the coordination store under ``__balance__`` so peers form the redirect
 ring.  Client = register, then a 2 s heartbeat thread maintaining a
 versioned teacher list; it handles OK / NO_READY / REDIRECT /
-UNREGISTERED (discovery_client.py:70-142).
-
-Not ported: a discovery server whose ring advert rides a caller's shared
-``CoordSession`` (``session=`` raises; ROADMAP.md Queue 1 item 6.4, with
-the distillation fleet).
+UNREGISTERED (discovery_client.py:70-142).  The server's ring advert
+rides a caller's shared ``CoordSession`` when given one.
 """
 
 from __future__ import annotations
@@ -22,7 +19,7 @@ import os
 import threading
 import uuid
 
-from edl_tpu_torch.coord.register import leased_register
+from edl_tpu_torch.coord.session import CoordSession, leased_register
 from edl_tpu_torch.distill.balance import (
     BALANCE_SERVICE, OK, REDIRECT, UNREGISTERED, BalanceTable, server_key,
 )
@@ -41,11 +38,7 @@ class DiscoveryServer:
 
     def __init__(self, store, host: str | None = None, port: int = 0,
                  ttl: float | None = None, client_ttl: float | None = None,
-                 session=None):
-        if session is not None:
-            raise NotImplementedError("a DiscoveryServer on a shared CoordSession is not "
-                                      "ported yet (ROADMAP.md Queue 1 item 6.4, with the "
-                                      "distillation fleet)")
+                 session: CoordSession | None = None):
         host = host or local_ip(getattr(store, "endpoint", None))
         self._rpc = RpcServer(host="0.0.0.0", port=port)
         self.endpoint = f"{host}:{self._rpc.port}"
@@ -55,9 +48,12 @@ class DiscoveryServer:
         self._rpc.register("heartbeat", self._table.heartbeat)
         self._rpc.register("unregister", self._table.unregister_client)
         self._rpc.start()
+        # the ring self-advert rides the caller's shared session when given
+        # (a teacher and a discovery server in one process share one
+        # keep-alive), else a lease of its own
         self._register = leased_register(
             store, server_key(BALANCE_SERVICE, self.endpoint), self.endpoint.encode(),
-            ttl=ttl or constants.etcd_ttl())
+            ttl=ttl or constants.etcd_ttl(), session=session)
         logger.info("discovery server on %s", self.endpoint)
 
     def stop(self) -> None:

@@ -7,9 +7,10 @@ batch bucket, pads it to the bucket, calls ``predict_fn`` and fans the
 rows back out, so concurrent students share forward passes.  Requests
 whose feeds differ in keys, per-row shapes or dtypes are served in
 separate passes.  A server registers under its service in the
-coordination store on a TTL lease, its advert value the live ``stats()``
-payload, refreshed every ``advert_period`` seconds.  A server built
-without a ``host`` advertises the interface that routes to the store.
+coordination store on a TTL lease (its own, or a caller's shared
+``CoordSession``), its advert value the live ``stats()`` payload,
+refreshed every ``advert_period`` seconds.  A server built without a
+``host`` advertises the interface that routes to the store.
 
 The inference thread enters ``torch.inference_mode`` and, given a CUDA
 ``device``, makes it the thread's current device: both are per thread,
@@ -17,9 +18,8 @@ and a fresh thread has neither.
 
 Two ``predict_fn`` makers: :func:`module_teacher` (an ``nn.Module``
 forward, the counterpart of the JAX ``jit_teacher``) and
-:func:`lm_teacher` (a serving engine).  Not ported: ``register`` on a
-caller's shared ``CoordSession`` (ROADMAP.md Queue 1 item 6.4, with the
-distillation fleet) and a teacher sharded over a mesh (item 4c).
+:func:`lm_teacher` (a serving engine).  Not ported: a teacher sharded over
+a mesh (ROADMAP.md Queue 1 item 4c).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from edl_tpu_torch.coord.register import leased_register
+from edl_tpu_torch.coord.session import CoordSession, leased_register
 from edl_tpu_torch.distill.balance import server_key
 from edl_tpu_torch.distill.predict_client import decode_array, encode_array
 from edl_tpu_torch.rpc.server import RpcServer
@@ -107,14 +107,18 @@ class TeacherServer:
 
     # -- registration --------------------------------------------------------
     def register(self, store, service: str, ttl: float | None = None,
+                 session: CoordSession | None = None,
                  advert_period: float | None = None) -> "TeacherServer":
         """TTL-leased registration under the service's balance prefix; the
         advert's value is the live ``stats()`` payload, republished every
-        ``advert_period`` seconds."""
+        ``advert_period`` seconds.  With ``session`` the advert rides that
+        shared lease (one lease a process: a teacher, its fleet advert and a
+        discovery server beside it share one keep-alive) instead of its
+        own."""
         if self._host is None:
             self.endpoint = f"{local_ip(getattr(store, 'endpoint', None))}:{self._rpc.port}"
         self._register = leased_register(store, server_key(service, self.endpoint),
-                                         self._advert_value(), ttl=ttl)
+                                         self._advert_value(), ttl=ttl, session=session)
         period = (constants.distill_advert_period() if advert_period is None
                   else float(advert_period))
         self._advert_thread = threading.Thread(target=self._advert_loop, args=(period,),

@@ -23,6 +23,16 @@ The flax model's numerics, kept where a PyTorch default differs:
   backward (``--remat``) must not update them twice, and a padded
   data-service batch keeps the previous stats (``where(all_real, new,
   old)`` in the JAX example), its gate a 0-d tensor decided on the card.
+- **One batch over the world.**  The JAX example jits its step over a
+  global mesh, so flax takes the statistics over the global batch, padded
+  rows included.  In a process group of two or more, train mode does the
+  same (:class:`_WorldBatchNorm`): one all-reduce of the per-channel sum,
+  sum of squares and row count in the forward, flax's fast variance
+  ``max(E[x²] - E[x]², 0)``, and one all-reduce of ``Σdy`` and ``Σdy·x̂`` in
+  the backward, so every rank holds the same running stats.  With no group,
+  or a group of one, the op is ``native_batch_norm`` with no collective.
+  The group is read at each forward, so a world re-formed in place is
+  followed.
 - **Init.** Conv and head kernels are flax's ``lecun_normal`` (a normal
   truncated at two standard deviations, variance 1 / fan_in), drawn from
   an explicit ``torch.Generator``; the head bias is 0; BN scales are 1,
@@ -42,6 +52,7 @@ from functools import partial
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -118,20 +129,103 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=BN_EPS)
-        # with no running stats the op only normalises; it returns the batch
-        # mean and 1 / sqrt(biased var + eps), from which the update is made
-        out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
-                                                    True, 0.0, BN_EPS)
+        if _world() > 1:
+            out, mean, var = _WorldBatchNorm.apply(x, self.weight, self.bias)
+        else:
+            # with no running stats the op only normalises; it returns the
+            # batch mean and 1 / sqrt(biased var + eps), from which the
+            # update is made
+            out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                        True, 0.0, BN_EPS)
+            var = None
         gate = self.stat_gate
         if isinstance(gate, torch.Tensor) or gate:
             # a gate of 0 makes the lerp's weight 0: the stats come back as
             # they were, to the bit
             weight = BN_MOMENTUM * gate
             with torch.no_grad():
-                var = invstd.to(self.running_var.dtype).pow(-2) - BN_EPS
+                if var is None:
+                    var = (invstd.to(self.running_var.dtype).pow(-2) - BN_EPS).clamp_min(0.0)
                 self.running_mean.lerp_(mean.to(self.running_mean.dtype), weight)
-                self.running_var.lerp_(var.clamp_min(0.0), weight)
+                self.running_var.lerp_(var.to(self.running_var.dtype), weight)
         return out
+
+
+def _world() -> int:
+    """The default process group's size, read now (a world re-formed in
+    place has a new one); 1 with no group."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+class _WorldBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm of [N, C, H, W] over the global batch of the
+    default process group, as flax computes it on a global mesh: the
+    statistics in at least f32, the mean and flax's fast (biased) variance
+    ``max(E[x²] - E[x]², 0)`` over every rank's rows, padding included.
+    ``apply(x, weight, bias) -> (out in x's dtype, mean, var)``; mean and var
+    are not differentiable.
+
+    The backward all-reduces ``Σdy`` and ``Σdy·(x - mean)``, so each rank's
+    input gradient is that of the sum of every rank's loss through the
+    global statistics; the scale and bias gradients stay local, and the
+    trainer's world mean of gradients averages them as it does every other.
+
+    The sums read ``x`` in its own dtype, accumulating in f32 with no copy of
+    it; on the card the normalisation and the backward are PyTorch's fused
+    sync-BN element-wise and reduction ops (``batch_norm_elemt``,
+    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``), which
+    have no CPU kernel, so the CPU computes the same formulas in tensors."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        channels, dims = x.shape[1], (0, 2, 3)
+        rows = torch.full((1,), x.numel() // channels, dtype=acc, device=x.device)
+        packed = torch.cat([x.sum(dims, dtype=acc),
+                            torch.linalg.vector_norm(x, 2, dims, dtype=acc).square(), rows])
+        dist.all_reduce(packed)
+        n = packed[2 * channels:]
+        mean = packed[:channels] / n
+        var = (packed[channels:2 * channels] / n - mean.square()).clamp_min(0.0)
+        invstd = torch.rsqrt(var + BN_EPS)
+        ctx.param_dtype = weight.dtype
+        weight, bias = weight.to(acc), bias.to(acc)
+        if x.is_cuda:
+            out = torch.batch_norm_elemt(x, weight, bias, mean, invstd, BN_EPS)
+        else:
+            scale = weight * invstd
+            out = ((x.to(acc) - mean[:, None, None]) * scale[:, None, None]
+                   + bias[:, None, None]).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        channels, dims = x.shape[1], (0, 2, 3)
+        if x.is_cuda:
+            dy = dy.contiguous(memory_format=torch.channels_last
+                               if x.is_contiguous(memory_format=torch.channels_last)
+                               else torch.contiguous_format)
+            sum_dy, sum_dy_xmu, dweight, dbias = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, weight, True, True, True)
+            total = torch.cat([sum_dy, sum_dy_xmu])
+            dist.all_reduce(total)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, total[:channels],
+                                                 total[channels:], n.to(torch.int32))
+            return dx, dweight.to(ctx.param_dtype), dbias.to(ctx.param_dtype)
+        dyf = dy.to(mean.dtype)
+        xmu = x.to(mean.dtype) - mean[:, None, None]
+        local = torch.cat([dyf.sum(dims), (dyf * xmu).sum(dims)])
+        dbias, dweight = local[:channels], local[channels:] * invstd
+        total = local.clone()
+        dist.all_reduce(total)
+        mean_dy, mean_dy_xmu = total[:channels] / n, total[channels:] / n
+        dx = (dyf - mean_dy[:, None, None]
+              - xmu * (invstd.square() * mean_dy_xmu)[:, None, None]) \
+            * (weight * invstd)[:, None, None]
+        return dx.to(x.dtype), dweight.to(ctx.param_dtype), dbias.to(ctx.param_dtype)
 
 
 class Dense(nn.Module):

@@ -240,12 +240,17 @@ def eval_model(args, model, val_files, device: torch.device) -> float:
 _DEBUG_TEACHER = None  # the teacher module: set by the local role for EDL_TPU_DISTILL_VERIFY
 
 
-def make_distill_source(args, train_files, rank=0, source=None):
+def make_distill_source(args, train_files, rank=0, source=None, servers_fn=None,
+                        wrap_reader=None):
     """``build(epoch)``: a DistillReader over the noisy image stream, so every
     batch gains the teacher fleet's logits (reference DistillReader(['image',
     'label'], predicts=['score']), resnet/train_with_fleet.py).  ``source(
     epoch)`` yields the host batches (``image``, ``label``) to distil; by
-    default ``image_batches`` of ``train_files`` with the label noise.
+    default ``image_batches`` of ``train_files`` with the label noise.  The
+    teachers are ``--teachers``, else ``servers_fn`` (a callable of the
+    current endpoints, e.g. ``DistillFleet.endpoints_fn()``), else the
+    discovery service.  ``wrap_reader(reader)``, when given, is read instead
+    of the configured reader (e.g. a ``StudentFeed`` publishing the backlog).
     Under ``EDL_TPU_DISTILL_VERIFY`` (with ``_DEBUG_TEACHER`` set) every
     batch's logits are held to the teacher's own forward on its images."""
     from edl_tpu_torch.distill.reader import DistillReader
@@ -259,6 +264,8 @@ def make_distill_source(args, train_files, rank=0, source=None):
                            teacher_batch_size=args.teacher_batch_size)
         if args.teachers:
             dr.set_fixed_teacher(*args.teachers.split(","))
+        elif servers_fn is not None:
+            dr.set_servers_fn(servers_fn)
         else:
             dr.set_dynamic_teacher(args.discovery, args.service)
 
@@ -269,7 +276,7 @@ def make_distill_source(args, train_files, rank=0, source=None):
             for b in batches:
                 yield b["image"], b["label"]
         dr.set_batch_generator(gen)
-        for image, label, logits in dr:
+        for image, label, logits in (dr if wrap_reader is None else wrap_reader(dr)):
             if verify:  # the pairing audit: the logits must be of these images
                 tmodel = _DEBUG_TEACHER
                 dev = next(tmodel.parameters()).device

@@ -16,12 +16,15 @@ keeps the records of earlier epochs), dumped by rank 0 with
 ``--data_service`` (under the launcher: a store and a pod id), takes records
 from the leader's data service (``data/elastic_input.py``): dynamic file
 handout, a masked ragged epoch end, and exactly-once mid-epoch resume from
-the checkpointed record spans.  On a masked batch the loss and top-1 are
+the checkpointed record spans; with ``--data_leader`` the service is the
+job's standalone elected data leader (``data/leader.py``), journaled, so a
+successor takes over mid-epoch.  On a masked batch the loss and top-1 are
 the masked means of the global batch (every real record weighs the same,
 whatever the ranks' shares) and, if any row of it is padding, the step keeps
 the BN running stats as they were (the forward still normalises with batch
-statistics that include the zero rows, as flax does; each rank's own rows,
-where the JAX mesh normalises over the global batch).  ``--remat``
+statistics that include the zero rows, as flax does).  In a world of two or
+more, BN takes its statistics over the global batch, as the JAX mesh does
+(``models/resnet.py``), so every rank holds the same running stats.  ``--remat``
 recomputes the model's forward in the backward (``torch.utils.checkpoint``
 over the whole forward, the unit ``jax.checkpoint`` wraps, so the peak
 memory does not fall), the recomputation leaving the BN running stats
@@ -90,6 +93,9 @@ def parse_args(argv=None):
     p.add_argument("--dcn_dp", type=int, default=0, help="not ported")
     p.add_argument("--data_service", action="store_true",
                    help="take records from the launcher's data service (needs the launcher)")
+    p.add_argument("--data_leader", action="store_true",
+                   help="with --data_service, take them from the job's standalone elected "
+                        "data leader (python -m edl_tpu_torch.data.leader) instead")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     unported = [(args.dgc > 0, "--dgc", "item 7 (train/compress.py)"),
@@ -302,9 +308,13 @@ def _data_service_input(args, tenv, store, train_files):
         return {"image": np.stack([d[0] for d in decoded]),
                 "label": np.asarray([d[1] for d in decoded], np.int32)}
 
+    leader = None
+    if args.data_leader:
+        from edl_tpu_torch.data.leader import resolve_data_leader
+        leader = lambda: resolve_data_leader(store, tenv.job_id)  # noqa: E731
     ei = ElasticInput(store, tenv.job_id, tenv.pod_id, "imagenet", train_files,
                       args.batch_size, RecordioSplitter(), assemble,
-                      distributed=tenv.world_size > 1)
+                      distributed=tenv.world_size > 1, leader=leader)
     return ei, decode_pool, stats
 
 

@@ -21,6 +21,8 @@ ETCD_SERVING = "serving"            # leased LM replica adverts (gateway fleet)
 ETCD_MEMSTATE = "memstate"          # peer checkpoint-cache adverts + commit record
 ETCD_RESHARD = "reshard"            # live-reshard handshake (flag/go/done/worldsvc)
 ETCD_TORCH_WORLD = "torchworld"     # the port's process-group rendezvous keys
+ETCD_SCALE = "scale"                # desired size, range, spec, demand, backlogs
+ETCD_DIST_READER = "dist_reader"    # the data service's generation journal
 LEADER_KEY = "0"                    # rank table key seized by the leader
 TTL_REFRESH_FRACTION = 0.5          # a leased key's keep-alive runs at ttl/2
 # the exit code of a trainer after its preemption-point checkpoint: the
@@ -228,6 +230,12 @@ def distill_advert_period() -> float:
     return _env_float("EDL_TPU_DISTILL_ADVERT_PERIOD", 1.0)
 
 
+def distill_backlog_period() -> float:
+    """``EDL_TPU_DISTILL_BACKLOG_PERIOD``: seconds between a student feed's
+    publications of its backlog record."""
+    return _env_float("EDL_TPU_DISTILL_BACKLOG_PERIOD", 2.0)
+
+
 def transfer_conns() -> int:
     """``EDL_TPU_TRANSFER_CONNS``: connections an ``RpcChannelPool`` holds."""
     return int(_env_float("EDL_TPU_TRANSFER_CONNS", 4))
@@ -239,6 +247,21 @@ def transfer_window() -> int:
 
 
 # -- the data service (data/) ---------------------------------------------------
+def data_journal() -> bool:
+    """``EDL_TPU_DATA_JOURNAL``: a hosted data service journals its
+    generations into the coordination store (write-ahead), so a successor
+    rebuilds them and readers reattach without restarting the epoch (on
+    unless 0; off, live readers re-seed a successor from their own
+    checkpoints)."""
+    return bool(int(_env_float("EDL_TPU_DATA_JOURNAL", 1)))
+
+
+def data_journal_budget() -> float:
+    """``EDL_TPU_DATA_JOURNAL_BUDGET``: seconds a journal write may take
+    before it raises the retryable ``EdlCoordError`` to the reader."""
+    return _env_float("EDL_TPU_DATA_JOURNAL_BUDGET", 5.0)
+
+
 def data_retry_deadline() -> float:
     """``EDL_TPU_DATA_RETRY_DEADLINE``: a data-plane leader call's total
     retry budget (s), backoff, leader re-resolution and reattach inside it."""

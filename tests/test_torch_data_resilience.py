@@ -1,11 +1,17 @@
 """Fault tolerance of the port's data plane, the cases of
-``tests/test_data_resilience.py`` that need no journal: the resilient
-client's budget and its abort after a reattach, a reader riding out
-transient transport faults, the bounded reader shutdown, and the reader
-registry's wait (by watch, by polling, on timeout), with the registry's
-records read across the packages; and the port's in-process store
-(``coord/memory.py``) against the JAX one.  The journal cases wait for
-``data/journal.py`` (ROADMAP.md Queue 1 item 5)."""
+``tests/test_data_resilience.py``: the resilient client's budget and its
+abort after a reattach, a reader riding out transient transport faults,
+the bounded reader shutdown, and the reader registry's wait (by watch, by
+polling, on timeout), with the registry's records read across the
+packages; the port's in-process store (``coord/memory.py``) against the
+JAX one; and the twelve cases that build a ``DataJournal``
+(``data/journal.py``): a successor rebuilt minus what was consumed,
+idempotent report, ack and grant, an ack replayed on a rebuilt leader, the
+rebuild grace, a reattach restoring held batches and the producer, repairs
+pending behind a live owner, a requeue keeping a live owner journaled, the
+GC tombstone across a failover, pod death and reconcile, a reader
+reattaching across a leader restart, and the drain on a successor.  A
+journal written by either package is rebuilt by the other's service."""
 
 import random
 import threading
@@ -16,15 +22,20 @@ import pytest
 from edl_tpu.coord.memory import MemoryKV as JMemoryKV
 from edl_tpu.data import register_reader as j_register_reader
 from edl_tpu.data import wait_dist_readers as j_wait_dist_readers
+from edl_tpu.data.data_server import DataService as JDataService
+from edl_tpu.data.journal import DataJournal as JDataJournal
 from edl_tpu_torch.coord.memory import MemoryKV
 from edl_tpu_torch.data import resilient as resilient_mod
 from edl_tpu_torch.data.data_server import DataService, PodDataServer
 from edl_tpu_torch.data.distribute_reader import DistributedReader
+from edl_tpu_torch.data.journal import DataJournal
 from edl_tpu_torch.data.registry import register_reader, wait_dist_readers
 from edl_tpu_torch.data.resilient import CallAborted, ResilientDataClient
 from edl_tpu_torch.rpc.client import RpcClient
 from edl_tpu_torch.rpc.server import RpcServer
-from edl_tpu_torch.utils.exceptions import EdlCoordError, EdlDataError
+from edl_tpu_torch.utils.exceptions import (
+    EdlCoordError, EdlDataError, EdlReaderGoneError, EdlStopIteration,
+)
 from tests.helpers.exactly_once import audit_spans
 
 ALL = sorted(f"f{f}r{r}" for f in range(4) for r in range(10))
@@ -253,3 +264,280 @@ def test_memory_kv_leases_guards_and_wait():
         assert [r.key for r in kv.get_prefix("/a/")[0]] == ["/a/guarded"]
     finally:
         kv.close()
+
+
+# -- the journal: a successor rebuilds the generation ------------------------------
+
+
+def _serve(service) -> tuple[RpcServer, str]:
+    srv = RpcServer("127.0.0.1", 0)
+    srv.register_instance(service)
+    srv.start()
+    return srv, f"127.0.0.1:{srv.port}"
+
+
+def test_journal_rebuild_minus_consumed(kv, files):
+    journal = DataJournal(kv, "j1")
+    a = DataService(journal=journal, rebuild_grace=0.0)
+    a.create_reader("r@e0@s1", files, consumed=[[3, 0, 4]])
+    assert a.next_file("r@e0@s1", "podA")["file"] == [0, files[0]]
+    a.report_batch_meta("r@e0@s1", "podA", "127.0.0.1:1",
+                        [["podA:0", [[0, 0, 4]]], ["podA:1", [[0, 4, 8]]]])
+    a.file_done("r@e0@s1", "podA", 0)
+    got = a.get_batch_meta("r@e0@s1", "podB", n=1)["metas"]
+    assert got[0][2] == "podA:0"
+    a.get_batch_meta("r@e0@s1", "podB", n=0, ack_ids=["podA:0"])
+
+    b = DataService(journal=journal, rebuild_grace=0.0)   # the successor: a lazy rebuild
+    st = b.reader_status("r@e0@s1")
+    assert st["files"] == 4 and st["done"] == [0]
+    assert st["consumed"]["0"] == [[0, 4]]       # the ack survived
+    assert st["consumed"]["3"] == [[0, 4]]       # the restored checkpoint
+    assert st["parked"] == 1                     # podA:1 awaits its consumer
+    nxt = b.next_file("r@e0@s1", "podC")
+    assert nxt["file"][0] in (1, 2, 3)
+    if nxt["file"][0] == 3:
+        assert nxt["skip"] == [[0, 4]]
+
+
+def test_idempotent_report_ack_and_grant(kv, files):
+    svc = DataService(journal=DataJournal(kv, "j2"))
+    svc.create_reader("r", files[:1])
+    first = svc.next_file("r", "podA")["file"]
+    assert svc.next_file("r", "podA")["file"] == first     # a retried grant: the same file
+    batches = [["podA:0", [[0, 0, 4]]]]
+    svc.report_batch_meta("r", "podA", "ep", batches)
+    svc.report_batch_meta("r", "podA", "ep", batches)
+    assert svc.reader_status("r")["produced"] == 1
+    svc.get_batch_meta("r", "podB", n=1)
+    svc.get_batch_meta("r", "podB", n=0, ack_ids=["podA:0"])
+    svc.get_batch_meta("r", "podB", n=0, ack_ids=["podA:0"])
+    st = svc.reader_status("r")
+    assert st["acked"] == 1 and st["consumed"]["0"] == [[0, 4]]
+
+
+def test_ack_replay_lands_on_rebuilt_leader(kv, files):
+    """An ack of a batch fetched from the old leader lands on the new one,
+    and the acked batch is never handed out again after a second crash
+    (the journal's tombstone keeps the dedup)."""
+    journal = DataJournal(kv, "j3")
+    a = DataService(journal=journal)
+    a.create_reader("r", files[:1])
+    a.next_file("r", "podA")
+    a.report_batch_meta("r", "podA", "ep", [["podA:0", [[0, 0, 4]]]])
+    a.get_batch_meta("r", "podB", n=1)
+    b = DataService(journal=journal, rebuild_grace=10.0)
+    b.get_batch_meta("r", "podB", n=0, ack_ids=["podA:0"])
+    st = b.reader_status("r")
+    assert st["parked"] == 0 and st["consumed"]["0"] == [[0, 4]]
+    c = DataService(journal=journal, rebuild_grace=0.0)
+    st = c.reader_status("r")
+    assert st["parked"] == 0 and st["acked"] == 1
+    c.report_batch_meta("r", "podA", "ep", [["podA:0", [[0, 0, 4]]]])
+    assert c.reader_status("r")["queued"] == 0
+
+
+def test_rebuild_grace_parks_then_releases(kv, files):
+    journal = DataJournal(kv, "j4")
+    a = DataService(journal=journal)
+    a.create_reader("r", files[:1])
+    a.next_file("r", "podA")
+    a.report_batch_meta("r", "podA", "ep", [["podA:0", [[0, 0, 4]]]])
+    a.get_batch_meta("r", "podX", n=1)
+    b = DataService(journal=journal, rebuild_grace=0.6)
+    assert b.get_batch_meta("r", "podY", n=4)["metas"] == []
+    assert b.next_file("r", "podY")["file"] is None
+    time.sleep(0.7)
+    assert [m[2] for m in b.get_batch_meta("r", "podY", n=4)["metas"]] == ["podA:0"]
+    assert b.next_file("r", "podY")["file"] is None
+    assert b.next_file("r", "podA")["file"][0] == 0
+
+
+def test_reattach_restores_held_and_producer(kv, files):
+    journal = DataJournal(kv, "j5")
+    a = DataService(journal=journal)
+    a.create_reader("r", files[:2])
+    assert a.next_file("r", "podA")["file"][0] == 0
+    a.report_batch_meta("r", "podA", "ep", [["podA:0", [[0, 0, 4]]]])
+    a.get_batch_meta("r", "podB", n=1)
+    b = DataService(journal=journal, rebuild_grace=30.0)
+    assert b.reattach_reader("r", "podB", held=["podA:0", "ghost"])["drop"] == ["ghost"]
+    b.get_batch_meta("r", "podB", n=0, ack_ids=["podA:0"])
+    assert b.reader_status("r")["consumed"]["0"] == [[0, 4]]
+    assert not b.reattach_reader("r", "podA", producing=[0, None])["abandon_file"]
+    assert b.next_file("r", "podA")["file"][0] == 0
+    c = DataService(journal=journal, rebuild_grace=0.0)
+    c.reattach_reader("r", "podA", producing=None, finished=[0])
+    st = c.reader_status("r")
+    assert 0 in st["done"] and st["owned"] == 0
+
+
+def test_rebuild_pends_repairs_behind_live_whole_file_owner(kv, files):
+    journal = DataJournal(kv, "jr1")
+    a = DataService(journal=journal)
+    a.create_reader("r", files[:1])
+    a.next_file("r", "podX")
+    a.report_batch_meta("r", "podX", "epX", [["podX:0", [[0, 0, 4]]]])
+    a.get_batch_meta("r", "podA", n=1)
+    a.mark_pod_dead("podX")
+    assert a.next_file("r", "podB")["skip"] == [[0, 4]]
+    a.nack_batches("r", "podA", ["podX:0"], producer_dead=True)
+    assert a.reader_status("r")["pending"] == 1
+    b = DataService(journal=journal, rebuild_grace=0.0)
+    st = b.reader_status("r")
+    assert st["owned"] == 1 and st["pending"] == 1, st
+    b.file_done("r", "podB", 0)
+    rep = b.next_file("r", "podC")
+    assert rep["file"][0] == 0 and rep["only"] == [[0, 4]], rep
+
+
+def test_requeue_keeps_live_owner_journaled(kv, files):
+    journal = DataJournal(kv, "j9")
+    a = DataService(journal=journal)
+    a.create_reader("r", files[:1])
+    a.next_file("r", "podX")
+    a.report_batch_meta("r", "podX", "epX", [["podX:0", [[0, 0, 4]]]])
+    a.get_batch_meta("r", "podC", n=1)
+    a.mark_pod_dead("podX")
+    assert a.next_file("r", "podB")["file"][0] == 0
+    a.nack_batches("r", "podC", ["podX:0"], producer_dead=True)
+    b = DataService(journal=journal, rebuild_grace=0.0)
+    st = b.reader_status("r")
+    assert st["owned"] == 1 and st["pending"] == 1, st
+    assert b.next_file("r", "podB")["file"][0] == 0
+
+
+def test_gcd_tombstone_survives_failover(kv, files):
+    journal = DataJournal(kv, "jt")
+    a = DataService(journal=journal)
+    a.create_reader("t@e0@s", files[:1])
+    a.create_reader("t@e1@s", files[:1])     # GCs t@e0@s and journals "dead"
+    b = DataService(journal=journal, rebuild_grace=0.0)
+    with pytest.raises(EdlDataError, match="superseded"):
+        b.reattach_reader("t@e0@s", "podB", files=files[:1])
+    assert b.reader_status("t@e1@s")["files"] == 1
+
+
+def test_pod_death_event_rebuilds_lazily(kv, files):
+    journal = DataJournal(kv, "jl")
+    a = DataService(journal=journal)
+    a.create_reader("r", files[:1])
+    a.next_file("r", "podX")
+    b = DataService(journal=journal, rebuild_grace=0.0)
+    b.mark_pod_dead("podX", reader="r")
+    st = b.reader_status("r")
+    assert st["owned"] == 0 and st["pending"] == 1, st
+
+
+def test_reconcile_requeues_pods_with_no_advert(kv, files):
+    journal = DataJournal(kv, "jr2")
+    a = DataService(journal=journal)
+    a.create_reader("r", files[:2])
+    a.next_file("r", "podX")
+    b = DataService(journal=journal, rebuild_grace=0.0)
+    assert b.reconcile_pods("r", ["podY"])["dead"] == ["podX"]
+    st = b.reader_status("r")
+    assert st["owned"] == 0 and st["pending"] == 2, st
+
+
+def test_reader_reattaches_across_leader_restart(kv, files):
+    """The leader's server dies mid-epoch and a successor on the same
+    journal comes up elsewhere: the reader re-resolves, reattaches and
+    finishes the epoch, every record exactly once."""
+    journal = DataJournal(kv, "j6")
+    cache = PodDataServer("podA")
+    srv1, ep1 = _serve(DataService(journal=journal, rebuild_grace=1.0))
+    endpoint = {"ep": ep1}
+    srv2 = None
+    try:
+        ra = DistributedReader("rk", "podA", lambda: endpoint["ep"], cache, batch_size=4,
+                               retry_deadline=30.0)
+        ra.create(files)
+        got, spans = [], []
+        it = iter(ra)
+        for _ in range(3):
+            _bid, payload = next(it)
+            got.extend(payload["records"])
+            spans.extend(payload["spans"])
+        srv1.stop()
+        srv2, endpoint["ep"] = _serve(DataService(journal=journal, rebuild_grace=1.0))
+        for _bid, payload in it:
+            got.extend(payload["records"])
+            spans.extend(payload["spans"])
+        assert sorted(got) == ALL
+        audit_spans(spans, 4, 10)
+    finally:
+        cache.stop()
+        for s in (srv1, srv2):
+            if s is not None:
+                s.stop()
+
+
+def test_drain_completes_on_successor(kv, files):
+    journal = DataJournal(kv, "j8")
+    a = DataService(journal=journal)
+    a.create_reader("r", files[:1])
+    a.next_file("r", "podA")
+    a.report_batch_meta("r", "podA", "ep", [["podA:0", [[0, 0, 10]]]])
+    a.file_done("r", "podA", 0)
+    b = DataService(journal=journal, rebuild_grace=0.2)
+    b.get_batch_meta("r", "podA", n=0, ack_ids=["podA:0"])
+    time.sleep(0.25)
+    with pytest.raises(EdlStopIteration):
+        b.get_batch_meta("r", "podA", n=1)
+    assert b.next_file("r", "podA")["eof"] is True
+
+
+# -- the journal across the packages ---------------------------------------------
+
+
+def _journaled_history(svc, files):
+    """One generation's mutations: a create with a restored span, a grant, a
+    report, a done, a consumed and acked batch, a second grant left open, a
+    dead pod with a requeue, and a GC'd earlier generation."""
+    svc.create_reader("g@e0@s", files[:1])
+    svc.create_reader("g@e1@s", files, consumed=[[3, 0, 2]])   # GCs g@e0@s
+    svc.next_file("g@e1@s", "podA")
+    svc.report_batch_meta("g@e1@s", "podA", "epA", [["podA:0", [[0, 0, 4]]],
+                                                     ["podA:1", [[0, 4, 8]]]])
+    svc.file_done("g@e1@s", "podA", 0)
+    svc.get_batch_meta("g@e1@s", "podB", n=1)
+    svc.get_batch_meta("g@e1@s", "podB", n=0, ack_ids=["podA:0"])
+    svc.next_file("g@e1@s", "podX")
+    svc.next_file("g@e1@s", "podY")
+    svc.mark_pod_dead("podY")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_journal_is_rebuilt_across_the_packages(writer, files):
+    """A journal written by one package's service is rebuilt by the
+    other's, to the same generation state as its own package's rebuild,
+    and both packages' journals hold the same records; the GC tombstone
+    holds across."""
+    stores = {"jax": JMemoryKV(sweep_period=0.1), "port": MemoryKV(sweep_period=0.1)}
+    journals = {"jax": lambda kv: JDataJournal(kv, "jx"), "port": lambda kv: DataJournal(kv, "jx")}
+    services = {"jax": JDataService, "port": DataService}
+    try:
+        for name, kv in stores.items():
+            _journaled_history(services[name](journal=journals[name](kv)), files)
+        records = {name: {r.key: r.value for r in kv.get_prefix("/edl_tpu/jx/")[0]}
+                   for name, kv in stores.items()}
+        assert records["jax"] == records["port"]
+        kv = stores[writer]
+        other = "port" if writer == "jax" else "jax"
+        assert journals[other](kv).load("g@e1@s") == journals[writer](kv).load("g@e1@s")
+        assert journals[other](kv).list_readers() == ["g@e1@s"]
+        same = services[writer](journal=journals[writer](kv), rebuild_grace=0.0)
+        cross = services[other](journal=journals[other](kv), rebuild_grace=0.0)
+        status = [{k: v for k, v in svc.reader_status("g@e1@s").items() if k != "inc"}
+                  for svc in (cross, same)]      # "inc": each service's own incarnation
+        assert status[0] == status[1]
+        assert cross.reader_status("g@e1@s")["consumed"] == {"0": [[0, 4]], "3": [[0, 2]]}
+        with pytest.raises(Exception, match="superseded"):
+            cross.reattach_reader("g@e0@s", "podB", files=files[:1])
+        # the rebuilt generation drains on the other package's service
+        nxt = cross.next_file("g@e1@s", "podC")
+        assert nxt["file"] is not None
+    finally:
+        for kv in stores.values():
+            kv.close()

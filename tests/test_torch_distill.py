@@ -32,7 +32,7 @@ from edl_tpu_torch.coord.kv import KVRecord, KVStore, PrefixWatcher, WaitResult,
 from edl_tpu_torch.coord.memory import MemoryKV
 from edl_tpu_torch.distill import reader as reader_mod
 from edl_tpu_torch.distill.balance import (
-    OK, REDIRECT, UNREGISTERED, BalanceTable, Service, server_key,
+    BALANCE_SERVICE, OK, REDIRECT, UNREGISTERED, BalanceTable, Service, server_key,
 )
 from edl_tpu_torch.distill.discovery import DiscoveryClient, DiscoveryServer
 from edl_tpu_torch.distill.predict_client import NopPredictClient
@@ -467,8 +467,24 @@ def test_live_teacher_discovery_end_to_end(tkv, monkeypatch):
 
 
 def test_discovery_server_session_raises(tkv):
-    with pytest.raises(NotImplementedError, match="item 6.4"):
-        DiscoveryServer(tkv, session=object())
+    """``DiscoveryServer(session=)`` serves, its ring advert on the
+    session's lease; a session that can no longer take keys raises, and
+    the server's own stop leaves the session's other keys alone."""
+    from edl_tpu_torch.coord.session import CoordSession
+
+    session = CoordSession(tkv, ttl=2.0, name="disc-session")
+    session.register("/other", b"1")
+    disc = DiscoveryServer(tkv, host="127.0.0.1", session=session)
+    try:
+        rec = tkv.get(server_key(BALANCE_SERVICE, disc.endpoint))
+        assert rec is not None and rec.lease_id == session.lease_id
+    finally:
+        disc.stop()
+    assert tkv.get(server_key(BALANCE_SERVICE, disc.endpoint)) is None
+    assert tkv.get("/other").lease_id == session.lease_id
+    session.close()
+    with pytest.raises(Exception):
+        DiscoveryServer(tkv, host="127.0.0.1", session=session)
 
 
 def _read_linear(reader_cls, endpoint):

@@ -1,6 +1,7 @@
 """The port stands alone: ``edl_tpu_torch``, ``chip_smoke.py`` and
 ``bench_attention.py`` import nothing of JAX, flax, optax, orbax or the JAX
-package ``edl_tpu``; and only the store client imports ``msgpack`` (the card
+package ``edl_tpu`` (each slice's modules listed, and imported alone too);
+and only the store client imports ``msgpack`` (the card
 machine's packages need not include it), which a run without a store never
 loads."""
 
@@ -61,6 +62,10 @@ RESHARD_MODULES = (
     "edl_tpu_torch.memstate.tee", "edl_tpu_torch.memstate.restore",
     "edl_tpu_torch.memstate.delta", "edl_tpu_torch.cluster.resize",
     "edl_tpu_torch.rpc.transfer")
+# the modules of the teacher-fleet and journaled-leader slice
+FLEET_LEADER_MODULES = (
+    "edl_tpu_torch.cluster.scale", "edl_tpu_torch.distill.fleet",
+    "edl_tpu_torch.distill.backlog", "edl_tpu_torch.data.journal", "edl_tpu_torch.data.leader")
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -92,7 +97,8 @@ print(sorted(set(bad()) - before))
     names = ast.literal_eval(out[-2])
     assert len(names) >= 60 and set(DISTRIBUTED_MODULES + SERVING_MODULES + RESNET_MODULES
                                     + DATA_SERVICE_MODULES + DISTILL_MODULES
-                                    + FLEET_MODULES + RESHARD_MODULES) <= set(names), names
+                                    + FLEET_MODULES + RESHARD_MODULES
+                                    + FLEET_LEADER_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 
@@ -166,6 +172,18 @@ def test_importing_the_reshard_slice_loads_no_jax():
     transfer load no JAX and nothing of the JAX package."""
     code = ("import sys, importlib; [importlib.import_module(m) for m in "
             + repr(RESHARD_MODULES) + "]; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_fleet_and_leader_slice_loads_no_jax():
+    """The scale records, the teacher fleet, the student feed, the data
+    journal and the elected data leader load no JAX and nothing of the JAX
+    package."""
+    code = ("import sys, importlib; [importlib.import_module(m) for m in "
+            + repr(FLEET_LEADER_MODULES) + "]; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)

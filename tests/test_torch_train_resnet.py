@@ -3,17 +3,18 @@ steps of its trainer (label-smoothed CE, Nesterov SGD with coupled weight
 decay on the batch-scaled cosine-warmup schedule, BN running stats) against
 the JAX example's step body; the masked step of the data service's ragged
 epoch end against the JAX example's loss body (the BN update dropped on a
-padded batch), alone and in a 2-rank world on the global batch; ``--remat``; the loss on a uint8 batch; the eval metrics; the
-unported flags; a synthetic run that learns, resumes at the next epoch and
-dumps every epoch's record; and an in-process ``--data_service`` run that
+padded batch), alone and in a 2-rank world on the global batch (a linear
+model and a ResNet18, whose BN runs over the world); ``--remat``; the loss
+on a uint8 batch; the eval metrics; the unported flags; a synthetic run
+that learns, resumes at the next epoch and dumps every epoch's record; an
+in-process ``--data_service --data_leader`` run through a leader failover;
+and an in-process ``--data_service`` run that
 stops after a mid-epoch save, resumes in a new cluster stage and trains
 every record exactly once."""
 
 import contextlib
 import json
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from edl_tpu_torch.coord.memory import MemoryKV
 from edl_tpu_torch.data import images
 from edl_tpu_torch.data.data_server import DataService
 from edl_tpu_torch.data.elastic_input import device_put_stream
+from edl_tpu_torch.data.journal import DataJournal
 from edl_tpu_torch.models import resnet
 from edl_tpu_torch.models.convert import resnet_from_jax, resnet_to_jax
 from edl_tpu_torch.rpc.server import RpcServer
@@ -43,6 +45,7 @@ from edl_tpu_torch.utils import constants
 from edl_tpu_torch.utils.device import NoCardError
 from tests.helpers.exactly_once import audit_spans
 from tests.test_torch_resnet import _close, _variables
+from tests.test_torch_sync_bn import check_rank_against_jax, jax_global_step, spawn_world
 
 ARGV = ["--device", "cpu", "--model", "resnet18", "--width", "8", "--num_classes", "10",
         "--image_size", "33", "--batch_size", "4", "--epochs", "2", "--warmup_epochs", "0.5"]
@@ -280,7 +283,6 @@ def test_remat_step_equals_a_plain_step(masked):
 
 WORLD_SHARES = [(5, 0), (6, 2), (6, 6)]   # real rows of each rank's 6-row share a step
 WORLD_BATCH, WORLD_CLASSES, WORLD_SIZE = 6, 5, 4
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _WORLD_RANK = r"""
 import contextlib, sys
@@ -323,13 +325,18 @@ for i in range(int(data["n"])):
     out[f"loss{i}"], out[f"top1{i}"] = metrics["loss"].numpy(), metrics["top1"].numpy()
     out[f"gw{i}"] = state.model.dense.weight.grad.numpy()
     out[f"gb{i}"] = state.model.dense.bias.grad.numpy()
-    model = resnet.ResNet18(num_classes=5, width=8, dtype=torch.float32,
-                            generator=torch.Generator().manual_seed(0))
+    model = resnet.ResNet18(num_classes=5, width=8, dtype=torch.float64)
+    model.load_state_dict(torch.load(f"{io}/resnet18.pt"))
     before = [b.clone() for b in model.buffers()]
     state = trainer.create_state(lambda: (model, None), sgd(0.1))
-    trainer.step_fn(state, {"image": torch.from_numpy(data[f"r{i}"][rank]), "label": label,
-                            "mask": mask}, gen)
+    state, metrics = trainer.step_fn(
+        state, {"image": torch.from_numpy(data[f"r{i}"][rank]), "label": label, "mask": mask}, gen)
     out[f"moved{i}"] = np.asarray([not torch.equal(a, b) for a, b in zip(before, model.buffers())])
+    out[f"rn{i}/loss"], out[f"rn{i}/top1"] = metrics["loss"].numpy(), metrics["top1"].numpy()
+    for k, p in model.named_parameters():
+        out[f"rn{i}/grad/{k}"] = p.grad.numpy()
+    for k, b in model.named_buffers():
+        out[f"rn{i}/buffer/{k}"] = b.numpy()
 np.savez(f"{io}/out{rank}.npz", **out)
 dist.destroy_process_group()
 """
@@ -340,13 +347,16 @@ def test_masked_step_in_a_world_is_the_global_batch_step(tmp_path):
     on steps whose ranks hold unequal shares of real rows, one of them none:
     the trainer's loss, top-1 and gradients equal the JAX example's loss body
     (``examples/collective/train_resnet.py:230-250``) on the concatenated
-    global batch, in float64.  The model is a linear classifier: the port's
-    BN normalises over each rank's rows, the JAX mesh over the global batch,
-    so a model without batch statistics isolates the loss's weighting.  On a
-    ResNet18 the BN running stats stay on both ranks when any rank's share
-    holds padding, and move on both when none does."""
-    from edl_tpu_torch.utils.network import find_free_port
-
+    global batch, in float64.  Two models: a linear classifier, which has
+    no batch statistics and so isolates the loss's weighting, and a ResNet18
+    (width 8, 16²), whose BN takes its statistics over the world's global
+    batch as the JAX mesh does (``tests/test_torch_sync_bn.py``): its loss,
+    top-1, every gradient and ``batch_stats`` against the flax model's.  The
+    BN running stats stay on both ranks when any rank's share holds padding,
+    and move on both when none does."""
+    flax_model = jresnet.ResNet18(num_classes=WORLD_CLASSES, width=8, dtype=jnp.float64)
+    params, stats = _variables(flax_model, 16)
+    torch.save(resnet_from_jax(params, stats), tmp_path / "resnet18.pt")
     rng = np.random.default_rng(11)
     args = train_resnet.parse_args(["--device", "cpu"])
     feed = {"n": len(WORLD_SHARES),
@@ -355,30 +365,11 @@ def test_masked_step_in_a_world_is_the_global_batch_step(tmp_path):
     for i, shares in enumerate(WORLD_SHARES):
         real = np.arange(WORLD_BATCH)[None, :] < np.asarray(shares)[:, None]   # [rank, row]
         feed[f"x{i}"] = rng.normal(size=(2, WORLD_BATCH, WORLD_SIZE, WORLD_SIZE, 3)) * real[..., None, None, None]
-        feed[f"r{i}"] = (rng.normal(size=(2, WORLD_BATCH, 16, 16, 3))
-                         * real[..., None, None, None]).astype(np.float32)
+        feed[f"r{i}"] = rng.normal(size=(2, WORLD_BATCH, 16, 16, 3)) * real[..., None, None, None]
         feed[f"y{i}"] = (rng.integers(0, WORLD_CLASSES, (2, WORLD_BATCH)) * real).astype(np.int32)
         feed[f"m{i}"] = real.astype(np.float32)
     np.savez(tmp_path / "in.npz", **feed)
-
-    port = find_free_port()
-    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
-    procs = []
-    try:
-        for rank in range(2):
-            log = open(tmp_path / f"rank{rank}.log", "w")
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", _WORLD_RANK, str(rank), str(port), str(tmp_path)],
-                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
-        for rank, p in enumerate(procs):
-            rc = p.wait(timeout=120)
-            assert rc == 0, (tmp_path / f"rank{rank}.log").read_text()[-3000:]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    ranks = [dict(np.load(tmp_path / f"out{rank}.npz")) for rank in range(2)]
+    ranks = spawn_world(_WORLD_RANK, tmp_path)
 
     with jax.enable_x64(True):
         def body(w, b, image, label, mask):
@@ -403,6 +394,14 @@ def test_masked_step_in_a_world_is_the_global_batch_step(tmp_path):
                 _close(got[f"gb{i}"], gb, 1e-12, f"bias grad, {what}")
                 moved = got[f"moved{i}"]
                 assert (moved.all() if min(shares) == WORLD_BATCH else not moved.any()), what
+        for i, shares in enumerate(WORLD_SHARES):
+            want = jax_global_step(flax_model, params, stats,
+                                   feed[f"r{i}"].reshape(2 * WORLD_BATCH, 16, 16, 3),
+                                   feed[f"y{i}"].reshape(-1), feed[f"m{i}"].reshape(-1),
+                                   WORLD_CLASSES, args.label_smoothing)
+            for rank, got in enumerate(ranks):
+                rn = {k[len(f"rn{i}/"):]: v for k, v in got.items() if k.startswith(f"rn{i}/")}
+                check_rank_against_jax(rn, want, f"ResNet18, shares {shares}, rank {rank}")
 
 
 # -- --data_service in one process ---------------------------------------------------
@@ -423,11 +422,14 @@ class _Stop(Exception):
 @contextlib.contextmanager
 def _launcher_stand_in():
     """What the launcher gives a trainer: a store, a DataService on an RPC
-    server, and a one-pod cluster record naming that server as the leader;
-    ``new_stage()`` writes the record again with a new stage."""
+    server (journaled into the store unless ``EDL_TPU_DATA_JOURNAL=0``, as
+    the JAX launcher hosts it), and a one-pod cluster record naming that
+    server as the leader; ``new_stage()`` writes the record again with a new
+    stage."""
     store = MemoryKV(sweep_period=0.1)
     srv = RpcServer("127.0.0.1", 0)
-    srv.register_instance(DataService())
+    srv.register_instance(DataService(
+        journal=DataJournal(store, JOB) if constants.data_journal() else None))
     srv.start()
 
     def new_stage():
@@ -498,3 +500,74 @@ def test_data_service_run_resumes_mid_epoch_exactly_once(tmp_path, monkeypatch):
     assert [e.step_num for e in sorted(meta.epochs, key=lambda e: e.epoch_no)] == [6, 6]
     bench = meta.user_defined["bench"]
     assert [r["epoch"] for r in bench] == [0, 1] and all(r["decode_img_s"] > 0 for r in bench)
+
+
+def test_data_leader_failover_trains_every_record_once(tmp_path, monkeypatch):
+    """``--data_service --data_leader``: the trainer resolves the job's
+    elected data leader (``data/leader.py``, a journaled DataService); after
+    epoch 0's second step the seated leader stops while a standby contends,
+    the standby takes the seat and rebuilds from the journal, and the
+    trainer steps on: 2 epochs, every record of each trained exactly once."""
+    import threading
+
+    from edl_tpu_torch.data.leader import DataLeaderHost
+
+    trained, failover = [], {}
+    mark = DataCheckpoint.mark_processed
+
+    def marking(self, file_idx, begin, end):
+        trained.append((int(self.reader_name.split("@e")[1].split("@")[0]), file_idx, begin, end))
+        mark(self, file_idx, begin, end)
+
+    store = MemoryKV(sweep_period=0.1)
+    hosts, threads = [], []
+
+    def start():
+        hosts.append(DataLeaderHost(store, JOB, host="127.0.0.1", rebuild_grace=1.0,
+                                    retry_period=0.05))
+        threads.append(threading.Thread(target=hosts[-1].run, daemon=True))
+        threads[-1].start()
+
+    def fail_over():
+        start()
+        hosts[0].stop()
+        threads[0].join(timeout=10)
+        failover["gone"] = True
+
+    make_loss_fn = train_resnet.make_loss_fn
+
+    def recording_loss_fn(args):
+        inner = make_loss_fn(args)
+
+        def loss_fn(model, extra, batch, gen):
+            failover["steps"] = failover.get("steps", 0) + 1
+            if failover["steps"] == 3:
+                threading.Thread(target=fail_over).start()
+            return inner(model, extra, batch, gen)
+        return loss_fn
+
+    monkeypatch.setattr(DataCheckpoint, "mark_processed", marking)
+    monkeypatch.setattr(train_resnet, "make_loss_fn", recording_loss_fn)
+    argv = DS_ARGV + ["--data_dir", str(tmp_path / "data"), "--data_leader"]
+    tenv = TrainerEnv({"EDL_TPU_JOB_ID": JOB, "EDL_TPU_POD_ID": "pod-0",
+                       "EDL_TPU_CKPT_DIR": str(tmp_path / "ckpt")})
+    threads_before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        start()
+        cluster = Cluster.from_pods([Pod("pod-0", addr="127.0.0.1", port=1)])
+        store.put(paths.key(JOB, constants.ETCD_CLUSTER, "cluster"), cluster.to_json().encode())
+        state, meta = train_resnet.train(train_resnet.parse_args(argv), torch.device("cpu"),
+                                         tenv, store)
+        seated = [h.endpoint for h in hosts]
+    finally:
+        torch.set_num_threads(threads_before)
+        for h in hosts:
+            h.stop()
+        for t in threads:
+            t.join(timeout=10)
+        store.close()
+    assert failover.get("gone") and len(hosts) == 2 and seated[0] is None and seated[1]
+    for epoch in (0, 1):
+        audit_spans([s[1:] for s in trained if s[0] == epoch], 2, 21)
+    assert state.step == 12 and meta.next_epoch == 2
