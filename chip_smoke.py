@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases build,data
     python3 chip_smoke.py --phases distill
     python3 chip_smoke.py --phases build,reshard
+    python3 chip_smoke.py --phases build,mesh
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -221,6 +222,20 @@ failure exits non-zero:
    store rendezvous and all-reduces, then again under a new nonce.  Prints
    restore seconds by source and bytes, the synchronous stage ms, the push
    seconds, detect to first step, and the formation ms.
+17. ``mesh``: the flagship (seed-0 weights, the fixed batch) on a mesh.
+   (a) tp = 2 on the one card: two processes, both on ``cuda:0``, in a gloo
+   group (which must all-reduce CUDA tensors: no CPU path), each with 3
+   heads through the Hopper kernels and a 16,000-column vocab shard
+   through the fused CE; 3 steps whose losses and gathered step-1
+   gradients are held to the one-process step on the card
+   (``MESH_LOSS_RTOL``, ``MESH_GRAD_RTOL``), each rank's splash launch
+   counters and a profiled step's attention kernels (12 each a step), wall
+   ms a step; a storage checkpoint at step 3, then a 4th step.  (b) FSDP2
+   forced on an fsdp axis of 1 in an NCCL group of one (``build_trainer(
+   force_fsdp=True)``): 3 steps against the plain step (bit-equal or
+   within ``MESH_LOSS_RTOL``), device ms and NCCL kernels a step against
+   the plain step's.  (c) The checkpoint of (a) resumed by one process at
+   tp = 1: its next loss against (a)'s 4th (``MESH_RESUME_ATOL``).
 
 It then prints the card's ``nvidia-smi`` name and power limit, one line
 ``{"kernels": [...]}``, and, last, ``{"ok": true, "device": {...}}``.
@@ -240,7 +255,7 @@ import time
 from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
-          "resume", "data", "elastic", "serve", "fleet", "distill", "reshard")
+          "resume", "data", "elastic", "serve", "fleet", "distill", "reshard", "mesh")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -2042,7 +2057,7 @@ ELASTIC_STEPS = 3
 ENTRY_ARGS = FLAGSHIP_ARGS + ["--layers", "2", "--steps_per_epoch", "2"]
 WORLD_ARGS = ["--vocab", "1000", "--layers", "2", "--embed", "128", "--heads", "2",
               "--mlp", "512", "--seq_len", "256", "--batch_size", "2", "--steps_per_epoch", "2",
-              "--fused_ce", "--ce_block", "256", "--lr", "3e-4"]
+              "--fused_ce", "--ce_block", "256", "--lr", "3e-4", "--tp", "1"]
 SUBPROCESS_TIMEOUT = 300
 
 
@@ -3805,6 +3820,301 @@ def phase_reshard(ctx) -> None:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+# -- phase 17 --------------------------------------------------------------------
+
+MESH_STEPS = 3
+# tp = 2 against one process, both bf16 on the card: a row-parallel layer's
+# two partial products are each rounded to bf16 before the all-reduce adds
+# them, where one process rounds their sum once; the loss to 1e-2 of
+# itself, each parameter's step-1 gradient to 5e-2 in relative norm
+MESH_LOSS_RTOL = 1e-2
+MESH_GRAD_RTOL = 5e-2
+MESH_RESUME_ATOL = 1e-2     # (c): the next loss at tp = 1 against tp = 2's
+
+
+def _mesh_batch(args):
+    import numpy as np
+    return np.random.default_rng(2).integers(0, args.vocab, (args.batch_size,
+                                                             args.seq_len + 1)).astype(np.int32)
+
+
+def _mesh_tp_rank(rank: int, port: int, root: str) -> None:
+    """One rank of (a), in its own process: tp = 2 over gloo on cuda:0.
+    Writes ``root/tp<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.cluster.state import State
+    from edl_tpu_torch.models.transformer import LOGICAL_RULES
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.parallel.sharding import to_full
+    from edl_tpu_torch.train.checkpoint import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    probe = torch.full((4,), float(rank + 1), device=device)
+    dist.all_reduce(probe)      # gloo on CUDA tensors, or the phase fails here
+    if probe.device.type != "cuda" or probe.tolist() != [3.0] * 4:
+        raise AssertionError(f"gloo all-reduced a CUDA tensor to {probe}")
+    args = train_lm.parse_args(FLAGSHIP_ARGS + ["--tp", "2"])
+    # what one tp all-reduce of the residual stream costs here: f32
+    # [batch, seq, embed], as parallel/tp.py reduces it
+    act = torch.ones(args.batch_size, args.seq_len, args.embed, device=device)
+    for _ in range(2):
+        dist.all_reduce(act)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dist.all_reduce(act)
+    torch.cuda.synchronize()
+    gloo_ms = (time.perf_counter() - t0) / 5 * 1e3
+    del act
+    cfg, trainer, init_fn, tx = train_lm.build_trainer(args, device)
+    state = trainer.create_state(init_fn, tx, LOGICAL_RULES)
+    batch = {"ids": torch.from_numpy(_mesh_batch(args)).to(device)}
+    gen = torch.Generator(device=device).manual_seed(3)
+    qkv = state.model.layers[0].attn_qkv.weight
+    out = {"rank": rank, "mesh": train_lm._mesh(trainer), "qkv_local": list(qkv.shape),
+           "lm_head_local": list(state.model.lm_head.weight.shape),
+           "gloo_allreduce_ms_f32_residual": gloo_ms}
+    A.reset_launch_counts()
+    losses, wall = [], []
+    for step in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if step == 0:
+            layouts = state.model.param_layouts
+            grads = {n: to_full(p.grad, layouts[n], state.model.tp).float().cpu()
+                     for n, p in state.model.named_parameters()}
+            if rank == 0:
+                want = torch.load(f"{root}/plain_grads.pt", weights_only=True)
+                errs = {n: rel_err(g, want[n]) for n, g in grads.items()}
+                out["grad_rel_err_max"] = max(errs.values())
+                out["grad_rel_err_worst"] = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+            del grads
+    out["launches"] = A.launch_counts()
+    out["losses"], out["wall_ms_per_step"] = losses, wall
+    meta = State(total_batch_size=trainer.cfg.global_batch_size)
+    meta.record_epoch(0, trainer.world_size, state.step, 0.0)
+    out["saved"] = CheckpointManager(f"{root}/ckpt").save(state.step, state, meta)
+    out["loss_4"] = float(trainer.step_fn(state, batch, gen)[1]["loss"])
+    rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=1)
+    attn = {k: sum(n for _, key, n in rows if re.search(rf"::{k}[<(]", key))
+            for k in A.device_kernels(cfg.head_dim)}
+    out["profile_attention_calls_per_step"] = attn
+    out["profile_device_busy_ms"] = sum(us for us, _, _ in rows) / 1e3
+    with open(f"{root}/tp{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _mesh_step1_grads(extra_args) -> dict:
+    """The one-process flagship's step-1 gradients (f32 on the host)."""
+    import torch
+
+    from edl_tpu_torch import train_lm
+
+    args = train_lm.parse_args(FLAGSHIP_ARGS + extra_args)
+    device = torch.device("cuda", 0)
+    _, trainer, init_fn, tx = train_lm.build_trainer(args, device)
+    state = trainer.create_state(init_fn, tx)
+    trainer.step_fn(state, {"ids": torch.from_numpy(_mesh_batch(args)).to(device)},
+                    torch.Generator(device=device).manual_seed(3))
+    grads = {n: p.grad.float().cpu() for n, p in state.model.named_parameters()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return grads
+
+
+def _mesh_plain(root) -> dict:
+    """The one-process flagship step on the card: 3 steps' losses, the
+    step-1 gradients (written for (a)), the same gradients on the flash
+    path (bf16's floor: one function, other kernels' rounding) and the
+    profile of a step."""
+    import torch
+
+    from edl_tpu_torch import train_lm
+
+    args = train_lm.parse_args(FLAGSHIP_ARGS)
+    device = torch.device("cuda", 0)
+    cfg, trainer, init_fn, tx = train_lm.build_trainer(args, device)
+    state = trainer.create_state(init_fn, tx)
+    batch = {"ids": torch.from_numpy(_mesh_batch(args)).to(device)}
+    gen = torch.Generator(device=device).manual_seed(3)
+    losses = []
+    for step in range(MESH_STEPS):
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+        if step == 0:
+            grads = {n: p.grad.float().cpu() for n, p in state.model.named_parameters()}
+            torch.save(grads, root / "plain_grads.pt")
+    params = {n: t.detach().clone() for n, t in state.model.state_dict().items()}
+    rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=2)
+    del trainer, state
+    torch.cuda.empty_cache()
+    flash = _mesh_step1_grads(["--attention", "flash"])
+    floor = {n: rel_err(g, grads[n]) for n, g in flash.items()}
+    log("mesh", plain_losses=losses, flash_vs_splash_grad_rel_err_max=max(floor.values()),
+        flash_vs_splash_grad_rel_err_worst=sorted(floor.items(), key=lambda kv: -kv[1])[:3])
+    return {"losses": losses, "params": params, "rows": rows}
+
+
+def _mesh_tp(root, plain) -> dict:
+    """(a): the two tp ranks as processes on the card."""
+    import subprocess
+
+    from edl_tpu_torch.utils.network import find_free_port
+    port = find_free_port()
+    here = Path(__file__).resolve().parent
+    files = [open(root / f"tp{r}.log", "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; "
+                               "chip_smoke._mesh_tp_rank(int(sys.argv[1]), int(sys.argv[2]), "
+                               "sys.argv[3])", str(r), str(port), str(root)],
+                              cwd=here, stdout=fh, stderr=subprocess.STDOUT, text=True)
+             for r, fh in enumerate(files)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=SUBPROCESS_TIMEOUT)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for fh in files:
+            fh.close()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            raise AssertionError(f"tp rank {r} exited {proc.returncode}:\n"
+                                 f"{(root / f'tp{r}.log').read_text()[-4000:]}")
+    ranks = [json.loads((root / f"tp{r}.json").read_text()) for r in range(2)]
+    want = plain["losses"]
+    rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], want))
+    out = {"ranks": ranks, "plain_losses": want, "loss_rel_err_max": rel,
+           "loss_rtol": MESH_LOSS_RTOL, "grad_rtol": MESH_GRAD_RTOL}
+    log("mesh", tp=out)
+    per_step = 12
+    for r in ranks:
+        if r["mesh"]["tp"] != 2 or r["qkv_local"] != [3 * 3 * 128, 768] \
+                or r["lm_head_local"] != [16000, 768]:
+            raise AssertionError(f"rank {r['rank']} is not a tp-2 rank: {r['mesh']}, qkv "
+                                 f"{r['qkv_local']}, head {r['lm_head_local']}")
+        if r["launches"] != {n: per_step * MESH_STEPS if n in SPLASH_WRAPPERS else 0
+                             for n in r["launches"]}:
+            raise AssertionError(f"rank {r['rank']} launches {r['launches']}")
+        if set(r["profile_attention_calls_per_step"].values()) != {per_step}:
+            raise AssertionError(f"rank {r['rank']} profile {r['profile_attention_calls_per_step']}")
+        if not r["saved"]:
+            raise AssertionError("the tp-2 checkpoint was not written")
+    if rel > MESH_LOSS_RTOL or ranks[0]["grad_rel_err_max"] > MESH_GRAD_RTOL:
+        raise AssertionError(f"tp 2 is not the one-process step: loss rel {rel}, gradient rel "
+                             f"{ranks[0]['grad_rel_err_worst']}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"the tp ranks' losses differ: {ranks[0]['losses']} "
+                             f"{ranks[1]['losses']}")
+    return out
+
+
+def _mesh_fsdp(plain) -> dict:
+    """(b): FSDP2 forced on an fsdp axis of 1 in an NCCL group of one."""
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.models.transformer import LOGICAL_RULES
+    from edl_tpu_torch.utils.network import find_free_port
+
+    args = train_lm.parse_args(FLAGSHIP_ARGS)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    store = dist.TCPStore("127.0.0.1", find_free_port(), 1, True)
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0, device_id=device)
+    try:
+        cfg, trainer, init_fn, tx = train_lm.build_trainer(args, device, force_fsdp=True)
+        state = trainer.create_state(init_fn, tx, LOGICAL_RULES)
+        sharded = [n for n, p in state.model.named_parameters() if hasattr(p, "to_local")]
+        batch = {"ids": torch.from_numpy(_mesh_batch(args)).to(device)}
+        gen = torch.Generator(device=device).manual_seed(3)
+        losses = [float(trainer.step_fn(state, batch, gen)[1]["loss"])
+                  for _ in range(MESH_STEPS)]
+        full = state.full_state_dict()["model"]
+        differing = [n for n, t in full.items() if not torch.equal(t, plain["params"][n])]
+        rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=2)
+        del trainer, state, full
+    finally:
+        dist.destroy_process_group()
+        del store
+    torch.cuda.empty_cache()
+    nccl = {key[:80]: {"ms_per_step": us / 2 / 1e3, "calls_per_step": n / 2}
+            for us, key, n in rows if re.search(r"nccl", key, re.I)}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"]))
+    out = {"losses": losses, "plain_losses": plain["losses"], "bit_equal_losses":
+           losses == plain["losses"], "params_differing": len(differing),
+           "loss_rel_err_max": rel, "fsdp2_params": len(sharded),
+           "device_busy_ms_per_step": sum(r[0] for r in rows) / 2 / 1e3,
+           "device_busy_ms_per_step_plain": sum(r[0] for r in plain["rows"]) / 2 / 1e3,
+           "nccl_kernels": nccl,
+           "nccl_ms_per_step": sum(v["ms_per_step"] for v in nccl.values())}
+    log("mesh", fsdp=out)
+    if not sharded or rel > MESH_LOSS_RTOL:
+        raise AssertionError(f"FSDP2 of one: {len(sharded)} DTensor parameters, loss rel {rel}")
+    return out
+
+
+def _mesh_resume(root, tp) -> dict:
+    """(c): the tp-2 checkpoint restored by one process at tp = 1."""
+    import torch
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.models.transformer import LOGICAL_RULES
+
+    args = train_lm.parse_args(FLAGSHIP_ARGS)
+    device = torch.device("cuda", 0)
+    _, trainer, init_fn, tx = train_lm.build_trainer(args, device, str(root / "ckpt"))
+    t0 = time.perf_counter()
+    state, meta = trainer.restore_or_create(init_fn, tx, LOGICAL_RULES)
+    restore_s = time.perf_counter() - t0
+    restored = state.step
+    batch = {"ids": torch.from_numpy(_mesh_batch(args)).to(device)}
+    gen = torch.Generator(device=device).manual_seed(3)
+    loss = float(trainer.step_fn(state, batch, gen)[1]["loss"])
+    want = tp["ranks"][0]["loss_4"]
+    out = {"step": restored, "sharded": state.sharded, "restore_s": restore_s,
+           "loss_4_tp1": loss, "loss_4_tp2": want, "atol": MESH_RESUME_ATOL,
+           "epoch_worlds": [e.world_size for e in meta.epochs]}
+    log("mesh", resume=out)
+    del trainer, state
+    torch.cuda.empty_cache()
+    if out["step"] != MESH_STEPS or out["sharded"] or abs(loss - want) > MESH_RESUME_ATOL:
+        raise AssertionError(f"the tp-2 checkpoint did not resume at tp 1: {out}")
+    return out
+
+
+def phase_mesh(ctx) -> None:
+    """The flagship on a mesh: tp = 2 over gloo on the one card, FSDP2 in an
+    NCCL group of one, and the tp-2 checkpoint resumed at tp = 1."""
+    import shutil
+
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        log("mesh", nvidia_smi=smi_name_and_power_limit())
+        plain = _mesh_plain(root)
+        tp = _mesh_tp(root, plain)
+        _mesh_fsdp(plain)
+        _mesh_resume(root, tp)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -3834,7 +4144,7 @@ def main(argv=None) -> int:
                "d384": phase_d384, "d768": phase_d768, "resnet": phase_resnet,
                "resume": phase_resume, "data": phase_data,
                "elastic": phase_elastic, "serve": phase_serve, "fleet": phase_fleet,
-               "distill": phase_distill, "reshard": phase_reshard}
+               "distill": phase_distill, "reshard": phase_reshard, "mesh": phase_mesh}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

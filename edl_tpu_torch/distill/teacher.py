@@ -19,7 +19,7 @@ and a fresh thread has neither.
 Two ``predict_fn`` makers: :func:`module_teacher` (an ``nn.Module``
 forward, the counterpart of the JAX ``jit_teacher``) and
 :func:`lm_teacher` (a serving engine).  Not ported: a teacher sharded over
-a mesh (ROADMAP.md Queue 1 item 4c).
+a mesh (ROADMAP.md Queue 1 item 6.5: tp inference).
 """
 
 from __future__ import annotations
@@ -326,7 +326,7 @@ def module_teacher(module: torch.nn.Module, fetch_name: str = "logits",
     ..., device=...)``).  ``mesh`` (a teacher sharded over a mesh) raises."""
     if mesh is not None:
         raise NotImplementedError("a teacher sharded over a mesh is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 4c)")
+                                  "(ROADMAP.md Queue 1 item 6.5)")
     if device is not None:
         module.to(device)
     dev = next(module.parameters()).device

@@ -202,7 +202,7 @@ class DeltaReplicator:
         import time
 
         self._staged += 1
-        if not shards.is_producer():
+        if not shards.is_producer(state):
             return
         t0 = time.perf_counter()
         with self._slot_lock:
@@ -223,7 +223,7 @@ class DeltaReplicator:
         start a fresh chain anchored on it.  Every rank calls it."""
         self._base = int(step)
         self._staged = 0
-        if shards.is_producer():
+        if shards.is_producer(state):
             self._q.put(("rebase", int(step), shards.snapshot(state)))
 
     def flush(self, timeout: float = 10.0) -> bool:

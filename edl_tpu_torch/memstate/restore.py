@@ -21,6 +21,12 @@ delta chains up to exactly that step (``memstate/delta.py``).  The leaves
 land on the target state's device in batches bounded by
 ``EDL_TPU_TRANSFER_BUDGET_BYTES`` of host memory, and the state is loaded
 with ``TrainState.load_state_dict``, as a storage restore loads it.
+
+On a mesh (a sharded target, ``train/state.py``) each rank plans only the
+shards whose boxes overlap the pieces it holds on the new mesh, from any
+holder, as the JAX restore reads by overlap in ``make_array_from_callback``;
+it checks coverage of those pieces only, and ``load_state_dict`` places
+them.  The cached boxes may come from any earlier mesh.
 """
 
 from __future__ import annotations
@@ -137,10 +143,12 @@ def try_restore(store, job_id: str, target, expect_step: int | None = None,
                 "local_shards": 0, "wire_bytes": 0,
                 "peers": sorted({p for hs in holders.values() for p, _, _ in hs
                                  if p != LOCAL_POD})}
-        leaves = _plan(holders, target)
+        needed = _needed(target)
+        leaves = _plan(holders, target, needed)
         if leaves is None:
             return None
-        device = next(target.model.parameters()).device
+        p0 = next(target.model.parameters())
+        device = p0.to_local().device if hasattr(p0, "to_local") else p0.device
         budget = constants.transfer_budget_bytes() or float("inf")
         tensors: dict[str, torch.Tensor] = {}
         batch: list = []
@@ -163,7 +171,7 @@ def try_restore(store, job_id: str, target, expect_step: int | None = None,
                 else:
                     info["wire_bytes"] += len(data)
             for leaf, keys in batch:
-                t = _assemble(leaf, keys, holders, fetched)
+                t = _assemble(leaf, keys, holders, fetched, needed.get(leaf))
                 if t is None:
                     return False
                 tensors[leaf] = t if leaf == shards.STRUCT_LEAF else t.to(device)
@@ -200,17 +208,51 @@ def try_restore(store, job_id: str, target, expect_step: int | None = None,
             p.close()
 
 
-def _plan(holders: dict, target) -> list | None:
-    """``[(leaf, [keys])]`` covering every leaf of the cached state, the
-    struct leaf last; None (miss logged) when a leaf's entries disagree or
-    a module entry does not match the target module."""
+def _needed(target) -> dict[str, list]:
+    """``{leaf: [boxes]}`` of the pieces a sharded target holds on its mesh
+    (a parameter's moments share its boxes); leaves absent are needed
+    whole."""
+    if not target.sharded:
+        return {}
+    from edl_tpu_torch.parallel.sharding import local_boxes
+    tp = target.model.tp
+    named = dict(target.model.named_parameters())
+    layouts = target.model.param_layouts
+    params = [p for g in target.optimizer.param_groups for p in g["params"]]
+    name_of = {id(p): n for n, p in named.items()}
+    by_param = {n: [box for box, _ in local_boxes(p, layouts[n], tp)] for n, p in named.items()}
+    out = {f"model/{n}": boxes for n, boxes in by_param.items()}
+    out["optimizer/state/"] = [(i, by_param[name_of[id(p)]]) for i, p in enumerate(params)]
+    return out
+
+
+def _boxes_needed(needed: dict, leaf: str):
+    """The boxes of ``leaf`` the target holds, or None when it needs it whole."""
+    if leaf in needed:
+        return needed[leaf]
+    parts = leaf.split("/")
+    if len(parts) == 4 and parts[:2] == ["optimizer", "state"] and "optimizer/state/" in needed:
+        by_index = dict(needed["optimizer/state/"])
+        return by_index.get(int(parts[2]))
+    return None
+
+
+def _overlaps(a, b) -> bool:
+    return all(max(int(x0), int(y0)) < min(int(x1), int(y1)) for (x0, x1), (y0, y1) in zip(a, b))
+
+
+def _plan(holders: dict, target, needed: dict) -> list | None:
+    """``[(leaf, [keys])]`` covering every leaf of the cached state (only
+    the shards overlapping what a sharded target holds), the struct leaf
+    last; None (miss logged) when a leaf's entries disagree or a module
+    entry does not match the target module."""
     by_leaf: dict[str, list[str]] = {}
     for key, cands in holders.items():
         by_leaf.setdefault(cands[0][1]["leaf"], []).append(key)
     if shards.STRUCT_LEAF not in by_leaf:
         _miss("missing_leaf __struct__")
         return None
-    module = {f"model/{n}": t for n, t in target.model.state_dict().items()}
+    module = {f"model/{n}": shape for n, shape in target.global_shapes().items()}
     missing = set(module) - set(by_leaf)
     if missing:
         _miss(f"missing_leaf {sorted(missing)[:3]}")
@@ -222,17 +264,24 @@ def _plan(holders: dict, target) -> list | None:
             _miss(f"inconsistent_leaf {leaf}")
             return None
         want = module.get(leaf)
-        if want is not None and (list(want.shape) != list(ent["gshape"])
-                                 or shards.dtype_name(want.dtype) != ent["dtype"]):
+        if want is not None and list(want) != list(ent["gshape"]):
             _miss(f"shape_mismatch {leaf}")
             return None
+        boxes = _boxes_needed(needed, leaf)
+        if boxes is not None:
+            by_leaf[leaf] = [k for k in keys
+                             if any(_overlaps(holders[k][0][1]["index"], b) for b in boxes)]
     order = sorted(by_leaf, key=lambda leaf: leaf == shards.STRUCT_LEAF)
     return [(leaf, by_leaf[leaf]) for leaf in order]
 
 
-def _assemble(leaf: str, keys: list[str], holders: dict, fetched: dict):
+def _assemble(leaf: str, keys: list[str], holders: dict, fetched: dict, boxes=None):
     """The leaf's CPU tensor from its boxes, or None (miss logged) when
-    they do not cover it."""
+    they do not cover it (``boxes``: the parts that must be covered; the
+    rest of a leaf that a sharded target does not hold stays unwritten)."""
+    if not keys:
+        _miss(f"incomplete_coverage {leaf}")
+        return None
     ent0 = holders[keys[0]][0][1]
     gshape = [int(d) for d in ent0["gshape"]]
     if len(keys) == 1 and [list(b) for b in ent0["index"]] == [[0, d] for d in gshape]:
@@ -244,7 +293,8 @@ def _assemble(leaf: str, keys: list[str], holders: dict, fetched: dict):
         sel = tuple(slice(int(a), int(b)) for a, b in ent["index"])
         out[sel] = _to_tensor(fetched.pop(key), ent)
         cov[sel] = True
-    if not cov.all():
+    want = [tuple(slice(int(a), int(b)) for a, b in box) for box in boxes or [[[0, d] for d in gshape]]]
+    if not all(cov[sel].all() for sel in want):
         _miss(f"incomplete_coverage {leaf}")
         return None
     return out
@@ -385,6 +435,7 @@ def assert_bit_identical(cache_state, storage_state) -> None:
     if [n for n, _ in a_leaves] != [n for n, _ in b_leaves] or a_skel != b_skel:
         raise AssertionError("cache restore's structure diverged from storage's")
     for (name, x), (_, y) in zip(a_leaves, b_leaves):
+        x, y = (t.to_local() if hasattr(t, "to_local") else t for t in (x, y))
         if x.dtype != y.dtype or x.shape != y.shape:
             raise AssertionError(f"cache restore diverged from storage at {name}")
         xb = x.detach().cpu().contiguous().reshape(-1).view(torch.uint8)

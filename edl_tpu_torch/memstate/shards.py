@@ -16,7 +16,14 @@ under the name ``"bfloat16"``, as the serving fleet's KV blob does.
 Data parallelism replicates the state, so every leaf is one whole-leaf box
 and, by the JAX package's ``replica_id == 0`` rule, global rank 0 is the
 one process that pushes it; other ranks snapshot nothing unless asked for
-their own copy (a live reshard's local source).
+their own copy (a live reshard's local source).  A sharded state
+(``train/state.py``) snapshots each rank's own pieces as boxes of the global
+leaves (``parallel/sharding.py:local_boxes``: a head-split q|k|v piece is
+three), pushed by the first replica of each piece: the rank whose dp
+coordinate is 0, and whose tp coordinate is 0 for a leaf that tp does not
+split (a norm scale); the replicated leaves and ``__struct__`` come from
+global rank 0.  The skeleton is mesh-free, so a restore assembles global
+leaves on any mesh.
 
 The device-to-host copy is made here, on the step path, because the next
 step updates the parameters and moments in place: on the card it runs on a
@@ -158,36 +165,79 @@ class Snapshot:
         return out
 
 
-def _add(snap: Snapshot, leaf: str, host: torch.Tensor, dtype: torch.dtype) -> None:
-    gshape = [int(d) for d in host.shape]
-    box = [[0, d] for d in gshape]
-    key = shard_key(leaf, box)
+def _add(snap: Snapshot, key: str, leaf: str, box: list, gshape: list, host: torch.Tensor,
+         dtype: torch.dtype) -> None:
     snap.shards.append((key, host))
     snap.manifest[key] = {"crc": 0, "nbytes": host.numel() * host.element_size(),
-                          "dtype": dtype_name(dtype), "shape": gshape, "index": box,
-                          "gshape": gshape, "leaf": leaf}
+                          "dtype": dtype_name(dtype), "shape": [int(d) for d in host.shape],
+                          "index": box, "gshape": gshape, "leaf": leaf}
 
 
-def is_producer() -> bool:
-    """Global rank 0 pushes the replicated state (``replica_id == 0``)."""
+def _coordinate(state) -> dict[str, int]:
+    from edl_tpu_torch.parallel.mesh import coordinate
+    return coordinate(getattr(state.model, "mesh", None),
+                      dist.get_rank() if dist.is_initialized() else 0)
+
+
+def is_producer(state=None) -> bool:
+    """Whether this process pushes any piece of ``state``: global rank 0 for
+    a replicated state (``replica_id == 0``), a rank with dp coordinate 0
+    for a sharded one."""
+    if state is not None and state.sharded:
+        return _coordinate(state)["dp"] == 0
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def snapshot(state, own_copy: bool = False, reuse: Snapshot | None = None) -> Snapshot:
-    """Start the host copy of every leaf of ``state`` (a TrainState).  On
-    a process other than global rank 0 it copies nothing unless
-    ``own_copy``.  The caller's next optimizer step waits on the copy
-    (``state.fences``); readers call :meth:`Snapshot.wait` (done by
-    :func:`finish_manifest`).  ``reuse``: an unread snapshot this one
-    replaces, whose pinned buffers it overwrites."""
-    snap = Snapshot()
-    if not (own_copy or is_producer()):
-        return snap
+def _pieces(state, own_copy: bool):
+    """``([(key, leaf, box, gshape, tensor)], skeleton)``: the pieces of
+    ``state`` this process snapshots (every piece it holds with
+    ``own_copy``), the whole-leaf box of each replicated leaf."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(name, t):
+        gshape = [int(d) for d in t.shape]
+        box = [[0, d] for d in gshape]
+        return shard_key(name, box), name, box, gshape, t
+
     leaves, skeleton = flatten(state.state_dict())
+    if not state.sharded:
+        if not (own_copy or is_producer()):
+            return [], None
+        return [whole(name, t) for name, t in leaves], skeleton
+    from edl_tpu_torch.parallel.sharding import local_boxes, pushes
+    sharded, tp = state.leaf_params(), state.model.tp
+    coord = _coordinate(state)
+    first = not any(coord.values())
+    out = []
+    for name, t in leaves:
+        if name in sharded:
+            lay = sharded[name][1]
+            if not (own_copy or pushes(t, lay, coord)):
+                continue
+            local = t.to_local() if isinstance(t, DTensor) else t
+            for box, index in local_boxes(t, lay, tp):
+                out.append((shard_key(name, box), name, box, list(lay.gshape), local[index]))
+        elif own_copy or first:
+            out.append(whole(name, t))
+    return out, (skeleton if own_copy or first else None)
+
+
+def snapshot(state, own_copy: bool = False, reuse: Snapshot | None = None) -> Snapshot:
+    """Start the host copy of every piece of ``state`` (a TrainState) this
+    process pushes (:func:`_pieces`; all it holds with ``own_copy``).  The
+    caller's next optimizer step waits on the copy (``state.fences``);
+    readers call :meth:`Snapshot.wait` (done by :func:`finish_manifest`).
+    ``reuse``: an unread snapshot this one replaces, whose pinned buffers
+    it overwrites."""
+    snap = Snapshot()
+    pieces, skeleton = _pieces(state, own_copy)
+    if not pieces:
+        return snap
     buffers = {f"model/{name}" for name, _ in state.model.named_buffers()}
-    on_card = [(n, t) for n, t in leaves if t.device.type == "cuda"]
+    on_card = [(key, leaf, t) for key, leaf, _b, _g, t in pieces if t.device.type == "cuda"]
+    hosts = {}
     if on_card:
-        device = on_card[0][1].device
+        device = on_card[0][2].device
         main = torch.cuda.current_stream(device)
         side = _side_stream(device)
         side.wait_stream(main)          # copy the state as of the last queued step
@@ -195,31 +245,31 @@ def snapshot(state, own_copy: bool = False, reuse: Snapshot | None = None) -> Sn
             bufs, reuse.pinned, reuse.shards = reuse.pinned, {}, []
         else:
             bufs = _take_pinned(on_card)
-        hosts = {}
-        for name, t in on_card:
-            host = bufs.get(name)
+        for key, leaf, t in on_card:
+            host = bufs.get(key)
             if host is None or host.shape != t.shape or host.dtype != t.dtype:
                 host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            with torch.cuda.stream(main if name in buffers else side):
+            with torch.cuda.stream(main if leaf in buffers else side):
                 host.copy_(t.detach(), non_blocking=True)
-            hosts[name] = host
+            hosts[key] = host
         snap.pinned = hosts
         ev_main, ev_side = main.record_event(), side.record_event()
         snap.events = [ev_main, ev_side]
         state.fences.append(ev_side)    # the optimizer's in-place writes wait on it
-    for name, t in leaves:
-        if t.device.type == "cuda":
-            _add(snap, name, hosts[name], t.dtype)
-        else:
-            _add(snap, name, t.detach().clone(), t.dtype)
-    struct = torch.frombuffer(bytearray(skeleton_bytes(skeleton)), dtype=torch.uint8)
-    _add(snap, STRUCT_LEAF, struct, torch.uint8)
+    for key, leaf, box, gshape, t in pieces:
+        host = hosts[key] if key in hosts else t.detach().clone()
+        _add(snap, key, leaf, box, gshape, host, t.dtype)
+    if skeleton is not None:
+        struct = torch.frombuffer(bytearray(skeleton_bytes(skeleton)), dtype=torch.uint8)
+        box = [[0, len(struct)]]
+        _add(snap, shard_key(STRUCT_LEAF, box), STRUCT_LEAF, box, [len(struct)], struct,
+             torch.uint8)
     return snap
 
 
 def _take_pinned(on_card) -> dict[str, torch.Tensor]:
-    """A released buffer set whose leaves match ``on_card``'s, or {}."""
-    want = {name: (t.shape, t.dtype) for name, t in on_card}
+    """A released buffer set whose pieces match ``on_card``'s, or {}."""
+    want = {key: (t.shape, t.dtype) for key, _leaf, t in on_card}
     with _FREE_LOCK:
         for i, bufs in enumerate(_FREE):
             if {n: (b.shape, b.dtype) for n, b in bufs.items()} == want:

@@ -8,7 +8,13 @@ push to the pod's cache service run on one worker thread.  Sealing is
 two-phase: a pushed set stays staged until :meth:`mark_committed`, called
 by ``CheckpointManager.wait()`` once the storage save is durable, promotes
 it and writes the job-wide committed-step record.  A cache entry never
-claims a step that storage does not also hold.
+claims a step that storage does not also hold.  With a sharded state each
+rank's tee seals its own pieces, and the record waits for every rank's
+seal: :meth:`mark_committed` with ``record=False``, a barrier, then
+:meth:`publish_committed` on the writing rank (``CheckpointManager.wait``).
+Such a seal also waits (bounded) until the pod's ring replica holds the
+set: a rank's pieces exist nowhere else, so a pod lost between its commit
+and the service's replication would cost every survivor a storage restore.
 """
 
 from __future__ import annotations
@@ -47,18 +53,30 @@ class StateCacheTee:
         t0 = time.perf_counter()
         snap = shards.snapshot(state)
         self.stats["stage_s"] += time.perf_counter() - t0
+        if not snap.manifest:
+            return   # none of this rank's pieces is a first replica
         self._q.put(("push", int(step), snap, None if meta is None else meta.to_json().encode()))
 
-    def mark_committed(self, flush_timeout: float = 10.0) -> None:
+    def mark_committed(self, flush_timeout: float = 10.0, record: bool = True) -> None:
         """Storage is durable: seal everything pushed so far, and wait
         (bounded) for the seal, which matters at the exits that follow a
         final save.  In steady state the shards were pushed during the
-        epoch, so this waits only for the commit call."""
-        self._q.put(("commit",))
-        if flush_timeout > 0:
+        epoch, so this waits only for the commit call.  ``record=False``:
+        the committed-step record waits for :meth:`publish_committed`."""
+        self._q.put(("commit", record))
+        self._flush(flush_timeout)
+
+    def publish_committed(self, flush_timeout: float = 10.0) -> None:
+        """Write the committed-step record of the sets sealed without one
+        (every rank's pieces are sealed by now)."""
+        self._q.put(("publish",))
+        self._flush(flush_timeout)
+
+    def _flush(self, timeout: float) -> None:
+        if timeout > 0:
             done = threading.Event()
             self._q.put(("flush", done))
-            done.wait(flush_timeout)
+            done.wait(timeout)
 
     def update_meta(self, step: int, meta) -> None:
         """Re-push only the sidecar of a sealed step (``save_meta``)."""
@@ -73,6 +91,7 @@ class StateCacheTee:
     # -- worker side ----------------------------------------------------------
     def _run(self) -> None:
         pending: dict[int, tuple[dict, bytes | None]] = {}  # pushed, not sealed
+        unpublished: list[int] = []    # sealed with a sidecar, record not written
         while True:
             op = self._q.get()
             if op is None:
@@ -96,8 +115,16 @@ class StateCacheTee:
                         if not (resp or {}).get("ok"):
                             continue  # refused (a newer set sealed): no record
                         self.stats["sets"] += 1
-                        if meta_json is not None:
+                        if meta_json is not None and op[1]:
                             advert.write_committed_step(self._store, self._job_id, step)
+                        elif meta_json is not None:
+                            unpublished.append(step)
+                        if not op[1]:
+                            self._await_replica(step)
+                elif op[0] == "publish":
+                    for step in unpublished:
+                        advert.write_committed_step(self._store, self._job_id, step)
+                    unpublished.clear()
                 elif op[0] == "flush":
                     op[1].set()
                 elif op[0] == "meta":
@@ -132,6 +159,33 @@ class StateCacheTee:
         self.stats["pushed_bytes"] += total
         logger.info("memstate: staged step %d (%d shards, %d bytes, %.1f MiB/s) to the local "
                     "cache", step, len(blobs), total, total / (1 << 20) / max(dt, 1e-9))
+
+    def _await_replica(self, step: int, timeout: float = 5.0) -> None:
+        """Poll the ring replica's manifest until it holds this pod's set at
+        ``step`` (the service replicates after a commit), at most
+        ``timeout`` seconds; a miss is logged, not raised."""
+        from edl_tpu_torch.memstate import placement
+        from edl_tpu_torch.rpc.client import RpcChannelPool
+
+        adverts = advert.list_adverts(self._store, self._job_id)
+        target = placement.replica_for(self._pod_id, list(adverts))
+        if target is None or target not in adverts:
+            return
+        pool = RpcChannelPool(adverts[target])
+        deadline = time.monotonic() + timeout
+        try:
+            while time.monotonic() < deadline:
+                info = pool.call("cache_manifest").get(self._pod_id)
+                if info is not None and int(info["step"]) >= step:
+                    return
+                time.sleep(0.02)
+        except Exception:  # noqa: BLE001 — a lost replica is not the commit's failure
+            logger.exception("memstate: the ring replica %s did not answer", target[:8])
+            return
+        finally:
+            pool.close()
+        logger.warning("memstate: the ring replica %s did not hold step %d within %.0fs",
+                       target[:8], step, timeout)
 
     def _channels(self):
         """The channel pool to the own pod's cache service (lazy: the advert

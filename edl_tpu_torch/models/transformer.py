@@ -21,6 +21,18 @@ The parameters are named after the flax tree (``tok_embed``, ``layers.i.
 attn_qkv``, ...); :mod:`edl_tpu_torch.models.convert` maps one onto the
 other.  Layers are a Python loop: there is no scan, and ``scan_layers`` is
 kept only so that configs read the same in both packages.
+
+Tensor parallelism (:meth:`TransformerLM.set_tp`, after
+``parallel/sharding.py:shard_init`` cut the weights): ``attn_qkv`` and
+``mlp_gate``/``mlp_in`` are column-parallel, ``attn_out`` and ``mlp_out``
+row-parallel, so a layer's forward all-reduces its two row-parallel outputs
+and its backward the inputs of its two column-parallel groups.  The fused
+q|k|v weight is split by heads (rank r holds query heads ``[r H/tp, (r+1)
+H/tp)`` and the matching key and value heads), so the attention kernels
+see plain local ``[B, L, H/tp, D]`` tensors.  The embedding is
+vocab-parallel (each rank looks up its rows, the others' are masked, one
+all-reduce), the head column-parallel on vocab, and the fused loss folds
+each rank's vocab shard into one logsumexp (``ops/ce.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +48,21 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from edl_tpu_torch.ops.attention import dot_product_attention
+from edl_tpu_torch.parallel.tp import TP, copy_to_tp, gather_from_tp, reduce_from_tp
+
+# parameter-name regex -> logical axes (``parallel/sharding.py:shard_init``
+# consumes them), in each torch tensor's own dim order: the JAX package's
+# rules with every kernel transposed and no stacked "layers" dim
+LOGICAL_RULES = [
+    (r"tok_embed\.weight", ("vocab", "embed")),
+    (r"attn_qkv\.weight", ("heads", "embed")),
+    (r"attn_out\.weight", ("embed", "heads")),
+    (r"mlp_in\.weight", ("mlp", "embed")),
+    (r"mlp_gate\.weight", ("mlp", "embed")),
+    (r"mlp_out\.weight", ("embed", "mlp")),
+    (r"norm\.scale", ("norm",)),
+    (r"lm_head\.weight", ("vocab", "embed")),
+]
 
 
 @dataclass(frozen=True)
@@ -298,16 +325,18 @@ class Block(nn.Module):
         self.mlp_gate = Dense(D, cfg.mlp_dim, cfg.dtype)
         self.mlp_in = Dense(D, cfg.mlp_dim, cfg.dtype)
         self.mlp_out = Dense(cfg.mlp_dim, D, cfg.dtype)
+        self.tp: TP | None = None
 
     def forward(self, x, positions, kv=None):
         """``kv``: in decode mode, this layer's ``(keys, values)`` cache
         buffers, the shared write index, and the RoPE tables and future
         mask that every layer of the forward shares."""
-        cfg = self.cfg
-        H, Hk, Dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        cfg, tp = self.cfg, self.tp
+        ways = 1 if tp is None else tp.size
+        H, Hk, Dh = cfg.num_heads // ways, cfg.kv_heads // ways, cfg.head_dim
         B, L = x.shape[:2]
         tables = kv[3] if kv is not None else None
-        y = self.attn_norm(x)
+        y = copy_to_tp(self.attn_norm(x), tp)
         q, k, v = self.attn_qkv(y).split([H * Dh, Hk * Dh, Hk * Dh], dim=-1)
         q = rope(q.reshape(B, L, H, Dh), positions, cfg.rope_theta, tables)
         k = rope(k.reshape(B, L, Hk, Dh), positions, cfg.rope_theta, tables)
@@ -318,10 +347,10 @@ class Block(nn.Module):
             attn = decode_attention(q, ck, cv, idx, hidden)
         else:
             attn = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl)
-        x = x + self.attn_out(attn.reshape(B, L, H * Dh))
-        y = self.mlp_norm(x)
+        x = x + reduce_from_tp(self.attn_out(attn.reshape(B, L, H * Dh)), tp)
+        y = copy_to_tp(self.mlp_norm(x), tp)
         y = F.silu(self.mlp_gate(y)) * self.mlp_in(y)
-        return x + self.mlp_out(y)
+        return x + reduce_from_tp(self.mlp_out(y), tp)
 
 
 class TransformerLM(nn.Module):
@@ -343,8 +372,36 @@ class TransformerLM(nn.Module):
         self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(D, cfg.dtype)
         self.lm_head = None if cfg.tie_embeddings else Dense(D, V, cfg.dtype)
+        self.tp: TP | None = None
         if init:
             self.reset_parameters(generator or torch.Generator().manual_seed(0))
+
+    def tp_segments(self, name: str):
+        """The fused q|k|v weight's dim 0 holds three tensors, each split
+        over the tp ranks by heads."""
+        if name.endswith("attn_qkv.weight"):
+            H, Hk, Dh = self.cfg.num_heads, self.cfg.kv_heads, self.cfg.head_dim
+            return (H * Dh, Hk * Dh, Hk * Dh)
+        return None
+
+    def set_tp(self, tp: TP) -> None:
+        """Run the forward tensor-parallel over ``tp`` (the weights already
+        cut to this rank's rows by ``shard_init``)."""
+        cfg = self.cfg
+        if cfg.decode:
+            raise NotImplementedError("tensor-parallel decoding is not ported yet "
+                                      "(ROADMAP.md Queue 1 item 6.5)")
+        for what, n in (("num_heads", cfg.num_heads), ("kv heads", cfg.kv_heads),
+                        ("vocab_size", cfg.vocab_size), ("mlp_dim", cfg.mlp_dim)):
+            if n % tp.size:
+                raise ValueError(f"{what} {n} does not divide over tp = {tp.size}")
+        self.tp = tp
+        for layer in self.layers:
+            layer.tp = tp
+
+    def fsdp_units(self) -> list[nn.Module]:
+        """FSDP2's units below the root: one per decoder layer."""
+        return list(self.layers)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -356,7 +413,8 @@ class TransformerLM(nn.Module):
                 mod.scale.fill_(1.0)
 
     def forward(self, ids, positions=None, return_hidden: bool = False,
-                with_aux: bool = False, cache: KVCache | None = None, token_mask=None):
+                with_aux: bool = False, cache: KVCache | None = None, token_mask=None,
+                targets=None, ce_block: int = 4096):
         """Logits [B, L, V] f32, or with ``return_hidden`` the final-norm
         hidden states [B, L, D] for :func:`lm_loss_fused` (or for
         :meth:`head` on the rows a sampler reads).  ``with_aux`` also
@@ -364,7 +422,10 @@ class TransformerLM(nn.Module):
         is required: the ids' keys and values are written at
         ``cache.index``, which then advances by L.  ``token_mask`` marks
         the real tokens of a padded batch; it steers only MoE routing, so
-        it has no effect here."""
+        it has no effect here.  ``targets`` (``[B, L]`` ids): the per-token
+        NLL of the fused loss instead (:func:`lm_loss_fused`, ``ce_block``
+        wide), computed inside the forward, where FSDP2 has gathered the
+        head's weight."""
         cfg = self.cfg
         del token_mask
         if cfg.decode != (cache is not None):
@@ -373,7 +434,7 @@ class TransformerLM(nn.Module):
         ids = ids.long()
         if positions is None:
             positions = torch.arange(ids.shape[1], device=ids.device).expand(ids.shape)
-        x = F.embedding(ids, self.tok_embed.weight).to(cfg.dtype)
+        x = self._embed(ids)
         if cache is not None:
             shared = (rope_tables(positions, cfg.head_dim, cfg.rope_theta),
                       future_mask(cache.index, ids.shape[1], cache.length))
@@ -389,22 +450,51 @@ class TransformerLM(nn.Module):
             cache.index += ids.shape[1]
         x = self.final_norm(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if targets is not None:
+            return self.fused_nll(x, targets, ce_block)
         if return_hidden:
             return (x, aux) if with_aux else x
         logits = self.head(x)
         return (logits, aux) if with_aux else logits
 
+    def _embed(self, ids):
+        """The token embeddings in the compute dtype; vocab-parallel under
+        tp: this rank's rows looked up, the others' zero, then all-reduced
+        (one nonzero term per token: exact)."""
+        w, tp = self.tok_embed.weight, self.tp
+        if tp is None:
+            return F.embedding(ids, w).to(self.cfg.dtype)
+        local = ids - tp.rank * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        x = F.embedding(local.clamp(0, w.shape[0] - 1), w) * inside[..., None].to(w.dtype)
+        return reduce_from_tp(x, tp).to(self.cfg.dtype)
+
     def head(self, x):
-        """f32 logits of final-norm hidden states ``[..., D]``."""
+        """f32 logits of final-norm hidden states ``[..., D]`` (under tp,
+        every rank's vocab columns gathered by an all-reduce)."""
         cfg = self.cfg
+        x = copy_to_tp(x, self.tp)
         if cfg.tie_embeddings:
             w = self.tok_embed.weight.to(cfg.dtype)
             w = w.to(torch.promote_types(x.dtype, w.dtype))
-            return (x @ w.t()).float()
-        return self.lm_head(x).float()
+            logits = (x @ w.t()).float()
+        else:
+            logits = self.lm_head(x).float()
+        return gather_from_tp(logits, self.tp)
+
+    def fused_nll(self, hidden, targets, block_size: int = 4096):
+        """Per-token NLL of final-norm hidden states through the blockwise
+        fused CE (``ops/ce.py``), vocab-parallel under tp.  The head weight
+        is cast to the hidden states' dtype (f32 under the reference's
+        dtype flow)."""
+        from edl_tpu_torch.ops.ce import blockwise_cross_entropy
+
+        return blockwise_cross_entropy(hidden, self.head_weight().to(hidden.dtype), targets,
+                                       block_size=block_size, tp=self.tp)
 
     def head_weight(self) -> torch.Tensor:
-        """The output projection as ``[D, V]`` (the flax kernel layout)."""
+        """The output projection as ``[D, V]`` (the flax kernel layout);
+        under tp this rank's ``[D, V / tp]`` columns."""
         w = self.tok_embed.weight if self.cfg.tie_embeddings else self.lm_head.weight
         return w.t()
 
@@ -449,11 +539,5 @@ def lm_loss_fused(model: TransformerLM, hidden, targets, mask=None,
                   block_size: int = 4096):
     """Next-token CE from ``model(..., return_hidden=True)`` hidden states
     through the blockwise fused CE (``ops/ce.py``): the [B, L, V] logits
-    are never built.  The head weight is cast to the hidden states' dtype
-    (f32 under the reference's dtype flow)."""
-    from edl_tpu_torch.ops.ce import blockwise_cross_entropy
-
-    w = model.head_weight()
-    nll = blockwise_cross_entropy(hidden, w.to(hidden.dtype), targets,
-                                  block_size=block_size)
-    return _masked_mean(nll, mask)
+    are never built (:meth:`TransformerLM.fused_nll`)."""
+    return _masked_mean(model.fused_nll(hidden, targets, block_size), mask)

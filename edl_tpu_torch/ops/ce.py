@@ -15,6 +15,15 @@ never exist.
 The block products are ``torch.matmul`` in f32 (bf16 inputs are widened,
 which is what an f32 accumulation of bf16 products gives).  The last
 block is padded with ``NEG_INF`` columns, as the JAX version pads it.
+
+Vocab-parallel (``tp``: the weight is this tensor-parallel rank's ``[D,
+V / tp]`` columns, the hidden states the same on every rank): each rank
+folds its own columns into an online logsumexp; the maxima are
+all-reduced (MAX), then the rescaled sums of exponentials, the target
+logit (from the one rank whose columns hold it) and the count of ranks
+that hold it in one all-reduce (SUM).  The backward forms each rank's
+``softmax - onehot`` from the global logsumexp and all-reduces the partial
+``dhidden``.  No rank ever holds ``[N, V]`` logits.
 """
 
 from __future__ import annotations
@@ -41,7 +50,9 @@ def _target_in_block(targets, start: int, bs: int):
     return inside, idx.clamp(0, bs - 1)
 
 
-def _ce_fwd(hidden, weight, targets, bs: int):
+def _ce_fwd(hidden, weight, targets, bs: int, tp=None):
+    """``(nll, lse)``; under ``tp`` ``targets`` are already this rank's
+    column ids (global id minus the rank's first column)."""
     N = hidden.shape[0]
     V = weight.shape[1]
     wt = weight.t()                       # [V, D]
@@ -57,16 +68,28 @@ def _ce_fwd(hidden, weight, targets, bs: int):
         inside, safe = _target_in_block(targets, start, bs)
         val = logits.gather(1, safe[:, None])[:, 0]
         tgt = torch.where(inside, val, tgt)
+    if tp is not None:
+        import torch.distributed as dist
+
+        m_all = m.clone()
+        dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=tp.group)
+        found = (targets >= 0) & (targets < V)
+        sums = torch.stack([l * torch.exp(m - m_all), torch.where(found, tgt, 0.0),
+                            found.float()])
+        dist.all_reduce(sums, group=tp.group)
+        m, l = m_all, sums[0]
+        tgt = torch.where(sums[2] > 0, sums[1], NEG_INF)
     lse = m + torch.log(l)
     return lse - tgt, lse
 
 
 class _BlockwiseCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, hidden, weight, targets, block_size: int):
-        nll, lse = _ce_fwd(hidden, weight, targets, block_size)
+    def forward(ctx, hidden, weight, targets, block_size: int, tp):
+        nll, lse = _ce_fwd(hidden, weight, targets, block_size, tp)
         ctx.save_for_backward(hidden, weight, targets, lse)
         ctx.block_size = block_size
+        ctx.tp = tp
         return nll
 
     @staticmethod
@@ -91,10 +114,13 @@ class _BlockwiseCE(torch.autograd.Function):
             wb = wt[start:start + n].float()
             dh += dlogits[:, :n] @ wb
             dwt[start:start + n] = dlogits[:, :n].t() @ hidden_f
-        return dh.to(hidden.dtype), dwt.t().to(weight.dtype), None, None
+        if ctx.tp is not None:
+            import torch.distributed as dist
+            dist.all_reduce(dh, group=ctx.tp.group)
+        return dh.to(hidden.dtype), dwt.t().to(weight.dtype), None, None, None
 
 
-def blockwise_cross_entropy(hidden, weight, targets, *, block_size: int = 4096):
+def blockwise_cross_entropy(hidden, weight, targets, *, block_size: int = 4096, tp=None):
     """Per-token NLL of ``softmax(hidden @ weight)`` against ``targets``
     without materialising the logits.
 
@@ -103,7 +129,11 @@ def blockwise_cross_entropy(hidden, weight, targets, *, block_size: int = 4096):
     Differentiable in ``hidden`` and ``weight``.
 
     Targets must be valid ids in ``[0, V)``: an out-of-range id returns a
-    huge (~1e30) NLL instead of raising, as the JAX version does."""
+    huge (~1e30) NLL instead of raising, as the JAX version does.
+
+    ``tp`` (``parallel/tp.py:TP``): ``weight`` is this rank's ``[D, V /
+    tp]`` columns of a vocab-parallel head; every rank returns the NLL
+    over the whole vocabulary (collective over the tp group)."""
     if targets.dtype.is_floating_point or targets.dtype == torch.bool:
         raise TypeError(f"targets must be integer ids, got {targets.dtype}")
     lead = targets.shape
@@ -112,5 +142,7 @@ def blockwise_cross_entropy(hidden, weight, targets, *, block_size: int = 4096):
     if h2.shape[0] != t2.shape[0]:
         raise ValueError(f"hidden leading dims {tuple(hidden.shape[:-1])} != "
                          f"targets shape {tuple(lead)}")
-    nll = _BlockwiseCE.apply(h2, weight, t2, int(block_size))
+    if tp is not None:
+        t2 = t2 - tp.rank * weight.shape[1]
+    nll = _BlockwiseCE.apply(h2, weight, t2, int(block_size), tp)
     return nll.reshape(lead)

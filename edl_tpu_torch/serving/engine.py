@@ -45,8 +45,8 @@ engine thread owns the device state (the pool cache, the last tokens,
 the generator).  That thread enters ``torch.inference_mode`` and makes the
 model's device its current one, since both are per thread.
 
-Not ported: mesh serving (``mesh``, ROADMAP.md Queue 1 item 6.5, after
-item 4c), which raises ``NotImplementedError``.
+Not ported: mesh serving (``mesh``, ROADMAP.md Queue 1 item 6.5), which
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -161,7 +161,7 @@ class ContinuousBatcher:
                  draft_model: TransformerLM | None = None):
         if mesh is not None:
             raise NotImplementedError("mesh serving is not ported yet (ROADMAP.md Queue 1 "
-                                      "item 6.5, after item 4c)")
+                                      "item 6.5)")
         cache_len = max_len or model.cfg.max_len
         self.cfg = model.cfg
         self._model = decode_model(model)

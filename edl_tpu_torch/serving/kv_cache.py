@@ -81,7 +81,7 @@ class PagedKVCache:
                  device: torch.device | str | None = None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("a mesh-sharded KV pool is not ported yet (ROADMAP.md "
-                                      "Queue 1 item 6.5, after item 4c)")
+                                      "Queue 1 item 6.5)")
         if block < 1:
             raise ValueError(f"kv block size must be >= 1, got {block}")
         if n_blocks < 1:

@@ -21,12 +21,16 @@ seals what was staged and advances the job's committed-step record, as the
 JAX manager's ``wait`` does after its asynchronous save drains.  The cache
 is best-effort: a tee failure costs a cache miss, never the checkpoint.
 
-In a ``torch.distributed`` world (parameters
-replicated, so rank 0 holds the whole state) rank 0 writes and commits,
-and the other ranks wait in a broadcast of its result until the commit is
-visible; rank 0 also decides ``latest_step``, so every rank restores the
-same step.  Those calls are collective: every rank makes them, in the
-same order.  Without a group nothing is exchanged.
+In a ``torch.distributed`` world rank 0 writes and commits, and the other
+ranks wait in a broadcast of its result until the commit is visible; rank
+0 also decides ``latest_step``, so every rank restores the same step.
+Those calls are collective: every rank makes them, in the same order.
+Without a group nothing is exchanged.  A checkpoint does not depend on the
+mesh: a sharded state (``train/state.py``) is gathered into its global
+leaves before rank 0 writes them (replicated parameters already are), and
+a restore places the global leaves on whatever mesh is current, so a run
+resumes at another tp or fsdp width.  With a sharded state every rank
+whose pieces are the first replica stages its own into the tee.
 """
 
 from __future__ import annotations
@@ -61,6 +65,12 @@ def _from_rank0(value: int | None) -> int | None:
     return None if got < 0 else got
 
 
+def _device_of(state: TrainState) -> torch.device:
+    """Where the state's parameters live (a DTensor's local shard's device)."""
+    p = next(state.model.parameters())
+    return p.to_local().device if hasattr(p, "to_local") else p.device
+
+
 def _is_writer() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
@@ -68,6 +78,7 @@ def _is_writer() -> bool:
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3, tee=None):
         self._tee = tee
+        self._sharded = False        # the last save's state was sharded
         self._dir = Path(directory).resolve()
         self._dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
@@ -90,18 +101,33 @@ class CheckpointManager:
         """Commit ``state`` (and ``meta``) as step ``step``.  An existing
         step is kept (returns False) unless ``force`` replaces it.
         Collective: rank 0 writes, every rank returns its result."""
-        done = self._save(step, state, meta, force) if _is_writer() else None
+        self._sharded = state.sharded
+        sd = state.full_state_dict() if state.sharded else None   # collective
+        done = self._save(step, sd or state.state_dict(), meta, force) if _is_writer() else None
+        del sd
+        if state.sharded:
+            done = _from_rank0(done)
         if done and self._tee is not None:
             try:
-                self._tee.stage(step, state, meta)
+                self._tee.stage(step, state, meta if _is_writer() else None)
             except Exception:  # noqa: BLE001 — the cache is best-effort
                 logger.exception("memstate tee stage failed (step %d)", step)
-        return bool(_from_rank0(done))
+        return bool(done if state.sharded else _from_rank0(done))
 
     def wait(self) -> None:
         """Every save so far is durable (they are synchronous): seal the
-        tee's staged sets and advance the committed-step record."""
-        if self._tee is not None:
+        tee's staged sets and advance the committed-step record.  After a
+        sharded save in a world, collective (whether or not this rank has
+        a tee): every rank seals its own pieces, then rank 0 writes the
+        record, so the record never names a step whose pieces some rank has
+        not sealed."""
+        if self._sharded and dist.is_initialized() and dist.get_world_size() > 1:
+            if self._tee is not None:
+                self._tee.mark_committed(record=False)
+            dist.barrier()
+            if self._tee is not None and _is_writer():
+                self._tee.publish_committed()
+        elif self._tee is not None:
             self._tee.mark_committed()
 
     def close(self) -> None:
@@ -110,14 +136,14 @@ class CheckpointManager:
             tee, self._tee = self._tee, None
             tee.close()
 
-    def _save(self, step: int, state: TrainState, meta: State | None, force: bool) -> bool:
+    def _save(self, step: int, sd: dict, meta: State | None, force: bool) -> bool:
         final = self._dir / str(step)
         if final.exists() and not force:
             return False
         tmp = self._dir / f"{_TMP_PREFIX}{step}-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
-        torch.save(state.state_dict(), tmp / "state.pt")
+        torch.save(sd, tmp / "state.pt")
         if meta is not None:
             (tmp / "meta").mkdir()
             (tmp / "meta" / "metadata").write_text(json.dumps(meta.to_dict()))
@@ -167,7 +193,7 @@ class CheckpointManager:
         if step is None:
             return None
         d = self._dir / str(step)
-        device = next(state.model.parameters()).device
+        device = _device_of(state)
         state.load_state_dict(torch.load(d / "state.pt", map_location=device,
                                          weights_only=True))
         meta_path = d / "meta" / "metadata"

@@ -65,6 +65,10 @@ logger = logging.getLogger(__name__)
 # the formed resizable world's rendezvous client, when this module opened it
 # (closed with the group)
 _OWNED_KV: list = []
+# the formed resizable world's rendezvous store: the group keeps only its
+# C++ half, so the Python object (whose methods every later new_group
+# calls, a mesh's sub-groups) is held here until the group goes
+_STORES: list = []
 
 
 class CoordRendezvousStore(dist.Store):
@@ -145,6 +149,7 @@ class CoordRendezvousStore(dist.Store):
         return len(self._kv.get_prefix(self._prefix)[0])
 
 
+
 def _delta_enabled(tenv: TrainerEnv) -> bool:
     """The launcher's live-reshard path engages under the launcher
     (stage and store named) unless ``EDL_TPU_RESIZE_DELTA=0``."""
@@ -222,6 +227,7 @@ def _form_resizable_world(tenv: TrainerEnv, kv, timeout: float, device,
     dist.init_process_group(backend, store=store, world_size=tenv.world_size,
                             rank=tenv.global_rank,
                             timeout=datetime.timedelta(seconds=group_timeout), **kwargs)
+    _STORES.append(store)
     return time.perf_counter() - t0
 
 
@@ -254,6 +260,7 @@ def leak_world(abort: bool = False) -> None:
                 logger.exception("NCCL abort failed")
         if dist.is_initialized():
             dist.destroy_process_group()
+    _STORES.clear()
     while _OWNED_KV:
         _OWNED_KV.pop().close()
     gc.collect()

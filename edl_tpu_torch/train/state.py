@@ -8,6 +8,15 @@ and the optimizer's moments are updated in place by ``optimizer.step()``
 updates.  Step-level resume metadata (epochs, data checkpoint, world
 size) is not here: it is :class:`edl_tpu_torch.cluster.state.State`, the
 checkpoint's JSON sidecar.
+
+A state whose module was placed on a mesh (``parallel/sharding.py:
+shard_init``: ``param_layouts`` set) is sharded: each parameter is this
+rank's piece (tp rows, an FSDP2 shard), and AdamW's two moments live with
+it, built by the optimizer in the parameter's own placement.
+:meth:`TrainState.full_state_dict` gathers the global leaves (collective)
+and :meth:`TrainState.load_state_dict` takes global leaves and places them
+on the current mesh, so a checkpoint does not depend on the mesh it was
+written on.
 """
 
 from __future__ import annotations
@@ -108,11 +117,78 @@ class TrainState:
         return self
 
     def state_dict(self) -> dict[str, Any]:
+        """This rank's state (its own pieces when sharded)."""
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "step": self.step, "extra": self.extra}
 
+    @property
+    def sharded(self) -> bool:
+        return getattr(self.model, "param_layouts", None) is not None
+
+    def leaf_params(self) -> dict[str, tuple[torch.nn.Parameter, Any]]:
+        """``{leaf path: (parameter, its LeafLayout)}`` of every sharded
+        leaf, in :meth:`state_dict`'s paths (``model/<name>``,
+        ``optimizer/state/<i>/<moment>``): the parameters and their
+        moments (any optimizer state shaped like its parameter).  Empty
+        when the state is not sharded."""
+        if not self.sharded:
+            return {}
+        layouts = self.model.param_layouts
+        named = dict(self.model.named_parameters())
+        out = {f"model/{n}": (p, layouts[n]) for n, p in named.items()}
+        name_of = {id(p): n for n, p in named.items()}
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        for i, p in enumerate(params):
+            for k, v in self.optimizer.state.get(p, {}).items():
+                if isinstance(v, torch.Tensor) and v.shape == p.shape and v.ndim:
+                    out[f"optimizer/state/{i}/{k}"] = (p, layouts[name_of[id(p)]])
+        return out
+
+    def _map_sharded(self, sd: dict[str, Any], fn) -> dict[str, Any]:
+        """``sd`` with ``fn(tensor, parameter, layout)`` applied to every
+        sharded leaf (model parameters and their moments)."""
+        layouts = self.model.param_layouts
+        named = dict(self.model.named_parameters())
+        model = {k: fn(v, named[k], layouts[k]) if k in named else v
+                 for k, v in sd["model"].items()}
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        name_of = {id(p): n for n, p in named.items()}
+        opt = dict(sd["optimizer"])
+        opt["state"] = {}
+        for i, st in sd["optimizer"]["state"].items():
+            p = params[int(i)]
+            lay = layouts[name_of[id(p)]]
+            opt["state"][i] = {k: fn(v, p, lay) if isinstance(v, torch.Tensor) and v.ndim
+                               and tuple(v.shape) in (tuple(p.shape), lay.gshape) else v
+                               for k, v in st.items()}
+        return {**sd, "model": model, "optimizer": opt}
+
+    def full_state_dict(self) -> dict[str, Any]:
+        """:meth:`state_dict` with every leaf global: collective over the
+        mesh when the state is sharded (each rank then holds the whole)."""
+        sd = self.state_dict()
+        if not self.sharded:
+            return sd
+        from edl_tpu_torch.parallel.sharding import to_full
+        tp = self.model.tp
+        return self._map_sharded(sd, lambda t, _p, lay: to_full(t, lay, tp))
+
+    def global_shapes(self) -> dict[str, tuple[int, ...]]:
+        """``{model state name: global shape}``."""
+        if not self.sharded:
+            return {n: tuple(t.shape) for n, t in self.model.state_dict().items()}
+        layouts = self.model.param_layouts
+        return {n: layouts[n].gshape if n in layouts else tuple(t.shape)
+                for n, t in self.model.state_dict().items()}
+
     def load_state_dict(self, sd: dict[str, Any]) -> None:
+        """Load a state dict of global leaves (a local one when the state is
+        not sharded), placing each leaf on the current mesh."""
+        if self.sharded:
+            from edl_tpu_torch.parallel.sharding import from_full
+            tp = self.model.tp
+            sd = self._map_sharded(sd, lambda t, p, lay: from_full(t, p, lay, tp))
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         self.step = int(sd["step"])

@@ -11,6 +11,14 @@ The port of the JAX package's ``train/trainer.py``, one process per card:
   a flat buffer, divided by the world, so the update is the gradient of
   the mean loss over the global batch (JAX's replicated-parameter mesh);
   without a process group the step does no extra work;
+- a mesh (``TrainConfig.mesh_spec``, ``parallel/``) when the spec asks for
+  more than data parallelism: the parameters placed by their logical axes
+  (``create_state(param_logical=...)``), ``tp`` in the model's forward,
+  ``fsdp`` as FSDP2 (HSDP with ``dp``), which reduces the gradients
+  itself; at tp > 1 without fsdp the gradients are averaged over the data
+  ranks of each tp coordinate.  ``world_size`` is the mesh's batch divisor
+  (dp x fsdp), the JAX trainer's for one process on a mesh of devices: the
+  global batch, the LR rescale and the epoch records follow it;
 - input staged one batch ahead (``data/elastic_input.py:device_put_stream``:
   pinned host memory and a side CUDA stream on the card), as the JAX
   trainer's ``prefetch_batches = 1``; a data-service batch's record spans
@@ -61,7 +69,7 @@ import os
 import sys
 import time
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable
 
 import torch
@@ -72,6 +80,8 @@ from edl_tpu_torch.cluster.env import TrainerEnv
 from edl_tpu_torch.cluster.state import AdjustRegistry, DataCheckpoint, State
 from edl_tpu_torch.cluster.train_status import TrainStatus, save_train_status
 from edl_tpu_torch.data.elastic_input import device_put_stream, sync_checkpoint
+from edl_tpu_torch.parallel import mesh as mesh_mod
+from edl_tpu_torch.parallel.sharding import ShardingRules, shard_init
 from edl_tpu_torch.train import distributed as edl_dist
 from edl_tpu_torch.train import lr as lr_mod
 from edl_tpu_torch.train.checkpoint import CheckpointManager
@@ -119,6 +129,14 @@ class TrainConfig:
     # liveness beat to the coordination store after completed steps,
     # throttled to this period (the launcher's hang watchdog); 0 disables
     heartbeat_every: float = 10.0
+    # the mesh, or a function of the process count that gives it (resolved
+    # again at each live reshard: a spec whose tp was chosen for a world
+    # size may not divide the next one)
+    mesh_spec: mesh_mod.MeshSpec | Callable[[int], mesh_mod.MeshSpec] = field(
+        default_factory=mesh_mod.MeshSpec)
+    rules: ShardingRules = field(default_factory=ShardingRules)
+    # FSDP2 even on an fsdp axis of 1 (an NCCL group of one shows its cost)
+    force_fsdp: bool = False
 
 
 class ElasticTrainer:
@@ -159,11 +177,53 @@ class ElasticTrainer:
         self._preempt_next_check: int | None = None  # the agreed next check step (world)
         self._preempt_last_check_t = 0.0              # the last check's time (solo)
         self.input_stats = {"input_wait_s": 0.0, "h2d_wait_s": 0.0}
+        self._form_mesh()
 
     @property
     def world_size(self) -> int:
-        """The formed process group's size (1 without one)."""
+        """The mesh's batch divisor, dp x fsdp (the process count at tp = 1;
+        1 without a process group)."""
+        return mesh_mod.batch_divisor(self.layout)
+
+    @property
+    def processes(self) -> int:
+        """The formed process group's size (1 without one): every rank takes
+        part in the trainer's agreements."""
         return dist.get_world_size() if dist.is_initialized() else 1
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's position along the mesh's batch axes: which rows of
+        the global batch it trains (the same at every tp coordinate)."""
+        return mesh_mod.data_index(self.layout, dist.get_rank() if dist.is_initialized() else 0)
+
+    def _form_mesh(self) -> None:
+        """The rank layout of ``cfg.mesh_spec`` over the formed world (every
+        rank's pod gathered: collective), and a ``DeviceMesh`` when the spec
+        asks for more than data parallelism (or FSDP2 is forced).  Built at
+        start and again after each live reshard."""
+        spec = self.cfg.mesh_spec
+        world = self.processes
+        if callable(spec):
+            spec = spec(world)
+        pods = mesh_mod.pod_ranks() if world > 1 else [0]
+        self.layout = mesh_mod.world_layout(spec, pods)
+        sizes = mesh_mod.mesh_sizes(self.layout)
+        self.mesh = self._data_group = None
+        if not dist.is_initialized() or not (self.cfg.force_fsdp or any(
+                n > 1 for a, n in sizes.items() if a != "dp")):
+            return
+        self.mesh = mesh_mod.build_mesh(spec, pods, self.device.type)
+        if sizes["tp"] > 1 and sizes["dp"] * sizes["fsdp"] > 1:
+            # the data ranks of each tp coordinate, one group each (every rank
+            # makes every group, in the same order): the step's gradient mean
+            # when FSDP2 does not take it
+            for t in range(sizes["tp"]):
+                ranks = sorted(int(r) for r in self.layout[..., t, :].reshape(-1))
+                group = dist.new_group(ranks)
+                if dist.get_rank() in ranks:
+                    self._data_group = group
+        logger.info("mesh %s (rank %d: data rank %d)", sizes, dist.get_rank(), self.data_rank)
 
     def _build_ckpt(self) -> CheckpointManager | None:
         """The checkpoint manager, with the memstate tee and the delta
@@ -188,24 +248,33 @@ class ElasticTrainer:
 
     # -- state construction --------------------------------------------------
     def create_state(self, init_fn: Callable[[], tuple[torch.nn.Module, Any]],
-                     tx: OptimizerFactory) -> TrainState:
+                     tx: OptimizerFactory, param_logical=None) -> TrainState:
         """``init_fn() -> (module, extra)``; the module is moved to the
-        trainer's device before its optimizer is built.  Under
-        ``EDL_TPU_LR_RESCALE=1`` the optimizer carries the world scale
-        (``train/lr.py``), restored with it from every checkpoint."""
-        self._build_fns = (init_fn, tx)
+        trainer's device before its optimizer is built.  ``param_logical``
+        (a model's ``LOGICAL_RULES``): on a mesh the module is placed by
+        them (``parallel/sharding.py:shard_init``), so AdamW's moments come
+        out placed like their parameters; None keeps the parameters
+        replicated.  Under ``EDL_TPU_LR_RESCALE=1`` the optimizer carries
+        the world scale (``train/lr.py``), restored with it from every
+        checkpoint."""
+        self._build_fns = (init_fn, tx, param_logical)
         if constants.lr_rescale():
             tx = lr_mod.world_scaled(tx)
         model, extra = init_fn()
-        return TrainState.create(model.to(self.device), tx, extra)
+        model = model.to(self.device)
+        if self.mesh is not None and param_logical is not None:
+            model = shard_init(lambda: model, param_logical, self.mesh, self.cfg.rules,
+                               fsdp=self.cfg.force_fsdp or None)
+            model.mesh = self.mesh
+        return TrainState.create(model, tx, extra)
 
-    def restore_or_create(self, init_fn, tx) -> tuple[TrainState, State]:
+    def restore_or_create(self, init_fn, tx, param_logical=None) -> tuple[TrainState, State]:
         """The latest checkpoint (collective) restored into a fresh state:
         from the peer cache when it holds that step (or a world-agreed
         delta chain past it), else from storage; a fresh state when there
         is none."""
         meta = State(total_batch_size=self.cfg.global_batch_size)
-        state = self.create_state(init_fn, tx)
+        state = self.create_state(init_fn, tx, param_logical)
         latest = self.ckpt.latest_step() if self.ckpt is not None else None
         if latest is None:
             return state, meta
@@ -300,7 +369,7 @@ class ElasticTrainer:
         if expect is not None and committed == expect and freshest is not None \
                 and freshest > expect:
             cand = int(freshest)
-        if self.world_size > 1:
+        if self.processes > 1:
             cand = int(edl_dist.allgather_flag(cand).min())
         if cand < 0 or (expect is not None and cand <= expect):
             return None
@@ -309,7 +378,7 @@ class ElasticTrainer:
 
     def _agree_flag(self, ok: bool) -> bool:
         """Every rank's ``ok``, and-ed (the identity without a world)."""
-        if self.world_size <= 1:
+        if self.processes <= 1:
             return bool(ok)
         return bool(edl_dist.allgather_flag(int(bool(ok))).min())
 
@@ -332,8 +401,12 @@ class ElasticTrainer:
         loss, (new_extra, metrics) = self.loss_fn(state.model, state.extra, batch, gen)
         loss.backward()
         loss = loss.detach()
-        if dist.is_initialized():
-            loss = _mean_over_world(state.model, loss)
+        if not dist.is_initialized() or self.world_size == 1 < self.processes:
+            pass   # no group, or tp over the whole world: every rank trained the same rows
+        elif _is_fsdp(state.model):
+            loss = _mean_over_world(None, loss)        # FSDP2 reduced the gradients
+        else:
+            loss = _mean_over_world(state.model, loss, self._data_group)
         state.apply_gradients(new_extra)
         metrics = dict(metrics or {})
         metrics["loss"] = loss
@@ -551,7 +624,7 @@ class ElasticTrainer:
         next check (its step-time EMA's steps in ``preempt_check_seconds()``)."""
         if self.tenv is None or not self.tenv.pod_id or not self.tenv.cluster_stage:
             return
-        multi = self.world_size > 1
+        multi = self.processes > 1
         if multi:
             if self._preempt_next_check is None:
                 if step % max(1, constants.preempt_check_steps()):
@@ -625,7 +698,7 @@ class ElasticTrainer:
             self.ckpt.save(step, state, meta, force=True)
             self.ckpt.wait()   # sealed in the cache: the survivors restore from RAM
             logger.info("preempt: checkpoint committed at step %d", step)
-        if self.world_size > 1:
+        if self.processes > 1:
             dist.barrier()  # no rank leaves before every save has committed
         # the workerlog says why this pod left: its own per-pod record holds
         # the eviction reason; a pod leaving on a peer's preemption has none
@@ -676,7 +749,7 @@ class ElasticTrainer:
         self.ckpt.save(step, state, meta, force=True)
         self.ckpt.wait()    # joiners and peers restore this step
         local = shards.local_source(state)
-        if self.world_size > 1:
+        if self.processes > 1:
             edl_dist.allgather_flag(1)   # no rank tears down before every save committed
         raise _LiveReshard(_ReshardPayload(mode="grow", local=local, step=step))
 
@@ -718,7 +791,7 @@ class ElasticTrainer:
 
         t0 = time.monotonic()
         t_detect = time.time()
-        old_stage, old_world = self.tenv.cluster_stage, self.tenv.world_size
+        old_stage, old_world = self.tenv.cluster_stage, self.world_size
         edl_dist.leak_world()
         gc.collect()
         if self.device.type == "cuda":
@@ -750,6 +823,7 @@ class ElasticTrainer:
         if self.ckpt is not None:
             self.ckpt.close()
         edl_dist.reform_world(self.tenv, self.store, cluster, self.device)
+        self._form_mesh()
         self.ckpt = self._build_ckpt()
         target = self.create_state(*self._build_fns)
 
@@ -801,7 +875,7 @@ class ElasticTrainer:
 
         # 4. bookkeeping: adjust hooks, cadence state (joiners start fresh),
         # the recovery record's times, the done record for the launcher
-        new_world = self.tenv.world_size
+        new_world = self.world_size
         if old_world != new_world:
             logger.info("world size %d -> %d (live); running adjust functions", old_world,
                         new_world)
@@ -885,7 +959,8 @@ def _release(state: TrainState | None) -> None:
     state.optimizer.state.clear()
     for t in list(state.model.parameters()) + list(state.model.buffers()):
         t.grad = None
-        t.data = torch.empty(0, dtype=t.dtype, device=t.device)
+        if not hasattr(t, "to_local"):   # a DTensor's shard goes with the module
+            t.data = torch.empty(0, dtype=t.dtype, device=t.device)
     state.fences.clear()
 
 
@@ -900,22 +975,29 @@ def _log_to_stderr() -> None:
         root.setLevel(logging.INFO)
 
 
-def _mean_over_world(model: torch.nn.Module, loss: torch.Tensor) -> torch.Tensor:
-    """Replace every parameter gradient, and ``loss``, by its mean over the
-    process group: one all-reduce per dtype of a flat buffer.  NCCL
-    averages in the collective (its one-rank form premultiplies by 1, so a
-    group of one changes no bit); gloo has no average, so it sums and
-    divides.  Every rank must hold gradients for the same parameters."""
-    tensors = [p.grad for p in model.parameters() if p.grad is not None] + [loss.reshape(1)]
-    average = dist.get_backend() == "nccl"
-    world = dist.get_world_size()
+def _is_fsdp(model: torch.nn.Module) -> bool:
+    return any(hasattr(p, "to_local") for p in model.parameters())
+
+
+def _mean_over_world(model: torch.nn.Module | None, loss: torch.Tensor,
+                     pg=None) -> torch.Tensor:
+    """Replace every parameter gradient of ``model`` (none for None), and
+    ``loss``, by its mean over the process group ``pg`` (default: the
+    world): one all-reduce per dtype of a flat buffer.  NCCL averages in
+    the collective (its one-rank form premultiplies by 1, so a group of
+    one changes no bit); gloo has no average, so it sums and divides.
+    Every rank must hold gradients for the same parameters."""
+    grads = [] if model is None else [p.grad for p in model.parameters() if p.grad is not None]
+    tensors = grads + [loss.reshape(1)]
+    average = dist.get_backend(pg) == "nccl"
+    world = dist.get_world_size(pg)
     for dtype in dict.fromkeys(t.dtype for t in tensors):
         group = [t for t in tensors if t.dtype == dtype]
         flat = torch.cat([t.reshape(-1) for t in group])
         if average:
-            dist.all_reduce(flat, op=dist.ReduceOp.AVG)
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=pg)
         else:
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=pg)
             flat /= world
         offset = 0
         for t in group:

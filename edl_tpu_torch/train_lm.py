@@ -3,19 +3,25 @@
     python -m edl_tpu_torch.train_lm --layers 12 --embed 768 --heads 6 \\
         --mlp 3072 --vocab 32000 --seq_len 1024 --fused_ce
 
-Same flags as the JAX example minus those for meshes, pipelines and MoE
-and ``--scan_layers`` (layers are a Python loop here), with ``--attention``
-limited to the ported ``auto|dense|splash|flash``, plus ``--device`` (default
-``cuda``; ``cpu`` only when asked).  Under the elastic launcher
-(``python -m edl_tpu.collective.launch ... edl_tpu_torch/train_lm.py``) one
-process runs per trainer: the launcher's env forms the data-parallel world
-(NCCL on the card, gloo on the CPU), names the coordination store the
-trainer reports to, and gives the checkpoint directory.  Under the
+Same flags as the JAX example minus ``--scan_layers`` (layers are a Python
+loop here), plus ``--device`` (default ``cuda``; ``cpu`` only when asked);
+``--sp``, ``--pp``, ``--ep``, ``--moe`` and ``--attention ring`` raise (not
+ported yet).  The mesh flags are the JAX example's: ``--fsdp`` (FSDP2),
+``--tp`` (0 = auto: 2 when the ranks left by fsdp are even, else 1, chosen
+again at each live reshard) and ``--dcn_dp`` (data-parallel replica groups
+across pods; 0 = one per pod when each pod holds the rest of the mesh).
+One process drives one card, so a mesh is over the world's ranks, and the
+tp ranks of one data coordinate read the same rows.  Under the elastic
+launcher (``python -m edl_tpu.collective.launch ...
+edl_tpu_torch/train_lm.py``) one process runs per trainer: the launcher's
+env forms the world (NCCL on the card, gloo on the CPU), names the
+coordination store the trainer reports to, and gives the checkpoint
+directory.  Under the
 launcher's defaults a membership change reshards the world live, in the
 same processes, restoring from the pods' in-RAM checkpoint caches
 (``train/trainer.py``); with ``EDL_TPU_RESIZE_DELTA=0`` a run stopped by
 it resumes from its last checkpoint in a world of the new size.
-``--batch_size`` is per process.  Compute is bf16 on the card and
+``--batch_size`` is per data coordinate (dp x fsdp).  Compute is bf16 on the card and
 f32 on the CPU; the optimizer is AdamW with optax's defaults.  The
 synthetic corpus is the same order-1 Markov chain (numpy, so a seed gives
 the same tokens as the JAX example): the loss must fall well below the
@@ -49,7 +55,17 @@ def parse_args(argv=None):
                    help="grouped-query attention: K/V heads (0 = --heads, i.e. MHA)")
     p.add_argument("--mlp", type=int, default=256)
     p.add_argument("--lr", type=float, default=3e-3)
-    p.add_argument("--attention", default="auto", choices=["auto", "dense", "splash", "flash"])
+    p.add_argument("--tp", type=int, default=0, help="0 = auto (2 if even)")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="zero-style parameter sharding axis size (FSDP2)")
+    p.add_argument("--dcn_dp", type=int, default=0,
+                   help="data-parallel replica groups across pods; 0 = auto (one group per pod)")
+    p.add_argument("--sp", type=int, default=1, help="not ported")
+    p.add_argument("--pp", type=int, default=1, help="not ported")
+    p.add_argument("--ep", type=int, default=1, help="not ported")
+    p.add_argument("--moe", type=int, default=0, help="not ported")
+    p.add_argument("--attention", default="auto",
+                   choices=["auto", "dense", "splash", "flash", "ring"])
     p.add_argument("--remat", nargs="?", const="on", default="auto",
                    choices=["auto", "on", "off"],
                    help="recompute layers in the backward; auto = off when "
@@ -59,7 +75,30 @@ def parse_args(argv=None):
                         "[B, L, vocab] logits (edl_tpu_torch/ops/ce.py)")
     p.add_argument("--ce_block", type=int, default=4096)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    unported = [(args.sp != 1, "--sp"), (args.pp != 1, "--pp"), (args.ep != 1, "--ep"),
+                (args.moe != 0, "--moe"), (args.attention == "ring", "--attention ring")]
+    for asked, flag in unported:
+        if asked:
+            raise NotImplementedError(f"{flag} is not ported to edl_tpu_torch yet "
+                                      f"(ROADMAP.md Queue 1 item 7)")
+    if args.fsdp < 1 or args.tp < 0:
+        raise SystemExit("--fsdp must be >= 1 and --tp >= 0")
+    return args
+
+
+def mesh_spec(args):
+    """``world -> MeshSpec``: the JAX example's rule, ``tp`` auto from the
+    ranks left once fsdp takes its share (2 if even), over a world size
+    that a live reshard may change."""
+    from edl_tpu_torch.parallel.mesh import MeshSpec
+
+    def spec(world: int) -> MeshSpec:
+        free = max(1, world // args.fsdp)
+        tp = args.tp or (2 if free % 2 == 0 else 1)
+        return MeshSpec(dp=-1, fsdp=args.fsdp, tp=tp, dcn_dp=args.dcn_dp)
+
+    return spec
 
 
 def markov_corpus(args, seed):
@@ -103,13 +142,13 @@ def build_config(args, device: torch.device):
 def make_loss_fn(args):
     """``loss_fn(model, extra, batch, gen)`` for the trainer: next-token CE
     of ``batch["ids"]``, fused or over the full logits."""
-    from edl_tpu_torch.models.transformer import lm_loss, lm_loss_fused
+    from edl_tpu_torch.models.transformer import lm_loss
 
     def loss_fn(model, extra, batch, gen):
         ids = batch["ids"]
         if args.fused_ce:
-            h = model(ids[:, :-1], return_hidden=True)
-            loss = lm_loss_fused(model, h, ids[:, 1:], block_size=args.ce_block)
+            # the fused loss inside the forward, where FSDP2 gathered the head
+            loss = model(ids[:, :-1], targets=ids[:, 1:], ce_block=args.ce_block).mean()
         else:
             loss = lm_loss(model(ids[:, :-1]), ids[:, 1:])
         return loss, (extra, {})
@@ -126,22 +165,23 @@ def metric_fn(model, extra, batch):
 
 
 def build_trainer(args, device: torch.device, checkpoint_dir: str = "", store=None,
-                  tenv=None):
-    """``(cfg, trainer, init_fn, tx)`` for ``args`` on ``device``; the
-    global batch is ``--batch_size`` times the formed world's size."""
-    import torch.distributed as dist
-
+                  tenv=None, force_fsdp: bool = False):
+    """``(cfg, trainer, init_fn, tx)`` for ``args`` on ``device``, on the
+    mesh of ``args`` over the formed world (collective); the global batch
+    is ``--batch_size`` times the mesh's batch divisor.  ``force_fsdp``:
+    FSDP2 even on an fsdp axis of 1.  Place the model by passing
+    ``LOGICAL_RULES`` to ``create_state``/``restore_or_create``."""
     from edl_tpu_torch.models.transformer import TransformerLM
     from edl_tpu_torch.train.state import adamw
     from edl_tpu_torch.train.trainer import ElasticTrainer, TrainConfig
 
     cfg = build_config(args, device)
-    world = dist.get_world_size() if dist.is_initialized() else 1
     trainer = ElasticTrainer(
         make_loss_fn(args),
-        TrainConfig(checkpoint_dir=checkpoint_dir, global_batch_size=args.batch_size * world,
-                    log_every=0),
+        TrainConfig(checkpoint_dir=checkpoint_dir, log_every=0, mesh_spec=mesh_spec(args),
+                    force_fsdp=force_fsdp),
         store=store, tenv=tenv, device=device)
+    trainer.cfg.global_batch_size = args.batch_size * trainer.world_size
 
     def init_fn():
         return TransformerLM(cfg, torch.Generator().manual_seed(0)), None
@@ -169,18 +209,26 @@ def main(argv=None):
         shutdown()
 
 
+def _mesh(trainer) -> dict:
+    from edl_tpu_torch.parallel.mesh import mesh_sizes
+    return mesh_sizes(trainer.layout)
+
+
 def _train(args, device, tenv, store):
+    from edl_tpu_torch.models.transformer import LOGICAL_RULES
+
     rank = tenv.global_rank
     cfg, trainer, init_fn, tx = build_trainer(args, device, tenv.checkpoint_dir, store, tenv)
-    world = trainer.world_size
-    state, meta = trainer.restore_or_create(init_fn, tx)
-    print(f"[train_lm] rank={rank}/{world} device={device} attn={args.attention} "
-          f"remat={cfg.remat} resume_epoch={meta.next_epoch}", flush=True)
+    world = trainer.processes
+    state, meta = trainer.restore_or_create(init_fn, tx, LOGICAL_RULES)
+    print(f"[train_lm] rank={rank}/{world} device={device} mesh={_mesh(trainer)} "
+          f"attn={args.attention} remat={cfg.remat} resume_epoch={meta.next_epoch}", flush=True)
     step_sleep = float(os.environ.get("EDL_TPU_DEMO_STEP_SLEEP", "0"))
 
     def data_fn(epoch: int):
-        # the rank read at each epoch: a live reshard re-ranks this process
-        gen = markov_corpus(args, 1000 * (epoch + 1) + tenv.global_rank)
+        # the data coordinate read at each epoch: a live reshard re-ranks
+        # this process and may change the mesh
+        gen = markov_corpus(args, 1000 * (epoch + 1) + trainer.data_rank)
         for _ in range(args.steps_per_epoch):
             if step_sleep:  # launcher tests pace the run so a pod can join mid-run
                 time.sleep(step_sleep)
@@ -197,8 +245,8 @@ def _train(args, device, tenv, store):
     state, meta = trainer.fit(state, meta, data_fn, epochs=args.epochs,
                               on_epoch_end=on_epoch_end)
     rec = {"val_nll": losses[-1] if losses else None, "nll_curve": losses,
-           "unigram_nll": round(float(np.log(args.vocab)), 4), "world": trainer.world_size,
-           "device": str(device)}
+           "unigram_nll": round(float(np.log(args.vocab)), 4), "world": trainer.processes,
+           "mesh": _mesh(trainer), "device": str(device)}
     print(f"[train_lm] {json.dumps(rec)}", flush=True)
     marker = os.environ.get("EDL_TPU_DEMO_MARKER")
     if marker:

@@ -33,8 +33,12 @@ alone.  Compute is bf16 on the card and f32 on the CPU.
 whatever the number of racing processes; it needs ``cv2``).  Under the
 elastic launcher one process runs per trainer, as with ``train_lm``.
 
+``--dcn_dp`` builds ``MeshSpec(dcn_dp=...)``, as the JAX example does:
+data-parallel replica groups across pods merged pod-major into ``dp``; a
+rank's position on that axis picks its file shard and its batches' seed.
+
 Not ported yet, each raising ``NotImplementedError``: ``--dgc`` (ROADMAP.md
-Queue 1 item 7), ``--dcn_dp`` (item 4c) and ``--profile_steps`` (item 8).
+Queue 1 item 7) and ``--profile_steps`` (item 8).
 """
 
 from __future__ import annotations
@@ -90,7 +94,8 @@ def parse_args(argv=None):
                    help="write per-epoch benchmark JSON here")
     p.add_argument("--profile_steps", type=str, default="", help="not ported")
     p.add_argument("--profile_dir", type=str, default="")
-    p.add_argument("--dcn_dp", type=int, default=0, help="not ported")
+    p.add_argument("--dcn_dp", type=int, default=0,
+                   help="data-parallel replica groups across pods; 0 = auto (one group per pod)")
     p.add_argument("--data_service", action="store_true",
                    help="take records from the launcher's data service (needs the launcher)")
     p.add_argument("--data_leader", action="store_true",
@@ -99,7 +104,6 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     unported = [(args.dgc > 0, "--dgc", "item 7 (train/compress.py)"),
-                (args.dcn_dp != 0, "--dcn_dp", "item 4c (the mesh)"),
                 (bool(args.profile_steps), "--profile_steps", "item 8 (obs/profile.py)")]
     for asked, flag, item in unported:
         if asked:
@@ -232,6 +236,7 @@ def build_trainer(args, device: torch.device, steps_per_epoch: int = 1,
     import torch.distributed as dist
 
     from edl_tpu_torch.models import resnet
+    from edl_tpu_torch.parallel.mesh import MeshSpec
     from edl_tpu_torch.train.lr import cosine_warmup, scale_lr_for_batch
     from edl_tpu_torch.train.state import sgd
     from edl_tpu_torch.train.trainer import ElasticTrainer, TrainConfig
@@ -245,7 +250,8 @@ def build_trainer(args, device: torch.device, steps_per_epoch: int = 1,
     trainer = ElasticTrainer(
         make_loss_fn(args),
         TrainConfig(checkpoint_dir=checkpoint_dir, save_every_steps=args.save_every_steps,
-                    global_batch_size=global_batch, log_every=50),
+                    global_batch_size=global_batch, log_every=50,
+                    mesh_spec=MeshSpec(dcn_dp=args.dcn_dp)),
         store=store, tenv=tenv, device=device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model_cls = getattr(resnet, MODELS[args.model])
@@ -323,9 +329,15 @@ def train(args, device, tenv, store):
     launcher's env), ``store`` (the coordination store, or None); returns
     ``(TrainState, State)``."""
     from edl_tpu_torch.data import images
+    from edl_tpu_torch.parallel import mesh as mesh_mod
 
     rank = tenv.global_rank
     world = max(1, tenv.world_size)
+    # the rank's position on the mesh's data axis (pod-major with --dcn_dp):
+    # its file shard and its batches' seed
+    pods = mesh_mod.pod_ranks() if world > 1 else [0]
+    data_rank = mesh_mod.data_index(
+        mesh_mod.world_layout(mesh_mod.MeshSpec(dcn_dp=args.dcn_dp), pods), rank)
     if args.synthetic:
         data_dir = args.data_dir or os.path.join(os.environ.get("TMPDIR", "/tmp"), "edl-synth")
         data_dir = _generate_synthetic_once(images, data_dir, args)
@@ -338,7 +350,7 @@ def train(args, device, tenv, store):
     val_files = sorted(glob.glob(os.path.join(data_dir, "val-*.rec")))
     if not train_files:
         raise SystemExit(f"no train-*.rec under {data_dir}")
-    my_files = images.shard_files(train_files, rank, world)
+    my_files = images.shard_files(train_files, data_rank, world)
     per_file = (args.synthetic_per_file if args.synthetic
                 else 1281167 // max(1, len(train_files)))
     steps_per_epoch = (args.steps_per_epoch
@@ -351,7 +363,7 @@ def train(args, device, tenv, store):
         f"[adjust] world {old} -> {new}; lr now {lr:.4f}", flush=True))
     state, meta = trainer.restore_or_create(init_fn, tx)
     resumed_spans = sum(r.end - r.begin for r in meta.data_checkpoint.processed)
-    print(f"[train_resnet] {args.model} rank={rank}/{world} device={device} "
+    print(f"[train_resnet] {args.model} rank={rank}/{world} data_rank={data_rank} device={device} "
           f"resume_epoch={meta.next_epoch} in_epoch={meta.in_epoch} "
           f"resumed_spans={resumed_spans} lr={lr:.4f} steps/epoch={steps_per_epoch} "
           f"files={len(my_files)}", flush=True)
@@ -367,7 +379,7 @@ def train(args, device, tenv, store):
             it = ei.epoch(epoch, meta.data_checkpoint)
         else:
             it = iter(images.ImageBatches(my_files, args.batch_size, image_size=args.image_size,
-                                          train=True, seed=1000 * epoch + rank,
+                                          train=True, seed=1000 * epoch + data_rank,
                                           num_workers=args.num_workers))
         for i, batch in enumerate(it):
             if args.steps_per_epoch and i >= args.steps_per_epoch:

@@ -42,11 +42,12 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "helpers" / "torch_dp_worker.py"
 REFORM_WORKER = ROOT / "tests" / "helpers" / "torch_reform_worker.py"
 WORKER_TIMEOUT = 120      # seconds per worker process
-# the 2-rank world's shape: 2 layers, width 64, 2 rows a rank
+# the 2-rank world's shape: 2 layers, width 64, 2 rows a rank, pure data
+# parallelism (--tp 1; train_lm's auto tp would split this world over tp)
 SMALL = dict(vocab_size=97, num_layers=2, embed_dim=64, num_heads=2, mlp_dim=128, max_len=16)
 FLAGS = ["--device", "cpu", "--vocab", "97", "--layers", "2", "--embed", "64", "--heads", "2",
          "--mlp", "128", "--seq_len", "16", "--batch_size", "2", "--fused_ce", "--ce_block", "64",
-         "--lr", "3e-3"]
+         "--lr", "3e-3", "--tp", "1"]
 # f32 parameters after 3 AdamW steps at lr 3e-3, against one process on the
 # global batch and against the JAX step: they differ by the order of f32
 # sums (the all-reduce of two half-batch gradients; another framework's

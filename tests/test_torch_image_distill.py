@@ -82,7 +82,7 @@ def test_module_teacher_feeds_in_sorted_key_order():
     out = module_teacher(Sub(), fetch_name="d")({"b": np.ones(3, np.float32),
                                                  "a": np.arange(3, dtype=np.float32)})
     np.testing.assert_array_equal(out["d"], [-1.0, 0.0, 1.0])
-    with pytest.raises(NotImplementedError, match="item 4c"):
+    with pytest.raises(NotImplementedError, match="item 6.5"):
         module_teacher(Sub(), mesh=object())
 
 

@@ -66,6 +66,10 @@ RESHARD_MODULES = (
 FLEET_LEADER_MODULES = (
     "edl_tpu_torch.cluster.scale", "edl_tpu_torch.distill.fleet",
     "edl_tpu_torch.distill.backlog", "edl_tpu_torch.data.journal", "edl_tpu_torch.data.leader")
+# the modules of the mesh slice
+MESH_MODULES = (
+    "edl_tpu_torch.parallel", "edl_tpu_torch.parallel.mesh", "edl_tpu_torch.parallel.sharding",
+    "edl_tpu_torch.parallel.tp", "edl_tpu_torch.models.logical")
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -98,7 +102,7 @@ print(sorted(set(bad()) - before))
     assert len(names) >= 60 and set(DISTRIBUTED_MODULES + SERVING_MODULES + RESNET_MODULES
                                     + DATA_SERVICE_MODULES + DISTILL_MODULES
                                     + FLEET_MODULES + RESHARD_MODULES
-                                    + FLEET_LEADER_MODULES) <= set(names), names
+                                    + FLEET_LEADER_MODULES + MESH_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 
@@ -172,6 +176,17 @@ def test_importing_the_reshard_slice_loads_no_jax():
     transfer load no JAX and nothing of the JAX package."""
     code = ("import sys, importlib; [importlib.import_module(m) for m in "
             + repr(RESHARD_MODULES) + "]; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_mesh_slice_loads_no_jax():
+    """The mesh, the logical sharding, the tensor-parallel functions and the
+    logical-axes rules load no JAX and nothing of the JAX package."""
+    code = ("import sys, importlib; [importlib.import_module(m) for m in "
+            + repr(MESH_MODULES) + "]; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)

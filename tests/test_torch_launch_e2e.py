@@ -9,8 +9,10 @@ server, ``edl_tpu_torch/train_lm.py`` trainers on the CPU.
   ``scripts/resize_smoke.py``'s grow and shrink).
 - A live mid-run join with stop-resume: pod A trains solo; pod B joins
   once A has committed two epoch checkpoints; A's trainer is restarted
-  into a 2-rank gloo world with B's, both resume from the checkpoint at the
-  next epoch, the epoch history records both world sizes, and the resize's
+  into a 2-rank gloo world with B's (train_lm's auto tp: tp = 2), both
+  resume from the checkpoint at the next epoch, the epoch history records
+  the mesh's batch divisor (1 throughout: the tp ranks train the same
+  rows), and the resize's
   recovery record (the launcher's half and the trainers') is complete (the
   model of ``tests/test_elastic_training_e2e.py::
   test_elastic_join_resumes_training``).
@@ -159,8 +161,10 @@ def test_torch_trainers_reshard_live_under_the_launcher_defaults(coord_server, t
     meta = _last_meta(ckpt)
     epochs = sorted(meta.epochs, key=lambda e: e.epoch_no)
     assert [e.epoch_no for e in epochs] == list(range(24)), epochs
+    # the batch divisor: 1 solo, 1 in the 2-rank world at auto tp 2, 1 again
     worlds = [e.world_size for e in epochs]
-    assert worlds[0] == 1 and 2 in worlds and worlds[-1] == 1, worlds
+    assert worlds == [1] * 24, worlds
+    assert "'tp': 2" in worker_a, worker_a[-6000:]
     done_a = [line for line in (tmp_path / "marker-a").read_text().splitlines()
               if line.startswith("done")]
     rec = json.loads(done_a[-1].split(" ", 1)[1])
@@ -210,19 +214,20 @@ def test_torch_trainers_join_and_resume_under_the_launcher(coord_server, tmp_pat
     if "storage" in sources:
         assert "cache miss (stale" in _logs(str(tmp_path)), stages
 
-    # the last checkpoint's sidecar: every epoch once, solo first, then 2 ranks
+    # the last checkpoint's sidecar: every epoch once, each recording the
+    # mesh's batch divisor: 1 solo, and 1 in the 2-rank world at tp 2
     last = _committed(ckpt)[-1]
     with open(os.path.join(ckpt, str(last), "meta", "metadata")) as f:
         meta = State().from_json(f.read())
     worlds = [e.world_size for e in sorted(meta.epochs, key=lambda e: e.epoch_no)]
     assert [e.epoch_no for e in sorted(meta.epochs, key=lambda e: e.epoch_no)] == list(range(10))
-    assert worlds[0] == 1 and worlds[-1] == 2 and worlds == sorted(worlds), worlds
+    assert worlds == [1] * 10, worlds
 
-    # the finishing run was a 2-rank world and learned
+    # the finishing run was a 2-rank world at auto tp 2 and learned
     done = [line for line in (tmp_path / "marker-a").read_text().splitlines()
             if line.startswith("done")]
     rec = json.loads(done[-1].split(" ", 1)[1])
-    assert rec["world"] == 2, rec
+    assert rec["world"] == 2 and rec["mesh"]["tp"] == 2, rec
     assert rec["val_nll"] < rec["unigram_nll"], rec
     # A's log shows the resize restart resuming from a nonzero epoch
     log_a = (tmp_path / "launcher-a.log").read_bytes().decode(errors="replace")

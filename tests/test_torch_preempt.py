@@ -87,7 +87,7 @@ def test_world_cadence_agrees_on_the_next_check(memkv, monkeypatch):
     agreed step.  Rank 1 of a pod reads no store, yet sees a peer's
     sighting through the collective."""
     monkeypatch.setenv("EDL_TPU_PREEMPT_CHECK_STEPS", "3")
-    monkeypatch.setattr(ElasticTrainer, "world_size", property(lambda self: 2))
+    monkeypatch.setattr(ElasticTrainer, "processes", property(lambda self: 2))
     peer = {"seen": 0, "proposal": 5}
     reduced = []
 

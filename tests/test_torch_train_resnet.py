@@ -133,8 +133,7 @@ def test_metric_fn_is_per_example_ce_and_top1():
     assert out["val_top1"].tolist() == [1.0, 0.0]
 
 
-@pytest.mark.parametrize("flag", [["--dgc", "0.99"], ["--dcn_dp", "2"],
-                                  ["--profile_steps", "3:5"]])
+@pytest.mark.parametrize("flag", [["--dgc", "0.99"], ["--profile_steps", "3:5"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         train_resnet.parse_args(ARGV + flag)
