@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases distill
     python3 chip_smoke.py --phases build,reshard
     python3 chip_smoke.py --phases build,mesh
+    python3 chip_smoke.py --phases build,meshserve
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -43,7 +44,8 @@ failure exits non-zero:
    and of one PyTorch library call as a yardstick only, and the least time
    the card could take (the bound), at the flagship shape, at the ``d256``
    phase's ``[8, 1024, 3, 256]``, at the ``d384`` phase's ``[8, 1024,
-   2, 384]`` and at the ``d768`` phase's ``[8, 1024, 1, 768]``.
+   2, 384]``, at the ``d768`` phase's ``[8, 1024, 1, 768]`` and at the
+   ``meshserve`` phase's tp-2 teacher's ``[8, 1024, 3, 128]`` a rank.
 3. ``parity``: one training step of small bf16 configs on the card (with
    the kernels) and on the CPU (plain path) from the same weights: the
    splash path at head dims 128, 192, 256, 384 and 768, and the flash path
@@ -236,6 +238,27 @@ failure exits non-zero:
    within ``MESH_LOSS_RTOL``), device ms and NCCL kernels a step against
    the plain step's.  (c) The checkpoint of (a) resumed by one process at
    tp = 1: its next loss against (a)'s 4th (``MESH_RESUME_ATOL``).
+18. ``meshserve``: tensor-parallel serving at the serve phase's width and
+   weights: two processes on the one card in a gloo group (CUDA tensors),
+   rank 0 leading every tp group, rank 1 following.  First each decode
+   step's collectives timed alone (the f32 residual all-reduce, the head's
+   f32 vocab columns, the tokens' broadcast).  (a) The paged continuous
+   engine at tp = 2 (16 slots, ``kv_block`` 16) over the serve phase's 64
+   requests x 32 tokens: tokens/s, wall ms a decode step at 16 slots, and
+   beside them the one-process engine's on the same requests (each engine
+   warmed at 128 tokens), with how many requests and tokens equal its.  (b) A session's turn exported from
+   the tp-2 engine resumes in a one-process engine, and one from a
+   one-process engine in a tp-2 engine: each warm (one hit, the chain's
+   tokens skipped), the two blobs of one layout.  (c) Speculative decoding
+   on the group with the replica's default draft (1 x 16, on rank 0 only),
+   k = 3, over 8 requests of at most 256 prompt tokens: the accept rate.  (d) ``module_teacher(mesh=)`` on the flagship
+   with ``attention_impl="auto"`` at [8, 1024]: its logits against the
+   one-process teacher's (``MESHSERVE_TEACHER_RTOL``; both also against
+   the same weights in f32, bf16's floor), and each rank's
+   launch counters show 12 splash forwards a call at 3 heads.  (e) A
+   ``ReplicaServer`` over a tp-2 engine behind the ``Gateway`` answers 8
+   requests over the wire.  Every token of (a), (b), (c) and (e) is held to
+   the full-prefix argmax by the serve phase's margin rule.
 
 It then prints the card's ``nvidia-smi`` name and power limit, one line
 ``{"kernels": [...]}``, and, last, ``{"ok": true, "device": {...}}``.
@@ -255,7 +278,8 @@ import time
 from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
-          "resume", "data", "elastic", "serve", "fleet", "distill", "reshard", "mesh")
+          "resume", "data", "elastic", "serve", "fleet", "distill", "reshard", "mesh",
+          "meshserve")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -267,6 +291,7 @@ FLAGSHIP_SHAPE = (8, 1024, 6, 128)     # [B, L, H, D]
 D256_SHAPE = (8, 1024, 3, 256)         # the d256 phase's attention
 D384_SHAPE = (8, 1024, 2, 384)         # the d384 phase's attention
 D768_SHAPE = (8, 1024, 1, 768)         # the d768 phase's attention
+TP_SHAPE = (8, 1024, 3, 128)           # the meshserve phase's tp-2 teacher, a rank's heads
 RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64),
                  (2, 256, 4, 192), (2, 256, 4, 256), (1, 77, 2, 192), (1, 77, 2, 256),
                  (2, 256, 2, 320), (1, 77, 2, 320), (1, 200, 2, 320),
@@ -772,11 +797,13 @@ def phase_kernels(ctx) -> None:
     d256 = check_kernels(D256_SHAPE, seed=3, timed=True)
     d384 = check_kernels(D384_SHAPE, seed=4, timed=True)
     d768 = check_kernels(D768_SHAPE, seed=5, timed=True)
+    tp = check_kernels(TP_SHAPE, seed=6, timed=True)
     for path, r, causal, shape in (("splash", res, True, FLAGSHIP_SHAPE),
                                    ("flash", flash, False, FLAGSHIP_SHAPE),
                                    ("splash", d256, True, D256_SHAPE),
                                    ("splash", d384, True, D384_SHAPE),
-                                   ("splash", d768, True, D768_SHAPE)):
+                                   ("splash", d768, True, D768_SHAPE),
+                                   ("splash", tp, True, TP_SHAPE)):
         record(r, shape, log_it=False)
         for name, nums in r.items():
             if name in KERNELS and "ms" in nums:
@@ -790,6 +817,7 @@ def phase_kernels(ctx) -> None:
     ctx["kernels_d256"] = {n: {**d256[n], "max_abs_err": worst_at[256][n]} for n in SPLASH_WRAPPERS}
     ctx["kernels_d384"] = {n: {**d384[n], "max_abs_err": worst_at[384][n]} for n in KERNELS_D384}
     ctx["kernels_d768"] = {n: {**d768[n], "max_abs_err": worst_at[768][n]} for n in KERNELS_D768}
+    ctx["kernels_meshserve"] = {"attention_fwd": tp["attention_fwd"]}
     torch.cuda.synchronize()
 
 
@@ -4115,6 +4143,437 @@ def phase_mesh(ctx) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 18 --------------------------------------------------------------------
+
+MESHSERVE_SESSION = 600          # (b): a session's first prompt, tokens (seed 31)
+MESHSERVE_SUFFIX = 48            # (b): the next turn's new tokens after prompt + reply
+MESHSERVE_SPEC_REQUESTS = 8      # (c): requests of at most 256 prompt tokens
+MESHSERVE_REPLICA_REQUESTS = 8   # (e): the same requests through the gateway
+MESHSERVE_TEACHER = (8, 1024)    # (d): the teacher's feed, [batch, tokens]
+# (d): the tp-2 teacher's logits against one process's, both bf16 through the
+# splash kernels: the relative L2 norm of the difference (the row-parallel
+# partial sums are each rounded to bf16 before the all-reduce adds them)
+MESHSERVE_TEACHER_RTOL = 2e-2
+# the residual stream, the head's vocab columns and the sampled tokens of
+# one decode step at 16 slots, as parallel/tp.py and the engine move them
+MESHSERVE_RESIDUAL = (SERVE_SLOTS, 1, 768)
+MESHSERVE_HEAD = (SERVE_SLOTS, 32000)
+
+
+def _meshserve_draft():
+    """The replica's default draft (--draft_layers 1 --draft_embed 16
+    --draft_heads 2 --draft_mlp 32) over the flagship's vocabulary, seed 0."""
+    import torch
+
+    from edl_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    cfg = TransformerConfig(vocab_size=32000, num_layers=1, embed_dim=16, num_heads=2,
+                            mlp_dim=32, max_len=1024, remat=False, dtype=torch.bfloat16)
+    return TransformerLM(cfg, torch.Generator().manual_seed(0)).to("cuda").requires_grad_(
+        False).eval()
+
+
+def _meshserve_teacher_model(model):
+    """``model`` (the serve phase's) with ``attention_impl="auto"``: the
+    splash kernels carry its attention."""
+    from edl_tpu_torch.models.transformer import TransformerLM
+    teacher = TransformerLM(dataclasses.replace(model.cfg, attention_impl="auto"), init=False)
+    teacher.load_state_dict(model.state_dict())
+    return teacher.to("cuda").requires_grad_(False).eval()
+
+
+def _meshserve_collectives(tp) -> dict:
+    """A decode step's gloo collectives on the card, each timed alone over
+    the tp group: the f32 residual all-reduce (25 a step: 2 a layer and the
+    embedding's), the head's f32 vocab-column all-reduce and the sampled
+    tokens' broadcast.  What a step spends in them is measured inside the
+    step (``_meshserve_decode_ms``)."""
+    import torch
+    import torch.distributed as dist
+
+    def timed(fn, reps=20):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    res = torch.ones(MESHSERVE_RESIDUAL, device="cuda")
+    head = torch.ones(MESHSERVE_HEAD, device="cuda")
+    toks = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
+    src = dist.get_global_rank(tp.group, 0)
+    out = {"residual_allreduce_ms": timed(lambda: dist.all_reduce(res, group=tp.group)),
+           "head_allreduce_ms": timed(lambda: dist.all_reduce(head, group=tp.group)),
+           "token_broadcast_ms": timed(lambda: dist.broadcast(toks, src, group=tp.group)),
+           "residual_bytes": res.numel() * 4, "head_bytes": head.numel() * 4}
+    return out
+
+
+def _meshserve_decode_ms(engine) -> dict:
+    """Wall ms of one decode step at 16 live slots, on the engine thread
+    (one dispatch is steps_per_sync steps, the engine's own _step).  For a
+    tp engine, the same steps once more with every ``all_reduce`` and
+    ``broadcast`` the leader enters timed where it is called (the model's
+    tp collectives, the sampled tokens, the command's header on the
+    control group): the card is synchronised before and after each call,
+    so a call's time is the collective's own (its copies through the host
+    and the wait for the follower to enter it), not the work queued before
+    it.  Those syncs slow the instrumented steps, whose wall ms is kept
+    beside the plain one."""
+    import torch
+    import torch.distributed as dist
+
+    def steps(cache, toks, gen, n=4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            engine._step(cache, toks, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n / engine._T * 1e3
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        cache = engine._slab(SERVE_SLOTS)
+        toks = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
+        engine._step(cache, toks, gen)
+        out = {"ms_per_step": steps(cache, toks, gen)}
+        if engine._chan is None:
+            return out
+        spent = {name: [0.0, 0] for name in ("all_reduce", "broadcast")}
+        plain = {name: getattr(dist, name) for name in spent}
+
+        def timed(name):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = plain[name](*args, **kw)
+                torch.cuda.synchronize()
+                spent[name][0] += time.perf_counter() - t0
+                spent[name][1] += 1
+                return result
+            return call
+
+        for name in spent:
+            setattr(dist, name, timed(name))
+        try:
+            out["instrumented_ms_per_step"] = steps(cache, toks, gen)
+        finally:
+            for name, fn in plain.items():
+                setattr(dist, name, fn)
+        n = 4 * engine._T
+        out["gloo_ms_per_step"] = sum(t for t, _ in spent.values()) / n * 1e3
+        out.update({f"{name}_ms_per_step": t / n * 1e3 for name, (t, _) in spent.items()})
+        out.update({f"{name}_calls_per_step": c / n for name, (_, c) in spent.items()})
+        return out
+
+    return engine.run_on_engine(run, timeout=None)
+
+
+def _meshserve_turn(engine, prompt, session):
+    """One session turn, then drain; returns the reply and the exports."""
+    out = engine.submit(prompt, SERVE_NEW, session=session).result(timeout=SUBPROCESS_TIMEOUT)
+    if not engine.drain(timeout=SUBPROCESS_TIMEOUT):
+        raise AssertionError("the engine did not drain")
+    return out, engine.export_sessions()
+
+
+def _meshserve_resume(engine, exported, prompt) -> dict:
+    """Import a migrated session and run its next turn on ``engine``."""
+    (session, tokens, meta, blob), = exported
+    blocks = engine.import_session(session, tokens, meta, blob)
+    out = engine.generate(prompt, SERVE_NEW, timeout=SUBPROCESS_TIMEOUT)
+    stats = engine.stats()
+    return {"out": out, "blocks": blocks, "tokens": len(tokens),
+            "kv_prefix_hits": stats["kv_prefix_hits"],
+            "kv_prefill_tokens_skipped": stats["kv_prefill_tokens_skipped"]}
+
+
+def _meshserve_leader(mesh) -> dict:
+    """Rank 0: (a)-(e), each tp group led here, the references computed
+    here on the whole model."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.coord.memory import MemoryKV
+    from edl_tpu_torch.distill.teacher import module_teacher
+    from edl_tpu_torch.gateway import Gateway, GatewayConfig
+    from edl_tpu_torch.models.transformer import LOGICAL_RULES, TransformerLM
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.serving import ContinuousBatcher, ReplicaServer
+
+    def engine(model, mesh=mesh, **kw):
+        return ContinuousBatcher(model, slots=SERVE_SLOTS, temperature=0.0, mesh=mesh, **kw)
+
+    out = {}
+    marks = [("start", time.perf_counter())]
+    full = _serve_model()
+    prompts = _serve_prompts()
+    rng = np.random.default_rng(31)
+    first = {s: rng.integers(0, 32000, MESHSERVE_SESSION).astype(np.int32) for s in "mn"}
+    # (a) the paged engine at tp 2 over the serve phase's requests, then
+    # (b)'s first turn of session m on it
+    eng = engine(full, kv_block=FLEET_BLOCK)
+    eng.warm(128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, SERVE_NEW) for p in prompts]
+    tp_outs = [f.result(timeout=SUBPROCESS_TIMEOUT) for f in futs]
+    dt = time.perf_counter() - t0
+    marks.append(("a_tp2", time.perf_counter()))
+    out["a"] = {"seconds": dt, "tokens_per_s": len(prompts) * SERVE_NEW / dt,
+                "decode_16_slots": _meshserve_decode_ms(eng),
+                "engine_stats": eng.stats(), "local_kv_heads": eng._cache.keys[0].shape[1],
+                "local_qkv_rows": eng._model.layers[0].attn_qkv.weight.shape[0],
+                "local_head_rows": eng._model.lm_head.weight.shape[0]}
+    # while the tp engine idles: the one-process engine on the same requests,
+    # and session n's first turn there
+    one = engine(full, mesh=None, kv_block=FLEET_BLOCK)
+    one.warm(128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [one.submit(p, SERVE_NEW) for p in prompts]
+    one_outs = [f.result(timeout=SUBPROCESS_TIMEOUT) for f in futs]
+    dt = time.perf_counter() - t0
+    out["a"]["one_process_tokens_per_s"] = len(prompts) * SERVE_NEW / dt
+    out["a"]["one_process_decode_16_slots"] = _meshserve_decode_ms(one)
+    reply_n, exported_n = _meshserve_turn(one, first["n"], "n")
+    reply_m, exported_m = _meshserve_turn(eng, first["m"], "m")
+    one.stop()
+    eng.stop()
+    marks.append(("a_one_process_and_b_first_turns", time.perf_counter()))
+    out["a"]["equal_to_one_process"] = sum(bool(np.array_equal(a, b))
+                                           for a, b in zip(tp_outs, one_outs))
+    out["a"]["tokens_equal_to_one_process"] = sum(int((a == b).sum())
+                                                  for a, b in zip(tp_outs, one_outs))
+    # (b) session m: tp 2 -> one process; session n: one process -> tp 2
+    nxt = {s: np.concatenate([first[s], r, rng.integers(0, 32000, MESHSERVE_SUFFIX)
+                              .astype(np.int32)]) for s, r in (("m", reply_m), ("n", reply_n))}
+    one = engine(full, mesh=None, kv_block=FLEET_BLOCK)
+    try:
+        m_res = _meshserve_resume(one, exported_m, nxt["m"])
+    finally:
+        one.stop()
+    eng = engine(full, kv_block=FLEET_BLOCK)
+    try:
+        n_res = _meshserve_resume(eng, exported_n, nxt["n"])
+    finally:
+        eng.stop()
+    marks.append(("b", time.perf_counter()))
+    out["b"] = {"tp2_to_tp1": m_res, "tp1_to_tp2": n_res,
+                "blob_bytes": [len(exported_m[0][3]), len(exported_n[0][3])],
+                "meta_equal": exported_m[0][2] == exported_n[0][2]}
+    # (c) speculative decoding on the tp group, the draft whole on rank 0
+    spec_prompts = [p for p in prompts if len(p) <= 256][:MESHSERVE_SPEC_REQUESTS]
+    eng = engine(full, kv_block=FLEET_BLOCK, spec_k=SPEC_K, draft_model=_meshserve_draft())
+    try:
+        eng.warm(256)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, SERVE_NEW) for p in spec_prompts]
+        spec_outs = [f.result(timeout=SUBPROCESS_TIMEOUT) for f in futs]
+        dt = time.perf_counter() - t0
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    marks.append(("c", time.perf_counter()))
+    out["c"] = {"requests": len(spec_prompts), "tokens_per_s": len(spec_prompts) * SERVE_NEW / dt,
+                "spec_accept_rate": stats["spec_accept_rate"],
+                "spec_rounds": stats["spec_rounds"]}
+    # (d) the flagship teacher over tp: 3 heads a rank through the kernels
+    teacher = _meshserve_teacher_model(full)
+    B, L = MESHSERVE_TEACHER
+    ids = np.random.default_rng(32).integers(0, 32000, (B, L)).astype(np.int32)
+    A.reset_launch_counts()
+    predict = module_teacher(copy.deepcopy(teacher), mesh=mesh, logical_rules=LOGICAL_RULES)
+    try:
+        predict({"ids": ids})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tp_logits = predict({"ids": ids})["logits"]
+        tp_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        predict.close()
+    launches = A.launch_counts()
+    plain = module_teacher(teacher)
+    plain({"ids": ids})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_logits = plain({"ids": ids})["logits"]
+    one_ms = (time.perf_counter() - t0) * 1e3
+    a, b = torch.from_numpy(tp_logits), torch.from_numpy(one_logits)
+    # bf16's floor: each bf16 path against the same weights computed in f32
+    # (dense attention)
+    ref = TransformerLM(dataclasses.replace(teacher.cfg, dtype=torch.float32),
+                        init=False).to("cuda")
+    ref.load_state_dict(teacher.state_dict())
+    with torch.inference_mode():
+        f32 = ref.eval()(torch.from_numpy(ids).cuda().long()).cpu()
+    del ref
+    out["d"] = {"shape": list(tp_logits.shape), "rel_err": rel_err(a, b),
+                "tp2_vs_f32_rel_err": rel_err(a, f32), "one_process_vs_f32_rel_err": rel_err(b, f32),
+                "max_abs_err": max_abs(a, b), "finite": bool(torch.isfinite(a).all()),
+                "argmax_equal_share": float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+                "tp2_ms_per_call": tp_ms, "one_process_ms_per_call": one_ms,
+                "launches_per_call": {k: v / 2 for k, v in launches.items()},
+                "rtol": MESHSERVE_TEACHER_RTOL}
+    del teacher, plain, a, b, f32, tp_logits, one_logits
+    torch.cuda.empty_cache()
+    marks.append(("d", time.perf_counter()))
+    # (e) a ReplicaServer over a tp-2 engine behind the Gateway
+    store = MemoryKV(sweep_period=0.1)
+    eng = engine(full, kv_block=FLEET_BLOCK)
+    srv = ReplicaServer(store, "meshserve", eng, replica_id="tp2", host="127.0.0.1", ttl=10.0,
+                        advert_period=0.2)
+    gw = Gateway(store, "meshserve", GatewayConfig(max_inflight=16, max_queue=16,
+                                                   request_timeout_s=SUBPROCESS_TIMEOUT,
+                                                   poll_period_s=0.05, wait_slice_s=0.05))
+    replica_prompts = spec_prompts[:MESHSERVE_REPLICA_REQUESTS]
+    try:
+        if not gw.wait_for_replicas(1, 30):
+            raise AssertionError("the gateway never saw the tp-2 replica")
+        futs = [gw.submit(p, SERVE_NEW) for p in replica_prompts]
+        replica_outs = [f.result(timeout=SUBPROCESS_TIMEOUT) for f in futs]
+        out["e"] = {"replicas": sorted(gw.stats()["replicas"]),
+                    "requests": len(replica_outs)}
+    finally:
+        gw.close()
+        srv.close()
+        store.close()
+    marks.append(("e", time.perf_counter()))
+    out["argmax"] = {
+        "a_tp2": _argmax_check(full, prompts, tp_outs),
+        "a_one_process": _argmax_check(full, prompts, one_outs),
+        "b_tp2_to_tp1": _argmax_check(full, [nxt["m"]], [m_res.pop("out")]),
+        "b_tp1_to_tp2": _argmax_check(full, [nxt["n"]], [n_res.pop("out")]),
+        "c_spec": _argmax_check(full, spec_prompts, spec_outs),
+        "e_replica": _argmax_check(full, replica_prompts, replica_outs)}
+    out["lengths_ok"] = all(len(o) == SERVE_NEW for o in
+                            tp_outs + one_outs + spec_outs + replica_outs)
+    marks.append(("argmax_checks", time.perf_counter()))
+    out["seconds"] = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
+    return out
+
+
+def _meshserve_follower(mesh) -> dict:
+    """Rank 1: follow each group rank 0 leads, in its order."""
+    from edl_tpu_torch.distill.teacher import follow_teacher
+    from edl_tpu_torch.models.transformer import LOGICAL_RULES
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.serving import ContinuousBatcher
+
+    model = _serve_model()
+    for _ in range(3):                  # (a), (b)'s import at tp 2 and (c)
+        ContinuousBatcher.follow(model, mesh=mesh)
+    teacher = _meshserve_teacher_model(model)
+    A.reset_launch_counts()
+    follow_teacher(teacher, mesh=mesh, logical_rules=LOGICAL_RULES)
+    launches = A.launch_counts()
+    del teacher
+    ContinuousBatcher.follow(model, mesh=mesh)        # (e)
+    return {"d": {"launches_per_call": {k: v / 2 for k, v in launches.items()}}}
+
+
+def _meshserve_rank(rank: int, port: int, root: str) -> None:
+    """One rank of the phase, in its own process: tp = 2 over gloo on
+    cuda:0.  Writes ``root/rank<rank>.json``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from edl_tpu_torch.parallel.tp import TP
+    from edl_tpu_torch.serving.spmd import die_with_parent
+
+    die_with_parent()                   # no rank outlives the script
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=timedelta(seconds=SUBPROCESS_TIMEOUT))
+    mesh = build_mesh(MeshSpec(dp=1, tp=2), pods=[0, 0], device_type="cuda")
+    tp = TP.of(mesh)
+    out = {"rank": rank, "collectives": _meshserve_collectives(tp)}
+    out.update(_meshserve_leader(mesh) if rank == 0 else _meshserve_follower(mesh))
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(out, f, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o))
+    dist.destroy_process_group()
+
+
+def phase_meshserve(ctx) -> None:
+    """Tensor-parallel serving at the flagship's width: two processes on the
+    one card in a gloo group, rank 0 leading each group; (a) the paged
+    engine, (b) sessions migrated across meshes, (c) speculative decoding,
+    (d) the tp teacher through the splash kernels, (e) a tp replica behind
+    the gateway."""
+    import shutil
+    import subprocess
+
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    from edl_tpu_torch.utils.network import find_free_port
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_meshserve"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    log("meshserve", nvidia_smi=smi_name_and_power_limit())
+    port = find_free_port()
+    here = Path(__file__).resolve().parent
+    files = [open(root / f"rank{r}.log", "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; "
+                               "chip_smoke._meshserve_rank(int(sys.argv[1]), int(sys.argv[2]), "
+                               "sys.argv[3])", str(r), str(port), str(root)],
+                              cwd=here, stdout=fh, stderr=subprocess.STDOUT, text=True)
+             for r, fh in enumerate(files)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=SUBPROCESS_TIMEOUT)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for fh in files:
+            fh.close()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            raise AssertionError(f"meshserve rank {r} exited {proc.returncode}:\n"
+                                 f"{(root / f'rank{r}.log').read_text()[-4000:]}")
+    r0, r1 = (json.loads((root / f"rank{r}.json").read_text()) for r in range(2))
+    # (the kernels phase times the splash forward at TP_SHAPE)
+    ctx["launches_meshserve"] = {"attention_fwd": r0["d"]["launches_per_call"]["attention_fwd"]}
+    a, b, c, d, e = (r0[k] for k in "abcde")
+    log("meshserve", nvidia_smi=smi_name_and_power_limit(), collectives=r0["collectives"],
+        a={k: v for k, v in a.items() if k != "engine_stats"}, a_engine_stats=a["engine_stats"],
+        b=b, c=c, d=d, d_follower=r1["d"], e=e, argmax=r0["argmax"], margin=SERVE_MARGIN,
+        rank0_seconds=r0["seconds"])
+    shutil.rmtree(root, ignore_errors=True)
+    checks = r0["argmax"]
+    if not r0["lengths_ok"]:
+        raise AssertionError("a request returned the wrong number of tokens")
+    if any(ch["mismatched"] for ch in checks.values()):
+        raise AssertionError(f"emitted tokens differ from the full-prefix argmax: {checks}")
+    if any(ch["checked"] < 0.1 * ch["tokens"] for ch in checks.values()):
+        raise AssertionError(f"too few tokens clear the margin to be checked: {checks}")
+    if (a["local_kv_heads"], a["local_qkv_rows"], a["local_head_rows"]) != (3, 9 * 128, 16000):
+        raise AssertionError(f"rank 0 does not hold a tp-2 piece: {a}")
+    for route in ("tp2_to_tp1", "tp1_to_tp2"):
+        res = b[route]
+        if res["kv_prefix_hits"] != 1 or res["kv_prefill_tokens_skipped"] != res["tokens"] \
+                or res["tokens"] < MESHSERVE_SESSION - FLEET_BLOCK:
+            raise AssertionError(f"the migrated session did not resume warm ({route}): {res}")
+    if not b["meta_equal"] or b["blob_bytes"][0] != b["blob_bytes"][1]:
+        raise AssertionError(f"the blobs of the two meshes differ in layout: {b}")
+    if not d["finite"] or d["rel_err"] > MESHSERVE_TEACHER_RTOL:
+        raise AssertionError(f"the tp-2 teacher's logits are not one process's: {d}")
+    for launches in (d["launches_per_call"], r1["d"]["launches_per_call"]):
+        if launches != {n: 12 if n == "attention_fwd" else 0 for n in launches}:
+            raise AssertionError(f"the tp teacher's kernel launches a call: {launches}")
+    if e["replicas"] != ["tp2"] or e["requests"] != MESHSERVE_REPLICA_REQUESTS:
+        raise AssertionError(f"the gateway did not serve through the tp replica: {e}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -4144,7 +4603,8 @@ def main(argv=None) -> int:
                "d384": phase_d384, "d768": phase_d768, "resnet": phase_resnet,
                "resume": phase_resume, "data": phase_data,
                "elastic": phase_elastic, "serve": phase_serve, "fleet": phase_fleet,
-               "distill": phase_distill, "reshard": phase_reshard, "mesh": phase_mesh}
+               "distill": phase_distill, "reshard": phase_reshard, "mesh": phase_mesh,
+               "meshserve": phase_meshserve}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()
@@ -4173,6 +4633,11 @@ def main(argv=None) -> int:
     kern, launches = ctx.get("kernels_d768", {}), ctx.get("launches_d768", {})
     entries += [entry(f"{kname} at D=768", source, replaces, launches.get(w), kern.get(w, {}))
                 for w, (kname, source, replaces) in KERNELS_D768.items()]
+    # the meshserve phase's kernel: the tp-2 teacher's splash forward, 3 heads
+    # a rank at TP_SHAPE (launches a call on rank 0; timed in the kernels phase)
+    kern, launches = ctx.get("kernels_meshserve", {}), ctx.get("launches_meshserve", {})
+    entries.append(entry("edl_attn_fwd at tp=2 (3 heads a rank)", SM90, KERNELS["attention_fwd"][2],
+                         launches.get("attention_fwd"), kern.get("attention_fwd", {})))
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,10 @@ The inference thread enters ``torch.inference_mode`` and, given a CUDA
 and a fresh thread has neither.
 
 Two ``predict_fn`` makers: :func:`module_teacher` (an ``nn.Module``
-forward, the counterpart of the JAX ``jit_teacher``) and
-:func:`lm_teacher` (a serving engine).  Not ported: a teacher sharded over
-a mesh (ROADMAP.md Queue 1 item 6.5: tp inference).
+forward, the counterpart of the JAX ``jit_teacher``, over a mesh's ``tp``
+group too: :func:`follow_teacher` runs the other ranks) and
+:func:`lm_teacher` (a serving engine, tensor-parallel when its engine
+is).
 """
 
 from __future__ import annotations
@@ -273,6 +274,7 @@ class TeacherServer:
         self._worker.join(timeout=5.0)
         self._fail_queued(RuntimeError("teacher server stopped"))
         self._rpc.stop()
+        getattr(self._predict_fn, "close", lambda: None)()   # a tp teacher's followers
 
     def _fail_queued(self, error: Exception) -> None:
         """Release every queued request with ``error`` (call once no more
@@ -313,9 +315,30 @@ def lm_teacher(engine, max_new: int = 8) -> Callable[[dict], dict]:
     return predict
 
 
+def _tp_module(module: torch.nn.Module, device, mesh, logical_rules):
+    """``module`` on ``device``, in ``eval()``, cut to this rank's piece of
+    ``mesh``'s ``tp`` group when it has a tensor-parallel form (``set_tp``)
+    and a tp dim wider than 1; and the group's command channel (None when
+    the module runs whole on one rank)."""
+    from edl_tpu_torch.parallel.sharding import shard_init
+    from edl_tpu_torch.parallel.tp import TP
+    from edl_tpu_torch.serving.spmd import Channel
+
+    if device is not None:
+        module.to(device)
+    chan = None
+    if mesh is not None and TP.of(mesh) is not None:
+        if hasattr(module, "set_tp"):
+            if logical_rules is None:
+                raise ValueError("a tensor-parallel teacher needs the module's logical_rules")
+            module = shard_init(lambda: module, logical_rules, mesh, fsdp=False)
+        chan = Channel(mesh, next(module.parameters()).device)
+    return module.eval(), chan
+
+
 def module_teacher(module: torch.nn.Module, fetch_name: str = "logits",
                    device: torch.device | str | None = None,
-                   mesh=None) -> Callable[[dict], dict]:
+                   mesh=None, logical_rules=None) -> Callable[[dict], dict]:
     """A teacher ``predict_fn`` over ``module``'s forward in ``eval()`` mode
     (BN on its running statistics) under ``torch.inference_mode``: the feeds
     go in positionally, in sorted key order, as the JAX ``jit_teacher``
@@ -323,19 +346,56 @@ def module_teacher(module: torch.nn.Module, fetch_name: str = "logits",
     return f32 logits).  ``device``: where the module runs (moved there);
     None keeps it where its parameters are.  Call it on the server's
     inference thread, whose current device is that device (``TeacherServer(
-    ..., device=...)``).  ``mesh`` (a teacher sharded over a mesh) raises."""
-    if mesh is not None:
-        raise NotImplementedError("a teacher sharded over a mesh is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6.5)")
-    if device is not None:
-        module.to(device)
+    ..., device=...)``).
+
+    ``mesh`` (the JAX ``jit_teacher(mesh=, logical_rules=)``): this process
+    is rank 0 of the mesh's ``tp`` group, the others run
+    :func:`follow_teacher` with the same arguments.  A module with a
+    tensor-parallel form (the LM) is cut to each rank's piece by its
+    ``logical_rules`` (under the default logical-to-mesh table), each call's
+    feed goes to every rank, all run the forward, and this rank returns the
+    gathered output; a module without one (a ResNet) is computed whole here,
+    as JAX replicates variables that have no logical axes.  The returned
+    function's ``close()`` stops the followers (``TeacherServer.stop`` calls
+    it)."""
+    from edl_tpu_torch.serving.spmd import OP_FORWARD
+
+    module, chan = _tp_module(module, device, mesh, logical_rules)
+    if chan is not None and not chan.leader:
+        raise ValueError("tp ranks other than 0 run follow_teacher()")
     dev = next(module.parameters()).device
-    module.eval()
+    sharded = chan is not None and getattr(module, "tp", None) is not None
 
     def predict(feed: dict) -> dict:
-        args = [torch.from_numpy(np.ascontiguousarray(feed[k])).to(dev) for k in sorted(feed)]
+        arrays = [np.ascontiguousarray(feed[k]) for k in sorted(feed)]
+        if sharded:
+            chan.send(OP_FORWARD, arrays=arrays)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
         with torch.inference_mode():
             out = module(*args)
         return {fetch_name: out.float().cpu().numpy()}
 
+    predict.close = chan.close if chan is not None else (lambda: None)
     return predict
+
+
+def follow_teacher(module: torch.nn.Module, device: torch.device | str | None = None, *,
+                   mesh, logical_rules=None) -> None:
+    """A tp rank other than 0 of a :func:`module_teacher` over ``mesh``: run
+    the forward of every call its leader makes, until the leader's
+    ``close()``.  Raises ``serving.spmd.FollowerExit`` when the leader is
+    gone."""
+    from edl_tpu_torch.serving.spmd import OP_FORWARD
+    from edl_tpu_torch.utils.device import enter_device
+
+    module, chan = _tp_module(module, device, mesh, logical_rules)
+    if chan is None or chan.leader:
+        raise ValueError("follow_teacher() runs on a tp rank other than 0")
+    dev = next(module.parameters()).device
+    enter_device(dev)
+
+    def forward(cmd) -> None:
+        module(*[a.to(dev) for a in cmd.arrays])
+
+    with torch.inference_mode():
+        chan.serve({OP_FORWARD: forward})

@@ -32,7 +32,10 @@ H/tp)`` and the matching key and value heads), so the attention kernels
 see plain local ``[B, L, H/tp, D]`` tensors.  The embedding is
 vocab-parallel (each rank looks up its rows, the others' are masked, one
 all-reduce), the head column-parallel on vocab, and the fused loss folds
-each rank's vocab shard into one logsumexp (``ops/ce.py``).
+each rank's vocab shard into one logsumexp (``ops/ce.py``).  A decode
+model runs tensor-parallel too (the serving engine's tp group): its cache
+holds this rank's kv heads, or all of them where they do not divide over
+tp (MQA), and a vocabulary that does not divide stays whole on each rank.
 """
 
 from __future__ import annotations
@@ -131,8 +134,10 @@ class KVCache:
 
     @classmethod
     def zeros(cls, cfg: TransformerConfig, batch: int, length: int,
-              device: torch.device | str | None = None) -> "KVCache":
-        Hk, Dh = cfg.kv_heads, cfg.head_dim
+              device: torch.device | str | None = None, tp: TP | None = None) -> "KVCache":
+        """An empty cache; under ``tp``, of this rank's kv heads
+        (:func:`local_kv_heads`)."""
+        Hk, Dh = local_kv_heads(cfg, tp), cfg.head_dim
         return cls(
             [torch.zeros(batch, Hk, Dh, length, dtype=cfg.dtype, device=device)
              for _ in range(cfg.num_layers)],
@@ -146,6 +151,19 @@ class KVCache:
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.keys + self.values)
+
+
+def kv_split(cfg: TransformerConfig, tp: TP | None) -> bool:
+    """Whether the kv heads are split over ``tp``: when they divide.  A
+    decode model whose kv heads do not (MQA: one kv head) keeps k and v
+    whole on every rank, and only q is split by heads, as the JAX engine
+    replicates such a cache."""
+    return tp is not None and cfg.kv_heads % tp.size == 0
+
+
+def local_kv_heads(cfg: TransformerConfig, tp: TP | None) -> int:
+    """The kv heads one rank holds under ``tp`` (all of them without)."""
+    return cfg.kv_heads // tp.size if kv_split(cfg, tp) else cfg.kv_heads
 
 
 # bf16-equivalent activation values kept per token x layer x embed for the
@@ -326,6 +344,18 @@ class Block(nn.Module):
         self.mlp_in = Dense(D, cfg.mlp_dim, cfg.dtype)
         self.mlp_out = Dense(cfg.mlp_dim, D, cfg.dtype)
         self.tp: TP | None = None
+        self._kv_of: torch.Tensor | None = None
+
+    def set_tp(self, tp: TP) -> None:
+        """Run this layer's heads and MLP columns of ``tp``'s rank."""
+        self.tp = tp
+        cfg = self.cfg
+        H, Hk = cfg.num_heads // tp.size, cfg.kv_heads
+        self._kv_of = None
+        if not kv_split(cfg, tp) and Hk > 1:
+            # whole k and v, and this rank's query heads straddle kv groups:
+            # each local query head reads its own global kv head
+            self._kv_of = (tp.rank * H + torch.arange(H)) // (cfg.num_heads // Hk)
 
     def forward(self, x, positions, kv=None):
         """``kv``: in decode mode, this layer's ``(keys, values)`` cache
@@ -333,7 +363,7 @@ class Block(nn.Module):
         mask that every layer of the forward shares."""
         cfg, tp = self.cfg, self.tp
         ways = 1 if tp is None else tp.size
-        H, Hk, Dh = cfg.num_heads // ways, cfg.kv_heads // ways, cfg.head_dim
+        H, Hk, Dh = cfg.num_heads // ways, local_kv_heads(cfg, tp), cfg.head_dim
         B, L = x.shape[:2]
         tables = kv[3] if kv is not None else None
         y = copy_to_tp(self.attn_norm(x), tp)
@@ -344,6 +374,9 @@ class Block(nn.Module):
         if kv is not None:
             ck, cv, idx, _, hidden = kv
             _write_cache(cfg, ck, cv, k, v, idx)
+            if self._kv_of is not None:
+                at = self._kv_of.to(ck.device)
+                ck, cv = ck.index_select(1, at), cv.index_select(1, at)
             attn = decode_attention(q, ck, cv, idx, hidden)
         else:
             attn = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl)
@@ -373,6 +406,7 @@ class TransformerLM(nn.Module):
         self.final_norm = RMSNorm(D, cfg.dtype)
         self.lm_head = None if cfg.tie_embeddings else Dense(D, V, cfg.dtype)
         self.tp: TP | None = None
+        self.vocab_split = False
         if init:
             self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
@@ -384,20 +418,38 @@ class TransformerLM(nn.Module):
             return (H * Dh, Hk * Dh, Hk * Dh)
         return None
 
+    def tp_whole(self, name: str, size: int) -> tuple[int, ...]:
+        """The segments of ``name``'s tp dim that every rank holds whole at
+        tp = ``size``: in decode mode, k and v of the fused weight when the
+        kv heads do not divide, and the embedding and head when the
+        vocabulary does not (the JAX serving layout replicates what does
+        not divide).  Training splits everything or raises."""
+        cfg = self.cfg
+        if not cfg.decode:
+            return ()
+        if name.endswith("attn_qkv.weight") and cfg.kv_heads % size:
+            return (1, 2)
+        if name in ("tok_embed.weight", "lm_head.weight") and cfg.vocab_size % size:
+            return (0,)
+        return ()
+
     def set_tp(self, tp: TP) -> None:
         """Run the forward tensor-parallel over ``tp`` (the weights already
-        cut to this rank's rows by ``shard_init``)."""
+        cut to this rank's rows by ``shard_init``).  Query heads and the MLP
+        must divide; in training the kv heads and the vocabulary must too,
+        where a decode model keeps what does not divide whole
+        (:meth:`tp_whole`)."""
         cfg = self.cfg
-        if cfg.decode:
-            raise NotImplementedError("tensor-parallel decoding is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 6.5)")
-        for what, n in (("num_heads", cfg.num_heads), ("kv heads", cfg.kv_heads),
-                        ("vocab_size", cfg.vocab_size), ("mlp_dim", cfg.mlp_dim)):
+        sizes = [("num_heads", cfg.num_heads), ("mlp_dim", cfg.mlp_dim)]
+        if not cfg.decode:
+            sizes += [("kv heads", cfg.kv_heads), ("vocab_size", cfg.vocab_size)]
+        for what, n in sizes:
             if n % tp.size:
                 raise ValueError(f"{what} {n} does not divide over tp = {tp.size}")
         self.tp = tp
+        self.vocab_split = cfg.vocab_size % tp.size == 0
         for layer in self.layers:
-            layer.tp = tp
+            layer.set_tp(tp)
 
     def fsdp_units(self) -> list[nn.Module]:
         """FSDP2's units below the root: one per decoder layer."""
@@ -462,7 +514,7 @@ class TransformerLM(nn.Module):
         tp: this rank's rows looked up, the others' zero, then all-reduced
         (one nonzero term per token: exact)."""
         w, tp = self.tok_embed.weight, self.tp
-        if tp is None:
+        if tp is None or not self.vocab_split:
             return F.embedding(ids, w).to(self.cfg.dtype)
         local = ids - tp.rank * w.shape[0]
         inside = (local >= 0) & (local < w.shape[0])
@@ -480,7 +532,7 @@ class TransformerLM(nn.Module):
             logits = (x @ w.t()).float()
         else:
             logits = self.lm_head(x).float()
-        return gather_from_tp(logits, self.tp)
+        return gather_from_tp(logits, self.tp if self.vocab_split else None)
 
     def fused_nll(self, hidden, targets, block_size: int = 4096):
         """Per-token NLL of final-norm hidden states through the blockwise
@@ -490,7 +542,8 @@ class TransformerLM(nn.Module):
         from edl_tpu_torch.ops.ce import blockwise_cross_entropy
 
         return blockwise_cross_entropy(hidden, self.head_weight().to(hidden.dtype), targets,
-                                       block_size=block_size, tp=self.tp)
+                                       block_size=block_size,
+                                       tp=self.tp if self.vocab_split else None)
 
     def head_weight(self) -> torch.Tensor:
         """The output projection as ``[D, V]`` (the flax kernel layout);
@@ -511,13 +564,28 @@ def decode_model(model: TransformerLM, decode_scatter: bool = False) -> Transfor
     mode shares its tensors with the one returned."""
     if model.cfg.decode and model.cfg.decode_scatter == decode_scatter:
         return model
-    cfg = replace(model.cfg, decode=True, attention_impl="dense", mesh=None, remat=False,
-                  decode_scatter=decode_scatter)
+    return rebuilt(model, replace(model.cfg, decode=True, attention_impl="dense", mesh=None,
+                                  remat=False, decode_scatter=decode_scatter))
+
+
+@torch.no_grad()
+def rebuilt(model: TransformerLM, cfg: TransformerConfig) -> TransformerLM:
+    """A new module of ``cfg`` over ``model``'s tensors, its weight matrices
+    and embedding cast to the compute dtype (shared where the dtype is
+    already that).  A tensor-parallel model's pieces, its tp and its
+    layouts carry over."""
     with torch.device("meta"):
         out = TransformerLM(cfg, init=False)
     sd = {name: t.detach().to(cfg.dtype) if name.endswith(".weight") else t.detach()
           for name, t in model.state_dict().items()}
-    out.load_state_dict(sd, assign=True)
+    if model.tp is None:
+        out.load_state_dict(sd, assign=True)
+    else:
+        out.set_tp(model.tp)
+        for name, t in sd.items():          # the pieces' shapes are not the module's
+            owner, _, leaf = name.rpartition(".")
+            out.get_submodule(owner)._parameters[leaf] = nn.Parameter(t, requires_grad=False)
+        out.param_layouts = getattr(model, "param_layouts", None)
     return out.requires_grad_(False).eval()
 
 

@@ -127,12 +127,14 @@ def tree_shardings(tree_logical: dict, mesh, rules: ShardingRules | None = None)
 class LeafLayout:
     """A parameter's global shape, its ``tp`` dim (None: replicated over
     tp) with that dim's segments (global lengths, each split evenly over
-    the tp ranks), and its ``fsdp`` dim (None: the rules give it none)."""
+    the tp ranks, but for the indices in ``whole``, which every rank holds
+    whole), and its ``fsdp`` dim (None: the rules give it none)."""
 
     gshape: tuple[int, ...]
     tp_dim: int | None = None
     segments: tuple[int, ...] = ()
     fsdp_dim: int | None = None
+    whole: tuple[int, ...] = ()
 
 
 def _axes(entry) -> tuple:
@@ -144,7 +146,9 @@ def param_layouts(module: torch.nn.Module, logical: dict, mesh,
     """The :class:`LeafLayout` of every parameter of the (full) ``module``
     under ``logical`` (``{name: axes}``, ``models/logical.py``).  A module
     whose fused dim holds several tensors names their lengths in
-    ``tp_segments(name)``.  Raises when a tp-split segment does not divide."""
+    ``tp_segments(name)``, and those it keeps whole on every rank in
+    ``tp_whole(name, tp)``.  Raises when a tp-split segment does not
+    divide."""
     rules = rules or ShardingRules()
     tp = mesh_sizes(mesh)["tp"]
     out = {}
@@ -156,25 +160,32 @@ def param_layouts(module: torch.nn.Module, logical: dict, mesh,
         # on an fsdp axis of 1)
         fsdp_dim = next((d for d, n in enumerate(axes) if n and "fsdp" in _axes(rules.rules.get(n))),
                         None)
-        segments = ()
+        segments, whole = (), ()
         if tp_dim is not None:
             segments = tuple(getattr(module, "tp_segments", lambda n: None)(name)
                              or (p.shape[tp_dim],))
-            for s in segments:
-                if s % tp:
+            whole = tuple(getattr(module, "tp_whole", lambda n, s: ())(name, tp))
+            if len(whole) == len(segments):
+                tp_dim, segments, whole = None, (), ()
+            for i, s in enumerate(segments):
+                if i not in whole and s % tp:
                     raise ValueError(f"{name}: dim {tp_dim} segment of {s} does not divide "
                                      f"over tp = {tp}")
-        out[name] = LeafLayout(tuple(p.shape), tp_dim, segments, fsdp_dim)
+        out[name] = LeafLayout(tuple(p.shape), tp_dim, segments, fsdp_dim, whole)
     return out
 
 
 def tp_ranges(layout: LeafLayout, rank: int, size: int) -> list[tuple[int, int, int]]:
     """``[(global start, local start, length)]`` along the tp dim of the
-    rows ``rank`` holds: one range per segment."""
+    rows ``rank`` holds: one range per segment (a whole one entire)."""
     out, g0, l0 = [], 0, 0
-    for seg in layout.segments:
-        n = seg // size
-        out.append((g0 + rank * n, l0, n))
+    for i, seg in enumerate(layout.segments):
+        if i in layout.whole:
+            out.append((g0, l0, seg))
+            n = seg
+        else:
+            n = seg // size
+            out.append((g0 + rank * n, l0, n))
         g0, l0 = g0 + seg, l0 + n
     return out
 
@@ -239,8 +250,9 @@ def to_full(t, layout: LeafLayout | None, tp: TP | None) -> torch.Tensor:
         return t
     d = layout.tp_dim
     full = t.new_zeros(layout.gshape)
-    for g, lo, n in tp_ranges(layout, tp.rank, tp.size):
-        full.narrow(d, g, n).copy_(t.narrow(d, lo, n))
+    for i, (g, lo, n) in enumerate(tp_ranges(layout, tp.rank, tp.size)):
+        if i not in layout.whole or tp.rank == 0:     # a whole segment added once
+            full.narrow(d, g, n).copy_(t.narrow(d, lo, n))
     dist.all_reduce(full, group=tp.group)
     return full
 

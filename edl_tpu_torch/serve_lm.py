@@ -15,14 +15,25 @@ SLOTS`` a :class:`ContinuousBatcher` whose running decode batch requests
 join and leave at token granularity, prompts over
 ``EDL_TPU_PREFILL_CHUNK`` tokens prefilled in chunks.
 
-Same flags as the JAX example minus ``--tp`` and ``--moe*``, plus
-``--device`` (default ``cuda``: without a card it raises ``NoCardError``
-unless given ``--device cpu``).  Compute is bf16 on the card and f32 on
-the CPU, as ``train_lm``'s.  ``--checkpoint_dir`` restores the newest
-checkpoint that ``edl_tpu_torch.train_lm`` wrote there and keeps its
-parameters; without it the weights are random from seed 0 (a wiring
-demo).  The first line of the output is ``[serve_lm] serving on
-<host:port> ...``; SIGTERM or SIGINT stops the server.
+Same flags as the JAX example minus ``--moe*``, plus ``--device``
+(default ``cuda``: without a card it raises ``NoCardError`` unless given
+``--device cpu``).  Compute is bf16 on the card and f32 on the CPU, as
+``train_lm``'s.  ``--checkpoint_dir`` restores the newest checkpoint that
+``edl_tpu_torch.train_lm`` wrote there and keeps its parameters; without
+it the weights are random from seed 0 (a wiring demo).  The first line of
+the output is ``[serve_lm] serving on <host:port> ...``; SIGTERM or SIGINT
+stops the server.
+
+``--tp N`` serves tensor-parallel over N processes, both paths: this
+process is rank 0 of the group and fronts the wire; it spawns N-1
+followers (this module again, with ``--tp_rank``), which run the same
+device calls on their heads (``serving/spmd.py``).  On ``--device cuda``
+the group is NCCL with one card a rank (fewer cards than N exit with a
+message, as the JAX example does); on ``--device cpu`` it is gloo.  With
+``--checkpoint_dir`` each rank restores its part of the checkpoint.  The
+followers die with rank 0 (the parent-death signal; a stop reaches them
+as the channel's stop, a vanished leader within the channel's 60 s
+bound).
 """
 
 from __future__ import annotations
@@ -47,16 +58,19 @@ def request(endpoint: str, prompts: np.ndarray, timeout: float = 120.0) -> np.nd
 
 
 def build_predict_fn(model, max_new_tokens: int, temperature: float, top_k: int,
-                     top_p: float = 0.0):
+                     top_p: float = 0.0, mesh=None):
     """``predict(feed) -> {"tokens": [B, new]}``: one :func:`generate` of
     the batch on the model's device, from a fresh generator per call, so
     temperature sampling differs between identical requests.  The decode
-    copy of the model is built once here."""
-    from edl_tpu_torch.models.generate import generate
-    from edl_tpu_torch.models.transformer import decode_model
+    copy of the model is built once here.  ``mesh``: this process leads
+    the mesh's tp group (the others run :func:`follow_generate`); each
+    call goes to every rank, and ``predict.close()`` stops them."""
+    from edl_tpu_torch.models.generate import generate, shard_decode_model
+    from edl_tpu_torch.serving.spmd import OP_GENERATE, Channel
 
-    dmodel = decode_model(model)
+    dmodel = shard_decode_model(model, mesh)
     device = dmodel.tok_embed.weight.device
+    chan = Channel(mesh, device) if dmodel.tp is not None else None
     counter = {"n": 0}
     lock = threading.Lock()
 
@@ -64,13 +78,32 @@ def build_predict_fn(model, max_new_tokens: int, temperature: float, top_k: int,
         with lock:
             counter["n"] += 1
             n = counter["n"]
+        ids = np.asarray(feed["ids"], np.int32)
+        if chan is not None:
+            chan.send(OP_GENERATE, arrays=[ids])
         gen = torch.Generator(device=device).manual_seed(20_26 * 1_000_003 + n)
-        toks = generate(dmodel, torch.from_numpy(np.asarray(feed["ids"], np.int32)),
-                        max_new_tokens, generator=gen, temperature=temperature, top_k=top_k,
-                        top_p=top_p)
+        toks = generate(dmodel, torch.from_numpy(ids), max_new_tokens, generator=gen,
+                        temperature=temperature, top_k=top_k, top_p=top_p)
         return {"tokens": toks.cpu().numpy()}
 
+    predict.close = chan.close if chan is not None else (lambda: None)
     return predict
+
+
+def follow_generate(model, max_new_tokens: int, temperature: float, top_k: int,
+                    top_p: float = 0.0, *, mesh) -> None:
+    """A tp rank other than 0 of :func:`build_predict_fn`: run every batch's
+    :func:`generate` on this rank's piece until the leader stops."""
+    from edl_tpu_torch.models.generate import generate, shard_decode_model
+    from edl_tpu_torch.serving.spmd import OP_GENERATE, Channel
+    from edl_tpu_torch.utils.device import enter_device
+
+    dmodel = shard_decode_model(model, mesh)
+    chan = Channel(mesh, dmodel.tok_embed.weight.device)
+    enter_device(dmodel.tok_embed.weight.device)
+    chan.serve({OP_GENERATE: lambda c: generate(
+        dmodel, c.arrays[0], max_new_tokens, temperature=temperature, top_k=top_k,
+        top_p=top_p)})
 
 
 class _ContinuousServer:
@@ -151,12 +184,20 @@ def parse_args(argv=None):
     p.add_argument("--eos_id", type=int, default=-1,
                    help="stop generation at this token (continuous mode); -1 disables")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel serving over this many processes (one card each "
+                        "on cuda); 0 or 1 = one process")
+    p.add_argument("--tp_rank", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--tp_addr", default="", help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
-def build_model(args, device: torch.device):
+def build_model(args, device: torch.device, mesh=None):
     """The served model on ``device``: the checkpoint's parameters when
-    ``--checkpoint_dir`` is given, else random from seed 0."""
+    ``--checkpoint_dir`` is given, else random from seed 0.  ``mesh`` (a
+    tp group): the checkpoint restores this rank's part into its cut of
+    the decode model."""
+    from edl_tpu_torch.models.generate import shard_decode_model
     from edl_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
     cfg = TransformerConfig(vocab_size=args.vocab, num_layers=args.layers,
@@ -168,10 +209,13 @@ def build_model(args, device: torch.device):
     if args.checkpoint_dir:
         # train_lm's checkpoint holds the whole TrainState: restore it into
         # a state of the same structure (AdamW; its hyperparameters do not
-        # shape the state), then keep the module
+        # shape the state), then keep the module; on a tp group each rank's
+        # piece of every global leaf (train/state.py, from_full)
         from edl_tpu_torch.train.checkpoint import CheckpointManager
         from edl_tpu_torch.train.state import TrainState, adamw
 
+        if mesh is not None:
+            model = shard_decode_model(model, mesh)
         restored = CheckpointManager(args.checkpoint_dir).restore(
             TrainState.create(model, adamw(1e-3)))
         if restored is None:
@@ -180,25 +224,53 @@ def build_model(args, device: torch.device):
     return model.requires_grad_(False).eval()
 
 
-def serve(args):
+def follow(args) -> None:
+    """A follower's life: join the group, build the same model, run the
+    leader's commands until its stop."""
+    import sys
+
+    from edl_tpu_torch.serving.spmd import (FollowerExit, die_with_parent, follower_exit,
+                                            join_group)
+
+    die_with_parent()
+    device, mesh = join_group(args.tp, args.tp_rank, args.tp_addr, args.device)
+    model = build_model(args, device, mesh)
+    try:
+        if args.continuous:
+            from edl_tpu_torch.serving import ContinuousBatcher
+
+            ContinuousBatcher.follow(model, mesh=mesh)
+        else:
+            follow_generate(model, args.max_new_tokens, args.temperature, args.top_k,
+                            args.top_p, mesh=mesh)
+    except FollowerExit as e:
+        print(f"[serve_lm] tp rank {args.tp_rank}: {e}", file=sys.stderr)
+        follower_exit(1)
+    follower_exit(0)
+
+
+def serve(args, mesh=None):
     """Start the server ``args`` describe; returns it (``.endpoint``,
-    ``.stop()``)."""
+    ``.stop()``).  ``mesh``: this process leads a tp group
+    (``serving/spmd.py:join_group``)."""
     from edl_tpu_torch.distill.teacher import TeacherServer
     from edl_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    model = build_model(args, device)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", 0)
+    model = build_model(args, device, mesh)
     if args.continuous:
         from edl_tpu_torch.serving import ContinuousBatcher
 
         engine = ContinuousBatcher(model, slots=args.continuous,
                                    temperature=args.temperature, top_k=args.top_k,
                                    top_p=args.top_p,
-                                   eos_id=None if args.eos_id < 0 else args.eos_id)
+                                   eos_id=None if args.eos_id < 0 else args.eos_id, mesh=mesh)
         server = _ContinuousServer(engine, args.max_new_tokens, port=args.port)
     else:
         server = TeacherServer(build_predict_fn(model, args.max_new_tokens, args.temperature,
-                                                args.top_k, args.top_p),
+                                                args.top_k, args.top_p, mesh=mesh),
                                port=args.port, device=device)
     if args.coord_endpoints:
         from edl_tpu_torch.coord.client import connect
@@ -208,15 +280,31 @@ def serve(args):
 
 
 def main(argv=None) -> None:
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    server = serve(args)
+    if args.tp > 1 and args.tp_rank > 0:
+        follow(args)
+        return
+    mesh, followers = None, []
+    if args.tp > 1:
+        from edl_tpu_torch.serving.spmd import lead_group
+
+        mesh, followers = lead_group("edl_tpu_torch.serve_lm", argv, args.tp, args.device)
+    server = serve(args, mesh)
     print(f"[serve_lm] serving on {server.endpoint} (max_new_tokens={args.max_new_tokens}, "
-          f"continuous={args.continuous}, device={args.device})", flush=True)
+          f"continuous={args.continuous}, device={args.device}, tp={max(1, args.tp)})",
+          flush=True)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     signal.signal(signal.SIGINT, lambda *_: stop.set())
     stop.wait()
     server.stop()
+    if followers:
+        from edl_tpu_torch.serving.spmd import reap
+
+        reap(followers)
 
 
 if __name__ == "__main__":

@@ -45,8 +45,24 @@ engine thread owns the device state (the pool cache, the last tokens,
 the generator).  That thread enters ``torch.inference_mode`` and makes the
 model's device its current one, since both are per thread.
 
-Not ported: mesh serving (``mesh``, ROADMAP.md Queue 1 item 6.5), which
-raises ``NotImplementedError``.
+Tensor parallelism (``mesh`` with a ``tp`` dim wider than 1, the JAX
+engine's mesh serving): the engine is an SPMD group of processes, one a
+card.  The process at tp rank 0 builds the engine and keeps the whole
+host side (the queue, the scheduler, chunking, prefix reuse, the trie,
+``stats``, ``drain``); every other rank calls :meth:`ContinuousBatcher.
+follow` with the same whole model and mesh.  Each rank holds its cut of
+the weights (``models/generate.py:shard_decode_model``) and its kv heads
+of every cache; each device call of the engine thread (a prefill, one
+tick's ``steps_per_sync`` decode steps, a speculative round's verify, an
+insert, a chunk, a block move) goes to the followers as one command
+(``serving/spmd.py``) before the leader runs it, so every rank enters the
+model's collectives in one order.  The leader alone samples (each token
+broadcast) and runs the speculative draft, whole, as the JAX engine
+replicates it; its proposals travel in the verify command.  ``warm``, the
+session import and export run on the engine thread, the only thread that
+drives the group; a mesh engine exports its pinned sessions as it stops,
+before it stops the followers.  A tick that fails on the leader stops the
+group: the followers get the stop, and its requests fail.
 """
 
 from __future__ import annotations
@@ -63,8 +79,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from edl_tpu_torch.models.generate import sample_logits
+from edl_tpu_torch.models.generate import sample_on_leader, shard_decode_model
 from edl_tpu_torch.models.transformer import KVCache, TransformerLM, decode_model
+from edl_tpu_torch.serving import spmd
 from edl_tpu_torch.serving.kv_cache import PagedKVCache
 from edl_tpu_torch.utils import constants
 from edl_tpu_torch.utils.device import enter_device
@@ -149,6 +166,11 @@ class ContinuousBatcher:
     ``EDL_TPU_SPEC_K``) needs ``draft_model``, a model over the same
     vocabulary on the same device, and a greedy engine (``temperature <=
     0``): acceptance compares the draft with the target's argmax.
+
+    ``mesh`` (a ``DeviceMesh`` whose ``tp`` dim is wider than 1; the world
+    formed): this process is the group's leader (tp rank 0), ``model`` is
+    whole and is cut here, and the other ranks run :meth:`follow`.  Its
+    tokens equal the unsharded engine's.
     """
 
     def __init__(self, model: TransformerLM, *, slots: int = 8, max_len: int | None = None,
@@ -159,15 +181,10 @@ class ContinuousBatcher:
                  prefix_reuse: bool = True, kv_max_sessions: int | None = None,
                  prefill_chunk: int | None = None, spec_k: int | None = None,
                  draft_model: TransformerLM | None = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet (ROADMAP.md Queue 1 "
-                                      "item 6.5)")
         cache_len = max_len or model.cfg.max_len
         self.cfg = model.cfg
-        self._model = decode_model(model)
-        self._mcfg = self._model.cfg
-        self._device = self._model.tok_embed.weight.device
-        self._cache_len = cache_len
+        self._chan: spmd.Channel | None = None
+        self._mesh = mesh
         self._pending: deque[_Request] = deque()
         self._slots = [_Slot() for _ in range(slots)]
         # prefill sub-batch ladder: a run of waiting same-bucket requests
@@ -182,21 +199,40 @@ class ContinuousBatcher:
         self._top_k = top_k
         self._top_p = top_p
         self._eos = eos_id
-        self._T = max(1, steps_per_sync)
-        self._gen = torch.Generator(device=self._device).manual_seed(rng_seed)
-        self._cache = KVCache.zeros(self._mcfg, slots, cache_len, self._device)
-        self._toks = torch.zeros(slots, dtype=torch.int32, device=self._device)
-        # -- the paged KV pool and its prefix index (kv_cache.py); with
-        # kv_block=0 the engine runs exactly the unpaged path
-        self._kv: PagedKVCache | None = None
         self._reuse = bool(prefix_reuse)
+        k = constants.spec_k() if spec_k is None else int(spec_k)
+        if k > 0:
+            if draft_model is None:
+                raise ValueError("spec_k > 0 requires a draft model (a smaller model over "
+                                 "the same vocabulary)")
+            if temperature > 0:
+                raise ValueError("speculative decoding is greedy-only (temperature <= 0): "
+                                 "acceptance compares the draft against the target's "
+                                 "argmax, which keeps the output that of plain decode")
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(f"draft vocab {draft_model.cfg.vocab_size} != target "
+                                 f"vocab {model.cfg.vocab_size}")
+        n_blocks = 0
         if kv_block > 0:
-            blocks_per_slot = max(1, cache_len // kv_block)
-            self._kv = PagedKVCache(
-                self._mcfg, cache_len, kv_block,
-                kv_pool_blocks or (2 * slots * blocks_per_slot + 1),
-                constants.kv_sessions() if kv_max_sessions is None else kv_max_sessions,
-                self._device)
+            n_blocks = kv_pool_blocks or (2 * slots * max(1, cache_len // kv_block) + 1)
+        sessions = constants.kv_sessions() if kv_max_sessions is None else kv_max_sessions
+        config = [slots, cache_len, max(1, steps_per_sync), kv_block, n_blocks, sessions, k]
+        local = shard_decode_model(model, mesh)
+        if local.tp is not None:
+            self._chan = spmd.Channel(mesh, local.tok_embed.weight.device)
+            if not self._chan.leader:
+                raise ValueError("a tp rank other than 0 runs ContinuousBatcher.follow()")
+        try:
+            self._init_device(local, *config)
+            if self._chan is not None:
+                self._chan.send(spmd.OP_CONFIG, config + [self._chan.handle(self._cache)])
+        except BaseException:
+            if self._chan is not None:          # the followers wait for the config
+                self._chan.close()
+            raise
+        self._gen = torch.Generator(device=self._device).manual_seed(rng_seed)
+        self._toks = torch.zeros(slots, dtype=torch.int32, device=self._device)
+        self._exported: list | None = None
         self._kv_hits = 0
         self._kv_misses = 0
         self._prefill_tokens = 0
@@ -221,36 +257,89 @@ class ContinuousBatcher:
         self._active_lane_steps = 0   # of those, slots with live requests
         self._prefill_stall_s = 0.0   # prefill dispatch time with lanes live
         self._t0 = time.monotonic()
-        # -- speculative decoding (draft-k / verify-once rounds)
-        self._spec_k = 0
+        # -- speculative decoding (draft-k / verify-once rounds); the draft
+        # runs whole on the leader, its cache beside the pool's
         self._spec_proposed = 0
         self._spec_accepted = 0
         self._spec_rounds_run = 0
-        k = constants.spec_k() if spec_k is None else int(spec_k)
-        if k > 0:
-            if draft_model is None:
-                raise ValueError("spec_k > 0 requires a draft model (a smaller model over "
-                                 "the same vocabulary)")
-            if temperature > 0:
-                raise ValueError("speculative decoding is greedy-only (temperature <= 0): "
-                                 "acceptance compares the draft against the target's "
-                                 "argmax, which keeps the output that of plain decode")
-            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
-                raise ValueError(f"draft vocab {draft_model.cfg.vocab_size} != target "
-                                 f"vocab {model.cfg.vocab_size}")
-            self._spec_k = k
-            # rounds per tick sized so a tick still consumes about
-            # steps_per_sync tokens at full acceptance
-            self._spec_rounds = max(1, self._T // (k + 1))
+        if self._spec_k:
             self._draft = decode_model(draft_model)
             self._dcfg = self._draft.cfg
             self._draft_cache = KVCache.zeros(self._dcfg, slots, cache_len, self._device)
-            # the verify model shares the target's weights and cache layout
-            # but writes multi-token calls at per-example indices
-            self._vmodel = decode_model(self._model, decode_scatter=True)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="continuous-batcher")
         self._thread.start()
+
+    def _init_device(self, model: TransformerLM, slots: int, cache_len: int, steps: int,
+                     kv_block: int, n_blocks: int, sessions: int, spec_k: int) -> None:
+        """The device state every rank of a tp group holds alike: the decode
+        model (this rank's cut), the pool cache, the paged pool and the
+        verify model."""
+        self._model = model
+        self._mcfg = model.cfg
+        self._tp = model.tp
+        self._device = model.tok_embed.weight.device
+        self._cache_len = cache_len
+        self._T = steps
+        self._cache = self._new_cache(slots)
+        # -- the paged KV pool and its prefix index (kv_cache.py); with
+        # kv_block=0 the engine runs exactly the unpaged path
+        self._kv: PagedKVCache | None = None
+        if kv_block > 0:
+            self._kv = PagedKVCache(self._mcfg, cache_len, kv_block, n_blocks, sessions,
+                                    self._device, mesh=self._mesh, channel=self._chan)
+        self._spec_k = spec_k
+        if spec_k:
+            # rounds per tick sized so a tick still consumes about
+            # steps_per_sync tokens at full acceptance
+            self._spec_rounds = max(1, self._T // (spec_k + 1))
+            # the verify model shares the target's weights and cache layout
+            # but writes multi-token calls at per-example indices
+            self._vmodel = decode_model(self._model, decode_scatter=True)
+
+    @classmethod
+    def follow(cls, model: TransformerLM, *, mesh) -> None:
+        """Run a tp group's device side on this rank (tp rank > 0) until the
+        leader's engine stops: ``model`` and ``mesh`` as the leader's (the
+        rest of the configuration comes from the leader).  Raises
+        :class:`~edl_tpu_torch.serving.spmd.FollowerExit` when the leader
+        is gone."""
+        self = cls.__new__(cls)
+        dmodel = shard_decode_model(model, mesh)
+        self._chan = chan = spmd.Channel(mesh, dmodel.tok_embed.weight.device)
+        if chan.leader:
+            raise ValueError("tp rank 0 builds the ContinuousBatcher; follow() is for the "
+                             "others")
+        self._mesh = mesh
+        self._temperature, self._top_k, self._top_p = 0.0, 0, 0.0
+        enter_device(dmodel.tok_embed.weight.device)
+        with torch.inference_mode():
+            cmd = chan.recv()
+            while cmd.op == spmd.OP_NOOP:
+                cmd = chan.recv()
+            if cmd.op == spmd.OP_STOP:
+                return
+            if cmd.op != spmd.OP_CONFIG:
+                raise RuntimeError(f"a follower's first command is {cmd.op}, not the config")
+            self._init_device(dmodel, *cmd.ints[:7])
+            chan.adopt(cmd.ints[7], self._cache)
+            lookup = chan.lookup
+            handlers = {
+                spmd.OP_SLAB: lambda c: chan.adopt(c.ints[0], self._new_cache(c.ints[1])),
+                spmd.OP_PREFILL: lambda c: self._prefill_into(
+                    lookup(c.ints[0]), c.arrays[0].numpy(), c.arrays[1].numpy(), None),
+                spmd.OP_STEP: lambda c: self._step(lookup(c.ints[0]), c.tensors[0], None),
+                spmd.OP_VERIFY: lambda c: self._verify(lookup(c.ints[0]), *c.tensors),
+                spmd.OP_INSERT: lambda c: self._insert_lanes(
+                    lookup(c.ints[0]), c.ints[1:], c.arrays[0].numpy()),
+                spmd.OP_CHUNK_MID: lambda c: self._chunk_mid(
+                    lookup(c.ints[0]), c.arrays[0].numpy(), c.ints[1]),
+                spmd.OP_CHUNK_FINAL: lambda c: self._chunk_final(
+                    lookup(c.ints[0]), c.arrays[0].numpy(), c.ints[1], None, c.ints[2]),
+            }
+            if self._kv is not None:
+                handlers.update(self._kv.handlers())
+            chan.serve(handlers)
 
     # -- public --------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
@@ -317,12 +406,25 @@ class ContinuousBatcher:
 
     def export_sessions(self) -> list[tuple[str, list[int], dict, bytes]]:
         """``[(session, tokens, meta, blob)]`` for every pinned chain.  Only
-        legal once the engine thread has stopped (after :meth:`drain`)."""
+        legal once the engine thread has stopped (after :meth:`drain`).
+
+        A tp engine's thread exported them as it stopped: its pool lies
+        partly on the followers, which only that thread may command and
+        which leave with its stop, so the gather cannot wait for this call
+        (the blobs are those of one process).  A one-process engine's
+        pool stays readable after its thread ends, so it exports here,
+        only when asked: a stop that no migration follows (a hard stop,
+        ``EDL_TPU_KV_MIGRATE=0``) copies no chain off the card."""
         if self._kv is None:
             return []
         if self._thread.is_alive():
             raise RuntimeError("export_sessions() requires a stopped engine (call "
                                "drain() first)")
+        if self._chan is not None:
+            return list(self._exported or [])
+        return self._export_all()
+
+    def _export_all(self) -> list[tuple[str, list[int], dict, bytes]]:
         out = []
         for session in self._kv.sessions():
             chain = self._kv.chain_of(session)
@@ -349,39 +451,43 @@ class ContinuousBatcher:
         if in_flight:
             raise RuntimeError(f"ContinuousBatcher.warm() called with {in_flight} request(s) "
                                "in flight; warm() must run before the first submit()")
+        if self._chan is not None:
+            # only the engine thread drives the tp group
+            self.run_on_engine(lambda: self._warm(prompt_len), timeout=None)
+            return
         enter_device(self._device)
-        gen = torch.Generator(device=self._device).manual_seed(0)
         with torch.inference_mode():
-            P = self._bucket(prompt_len)
+            self._warm(prompt_len)
+
+    def _warm(self, prompt_len: int) -> None:
+        gen = torch.Generator(device=self._device).manual_seed(0)
+        P = self._bucket(prompt_len)
+        for K in self.PREFILL_KS:
+            self._prefill(np.zeros((K, P), np.int32), np.ones(K, np.int32), gen)
+        self._step(self._slab(len(self._slots)),
+                   torch.zeros(len(self._slots), dtype=torch.int32, device=self._device), gen)
+        C = self._chunk_tokens
+        if C and prompt_len > C:
+            off = C * ((prompt_len - 1) // C)
+            if off + self._bucket(prompt_len - off) <= self._cache_len:
+                slab = self._slab(1)
+                self._chunk_mid(slab, np.zeros(C, np.int32), 0)
+                self._chunk_final(slab, np.ones(prompt_len - off, np.int32), C, gen)
+        if self._kv is not None and self._reuse:
+            # a one-block hit from the scratch block at every suffix bucket
+            for Pb in (b for b in self._buckets if b <= P):
+                if self._kv.block + Pb <= self._cache_len:
+                    slab = self._slab(1)
+                    self._kv.load_prefix_into(slab, [0], self._kv.block)
+                    self._chunk_final(slab, np.ones(Pb, np.int32), self._kv.block, gen)
+        if self._spec_k:
             for K in self.PREFILL_KS:
-                self._prefill(np.zeros((K, P), np.int32), np.ones(K, np.int32), gen)
-            self._step(KVCache.zeros(self._mcfg, len(self._slots), self._cache_len,
-                                     self._device),
-                       torch.zeros(len(self._slots), dtype=torch.int32, device=self._device),
-                       gen)
-            C = self._chunk_tokens
-            if C and prompt_len > C:
-                off = C * ((prompt_len - 1) // C)
-                if off + self._bucket(prompt_len - off) <= self._cache_len:
-                    slab = KVCache.zeros(self._mcfg, 1, self._cache_len, self._device)
-                    self._chunk_mid(slab, np.zeros(C, np.int32), 0)
-                    self._chunk_final(slab, np.ones(prompt_len - off, np.int32), C, gen)
-            if self._kv is not None and self._reuse:
-                # a one-block hit from the scratch block at every suffix bucket
-                for Pb in (b for b in self._buckets if b <= P):
-                    if self._kv.block + Pb <= self._cache_len:
-                        slab = KVCache.zeros(self._mcfg, 1, self._cache_len, self._device)
-                        self._kv.load_prefix_into(slab, [0], self._kv.block)
-                        self._chunk_final(slab, np.ones(Pb, np.int32), self._kv.block, gen)
-            if self._spec_k:
-                for K in self.PREFILL_KS:
-                    self._draft_prefill(np.zeros((K, P), np.int32))
-                B = len(self._slots)
-                self._spec(KVCache.zeros(self._mcfg, B, self._cache_len, self._device),
-                           KVCache.zeros(self._dcfg, B, self._cache_len, self._device),
-                           torch.zeros(B, dtype=torch.int32, device=self._device))
-            if self._device.type == "cuda":
-                torch.cuda.synchronize(self._device)
+                self._draft_prefill(np.zeros((K, P), np.int32))
+            B = len(self._slots)
+            self._spec(self._slab(B), KVCache.zeros(self._dcfg, B, self._cache_len, self._device),
+                       torch.zeros(B, dtype=torch.int32, device=self._device))
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
 
     def stats(self) -> dict:
         with self._stats_lock:
@@ -452,7 +558,8 @@ class ContinuousBatcher:
         with self._enqueue_lock:
             self._stopping = True
         self._queue.put(None)
-        self._thread.join(timeout=30.0)
+        # a tp engine's thread exports its sessions and stops the group first
+        self._thread.join(timeout=30.0 if self._chan is None else 30.0 + spmd.TIMEOUT)
         for s in self._slots:
             if s.request is not None:
                 s.request.future.set_exception(RuntimeError("engine stopped mid-generation"))
@@ -460,18 +567,52 @@ class ContinuousBatcher:
         if self._chunking is not None:
             self._chunking.req.future.set_exception(RuntimeError("engine stopped mid-prefill"))
             self._chunking = None
+        self._fail_queued(RuntimeError("engine stopped"))
+
+    def _fail_queued(self, e: Exception) -> None:
         for pending in (self._pending, self._tasks):
             while pending:
-                pending.popleft().future.set_exception(RuntimeError("engine stopped"))
+                pending.popleft().future.set_exception(e)
         while True:
             try:
                 item = self._queue.get_nowait()
             except queue.Empty:
                 break
             if item is not None:
-                item.future.set_exception(RuntimeError("engine stopped"))
+                item.future.set_exception(e)
 
     # -- device work -----------------------------------------------------------
+    # Each device call a tp group's ranks share starts with _cmd: on the
+    # leader it sends the call to the followers, which run the same method
+    # from Channel.serve (follow()); elsewhere it does nothing.
+    def _cmd(self, op: int, caches=(), ints=(), arrays=(), tensors=()) -> None:
+        if self._chan is not None and self._chan.leader:
+            handles = [self._chan.handle(c) for c in caches]
+            self._chan.send(op, [*handles, *ints], arrays, tensors)
+
+    def _new_cache(self, batch: int) -> KVCache:
+        """An empty ``batch``-lane cache of the pool's length, this rank's
+        kv heads."""
+        return KVCache.zeros(self._mcfg, batch, self._cache_len, self._device, self._tp)
+
+    def _slab(self, batch: int) -> KVCache:
+        """A new cache that every rank of a tp group holds (the leader's
+        call; the followers' twins are filed under its handle)."""
+        slab = self._new_cache(batch)
+        if self._chan is not None:
+            self._chan.send(spmd.OP_SLAB, [self._chan.handle(slab), batch])
+        return slab
+
+    def _sent(self) -> int:
+        return self._chan.sent if self._chan is not None else 0
+
+    def _local_failure(self, sent_before: int) -> bool:
+        """Whether a failure may fail only its own requests: always without
+        a tp group; in one, only when no command went out since
+        ``sent_before`` (after one, the followers may be mid-call, and the
+        group must stop)."""
+        return self._sent() == sent_before
+
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         # non_blocking: a copy from pageable memory is staged at once, and
         # the stream is not synchronised (the tick's one sync is its read)
@@ -479,27 +620,35 @@ class ContinuousBatcher:
 
     def _sample(self, hidden: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
         """``[B, D]`` final-norm hidden states -> ``[B]`` tokens, through the
-        head on those rows only; :func:`generate`'s sampling recipe."""
-        return sample_logits(self._model.head(hidden), gen, temperature=self._temperature,
-                             top_k=self._top_k, top_p=self._top_p)
+        head on those rows only; :func:`generate`'s sampling recipe (in a tp
+        group the leader samples and broadcasts)."""
+        return sample_on_leader(self._model.head(hidden), self._tp, gen,
+                                temperature=self._temperature, top_k=self._top_k,
+                                top_p=self._top_p)
 
     def _prefill(self, ids: np.ndarray, lens: np.ndarray, gen) -> tuple[KVCache, torch.Tensor]:
         """A fresh K-lane cache holding the padded prompts ``ids [K, P]``,
         and one token per lane sampled at its last real position (the pad
         positions' keys lie past ``lens``, where the insert's index reset
         and the masks keep them unread)."""
+        slab = self._slab(ids.shape[0])
+        self._cmd(spmd.OP_PREFILL, [slab], arrays=[ids, lens])
+        return slab, self._prefill_into(slab, ids, lens, gen)
+
+    def _prefill_into(self, slab: KVCache, ids: np.ndarray, lens: np.ndarray,
+                      gen) -> torch.Tensor:
         K = ids.shape[0]
-        slab = KVCache.zeros(self._mcfg, K, self._cache_len, self._device)
         hidden = self._model(self._to_device(ids), cache=slab, return_hidden=True)
         last = self._to_device(lens.astype(np.int64) - 1)
         rows = torch.arange(K, device=self._device)
-        return slab, self._sample(hidden[rows, last], gen)
+        return self._sample(hidden[rows, last], gen)
 
     def _step(self, cache: KVCache, toks: torch.Tensor, gen) -> tuple[torch.Tensor,
                                                                      torch.Tensor]:
         """Advance every lane of ``cache`` ``steps_per_sync`` tokens from
         ``toks [slots]``, each at the position its cache index holds; returns
         the tokens ``[slots, T]`` and the last ones, on the device."""
+        self._cmd(spmd.OP_STEP, [cache], tensors=[toks])
         out = []
         for _ in range(self._T):
             hidden = self._model(toks[:, None], positions=cache.index[:, None], cache=cache,
@@ -536,11 +685,9 @@ class ContinuousBatcher:
         k+1]`` and ``counts [R, slots]`` (tokens of ``out`` to consume) and
         the last tokens."""
         k = self._spec_k
-        j = torch.arange(k + 1, device=self._device)
         outs, counts = [], []
         for _ in range(self._spec_rounds):
-            idx = cache.index.clone()
-            dcache.index.copy_(idx)
+            dcache.index.copy_(cache.index)
             last, drafts = toks, []
             for _ in range(k):
                 hidden = self._draft(last[:, None], positions=dcache.index[:, None],
@@ -549,50 +696,68 @@ class ContinuousBatcher:
                 drafts.append(last)
             self._draft(last[:, None], positions=dcache.index[:, None], cache=dcache,
                         return_hidden=True)                           # the last draft's KV
-            drafts = torch.stack(drafts, dim=1)                       # [B, k]
-            feed = torch.cat([toks[:, None], drafts], dim=1)
-            hidden = self._vmodel(feed, positions=idx[:, None] + j, cache=cache,
-                                  return_hidden=True)
-            greedy = self._vmodel.head(hidden).argmax(-1).to(torch.int32)   # [B, k+1]
-            n_acc = (greedy[:, :k] == drafts).to(torch.int32).cumprod(dim=1).sum(dim=1)
-            bonus = greedy.gather(1, n_acc[:, None].long())
-            dpad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
-            out = torch.where(j < n_acc[:, None], dpad,
-                              torch.where(j == n_acc[:, None], bonus, 0))
-            new_idx = idx + n_acc + 1
-            cache.index.copy_(new_idx)
-            dcache.index.copy_(new_idx)
-            toks = bonus[:, 0]
+            out, count, toks = self._verify(cache, toks, torch.stack(drafts, dim=1))
+            dcache.index.copy_(cache.index)
             outs.append(out)
-            counts.append(n_acc + 1)
+            counts.append(count)
         return torch.stack(outs), torch.stack(counts), toks
+
+    def _verify(self, cache: KVCache, toks: torch.Tensor, drafts: torch.Tensor):
+        """One verify pass of the last tokens and the drafts ``[B, k]``: the
+        round's tokens ``[B, k+1]``, their count and the bonus tokens, and
+        the cache's index set to the accepted frontier (a tp group's
+        command: the drafts travel in it; the argmax is the leader's)."""
+        self._cmd(spmd.OP_VERIFY, [cache], tensors=[toks, drafts])
+        k = drafts.shape[1]
+        j = torch.arange(k + 1, device=self._device)
+        idx = cache.index.clone()
+        feed = torch.cat([toks[:, None], drafts], dim=1)
+        hidden = self._vmodel(feed, positions=idx[:, None] + j, cache=cache, return_hidden=True)
+        greedy = self._vmodel.head(hidden).argmax(-1).to(torch.int32)   # [B, k+1]
+        if self._chan is not None:
+            self._chan.broadcast(greedy)
+        n_acc = (greedy[:, :k] == drafts).to(torch.int32).cumprod(dim=1).sum(dim=1)
+        bonus = greedy.gather(1, n_acc[:, None].long())
+        dpad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+        out = torch.where(j < n_acc[:, None], dpad, torch.where(j == n_acc[:, None], bonus, 0))
+        cache.index.copy_(idx + n_acc + 1)
+        return out, n_acc + 1, bonus[:, 0]
 
     def _insert(self, adm: _Admission) -> None:
         """Copy the admitted lanes into their pool slots (never aliasing
         the slab) and set those slots' indices to the true prompt
         lengths and their last tokens to the sampled ones."""
-        at = self._to_device(np.asarray(adm.slots, np.int64))
-        lens = self._to_device(np.asarray(adm.lens, np.int32))
-        pairs = [(self._cache, adm.slab)]
+        self._cmd(spmd.OP_INSERT, [adm.slab], adm.slots, [np.asarray(adm.lens, np.int32)])
+        at = self._insert_lanes(adm.slab, adm.slots, adm.lens)
         if adm.dslab is not None:
-            pairs.append((self._draft_cache, adm.dslab))
-        for cache, slab in pairs:
-            for big, small in zip(cache.keys + cache.values, slab.keys + slab.values):
-                big.index_copy_(0, at, small)
-            cache.index.index_copy_(0, at, lens)
+            self._copy_lanes(self._draft_cache, adm.dslab, at, adm.lens)
         self._toks.index_copy_(0, at, adm.toks)
+
+    def _insert_lanes(self, slab: KVCache, slots, lens) -> torch.Tensor:
+        """The pool cache's part of an insert (every rank's); returns the
+        slots on the device."""
+        at = self._to_device(np.asarray(slots, np.int64))
+        self._copy_lanes(self._cache, slab, at, lens)
+        return at
+
+    def _copy_lanes(self, cache: KVCache, slab: KVCache, at: torch.Tensor, lens) -> None:
+        for big, small in zip(cache.keys + cache.values, slab.keys + slab.values):
+            big.index_copy_(0, at, small)
+        cache.index.index_copy_(0, at, self._to_device(np.asarray(lens, np.int32)))
 
     def _chunk_mid(self, slab: KVCache, ids: np.ndarray, offset: int) -> None:
         """Advance a one-lane slab by one full chunk of prompt tokens."""
+        self._cmd(spmd.OP_CHUNK_MID, [slab], [offset], [ids])
         positions = torch.arange(offset, offset + len(ids), device=self._device)[None]
         self._model(self._to_device(ids[None]), positions=positions, cache=slab,
                     return_hidden=True)
 
-    def _chunk_final(self, slab: KVCache, rest: np.ndarray, offset: int,
-                     gen) -> torch.Tensor:
-        """The last chunk, padded to its suffix bucket, sampled at the
-        prompt's true last position."""
-        P = self._bucket(len(rest))
+    def _chunk_final(self, slab: KVCache, rest: np.ndarray, offset: int, gen,
+                     P: int | None = None) -> torch.Tensor:
+        """The last chunk, padded to its suffix bucket ``P`` (the leader's
+        choice), sampled at the prompt's true last position."""
+        P = self._bucket(len(rest)) if P is None else P
+        self._cmd(spmd.OP_CHUNK_FINAL, [slab], [offset, P], [rest])
         tail = np.zeros((1, P), np.int32)
         tail[0, :len(rest)] = rest
         positions = torch.arange(offset, offset + P, device=self._device)[None]
@@ -609,12 +774,26 @@ class ContinuousBatcher:
                 # slots and an empty queue: never block on the queue then
                 self._drain(block=not self._any_active() and self._chunking is None)
                 if self._stopping:
-                    return  # stop() fails active slots + pending
+                    break  # stop() fails active slots + pending
                 try:
                     self._tick()
                 except Exception as e:  # noqa: BLE001 — never die silently
                     logger.exception("engine tick failed")
                     self._fail_all(e)
+                    if self._chan is not None:
+                        # the followers may be mid-call: the group stops
+                        with self._enqueue_lock:
+                            self._stopping = True
+                        self._chan.close()
+                        self._fail_queued(e)
+                        return
+            if self._chan is not None:
+                if self._kv is not None:
+                    try:
+                        self._exported = self._export_all()
+                    except Exception:  # noqa: BLE001 — the sessions then cold-start
+                        logger.exception("tp session export failed")
+                self._chan.close()
 
     def _drain(self, block: bool) -> None:
         """Pull queued requests into the host-side pending list; blocks for
@@ -639,10 +818,13 @@ class ContinuousBatcher:
         back to the host."""
         while self._tasks:
             task = self._tasks.popleft()
+            sent = self._sent()
             try:
                 task.future.set_result(task.fn())
             except BaseException as e:  # noqa: BLE001 — the future must resolve
                 task.future.set_exception(e)
+                if not self._local_failure(sent):
+                    raise
         active = [i for i, s in enumerate(self._slots) if not s.free]
         pres: list[_Admission] = []
         t0 = time.monotonic()
@@ -754,6 +936,7 @@ class ContinuousBatcher:
         if self._kv is not None:
             self._kv_misses += K
             self._prefill_tokens += sum(len(r.ids) for r in reqs)
+        sent = self._sent()
         try:
             ids = np.zeros((K, P), np.int32)
             lens = np.zeros(K, np.int32)
@@ -764,6 +947,8 @@ class ContinuousBatcher:
             dslab = self._draft_prefill(ids) if self._spec_k else None
             return _Admission(slab, toks, slots, reqs, lens.tolist(), dslab)
         except Exception as e:  # noqa: BLE001 — fail THIS group only
+            if not self._local_failure(sent):
+                raise
             logger.exception("prefill failed (bucket %d, %d reqs)", P, K)
             for req in reqs:
                 req.future.set_exception(e)
@@ -795,9 +980,7 @@ class ContinuousBatcher:
             # one cold admission, counted once at its start
             self._kv_misses += 1
             self._prefill_tokens += len(req.ids)
-        self._chunking = _ChunkState(req, slot,
-                                     KVCache.zeros(self._mcfg, 1, self._cache_len, self._device),
-                                     0)
+        self._chunking = _ChunkState(req, slot, self._slab(1), 0)
         with self._stats_lock:
             self._chunked_admissions += 1
 
@@ -809,6 +992,7 @@ class ContinuousBatcher:
         assert st is not None
         ids, C = st.req.ids, self._chunk_tokens
         rest = len(ids) - st.offset
+        sent = self._sent()
         try:
             if rest > C:
                 self._chunk_mid(st.slab, ids[st.offset:st.offset + C], st.offset)
@@ -823,6 +1007,8 @@ class ContinuousBatcher:
             dslab = self._draft_slab_for(st.req) if self._spec_k else None
             return _Admission(st.slab, toks, [st.slot], [st.req], [len(ids)], dslab)
         except Exception as e:  # noqa: BLE001 — fail THIS request only
+            if not self._local_failure(sent):
+                raise
             logger.exception("chunked prefill failed (offset %d of %d)", st.offset, len(ids))
             st.req.future.set_exception(e)
             self._chunking = None
@@ -864,13 +1050,16 @@ class ContinuousBatcher:
         self._kv_hits += 1
         self._prefill_tokens += len(req.ids)
         self._prefill_tokens_skipped += prefix_len
+        sent = self._sent()
         try:
-            slab = KVCache.zeros(self._mcfg, 1, self._cache_len, self._device)
+            slab = self._slab(1)
             self._kv.load_prefix_into(slab, [nd.block_id for nd in chain], prefix_len)
             toks = self._chunk_final(slab, suffix, prefix_len, self._gen)
             dslab = self._draft_slab_for(req) if self._spec_k else None
             return _Admission(slab, toks, [slot], [req], [len(req.ids)], dslab)
         except Exception as e:  # noqa: BLE001 — fail THIS request only
+            if not self._local_failure(sent):
+                raise
             logger.exception("reuse prefill failed (suffix %d, %d blocks)", len(suffix),
                              len(chain))
             req.future.set_exception(e)
@@ -950,9 +1139,12 @@ class ContinuousBatcher:
         if self._eos is not None and self._eos in s.emitted:
             out = out[:s.emitted.index(self._eos) + 1]
         if self._kv is not None:
+            sent = self._sent()
             try:
                 self._kv_commit(slot, req, s.emitted)
             except Exception:  # noqa: BLE001 — the pool is an accelerator
+                if not self._local_failure(sent):
+                    raise
                 logger.exception("kv commit failed for slot %d (request unaffected)", slot)
         with self._stats_lock:
             self._done_requests += 1

@@ -1,5 +1,5 @@
 """Paged KV block pool with a token-exact prefix-reuse index (the port of
-the JAX package's ``serving/kv_cache.py``, without its mesh sharding).
+the JAX package's ``serving/kv_cache.py``).
 
 KV state, chunked into fixed-size **blocks**, persists across requests
 in a device-resident block pool and is found again through a prefix trie,
@@ -26,11 +26,22 @@ suffix.
   the JAX package's format, byte for byte (per layer in the flax cache's
   name order, ``layer_0, layer_1, layer_10, ...``, the k blocks then the
   v blocks, raw; bf16 travels as its 16-bit words under the name
-  ``"bfloat16"``), so a session moves between a JAX and a port replica.
+  ``"bfloat16"``), so a session moves between a JAX and a port replica;
+- **tensor-parallel** (``mesh``): each rank of the ``tp`` group holds its
+  own pools over its kv heads (``[n_blocks, Hk/tp, ...]``; whole where
+  the engine's slot cache keeps them whole, as for MQA), all with the
+  same block ids, so the one trie on the leader indexes every rank's
+  pools and a block move never leaves its rank.  The leader sends each
+  gather, scatter and import to the followers as a command carrying the
+  block ids (``serving/spmd.py``); an export gathers every rank's heads
+  into the blob of one process, and an import cuts a blob to each rank's
+  heads, so a blob does not depend on the mesh.
 
 The host half (trie, heap, free list, pins) is the JAX module's, line for
-line.  Thread model: single writer; every mutating call runs on the engine
-thread, and :meth:`PagedKVCache.export_chain` only after it stopped.
+line; on a mesh only the leader uses it.  Thread model: single writer;
+every mutating call runs on the engine thread, and
+:meth:`PagedKVCache.export_chain` only after it stopped (on a mesh, on
+the engine thread as it stops).
 """
 
 from __future__ import annotations
@@ -40,6 +51,10 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from edl_tpu_torch.models.transformer import kv_split, local_kv_heads
+from edl_tpu_torch.parallel.tp import TP
+from edl_tpu_torch.serving.spmd import OP_KV_EXPORT, OP_KV_IMPORT, OP_KV_LOAD, OP_KV_STORE
 
 # the blob's dtype names (numpy's, which the JAX package writes; numpy has
 # no bfloat16 here, so those blocks travel as 16-bit words)
@@ -75,13 +90,20 @@ class PagedKVCache:
     Hk, D, block]`` and ``v [n_blocks, Hk, block, D]``) plus the host-side
     prefix trie, free list, session pins and eviction policy.  ``cfg`` is
     the decode model's config (layers, kv heads, head dim, dtype) and
-    ``max_len`` its cache length."""
+    ``max_len`` its cache length.  ``mesh``: the pools hold this rank's kv
+    heads of the mesh's ``tp`` group, driven through the group's
+    ``channel`` (:class:`~edl_tpu_torch.serving.spmd.Channel`; the
+    engine's)."""
 
     def __init__(self, cfg, max_len: int, block: int, n_blocks: int, max_sessions: int,
-                 device: torch.device | str | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("a mesh-sharded KV pool is not ported yet (ROADMAP.md "
-                                      "Queue 1 item 6.5)")
+                 device: torch.device | str | None = None, mesh=None, channel=None):
+        self._tp = TP.of(mesh) if mesh is not None else None
+        if self._tp is not None and channel is None:
+            raise ValueError("a tensor-parallel KV pool is driven through its tp group's "
+                             "channel (serving/spmd.py)")
+        self._chan = channel if self._tp is not None else None
+        # split exactly when the engine splits its slot cache (kv_split)
+        self._split = kv_split(cfg, self._tp)
         if block < 1:
             raise ValueError(f"kv block size must be >= 1, got {block}")
         if n_blocks < 1:
@@ -93,7 +115,8 @@ class PagedKVCache:
         self.max_len = max_len
         self._layers = layer_names(cfg.num_layers)
         self._index = {name: int(name.split("_")[1]) for name in self._layers}
-        self._hk, self._d, self._dtype = cfg.kv_heads, cfg.head_dim, cfg.dtype
+        self._hk_all, self._d, self._dtype = cfg.kv_heads, cfg.head_dim, cfg.dtype
+        self._hk = local_kv_heads(cfg, self._tp)
         if self._dtype not in _DTYPE_NAMES:
             raise ValueError(f"kv pool dtype {self._dtype} has no wire name")
         self._device = torch.device(device) if device is not None else torch.device("cpu")
@@ -270,10 +293,27 @@ class PagedKVCache:
         # non_blocking: the stream is not synchronised (no host read)
         return torch.as_tensor(block_ids, dtype=torch.int64).to(self._device, non_blocking=True)
 
+    def _leads(self) -> bool:
+        return self._chan is not None and self._chan.leader
+
+    def handlers(self) -> dict:
+        """A follower's handlers of the pool's commands (``Channel.serve``)."""
+        ch = self._chan
+        return {OP_KV_LOAD: lambda c: self._load(ch.lookup(c.ints[0]), c.ints[2:], c.ints[1]),
+                OP_KV_STORE: lambda c: self._store(ch.lookup(c.ints[0]), c.ints[1], c.ints[2],
+                                                   c.ints[3:]),
+                OP_KV_IMPORT: lambda c: self._upload(c.ints, c.arrays),
+                OP_KV_EXPORT: lambda c: self._gather(c.ints)}
+
     def load_prefix_into(self, slab, block_ids: list[int], prefix_len: int) -> None:
         """Gather the blocks ``block_ids`` into the front of the one-lane
         cache ``slab`` (a copy: the pool is never aliased) and set its index
         to ``prefix_len``."""
+        if self._leads():
+            self._chan.send(OP_KV_LOAD, [self._chan.handle(slab), prefix_len, *block_ids])
+        self._load(slab, block_ids, prefix_len)
+
+    def _load(self, slab, block_ids: list[int], prefix_len: int) -> None:
         n, bs = len(block_ids), self.block
         ids = self._ids(block_ids)
         for li in range(len(self._layers)):
@@ -290,6 +330,12 @@ class PagedKVCache:
         slot's slab in ``cache`` into the pool at ``block_ids``."""
         if not block_ids:
             return
+        if self._leads():
+            self._chan.send(OP_KV_STORE, [self._chan.handle(cache), slot, start_block,
+                                          *block_ids])
+        self._store(cache, slot, start_block, block_ids)
+
+    def _store(self, cache, slot: int, start_block: int, block_ids: list[int]) -> None:
         n, bs = len(block_ids), self.block
         lo, hi = start_block * bs, (start_block + n) * bs
         ids = self._ids(block_ids)
@@ -299,21 +345,56 @@ class PagedKVCache:
             v = cache.values[li][slot, :, lo:hi, :].reshape(self._hk, n, bs, self._d)
             self.v[li].index_copy_(0, ids, v.permute(1, 0, 2, 3))
 
+    def _upload(self, block_ids: list[int], blocks: list[torch.Tensor]) -> None:
+        """Write ``blocks`` (per layer in name order, k then v, every head,
+        in the wire's view dtype) into the pools at ``block_ids``: this
+        rank's heads of each."""
+        ids = self._ids(block_ids)
+        h0 = self._tp.rank * self._hk if self._split else 0
+        at = 0
+        for name in self._layers:
+            li = self._index[name]
+            for pool in (self.k[li], self.v[li]):
+                up = blocks[at].view(self._dtype)[:, h0:h0 + self._hk]
+                pool.index_copy_(0, ids, up.to(self._device))
+                at += 1
+
     # -- migration wire format -----------------------------------------------
     def _layout(self) -> list:
-        return [self._hk, self._d, _DTYPE_NAMES[self._dtype]]
+        return [self._hk_all, self._d, _DTYPE_NAMES[self._dtype]]
+
+    def _gather(self, block_ids: list[int]) -> list[torch.Tensor] | None:
+        """The blocks ``block_ids`` of every pool (per layer in name order,
+        k then v) with every rank's heads, on the leader's CPU (None on a
+        follower)."""
+        ids = self._ids(block_ids)
+        out = []
+        for name in self._layers:
+            li = self._index[name]
+            for pool in (self.k[li], self.v[li]):
+                local = pool.index_select(0, ids)
+                if self._split:
+                    parts = self._chan.gather_to_leader(local)
+                    local = None if parts is None else torch.cat(parts, dim=1)
+                elif self._chan is not None and not self._chan.leader:
+                    local = None
+                out.append(None if local is None else local.cpu())
+        return None if out and out[0] is None else out
 
     def export_chain(self, chain: list[_Node]) -> tuple[dict, bytes]:
         """``(meta, blob)`` of one chain: per layer (in name order) its k
         blocks then its v blocks, raw bytes concatenated; tokens travel
-        beside it (the chain is the token sequence)."""
-        ids = self._ids([nd.block_id for nd in chain])
+        beside it (the chain is the token sequence).  On a mesh the blob
+        holds every rank's heads: the blob of one process."""
+        block_ids = [nd.block_id for nd in chain]
+        if self._leads():
+            with self._chan.hold():       # the command and its gathers, back to back
+                self._chan.send(OP_KV_EXPORT, block_ids)
+                blocks = self._gather(block_ids)
+        else:
+            blocks = self._gather(block_ids)
         view = _WIRE_VIEW[self._dtype]
-        parts: list[bytes] = []
-        for name in self._layers:
-            li = self._index[name]
-            for pool in (self.k[li], self.v[li]):
-                parts.append(pool.index_select(0, ids).cpu().view(view).numpy().tobytes())
+        parts = [t.view(view).numpy().tobytes() for t in blocks]
         meta = {"block": self.block, "n": len(chain), "layers": list(self._layers),
                 "layout": {name: self._layout() for name in self._layers}}
         return meta, b"".join(parts)
@@ -335,7 +416,7 @@ class PagedKVCache:
         if len(tokens) < n * self.block:
             raise ValueError(f"kv import: {len(tokens)} tokens cannot cover "
                              f"{n} blocks of {self.block}")
-        hk, d, bs = self._hk, self._d, self.block
+        hk, d, bs = self._hk_all, self._d, self.block
         view = _WIRE_VIEW[self._dtype]
         item = torch.empty((), dtype=view).element_size()
         count = n * hk * d * bs
@@ -363,12 +444,12 @@ class PagedKVCache:
             node = child
         if fresh:
             idx = [i for i, _ in fresh]
-            ids = self._ids([b for _, b in fresh])
-            for name in self._layers:
-                li = self._index[name]
-                for pool, arr in zip((self.k[li], self.v[li]), arrays[name]):
-                    up = torch.from_numpy(np.ascontiguousarray(arr[idx])).view(self._dtype)
-                    pool.index_copy_(0, ids, up.to(self._device))
+            block_ids = [b for _, b in fresh]
+            blocks = [torch.from_numpy(np.ascontiguousarray(arr[idx]))
+                      for name in self._layers for arr in arrays[name]]
+            if self._leads():
+                self._chan.send(OP_KV_IMPORT, block_ids, blocks)
+            self._upload(block_ids, blocks)
         if node is self._root:
             raise RuntimeError("kv import adopted zero blocks (pool exhausted by "
                                "pinned/unevictable chains)")

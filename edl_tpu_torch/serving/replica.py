@@ -34,6 +34,7 @@ ported (ROADMAP.md Queue 1 item 8): the engine's stats ride the advert and
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
 import os
@@ -447,7 +448,6 @@ class ReplicaServer:
 
 
 def parse_args(argv=None):
-    import argparse
 
     p = argparse.ArgumentParser("edl_tpu_torch.serving.replica")
     p.add_argument("--coord_endpoints", required=True)
@@ -488,6 +488,12 @@ def parse_args(argv=None):
                    help="seeded draft (default --seed; the target's dims and seed make a "
                         "self-draft)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel width: > 1 serves the engine (its paged KV pool "
+                        "too) over a (dp, tp) group of this many processes, one card each "
+                        "on cuda")
+    p.add_argument("--tp_rank", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--tp_addr", default="", help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -503,23 +509,34 @@ def _seeded_model(vocab, layers, embed, heads, mlp, max_len, seed, device):
     return model.requires_grad_(False).eval()
 
 
-def build_engine(args, device):
-    """The replica's engine: the target (seeded, or restored from
-    ``--checkpoint_dir``) and, with ``--spec_k``, the seeded draft.  Compute
-    is bf16 on the card and f32 on the CPU."""
-    from edl_tpu_torch.serving.engine import ContinuousBatcher
-
+def build_target(args, device, mesh=None):
+    """The replica's target model: seeded, or restored from
+    ``--checkpoint_dir`` (on a tp group, each rank's part into its cut of
+    the decode model).  Compute is bf16 on the card and f32 on the CPU."""
     model = _seeded_model(args.vocab, args.layers, args.embed, args.heads, args.mlp,
                           args.max_len, args.seed, device)
     if args.checkpoint_dir:
+        from edl_tpu_torch.models.generate import shard_decode_model
         from edl_tpu_torch.train.checkpoint import CheckpointManager
         from edl_tpu_torch.train.state import TrainState, adamw
 
+        if mesh is not None:
+            model = shard_decode_model(model, mesh)
         restored = CheckpointManager(args.checkpoint_dir).restore(
             TrainState.create(model, adamw(1e-3)))
         if restored is None:
             raise SystemExit(f"no checkpoint under {args.checkpoint_dir}")
         model = restored[0].model.requires_grad_(False).eval()
+    return model
+
+
+def build_engine(args, device, mesh=None):
+    """The replica's engine: the target (:func:`build_target`) and, with
+    ``--spec_k``, the seeded draft; ``mesh``: this process leads its tp
+    group."""
+    from edl_tpu_torch.serving.engine import ContinuousBatcher
+
+    model = build_target(args, device, mesh)
     draft = None
     if args.spec_k > 0:
         draft = _seeded_model(args.vocab, args.draft_layers, args.draft_embed, args.draft_heads,
@@ -530,25 +547,62 @@ def build_engine(args, device):
                              kv_block=args.kv_block, kv_pool_blocks=args.kv_pool_blocks,
                              prefix_reuse=constants.kv_reuse(),
                              prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
-                             draft_model=draft)
+                             draft_model=draft, mesh=mesh)
+
+
+def _follow(args) -> None:
+    """A tp rank other than 0: join the group, build the same target, run
+    the leader's engine commands until its stop."""
+    import sys
+
+    from edl_tpu_torch.serving.engine import ContinuousBatcher
+    from edl_tpu_torch.serving.spmd import (FollowerExit, die_with_parent, follower_exit,
+                                            join_group)
+
+    die_with_parent()
+    device, mesh = join_group(args.tp, args.tp_rank, args.tp_addr, args.device)
+    try:
+        ContinuousBatcher.follow(build_target(args, device, mesh), mesh=mesh)
+    except FollowerExit as e:
+        print(f"[edl-replica] tp rank {args.tp_rank}: {e}", file=sys.stderr)
+        follower_exit(1)
+    follower_exit(0)
 
 
 def main(argv=None) -> None:
     """``python -m edl_tpu_torch.serving.replica``: build an engine and lease
-    it into the fleet.  The JAX replica's flags minus ``--tp``, plus
-    ``--device`` (default ``cuda``: without a card it raises ``NoCardError``
-    unless given ``--device cpu``).  Its first line is ``[edl-replica] <id>
-    serving on <host:port>``; SIGTERM drains (migrating pinned sessions),
-    then exits."""
+    it into the fleet.  The JAX replica's flags, plus ``--device`` (default
+    ``cuda``: without a card it raises ``NoCardError`` unless given
+    ``--device cpu``).  ``--tp N``: this process is rank 0 of a tp group of
+    N processes, which it spawns (``serving/spmd.py:lead_group``; NCCL a
+    card each on cuda, gloo on the CPU); it alone leases the replica, so
+    the gateway sees one replica.  Its first line is ``[edl-replica] <id>
+    serving on <host:port>``; SIGTERM drains (migrating pinned sessions
+    through the group's export), then exits, and the followers with it."""
     import signal
+    import sys
+
+    import torch
 
     from edl_tpu_torch.coord.client import connect
     from edl_tpu_torch.utils.device import resolve_device
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    if args.tp > 1 and args.tp_rank > 0:
+        _follow(args)
+        return
+    mesh, followers = None, []
     device = resolve_device(args.device)
-    engine = build_engine(args, device)
+    if args.tp > 1:
+        from edl_tpu_torch.serving.spmd import lead_group
+
+        mesh, followers = lead_group("edl_tpu_torch.serving.replica", argv, args.tp,
+                                     args.device)
+        if device.type == "cuda":
+            device = torch.device("cuda", 0)
+    engine = build_engine(args, device, mesh)
     store = connect(args.coord_endpoints)
     server = ReplicaServer(store, args.job_id, engine, replica_id=args.replica_id,
                            host=args.host, port=args.port, ttl=args.ttl)
@@ -566,6 +620,10 @@ def main(argv=None) -> None:
     except KeyboardInterrupt:
         pass
     server.close()
+    if followers:
+        from edl_tpu_torch.serving.spmd import reap
+
+        reap(followers)
 
 
 if __name__ == "__main__":

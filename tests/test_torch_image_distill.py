@@ -82,8 +82,18 @@ def test_module_teacher_feeds_in_sorted_key_order():
     out = module_teacher(Sub(), fetch_name="d")({"b": np.ones(3, np.float32),
                                                  "a": np.arange(3, dtype=np.float32)})
     np.testing.assert_array_equal(out["d"], [-1.0, 0.0, 1.0])
-    with pytest.raises(NotImplementedError, match="item 6.5"):
-        module_teacher(Sub(), mesh=object())
+    # over a mesh whose tp dim is 1 the module runs as without one, and only
+    # a follower with no tp group to follow is refused (the tp-2 teacher:
+    # tests/test_torch_serving_tp.py)
+    from edl_tpu_torch.distill.teacher import follow_teacher
+    from tests.helpers.torch_world_of_one import mesh_of_one
+
+    with mesh_of_one() as mesh:
+        out = module_teacher(Sub(), fetch_name="d", mesh=mesh)(
+            {"b": np.ones(3, np.float32), "a": np.arange(3, dtype=np.float32)})
+        with pytest.raises(ValueError, match="tp rank other than 0"):
+            follow_teacher(Sub(), mesh=mesh)
+    np.testing.assert_array_equal(out["d"], [-1.0, 0.0, 1.0])
 
 
 def test_noisy_labels_equal_the_examples_flips(tmp_path):

@@ -70,6 +70,10 @@ FLEET_LEADER_MODULES = (
 MESH_MODULES = (
     "edl_tpu_torch.parallel", "edl_tpu_torch.parallel.mesh", "edl_tpu_torch.parallel.sharding",
     "edl_tpu_torch.parallel.tp", "edl_tpu_torch.models.logical")
+# the modules of the tensor-parallel serving slice: the tp group's command
+# channel (the engine, the paged pool, the teacher and the entry points that
+# drive it are listed above)
+SERVING_TP_MODULES = ("edl_tpu_torch.serving.spmd",)
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -102,7 +106,8 @@ print(sorted(set(bad()) - before))
     assert len(names) >= 60 and set(DISTRIBUTED_MODULES + SERVING_MODULES + RESNET_MODULES
                                     + DATA_SERVICE_MODULES + DISTILL_MODULES
                                     + FLEET_MODULES + RESHARD_MODULES
-                                    + FLEET_LEADER_MODULES + MESH_MODULES) <= set(names), names
+                                    + FLEET_LEADER_MODULES + MESH_MODULES
+                                    + SERVING_TP_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 
@@ -187,6 +192,22 @@ def test_importing_the_mesh_slice_loads_no_jax():
     logical-axes rules load no JAX and nothing of the JAX package."""
     code = ("import sys, importlib; [importlib.import_module(m) for m in "
             + repr(MESH_MODULES) + "]; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_serving_tp_slice_loads_no_jax():
+    """The tp group's command channel, with the engine, the paged pool, the
+    teachers, serve_lm and the replica that drive it, load no JAX and
+    nothing of the JAX package."""
+    modules = SERVING_TP_MODULES + ("edl_tpu_torch.serving.engine",
+                                    "edl_tpu_torch.serving.kv_cache",
+                                    "edl_tpu_torch.distill.teacher", "edl_tpu_torch.serve_lm",
+                                    "edl_tpu_torch.serving.replica")
+    code = ("import sys, importlib; [importlib.import_module(m) for m in "
+            + repr(modules) + "]; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)

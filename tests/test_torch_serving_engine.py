@@ -125,17 +125,26 @@ def test_submit_validation(small):
         eng.stop()
 
 
-@pytest.mark.parametrize("kw,match", [({"mesh": object()}, "mesh"),
-                                      ({"kv_block": 16, "mesh": object()}, "mesh"),
-                                      ({"spec_k": 2, "temperature": 0.0, "mesh": object()},
-                                       "mesh")],
+@pytest.mark.parametrize("kw", [{}, {"kv_block": 16}, {"spec_k": 2, "temperature": 0.0}],
                          ids=["mesh", "paging", "spec"])
-def test_unported_options_raise(small, kw, match):
-    """Mesh serving is the one option still unported: it raises alone and
-    beside paging or speculative decoding (tests/test_torch_serving_kv.py
-    and test_torch_spec.py cover those two)."""
-    with pytest.raises(NotImplementedError, match=match):
-        ContinuousBatcher(small, **{**kw, "draft_model": small})
+def test_unported_options_raise(small, kw):
+    """Mesh serving is ported (tests/test_torch_serving_tp.py runs its tp-2
+    groups): a mesh whose tp dim is 1 serves as the plain engine, alone and
+    beside paging or speculative decoding, and what is left to refuse is a
+    follower with no tp group to follow."""
+    from tests.helpers.torch_world_of_one import mesh_of_one
+
+    p = _prompts(4, (6,))[0]
+    with mesh_of_one() as mesh:
+        eng = _engine(small, mesh=mesh, draft_model=small, **kw)
+        try:
+            out = eng.generate(p, 5, timeout=120)
+            assert eng._chan is None
+        finally:
+            eng.stop()
+        with pytest.raises(ValueError, match="tp group"):
+            ContinuousBatcher.follow(small, mesh=mesh)
+    np.testing.assert_array_equal(out, _want(small, p, 5))
 
 
 def test_spec_from_the_environment_raises(small, monkeypatch):

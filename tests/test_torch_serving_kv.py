@@ -182,8 +182,30 @@ def test_import_refused_without_paging(small):
 
 
 def test_mesh_pool_is_refused(small):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PagedKVCache(small[2].cfg, 64, 4, 8, 4, mesh=object())
+    """A pool over a tp group is driven through the group's command channel
+    (tests/test_torch_serving_tp.py): without one it is refused; over a mesh
+    whose tp dim is 1 it is the plain pool."""
+    from tests.helpers.torch_world_of_one import mesh_of_one
+
+    class _TpOf2:                 # the two calls TP.of makes of a DeviceMesh
+        def __getitem__(self, axis):
+            return self
+
+        def size(self):
+            return 2
+
+        def get_group(self, axis):
+            return None
+
+        def get_local_rank(self, axis):
+            return 0
+
+    cfg = small[2].cfg
+    with pytest.raises(ValueError, match="channel"):
+        PagedKVCache(cfg, 64, 4, 8, 4, mesh=_TpOf2())
+    with mesh_of_one() as mesh:
+        pool = PagedKVCache(cfg, 64, 4, 8, 4, mesh=mesh)
+    assert pool.k[0].shape == (8, cfg.kv_heads, cfg.head_dim, 4)
 
 
 def _turn1(engine, p1):
