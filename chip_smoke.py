@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases build,reshard
     python3 chip_smoke.py --phases build,mesh
     python3 chip_smoke.py --phases build,meshserve
+    python3 chip_smoke.py --phases build,moe,ring
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -45,7 +46,8 @@ failure exits non-zero:
    the card could take (the bound), at the flagship shape, at the ``d256``
    phase's ``[8, 1024, 3, 256]``, at the ``d384`` phase's ``[8, 1024,
    2, 384]``, at the ``d768`` phase's ``[8, 1024, 1, 768]`` and at the
-   ``meshserve`` phase's tp-2 teacher's ``[8, 1024, 3, 128]`` a rank.
+   ``meshserve`` phase's tp-2 teacher's ``[8, 1024, 3, 128]`` a rank; and,
+   untimed, at the ``ring`` phase's gathered sequence, ``[4, 2048, 6, 128]``.
 3. ``parity``: one training step of small bf16 configs on the card (with
    the kernels) and on the CPU (plain path) from the same weights: the
    splash path at head dims 128, 192, 256, 384 and 768, and the flash path
@@ -139,7 +141,7 @@ failure exits non-zero:
    decode path's logits, teacher-forced on the emitted tokens, within
    ``SERVE_MARGIN / 2`` of the full-prefix dense forward's.  (b) ``python -m
    edl_tpu_torch.serve_lm --continuous 16`` as a subprocess, output to a
-   file, its endpoint read from its first line; 64 greedy requests over the
+   file, its endpoint read from its first line; 32 greedy requests over the
    wire from 16 client threads, prompt lengths 16 to 900 from a seed (those
    over 512 tokens prefill in chunks); then SIGTERM.  (c) An in-process
    engine on the same requests: tokens/s, peak memory; decode ms a step at
@@ -152,16 +154,16 @@ failure exits non-zero:
    JAX package's serving path does, so no attention kernel launches in it.
 14. ``fleet``: the LM serving fleet at the serve phase's width and weights,
    16 slots an engine, ``kv_block`` 16, the default pool, ``prefill_chunk``
-   512.  (a) 32 requests, one shared 512-token system prompt (seed 21) plus
+   512.  (a) 16 requests, one shared 512-token system prompt (seed 21) plus
    a 16-256 token suffix each, 32 new tokens, through a paged and an
-   unpaged engine (the first alone, then 31 at once): tokens/s of each,
+   unpaged engine (the first alone, then 15 at once): tokens/s of each,
    the share of prefill tokens skipped, hits and misses, and one 640-token
    admission's wall and device ms and launches cold and from the committed
    prompt, and its 32-block gather's.  (b) Two
    ``ReplicaServer``s, each over its own engine on the card, behind one
    ``Gateway`` over loopback RPC on a ``MemoryKV``: 8 sessions of 3 turns
    (turn n+1 is turn n's prompt, its 32 tokens and a new 32-128 token
-   suffix) and 32 one-shot requests; after turn 2 the replica pinning the
+   suffix) and 16 one-shot requests; after turn 2 the replica pinning the
    most sessions drains, and its sessions must be re-pinned to the
    survivor, their turn 3 skip more than the system prompt there, and no
    request be lost; the gateway's p50/p99 latency, hedges, failovers, the
@@ -243,8 +245,8 @@ failure exits non-zero:
    rank 0 leading every tp group, rank 1 following.  First each decode
    step's collectives timed alone (the f32 residual all-reduce, the head's
    f32 vocab columns, the tokens' broadcast).  (a) The paged continuous
-   engine at tp = 2 (16 slots, ``kv_block`` 16) over the serve phase's 64
-   requests x 32 tokens: tokens/s, wall ms a decode step at 16 slots, and
+   engine at tp = 2 (16 slots, ``kv_block`` 16) over the serve phase's
+   first 16 requests x 32 tokens (``MESHSERVE_REQUESTS``): tokens/s, wall ms a decode step at 16 slots, and
    beside them the one-process engine's on the same requests (each engine
    warmed at 128 tokens), with how many requests and tokens equal its.  (b) A session's turn exported from
    the tp-2 engine resumes in a one-process engine, and one from a
@@ -259,6 +261,34 @@ failure exits non-zero:
    ``ReplicaServer`` over a tp-2 engine behind the ``Gateway`` answers 8
    requests over the wire.  Every token of (a), (b), (c) and (e) is held to
    the full-prefix argmax by the serve phase's margin rule.
+19. ``moe``: the mixture-of-experts LM.  (a) The MoE flagship (the
+   flagship with ``--moe 8 --moe_top_k 2``, capacity 1.25, aux weight
+   0.01) through train_lm's trainer on the fixed batch: 2 warm-up and 20
+   timed steps; tokens/s, peak memory, the loss falling, the aux loss; the
+   splash launch counters 12 a step each and no other attention kernel;
+   the profile of two steps: the splash kernels 12 times a step each and
+   no library attention kernel (SDPA, cuDNN); device ms a step by group:
+   the splash kernels from the profile, and the router and routing, the
+   dispatch and combine einsums, the expert GEMMs (each forward and
+   backward timed alone at the flagship's shapes between CUDA events,
+   queued behind a spin kernel, times 12) and the fused CE.  No MFU is printed (the dense formula would count every expert);
+   the active parameters a token reads are.  The 2-layer MoE LM at full
+   width in f32: its first loss on the card against the CPU's
+   (``MOE_CPU_RTOL``).  (b) ep = 2 over gloo on the one card, 2 layers at
+   full width: 3 steps' losses against ep 1's (``SPLIT_LOSS_RTOL``), each
+   rank's half of the experts, and a step with its gloo calls timed where
+   they are entered.  (c) ``serve_lm --moe 8 --continuous 16`` at full
+   width (started before (a), so it loads meanwhile): the serve phase's
+   32 requests over the wire, tokens/s, ``moe_prefill_drops``, and
+   every token against ``generate`` teacher-forced, by the margin rule.
+20. ``ring``: sequence parallelism at the flagship's width, seq 2048,
+   batch 4, 2 layers: sp = 2 over gloo on the one card, (a) with ring
+   attention (``--attention ring``; no attention kernel launches) and (b)
+   with the sequence gathered for the splash kernels (launched on the
+   whole sequence), 3 steps each against one process's splash run (the
+   losses to ``SPLIT_LOSS_RTOL``, the step-1 gradients to
+   ``SP_GRAD_RTOL``, bf16), and a step with each hop of the ring and
+   each gloo all-reduce timed: ms a hop, bytes rotated a step.
 
 It then prints the card's ``nvidia-smi`` name and power limit, one line
 ``{"kernels": [...]}``, and, last, ``{"ok": true, "device": {...}}``.
@@ -279,7 +309,7 @@ from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
           "resume", "data", "elastic", "serve", "fleet", "distill", "reshard", "mesh",
-          "meshserve")
+          "meshserve", "moe", "ring")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -292,6 +322,7 @@ D256_SHAPE = (8, 1024, 3, 256)         # the d256 phase's attention
 D384_SHAPE = (8, 1024, 2, 384)         # the d384 phase's attention
 D768_SHAPE = (8, 1024, 1, 768)         # the d768 phase's attention
 TP_SHAPE = (8, 1024, 3, 128)           # the meshserve phase's tp-2 teacher, a rank's heads
+RING_SHAPE = (4, 2048, 6, 128)         # the ring phase's gathered sp path: the whole sequence
 RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64),
                  (2, 256, 4, 192), (2, 256, 4, 256), (1, 77, 2, 192), (1, 77, 2, 256),
                  (2, 256, 2, 320), (1, 77, 2, 320), (1, 200, 2, 320),
@@ -798,6 +829,8 @@ def phase_kernels(ctx) -> None:
     d384 = check_kernels(D384_SHAPE, seed=4, timed=True)
     d768 = check_kernels(D768_SHAPE, seed=5, timed=True)
     tp = check_kernels(TP_SHAPE, seed=6, timed=True)
+    record(check_kernels(RING_SHAPE, seed=7, timed=False), RING_SHAPE, path="splash",
+           used_by="ring (b): sp 2 with the sequence gathered")
     for path, r, causal, shape in (("splash", res, True, FLAGSHIP_SHAPE),
                                    ("flash", flash, False, FLAGSHIP_SHAPE),
                                    ("splash", d256, True, D256_SHAPE),
@@ -2337,7 +2370,7 @@ def phase_elastic(ctx) -> None:
 SERVE_ARGS = ["--layers", "12", "--embed", "768", "--heads", "6", "--mlp", "3072",
               "--vocab", "32000", "--max_len", "1024"]
 SERVE_SLOTS = 16
-SERVE_REQUESTS = 64
+SERVE_REQUESTS = 32              # kept to 32 for the script's time
 SERVE_NEW = 32
 # a token is held to the full-prefix forward's argmax where that forward's
 # top-2 margin exceeds this (in logits, of unit scale at seed-0 weights: 8
@@ -2431,8 +2464,9 @@ def _serve_prompts():
             for n in rng.integers(16, 901, SERVE_REQUESTS)]
 
 
-def _start_server(log_path):
-    """serve_lm --continuous 16 at full width on the card, output to a file."""
+def _start_server(log_path, extra=()):
+    """serve_lm --continuous 16 at full width on the card (and ``extra``
+    flags), output to a file."""
     import os
     import subprocess
     env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_TPU_")}
@@ -2441,7 +2475,7 @@ def _start_server(log_path):
         return subprocess.Popen(
             [sys.executable, "-m", "edl_tpu_torch.serve_lm", *SERVE_ARGS, "--continuous",
              str(SERVE_SLOTS), "--max_new_tokens", str(SERVE_NEW), "--temperature", "0",
-             "--port", "0"],
+             "--port", "0", *extra],
             cwd=Path(__file__).resolve().parent, env=env, stdout=f, stderr=subprocess.STDOUT)
 
 
@@ -2617,9 +2651,10 @@ FLEET_SLOTS = 16
 FLEET_BLOCK = 16
 FLEET_SYSTEM = 512               # the shared system prompt, tokens (seed 21)
 FLEET_NEW = 32
-FLEET_REQUESTS = 32              # (a): one shared prompt + a 16-256 token suffix each
+FLEET_REQUESTS = 16              # (a): one shared prompt + a 16-256 token suffix each
 FLEET_SESSIONS, FLEET_TURNS = 8, 3
-FLEET_ONE_SHOTS = 32             # (b): beside the sessions, half with each of turns 1 and 2
+FLEET_ONE_SHOTS = 16             # (b): beside the sessions, half with each of turns 1 and 2
+# (the two above kept to 16 for the script's time)
 SPEC_PROMPTS, SPEC_NEW, SPEC_K = 16, 64, 3
 SPEC_REPS = 3                    # timed dispatches of a speculative round
 
@@ -4145,6 +4180,7 @@ def phase_mesh(ctx) -> None:
 
 # -- phase 18 --------------------------------------------------------------------
 
+MESHSERVE_REQUESTS = 16          # (a): the serve phase's first (the script's time)
 MESHSERVE_SESSION = 600          # (b): a session's first prompt, tokens (seed 31)
 MESHSERVE_SUFFIX = 48            # (b): the next turn's new tokens after prompt + reply
 MESHSERVE_SPEC_REQUESTS = 8      # (c): requests of at most 256 prompt tokens
@@ -4311,7 +4347,8 @@ def _meshserve_leader(mesh) -> dict:
     out = {}
     marks = [("start", time.perf_counter())]
     full = _serve_model()
-    prompts = _serve_prompts()
+    every = _serve_prompts()
+    prompts = every[:MESHSERVE_REQUESTS]
     rng = np.random.default_rng(31)
     first = {s: rng.integers(0, 32000, MESHSERVE_SESSION).astype(np.int32) for s in "mn"}
     # (a) the paged engine at tp 2 over the serve phase's requests, then
@@ -4367,7 +4404,7 @@ def _meshserve_leader(mesh) -> dict:
                 "blob_bytes": [len(exported_m[0][3]), len(exported_n[0][3])],
                 "meta_equal": exported_m[0][2] == exported_n[0][2]}
     # (c) speculative decoding on the tp group, the draft whole on rank 0
-    spec_prompts = [p for p in prompts if len(p) <= 256][:MESHSERVE_SPEC_REQUESTS]
+    spec_prompts = [p for p in every if len(p) <= 256][:MESHSERVE_SPEC_REQUESTS]
     eng = engine(full, kv_block=FLEET_BLOCK, spec_k=SPEC_K, draft_model=_meshserve_draft())
     try:
         eng.warm(256)
@@ -4574,6 +4611,653 @@ def phase_meshserve(ctx) -> None:
         raise AssertionError(f"the gateway did not serve through the tp replica: {e}")
 
 
+# -- phase 19 --------------------------------------------------------------------
+
+MOE_ARGS = FLAGSHIP_ARGS + ["--moe", "8", "--moe_top_k", "2"]
+MOE_WARMUP, MOE_STEPS = 2, 20
+MOE_E, MOE_K, MOE_CAPACITY = 8, 2, 1.25
+# (a): the 2-layer f32 MoE LM's first loss on the card against the CPU's
+# (TF32 off; the two sum in other orders)
+MOE_CPU_RTOL = 1e-4
+# (b) and the ring phase: a run split over two processes (ep 2, sp 2)
+# against one process, both bf16, losses to 1e-3 of one process's: on the
+# H100 the worst readings were 1.62e-4 (ep 2; the combine's partial sums
+# are each rounded to bf16 before the all-reduce adds them), 9.26e-5 (sp 2
+# ring) and 1.15e-5 (sp 2 gathered), the same in every run (PERF.md §6);
+# 1e-3 is 6x the largest and under bf16's unit roundoff, 2^-8
+SPLIT_LOSS_RTOL = 1e-3
+MOE_EP_ARGS = ["--layers", "2"] + MOE_ARGS[2:]
+MOE_EP_STEPS = 3
+# the device kernels of a library attention: none may run on the MoE path
+LIBRARY_ATTENTION = ("pytorch_flash", "fmha", "cudnn", "efficient_attention", "sdpa")
+
+
+def _moe_active_params(cfg) -> int:
+    """Parameters a token's forward reads: all but the experts it is not
+    routed to (top_k of E experts a layer)."""
+    from edl_tpu_torch.models.transformer import param_count
+    inactive = (cfg.moe_experts - cfg.moe_top_k) * 2 * cfg.embed_dim * cfg.mlp_dim
+    return param_count(cfg) - cfg.num_layers * inactive
+
+
+def _piece_device_ms(fn, reps: int = 3) -> float:
+    """Device ms of one call of ``fn()``: CUDA events around ``reps``
+    calls queued behind a spin kernel of ~0.2 s, so the host has queued
+    them all before the card reaches the first and no launch gap falls
+    between the events (a profiler window lost records of these pieces
+    in some runs)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(400_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _moe_pieces(cfg, batch: int, seq: int) -> dict:
+    """Device ms a step of the MoE layer's parts, each timed alone forward
+    and backward at the flagship's shapes (``_piece_device_ms``) and
+    multiplied by the layers: the router and routing
+    (``compute_routing``), the dispatch and combine einsums, the expert
+    products; and the fused CE once."""
+    import torch
+
+    from edl_tpu_torch.ops.ce import blockwise_cross_entropy
+    from edl_tpu_torch.ops.moe import capacity_of, compute_routing
+    g = torch.Generator(device="cuda").manual_seed(19)
+    B, S, M, H, E, K = batch, seq, cfg.embed_dim, cfg.mlp_dim, cfg.moe_experts, cfg.moe_top_k
+    C = capacity_of(K, S, cfg.moe_capacity, E)
+    bf = torch.bfloat16
+
+    def leaf(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype).requires_grad_()
+
+    x, gate = leaf(B, S, M, dtype=bf), leaf(M, E, scale=M ** -0.5)
+    w_in, w_out = leaf(E, M, H, scale=M ** -0.5), leaf(E, H, M, scale=H ** -0.5)
+    with torch.no_grad():
+        probs = torch.softmax(x.float() @ gate, -1)
+        dispatch, combine, _, _ = compute_routing(probs, K, C)
+    combine = combine.requires_grad_()
+    expert_in, out = leaf(E, B, C, M, dtype=bf), leaf(E, B, C, M, dtype=bf)
+    hidden, head = leaf(B, S, M), leaf(M, cfg.vocab_size, scale=M ** -0.5)
+    targets = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda")
+
+    def routing():
+        _, c, aux, _ = compute_routing(torch.softmax(x.float() @ gate, -1), K, C)
+        (c.sum() + aux).backward()
+
+    def dispatch_combine():
+        e = torch.einsum("bsec,bsm->ebcm", dispatch.to(bf), x)
+        y = torch.einsum("bsec,ebcm->bsm", combine.to(bf), out)
+        (e.float().sum() + y.float().sum()).backward()
+
+    def experts():
+        h = torch.nn.functional.silu(torch.einsum("ebcm,emh->ebch", expert_in, w_in.to(bf)))
+        torch.einsum("ebch,ehm->ebcm", h, w_out.to(bf)).float().sum().backward()
+
+    def ce():
+        blockwise_cross_entropy(hidden, head, targets, block_size=4096).sum().backward()
+
+    L = cfg.num_layers
+    out_ms = {}
+    for name, fn, times in (("routing", routing, L), ("dispatch_combine", dispatch_combine, L),
+                            ("expert_gemms", experts, L), ("ce", ce, 1)):
+        out_ms[name] = _piece_device_ms(fn) * times
+    out_ms["capacity"] = C
+    return out_ms
+
+
+def _moe_flagship(ctx) -> dict:
+    """(a) the MoE flagship through train_lm's trainer on a fixed batch:
+    tokens/s, peak memory, the loss falling over 20 steps, the splash
+    kernels 12 times a step each and no library attention."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.models.transformer import param_count
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+
+    args = train_lm.parse_args(MOE_ARGS)
+    device = torch.device("cuda")
+    t_build = time.perf_counter()
+    cfg, trainer, init_fn, tx = train_lm.build_trainer(args, device)
+    state = trainer.create_state(init_fn, tx)
+    build_s = time.perf_counter() - t_build
+    # serve_lm --moe 8 builds these same seed-0 weights: (c)'s reference,
+    # kept on the host so the peak below is the training step's
+    ctx["moe_seed0"] = {k: v.detach().to("cpu", copy=True)
+                        for k, v in state.model.state_dict().items()}
+    ids = np.random.default_rng(2).integers(0, args.vocab, (args.batch_size,
+                                                           args.seq_len + 1)).astype(np.int32)
+    batch = {"ids": torch.from_numpy(ids).to(device)}
+    gen = torch.Generator(device=device).manual_seed(3)
+    losses, auxes = [], []
+    for _ in range(MOE_WARMUP):
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(metrics["loss"])
+        auxes.append(metrics["moe_aux"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(MOE_STEPS):
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(metrics["loss"])
+        auxes.append(metrics["moe_aux"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = A.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, auxes = [float(x) for x in losses], [float(x) for x in auxes]
+    tok_s = args.batch_size * args.seq_len * MOE_STEPS / dt
+    device_kernels = A.device_kernels(cfg.head_dim)
+    # a profile can lose a kernel's record at a window's edge: one whose
+    # attention counts are not 12 a step each is taken again (at most 5)
+    for retakes in range(5):
+        rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=2)
+        attn_rows = [r for r in rows if _kernel_group(r[1]).startswith("attention")]
+        if sum(r[2] for r in attn_rows) == 2 * len(device_kernels) * cfg.num_layers:
+            break
+    busy = sum(r[0] for r in rows) / 2 / 1e3
+    library = [r[1][:100] for r in rows if any(t in r[1].lower() for t in LIBRARY_ATTENTION)]
+    by_kernel = {k: sum(n for _, key, n in attn_rows if re.search(rf"::{k}[<(]", key)) / 2
+                 for k in device_kernels}
+    del trainer, state
+    torch.cuda.empty_cache()
+    groups = {"splash_kernels": sum(r[0] for r in attn_rows) / 2 / 1e3,
+              **_moe_pieces(cfg, args.batch_size, args.seq_len)}
+    out = {"nvidia_smi": smi_name_and_power_limit(), "params": param_count(cfg),
+           "active_params_per_token": _moe_active_params(cfg), "experts": cfg.moe_experts,
+           "top_k": cfg.moe_top_k, "capacity_factor": cfg.moe_capacity, "remat": cfg.remat,
+           "build_seconds": build_s, "steps": MOE_STEPS, "step_ms": dt / MOE_STEPS * 1e3,
+           "tokens_per_s": tok_s, "max_memory_allocated": peak, "losses": losses,
+           "moe_aux": auxes, "launches": launches, "device_busy_ms_per_step": busy,
+           "ms_per_step_by_group": groups, "profile_attention_calls_per_step": by_kernel,
+           "profile_retakes": retakes,
+           "library_attention_kernels": library}
+    log("moe_flagship", **out)
+    if not all(math.isfinite(x) for x in losses + auxes):
+        raise AssertionError(f"non-finite loss or aux: {losses} {auxes}")
+    if not losses[-1] < losses[0] - 0.1:
+        raise AssertionError(f"the MoE loss did not fall: {losses}")
+    per_step = cfg.num_layers * MOE_STEPS
+    want = {n: per_step if n in SPLASH_WRAPPERS else 0 for n in launches}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want} (12 layers x {MOE_STEPS} "
+                             f"steps on the splash kernels)")
+    if any(n != cfg.num_layers for n in by_kernel.values()) or \
+            sum(r[2] for r in attn_rows) / 2 != len(device_kernels) * cfg.num_layers:
+        raise AssertionError(f"the profile's attention kernels a step: {by_kernel}")
+    if library:
+        raise AssertionError(f"a library attention kernel ran on the MoE path: {library}")
+    ctx["moe_first_loss"] = losses[0]
+    return out
+
+
+def _moe_card_vs_cpu() -> dict:
+    """(a) the 2-layer MoE LM at full width in f32 from seed-0 weights: its
+    first loss (fused CE + 0.01 aux) on the card against the CPU's."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    cfg = TransformerConfig(vocab_size=32000, num_layers=2, embed_dim=768, num_heads=6,
+                            mlp_dim=3072, max_len=1024, moe_experts=MOE_E, moe_top_k=MOE_K,
+                            dtype=torch.float32, remat=False)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, 32000, (2, 1025)))
+    weights = TransformerLM(cfg, torch.Generator().manual_seed(0)).state_dict()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = TransformerLM(cfg, init=False)
+        model.load_state_dict(weights)
+        model.to(dev)
+        x = ids.to(dev)
+        with torch.no_grad():
+            nll, aux = model(x[:, :-1], targets=x[:, 1:], with_aux=True)
+        out[dev] = float(nll.mean() + 0.01 * aux)
+        del model
+    rel = abs(out["cuda"] - out["cpu"]) / abs(out["cpu"])
+    res = {"loss_card": out["cuda"], "loss_cpu": out["cpu"], "rel": rel, "rtol": MOE_CPU_RTOL}
+    log("moe_card_vs_cpu", **res)
+    if rel > MOE_CPU_RTOL:
+        raise AssertionError(f"the card's first MoE loss is not the CPU's: {res}")
+    return res
+
+
+def _timed_collectives(fn, names=("all_reduce",)) -> tuple:
+    """``fn()`` with every ``torch.distributed`` call of ``names`` timed
+    where it is entered (the card synchronised before and after, so a
+    call's time is the collective's own, its copies through the host
+    included): ``(fn's result, {name: [seconds, calls]})``."""
+    import torch
+    import torch.distributed as dist
+    spent = {name: [0.0, 0] for name in names}
+    plain = {name: getattr(dist, name) for name in names}
+
+    def timed(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            spent[name][0] += time.perf_counter() - t0
+            spent[name][1] += 1
+            return result
+        return call
+
+    for name in names:
+        setattr(dist, name, timed(name))
+    try:
+        return fn(), spent
+    finally:
+        for name, f in plain.items():
+            setattr(dist, name, f)
+
+
+def _pair_world(rank: int, port: int):
+    """Join a 2-rank gloo world on cuda:0 (one card, two processes); checks
+    that gloo all-reduces a CUDA tensor."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch.serving.spmd import die_with_parent
+    die_with_parent()                   # no rank outlives the script
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=timedelta(seconds=SUBPROCESS_TIMEOUT))
+    probe = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(probe)
+    if probe.tolist() != [3.0] * 4:
+        raise AssertionError(f"gloo all-reduced a CUDA tensor to {probe}")
+    return torch.device("cuda", 0)
+
+
+def _train_steps(args, device, batch, steps, timed_step=None, logical=True,
+                 on_grads=None) -> dict:
+    """``steps`` steps of train_lm's trainer on a fixed batch: the losses,
+    wall ms and launch counts; ``timed_step(step_fn)`` runs one more step
+    its own way and its result is kept; ``on_grads(grads)`` is given the
+    step-1 gradients of every parameter (f32 on the host, whole: for
+    models that no tp, ep or fsdp cuts) and its result kept."""
+    import torch
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.models.transformer import LOGICAL_RULES
+    from edl_tpu_torch.ops import attention as A
+    _, trainer, init_fn, tx = train_lm.build_trainer(args, device)
+    state = trainer.create_state(init_fn, tx, LOGICAL_RULES if logical else None)
+    gen = torch.Generator(device=device).manual_seed(3)
+    A.reset_launch_counts()
+    losses, wall, step1 = [], [], None
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if step == 0 and on_grads is not None:
+            step1 = on_grads({n: p.grad.float().cpu()
+                              for n, p in state.model.named_parameters()})
+    out = {"losses": losses, "wall_ms": wall, "launches": A.launch_counts(),
+           "mesh": train_lm._mesh(trainer), "step1_grads": step1}
+    if state.model.layers[0].cfg.moe_experts:
+        out["w_in_local"] = list(state.model.layers[0].moe.w_in.shape)
+    if timed_step is not None:
+        out["timed"] = timed_step(lambda: trainer.step_fn(state, batch, gen))
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_batch(args):
+    import numpy as np
+    return np.random.default_rng(4).integers(0, args.vocab, (args.batch_size,
+                                                            args.seq_len + 1)).astype(np.int32)
+
+
+def _moe_ep_rank(rank: int, port: int, root: str) -> None:
+    """(b) one rank of ep = 2 over gloo on cuda:0, 2 layers at full width:
+    3 steps, then one with its gloo calls timed.  Writes
+    ``root/ep<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch import train_lm
+    device = _pair_world(rank, port)
+    args = train_lm.parse_args(MOE_EP_ARGS + ["--ep", "2", "--tp", "1"])
+    batch = {"ids": torch.from_numpy(_moe_batch(args)).to(device)}
+
+    def timed(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, spent = _timed_collectives(step)
+        wall = (time.perf_counter() - t0) * 1e3
+        return {"wall_ms": wall, "gloo_ms": spent["all_reduce"][0] * 1e3,
+                "all_reduces": spent["all_reduce"][1]}
+
+    out = _train_steps(args, device, batch, MOE_EP_STEPS, timed)
+    with open(f"{root}/ep{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _spawn_pair(target: str, root: Path) -> None:
+    """``chip_smoke.<target>(rank, port, root)`` in two processes on the one
+    card; raises with a rank's log when it fails."""
+    import subprocess
+
+    from edl_tpu_torch.utils.network import find_free_port
+    port = find_free_port()
+    here = Path(__file__).resolve().parent
+    files = [open(root / f"{target}{r}.log", "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; "
+                               f"chip_smoke.{target}(int(sys.argv[1]), int(sys.argv[2]), "
+                               "sys.argv[3])", str(r), str(port), str(root)],
+                              cwd=here, stdout=fh, stderr=subprocess.STDOUT, text=True)
+             for r, fh in enumerate(files)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=SUBPROCESS_TIMEOUT)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for fh in files:
+            fh.close()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            raise AssertionError(f"{target} rank {r} exited {proc.returncode}:\n"
+                                 f"{(root / f'{target}{r}.log').read_text()[-4000:]}")
+
+
+def _moe_ep(root: Path) -> dict:
+    """(b) ep 2 against ep 1: 3 steps' losses, the experts each rank holds,
+    and the gloo ms inside a step."""
+    import torch
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    args = train_lm.parse_args(MOE_EP_ARGS)
+    one = _train_steps(args, torch.device("cuda", 0),
+                       {"ids": torch.from_numpy(_moe_batch(args)).cuda()}, MOE_EP_STEPS,
+                       logical=False)
+    _spawn_pair("_moe_ep_rank", root)
+    ranks = [json.loads((root / f"ep{r}.json").read_text()) for r in range(2)]
+    rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], one["losses"]))
+    out = {"nvidia_smi": smi_name_and_power_limit(), "ep1_losses": one["losses"],
+           "ep2_losses": [r["losses"] for r in ranks], "loss_rel_max": rel,
+           "rtol": SPLIT_LOSS_RTOL, "ep1_wall_ms": one["wall_ms"],
+           "ep2_wall_ms": [r["wall_ms"] for r in ranks], "w_in_local": ranks[0]["w_in_local"],
+           "mesh": ranks[0]["mesh"], "timed_step": [r["timed"] for r in ranks]}
+    log("moe_ep", **out)
+    if rel > SPLIT_LOSS_RTOL or ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"ep 2's losses are not ep 1's: {out}")
+    if ranks[0]["w_in_local"] != [MOE_E // 2, 768, 3072] or ranks[0]["mesh"]["ep"] != 2:
+        raise AssertionError(f"a rank does not hold half the experts: {out}")
+    return out
+
+
+def _moe_serve_model(weights):
+    """serve_lm --moe 8's model, bf16, over ``weights`` (its seed-0
+    weights, which train_lm's model of (a) starts from)."""
+    import torch
+
+    from edl_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    cfg = TransformerConfig(vocab_size=32000, num_layers=12, embed_dim=768, num_heads=6,
+                            mlp_dim=3072, max_len=1024, moe_experts=MOE_E, moe_top_k=MOE_K,
+                            remat=False, dtype=torch.bfloat16)
+    with torch.device("meta"):
+        model = TransformerLM(cfg, init=False)
+    model.load_state_dict(weights, assign=True)
+    return model.to("cuda").requires_grad_(False).eval()
+
+
+def _generate_check(model, prompts, outs) -> dict:
+    """Each emitted token against ``generate`` teacher-forced on the emitted
+    tokens (each prompt's prefill unpadded, as ``generate``'s, then the
+    drop-free decode steps of every request at once, each lane at its own
+    position): held to its argmax where that step's top-2 margin exceeds
+    SERVE_MARGIN (the engine's prefill pads the prompt to its bucket, and
+    capacity follows the padded length)."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models.generate import cache_length
+    from edl_tpu_torch.models.transformer import KVCache, decode_model
+    dm = decode_model(model)
+    N = len(outs[0])
+    length = cache_length(dm.cfg.max_len, max(len(p) for p in prompts), N)
+    cache = KVCache.zeros(dm.cfg, len(prompts), length, "cuda")
+    with torch.inference_mode():
+        rows = []
+        for i, prompt in enumerate(prompts):
+            slab = KVCache.zeros(dm.cfg, 1, length, "cuda")
+            hidden = dm(torch.from_numpy(prompt[None]).cuda(), cache=slab, return_hidden=True)
+            rows.append(dm.head(hidden[:, -1]))
+            for big, small in zip(cache.keys + cache.values, slab.keys + slab.values):
+                big[i] = small[0]
+            cache.index[i] = len(prompt)
+        steps = [torch.cat(rows)]
+        toks = torch.from_numpy(np.stack(outs).astype(np.int64)).cuda()
+        for t in range(N - 1):
+            hidden = dm(toks[:, t:t + 1], positions=cache.index[:, None], cache=cache,
+                        return_hidden=True)
+            steps.append(dm.head(hidden[:, 0]))
+        top = torch.stack(steps, dim=1).topk(2, dim=-1)             # [B, N, 2]
+    sure = (top.values[..., 0] - top.values[..., 1] > SERVE_MARGIN).cpu().numpy()
+    wrong = sure & (top.indices[..., 0].cpu().numpy() != np.stack(outs))
+    return {"tokens": int(sure.size), "checked": int(sure.sum()), "mismatched": int(wrong.sum())}
+
+
+def _moe_serve(proc, log_path, weights) -> dict:
+    """(c) ``serve_lm --moe 8 --continuous 16`` at the flagship's width
+    (``proc``, its output in ``log_path``): 32 requests over the wire,
+    tokens/s, ``moe_prefill_drops``, and the tokens against ``generate``
+    under the margin rule; the server is stopped."""
+    import signal
+
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    try:
+        prompts = _serve_prompts()
+        outs, wire = _serve_wire(proc, log_path, prompts)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except Exception:  # noqa: BLE001 — killed below
+            proc.kill()
+            proc.wait()
+    check = _generate_check(_moe_serve_model(weights), prompts, outs)
+    stats = wire["engine_stats"]
+    out = {"nvidia_smi": smi_name_and_power_limit(), "requests": len(prompts),
+           "tokens_per_s": wire["tokens_per_s"], "seconds": wire["seconds"],
+           "moe_prefill_drops": stats.get("moe_prefill_drops"), "generate_check": check,
+           "margin": SERVE_MARGIN}
+    log("moe_serve", **out)
+    if not isinstance(stats.get("moe_prefill_drops"), int):
+        raise AssertionError(f"the server's stats carry no moe_prefill_drops: {stats}")
+    if check["mismatched"] or check["checked"] < 0.1 * check["tokens"]:
+        raise AssertionError(f"served tokens differ from generate's under the margin: {check}")
+    return out
+
+
+def phase_moe(ctx) -> None:
+    """The mixture-of-experts LM: (a) the MoE flagship (and its 2-layer
+    f32 first loss against the CPU's), (b) ep 2 over gloo on the one card
+    against ep 1, (c) serve_lm --moe 8 over the wire."""
+    import shutil
+
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_moe"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    log_path = root / "serve_moe.log"
+    proc = _start_server(log_path, ["--moe", str(MOE_E), "--moe_top_k", str(MOE_K)])
+    try:
+        log("moe", nvidia_smi=smi_name_and_power_limit())
+        marks = [time.perf_counter()]
+        _moe_flagship(ctx)
+        marks.append(time.perf_counter())
+        _moe_card_vs_cpu()
+        marks.append(time.perf_counter())
+        _moe_ep(root)
+        marks.append(time.perf_counter())
+        _moe_serve(proc, log_path, ctx.pop("moe_seed0"))
+        marks.append(time.perf_counter())
+        log("moe", seconds=dict(zip(("a_flagship", "a_card_vs_cpu", "b_ep", "c_serve"),
+                                    (b - a for a, b in zip(marks, marks[1:])))))
+    finally:
+        ctx.pop("moe_seed0", None)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# -- phase 20 --------------------------------------------------------------------
+
+RING_ARGS = ["--layers", "2", "--embed", "768", "--heads", "6", "--mlp", "3072",
+             "--vocab", "32000", "--seq_len", "2048", "--batch_size", "4", "--fused_ce",
+             "--lr", "3e-4"]
+RING_STEPS = 3
+# the step-1 gradient of every parameter, sp 2 against one process, in
+# relative norm, as the mesh phase holds tp 2's: on the H100 the worst
+# parameter read 1.40e-2 (ring: plain bf16 a hop against the kernel) and
+# 6.53e-3 (gathered: each rank's gradient over its half of the sequence
+# is rounded to bf16 before the all-reduce adds them), the embedding's
+# both times (PERF.md §6); 3e-2 is twice the larger
+SP_GRAD_RTOL = 3e-2
+
+
+def _grads_against(path: str):
+    """``on_grads`` for ``_train_steps``: each parameter's step-1 gradient
+    against the one process's saved at ``path``, in relative norm."""
+    import torch
+
+    def compare(grads):
+        want = torch.load(path, weights_only=True)
+        errs = {n: rel_err(g, want[n]) for n, g in grads.items()}
+        if errs.keys() != want.keys():
+            raise AssertionError(f"parameters differ: {sorted(errs)} != {sorted(want)}")
+        return {"grad_rel_err_max": max(errs.values()),
+                "grad_rel_err_worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3]}
+    return compare
+
+
+def _ring_rank(rank: int, port: int, root: str) -> None:
+    """One rank of sp = 2 over gloo on cuda:0: (a) ring attention, then (b)
+    the gathered sequence through the splash kernels, 3 steps each (rank
+    0 holds the step-1 gradients against one process's) and one more with
+    its collectives timed.  Writes ``root/ring<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.ops import ring
+    device = _pair_world(rank, port)
+    out = {}
+    for mode, extra in (("ring", ["--attention", "ring"]), ("gathered", [])):
+        args = train_lm.parse_args(RING_ARGS + ["--sp", "2"] + extra)
+        batch = {"ids": torch.from_numpy(_moe_batch(args)).to(device)}
+
+        def timed(step):
+            hops = [0.0, 0, 0]
+            plain = ring._shift
+
+            def shift(x, group, s):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = plain(x, group, s)
+                torch.cuda.synchronize()
+                hops[0] += time.perf_counter() - t0
+                hops[1] += 1
+                hops[2] += x.numel() * x.element_size()
+                return y
+
+            ring._shift = shift
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, spent = _timed_collectives(step)
+                wall = (time.perf_counter() - t0) * 1e3
+            finally:
+                ring._shift = plain
+            return {"wall_ms": wall, "hops": hops[1],
+                    "ms_per_hop": hops[0] / max(1, hops[1]) * 1e3,
+                    "bytes_rotated": hops[2], "gloo_all_reduce_ms": spent["all_reduce"][0] * 1e3,
+                    "all_reduces": spent["all_reduce"][1]}
+
+        out[mode] = _train_steps(args, device, batch, RING_STEPS, timed,
+                                 on_grads=_grads_against(f"{root}/plain_grads.pt")
+                                 if rank == 0 else None)
+    with open(f"{root}/ring{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_ring(ctx) -> None:
+    """Sequence parallelism at the flagship's width, seq 2048, batch 4, 2
+    layers: sp = 2 over gloo on the one card with (a) ring attention and
+    (b) the gathered sequence, each against one process's splash run: the
+    losses of 3 steps and the step-1 gradients."""
+    import shutil
+
+    import torch
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ring"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        args = train_lm.parse_args(RING_ARGS)
+        one = _train_steps(args, torch.device("cuda", 0),
+                           {"ids": torch.from_numpy(_moe_batch(args)).cuda()}, RING_STEPS,
+                           logical=False,
+                           on_grads=lambda g: torch.save(g, root / "plain_grads.pt"))
+        _spawn_pair("_ring_rank", root)
+        ranks = [json.loads((root / f"ring{r}.json").read_text()) for r in range(2)]
+        out = {"nvidia_smi": smi_name_and_power_limit(), "splash_losses": one["losses"],
+               "splash_wall_ms": one["wall_ms"], "splash_launches": one["launches"],
+               "rtol": SPLIT_LOSS_RTOL, "grad_rtol": SP_GRAD_RTOL}
+        for mode in ("ring", "gathered"):
+            runs = [r[mode] for r in ranks]
+            rel = max(abs(a - b) / abs(b) for r in runs
+                      for a, b in zip(r["losses"], one["losses"]))
+            out[mode] = {"losses": [r["losses"] for r in runs], "loss_rel_max": rel,
+                         "wall_ms": [r["wall_ms"] for r in runs],
+                         "launches": runs[0]["launches"], "mesh": runs[0]["mesh"],
+                         "step1_grads": runs[0]["step1_grads"],
+                         "timed_step": [r["timed"] for r in runs]}
+        log("ring", **out)
+        for mode, want in (("ring", 0), ("gathered", RING_STEPS * 2)):
+            res = out[mode]
+            if res["loss_rel_max"] > SPLIT_LOSS_RTOL or res["losses"][0] != res["losses"][1]:
+                raise AssertionError(f"sp 2 ({mode}) losses are not one process's: {res}")
+            if res["step1_grads"]["grad_rel_err_max"] > SP_GRAD_RTOL:
+                raise AssertionError(f"sp 2 ({mode}) gradients are not one process's: {res}")
+            if res["mesh"]["sp"] != 2:
+                raise AssertionError(f"not an sp = 2 mesh: {res['mesh']}")
+            launches = res["launches"]
+            if launches != {n: want if n in SPLASH_WRAPPERS else 0 for n in launches}:
+                raise AssertionError(f"sp 2 ({mode}) kernel launches: {launches}")
+        if out["ring"]["timed_step"][0]["hops"] == 0:
+            raise AssertionError("the ring rotated nothing")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -4604,7 +5288,7 @@ def main(argv=None) -> int:
                "resume": phase_resume, "data": phase_data,
                "elastic": phase_elastic, "serve": phase_serve, "fleet": phase_fleet,
                "distill": phase_distill, "reshard": phase_reshard, "mesh": phase_mesh,
-               "meshserve": phase_meshserve}
+               "meshserve": phase_meshserve, "moe": phase_moe, "ring": phase_ring}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

@@ -19,9 +19,11 @@ one process that pushes it; other ranks snapshot nothing unless asked for
 their own copy (a live reshard's local source).  A sharded state
 (``train/state.py``) snapshots each rank's own pieces as boxes of the global
 leaves (``parallel/sharding.py:local_boxes``: a head-split q|k|v piece is
-three), pushed by the first replica of each piece: the rank whose dp
-coordinate is 0, and whose tp coordinate is 0 for a leaf that tp does not
-split (a norm scale); the replicated leaves and ``__struct__`` come from
+three, an ep-split expert piece lies in its rank's run of experts), pushed
+by the first replica of each piece: the rank whose dp and sp coordinates
+are 0, whose tp coordinate is 0 for a leaf that tp does not split (a norm
+scale), and whose ep coordinate is 0 for one that ep does not; the
+replicated leaves and ``__struct__`` come from
 global rank 0.  The skeleton is mesh-free, so a restore assembles global
 leaves on any mesh.
 
@@ -205,7 +207,7 @@ def _pieces(state, own_copy: bool):
             return [], None
         return [whole(name, t) for name, t in leaves], skeleton
     from edl_tpu_torch.parallel.sharding import local_boxes, pushes
-    sharded, tp = state.leaf_params(), state.model.tp
+    sharded, tp, ep = state.leaf_params(), state.model.tp, getattr(state.model, "ep", None)
     coord = _coordinate(state)
     first = not any(coord.values())
     out = []
@@ -215,7 +217,7 @@ def _pieces(state, own_copy: bool):
             if not (own_copy or pushes(t, lay, coord)):
                 continue
             local = t.to_local() if isinstance(t, DTensor) else t
-            for box, index in local_boxes(t, lay, tp):
+            for box, index in local_boxes(t, lay, tp, ep):
                 out.append((shard_key(name, box), name, box, list(lay.gshape), local[index]))
         elif own_copy or first:
             out.append(whole(name, t))

@@ -6,7 +6,9 @@ The flax tree follows the JAX package's ``LOGICAL_RULES`` paths:
 ``attn_qkv/kernel`` ``[D, (H + 2Hk) Dh]`` (one fused kernel, columns
 q | k | v), ``attn_out/kernel`` ``[H Dh, D]``, ``mlp_norm/scale``,
 ``mlp_gate/kernel`` and ``mlp_in/kernel`` ``[D, M]``, ``mlp_out/kernel``
-``[M, D]``; ``final_norm/scale``; ``lm_head/kernel`` ``[D, V]`` unless the
+``[M, D]`` (an MoE layer has instead ``moe/gate`` ``[D, E]``, ``moe/w_in``
+``[E, D, M]`` and ``moe/w_out`` ``[E, M, D]``, the torch layouts too, so
+they are not transposed); ``final_norm/scale``; ``lm_head/kernel`` ``[D, V]`` unless the
 embeddings are tied.  The layers come either stacked (``layers/...`` with
 a leading ``num_layers`` dim, as training writes them) or split
 (``layer_<i>/...``, as generation uses them).  A flax ``Dense`` kernel is
@@ -44,6 +46,18 @@ _LAYER_PARAMS = {
 }
 
 
+# an MoE layer's FFN: flax leaf under "moe" -> torch name (same layout)
+_MOE_PARAMS = ("gate", "w_in", "w_out")
+
+
+def _layer_params(cfg: TransformerConfig) -> dict[str, tuple[str, bool]]:
+    """The per-layer flax modules of ``cfg`` (the MLP's three, or none for
+    an MoE layer, whose leaves are :data:`_MOE_PARAMS`)."""
+    if not cfg.moe_experts:
+        return _LAYER_PARAMS
+    return {m: v for m, v in _LAYER_PARAMS.items() if not m.startswith("mlp_") or m == "mlp_norm"}
+
+
 def _torch_name(param: str) -> str:
     return "scale" if param == "scale" else "weight"
 
@@ -56,17 +70,19 @@ def _tensor(a, transpose: bool) -> torch.Tensor:
 def params_from_jax(tree: dict[str, Any], cfg: TransformerConfig) -> dict[str, torch.Tensor]:
     """A ``TransformerLM`` state dict (f32 CPU tensors) from a flax params
     tree of numpy arrays, stacked or split."""
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE weights are not ported yet "
-                                  "(ROADMAP.md, Queue 1, item 7)")
     if set(tree) == {"params"}:
         tree = tree["params"]
     sd = {"tok_embed.weight": _tensor(tree["tok_embed"]["embedding"], False)}
     stacked = "layers" in tree
     for i in range(cfg.num_layers):
-        for mod, (param, transpose) in _LAYER_PARAMS.items():
-            leaf = tree["layers"][mod][param][i] if stacked else tree[f"layer_{i}"][mod][param]
-            sd[f"layers.{i}.{mod}.{_torch_name(param)}"] = _tensor(leaf, transpose)
+        layer = tree["layers"] if stacked else tree[f"layer_{i}"]
+        pick = (lambda a: a[i]) if stacked else (lambda a: a)
+        for mod, (param, transpose) in _layer_params(cfg).items():
+            sd[f"layers.{i}.{mod}.{_torch_name(param)}"] = _tensor(pick(layer[mod][param]),
+                                                                  transpose)
+        if cfg.moe_experts:
+            for param in _MOE_PARAMS:
+                sd[f"layers.{i}.moe.{param}"] = _tensor(pick(layer["moe"][param]), False)
     sd["final_norm.scale"] = _tensor(tree["final_norm"]["scale"], False)
     if not cfg.tie_embeddings:
         sd["lm_head.weight"] = _tensor(tree["lm_head"]["kernel"], True)
@@ -78,10 +94,6 @@ def params_to_jax(state_dict: dict[str, torch.Tensor], cfg: TransformerConfig,
     """The flax params tree (numpy f32) of a ``TransformerLM`` state dict:
     ``layers/...`` stacked over a leading ``num_layers`` dim, or
     ``layer_<i>/...`` with ``stacked=False``."""
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE weights are not ported yet "
-                                  "(ROADMAP.md, Queue 1, item 7)")
-
     def arr(name: str, transpose: bool) -> np.ndarray:
         a = state_dict[name].detach().to("cpu", torch.float32).numpy()
         return np.ascontiguousarray(a.T if transpose else a)
@@ -89,11 +101,15 @@ def params_to_jax(state_dict: dict[str, torch.Tensor], cfg: TransformerConfig,
     tree: dict[str, Any] = {"tok_embed": {"embedding": arr("tok_embed.weight", False)}}
     per_layer = [
         {mod: {param: arr(f"layers.{i}.{mod}.{_torch_name(param)}", transpose)}
-         for mod, (param, transpose) in _LAYER_PARAMS.items()}
+         for mod, (param, transpose) in _layer_params(cfg).items()}
         for i in range(cfg.num_layers)]
+    if cfg.moe_experts:
+        for i, layer in enumerate(per_layer):
+            layer["moe"] = {p: arr(f"layers.{i}.moe.{p}", False) for p in _MOE_PARAMS}
     if stacked:
-        tree["layers"] = {mod: {param: np.stack([layer[mod][param] for layer in per_layer])}
-                          for mod, (param, _) in _LAYER_PARAMS.items()}
+        tree["layers"] = {mod: {param: np.stack([layer[mod][param] for layer in per_layer])
+                                for param in leaves}
+                          for mod, leaves in per_layer[0].items()}
     else:
         for i, layer in enumerate(per_layer):
             tree[f"layer_{i}"] = layer

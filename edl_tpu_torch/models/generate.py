@@ -112,7 +112,7 @@ def cache_length(max_len: int, prompt_len: int, max_new_tokens: int) -> int:
 @torch.inference_mode()
 def generate(model: TransformerLM, prompt: torch.Tensor, max_new_tokens: int, *,
              generator: torch.Generator | None = None, temperature: float = 1.0,
-             top_k: int = 0, top_p: float = 0.0) -> torch.Tensor:
+             top_k: int = 0, top_p: float = 0.0, return_drops: bool = False):
     """``[B, max_new_tokens]`` int32 continuations of ``prompt [B, P]``.
 
     ``model`` is the trained model (its config's ``max_len`` bounds P +
@@ -121,7 +121,11 @@ def generate(model: TransformerLM, prompt: torch.Tensor, max_new_tokens: int, *,
     device.  ``generator`` (on that device; default: seeded 0) draws the
     samples; greedy (``temperature <= 0``) ignores it.  A tensor-parallel
     model (:func:`shard_decode_model`) is called by every rank of its group
-    with the same prompt; the leader's generator draws."""
+    with the same prompt; the leader's generator draws.
+
+    ``return_drops``: ``(tokens, drops)``, drops the MoE prefill's capacity
+    overflow (an int32 device scalar; 0 for a dense model, and the decode
+    steps, whose per-token gather has no capacity, never drop)."""
     if prompt.ndim != 2:
         raise ValueError(f"prompt must be [B, P], got {tuple(prompt.shape)}")
     if max_new_tokens < 1:
@@ -145,8 +149,9 @@ def generate(model: TransformerLM, prompt: torch.Tensor, max_new_tokens: int, *,
         return sample_on_leader(dmodel.head(hidden_last), dmodel.tp, generator,
                                 temperature=temperature, top_k=top_k, top_p=top_p)
 
+    drops = torch.zeros((), dtype=torch.int32, device=device) if return_drops else None
     # prefill: the head only on the last position, the row that is sampled
-    hidden = dmodel(prompt, cache=cache, return_hidden=True)
+    hidden = dmodel(prompt, cache=cache, return_hidden=True, drops=drops)
     tok = sample(hidden[:, -1])
     out = [tok]
     for _ in range(max_new_tokens - 1):
@@ -154,4 +159,5 @@ def generate(model: TransformerLM, prompt: torch.Tensor, max_new_tokens: int, *,
                         return_hidden=True)
         tok = sample(hidden[:, 0])
         out.append(tok)
-    return torch.stack(out, dim=1)
+    toks = torch.stack(out, dim=1)
+    return (toks, drops) if return_drops else toks

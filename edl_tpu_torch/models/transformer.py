@@ -36,6 +36,18 @@ each rank's vocab shard into one logsumexp (``ops/ce.py``).  A decode
 model runs tensor-parallel too (the serving engine's tp group): its cache
 holds this rank's kv heads, or all of them where they do not divide over
 tp (MQA), and a vocabulary that does not divide stays whole on each rank.
+
+Mixture of experts (``cfg.moe_experts > 0``): each block's MLP is
+``ops/moe.py:MoEMLP`` (top-k routed experts, not SwiGLU), and a block
+returns its aux loss and drop count beside its output; the model's aux is
+their mean over layers and its drop count their sum (``drops=``).
+:meth:`TransformerLM.set_ep` keeps this rank's ``E / ep`` experts, and
+``set_tp`` cuts every expert's hidden columns.  Sequence parallelism
+(:meth:`TransformerLM.set_sp`): each ``sp`` rank holds a contiguous chunk
+of every sequence (``parallel/sharding.py:seq_chunk``); RoPE takes global
+positions ``sp_rank * L + i``, and attention is the ring over the ``sp``
+group (``attention_impl="ring"``) or, for the other impls, the full
+sequence's q, k and v gathered over it (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -51,7 +63,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from edl_tpu_torch.ops.attention import dot_product_attention
-from edl_tpu_torch.parallel.tp import TP, copy_to_tp, gather_from_tp, reduce_from_tp
+from edl_tpu_torch.ops.moe import MoEMLP
+from edl_tpu_torch.parallel.tp import TP, AxisGroup, copy_to, gather_from_tp, reduce_from
 
 # parameter-name regex -> logical axes (``parallel/sharding.py:shard_init``
 # consumes them), in each torch tensor's own dim order: the JAX package's
@@ -63,6 +76,9 @@ LOGICAL_RULES = [
     (r"mlp_in\.weight", ("mlp", "embed")),
     (r"mlp_gate\.weight", ("mlp", "embed")),
     (r"mlp_out\.weight", ("embed", "mlp")),
+    (r"moe\.gate", ("embed", None)),
+    (r"moe\.w_in", ("expert", "embed", "expert_mlp")),
+    (r"moe\.w_out", ("expert", "expert_mlp", "embed")),
     (r"norm\.scale", ("norm",)),
     (r"lm_head\.weight", ("vocab", "embed")),
 ]
@@ -79,13 +95,13 @@ class TransformerConfig:
     # grouped-query attention: number of K/V heads (0 = num_heads, MHA)
     num_kv_heads: int = 0
     dtype: Any = torch.bfloat16
-    attention_impl: str = "auto"      # auto | dense | splash | flash (ring: not ported)
-    mesh: Any = None                  # for attention_impl="ring" (not ported)
+    attention_impl: str = "auto"      # auto | dense | splash | flash | ring
+    mesh: Any = None                  # unused: the sp group is set by set_sp
     remat: bool = True                # recompute each layer in the backward, but its projections
     scan_layers: bool = True          # no effect: layers are a Python loop
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
-    moe_experts: int = 0              # > 0 is not ported (NotImplementedError)
+    moe_experts: int = 0              # > 0: every block's MLP is ops/moe.py's MoEMLP
     moe_top_k: int = 2
     moe_capacity: float = 1.25
     # KV-cache decoding: attention reads and writes the KVCache passed to
@@ -328,7 +344,8 @@ def decode_attention(q, ck, cv, idx, hidden=None):
 
 
 class Block(nn.Module):
-    """One decoder layer."""
+    """One decoder layer.  A dense layer returns its output; an MoE layer
+    returns ``(output, aux, drops)``."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -340,16 +357,23 @@ class Block(nn.Module):
         self.attn_qkv = Dense(D, (H + 2 * Hk) * Dh, cfg.dtype)
         self.attn_out = Dense(H * Dh, D, cfg.dtype)
         self.mlp_norm = RMSNorm(D, cfg.dtype)
-        self.mlp_gate = Dense(D, cfg.mlp_dim, cfg.dtype)
-        self.mlp_in = Dense(D, cfg.mlp_dim, cfg.dtype)
-        self.mlp_out = Dense(cfg.mlp_dim, D, cfg.dtype)
+        if cfg.moe_experts:
+            self.moe = MoEMLP(D, cfg.moe_experts, cfg.mlp_dim, cfg.moe_top_k,
+                              cfg.moe_capacity, cfg.dtype, cfg.decode)
+        else:
+            self.mlp_gate = Dense(D, cfg.mlp_dim, cfg.dtype)
+            self.mlp_in = Dense(D, cfg.mlp_dim, cfg.dtype)
+            self.mlp_out = Dense(cfg.mlp_dim, D, cfg.dtype)
         self.tp: TP | None = None
+        self.sp: AxisGroup | None = None
         self._kv_of: torch.Tensor | None = None
 
     def set_tp(self, tp: TP) -> None:
         """Run this layer's heads and MLP columns of ``tp``'s rank."""
         self.tp = tp
         cfg = self.cfg
+        if cfg.moe_experts:
+            self.moe.shards = tp        # set_ep widens it to the tp and ep ranks
         H, Hk = cfg.num_heads // tp.size, cfg.kv_heads
         self._kv_of = None
         if not kv_split(cfg, tp) and Hk > 1:
@@ -357,16 +381,17 @@ class Block(nn.Module):
             # each local query head reads its own global kv head
             self._kv_of = (tp.rank * H + torch.arange(H)) // (cfg.num_heads // Hk)
 
-    def forward(self, x, positions, kv=None):
+    def forward(self, x, positions, kv=None, token_mask=None, global_aux: bool = False):
         """``kv``: in decode mode, this layer's ``(keys, values)`` cache
         buffers, the shared write index, and the RoPE tables and future
-        mask that every layer of the forward shares."""
+        mask that every layer of the forward shares.  ``token_mask`` and
+        ``global_aux``: the MoE layer's (``MoEMLP.forward``)."""
         cfg, tp = self.cfg, self.tp
         ways = 1 if tp is None else tp.size
         H, Hk, Dh = cfg.num_heads // ways, local_kv_heads(cfg, tp), cfg.head_dim
         B, L = x.shape[:2]
         tables = kv[3] if kv is not None else None
-        y = copy_to_tp(self.attn_norm(x), tp)
+        y = copy_to(self.attn_norm(x), tp)
         q, k, v = self.attn_qkv(y).split([H * Dh, Hk * Dh, Hk * Dh], dim=-1)
         q = rope(q.reshape(B, L, H, Dh), positions, cfg.rope_theta, tables)
         k = rope(k.reshape(B, L, Hk, Dh), positions, cfg.rope_theta, tables)
@@ -379,11 +404,17 @@ class Block(nn.Module):
                 ck, cv = ck.index_select(1, at), cv.index_select(1, at)
             attn = decode_attention(q, ck, cv, idx, hidden)
         else:
-            attn = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl)
-        x = x + reduce_from_tp(self.attn_out(attn.reshape(B, L, H * Dh)), tp)
-        y = copy_to_tp(self.mlp_norm(x), tp)
+            attn = dot_product_attention(q, k, v, causal=True, impl=cfg.attention_impl,
+                                         sp=self.sp)
+        x = x + reduce_from(self.attn_out(attn.reshape(B, L, H * Dh)), tp)
+        if cfg.moe_experts:
+            # the router reads the norm whole on every rank: the MoE layer
+            # puts its own backward all-reduce on the expert path only
+            y, aux, drops = self.moe(self.mlp_norm(x), token_mask, global_aux)
+            return x + y, aux, drops
+        y = copy_to(self.mlp_norm(x), tp)
         y = F.silu(self.mlp_gate(y)) * self.mlp_in(y)
-        return x + reduce_from_tp(self.mlp_out(y), tp)
+        return x + reduce_from(self.mlp_out(y), tp)
 
 
 class TransformerLM(nn.Module):
@@ -396,9 +427,6 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator | None = None,
                  init: bool = True):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError("the mixture-of-experts MLP is not ported "
-                                      "yet (ROADMAP.md, Queue 1, item 7)")
         self.cfg = cfg
         D, V = cfg.embed_dim, cfg.vocab_size
         self.tok_embed = nn.Embedding(V, D, _weight=torch.empty(V, D))
@@ -406,6 +434,8 @@ class TransformerLM(nn.Module):
         self.final_norm = RMSNorm(D, cfg.dtype)
         self.lm_head = None if cfg.tie_embeddings else Dense(D, V, cfg.dtype)
         self.tp: TP | None = None
+        self.ep: AxisGroup | None = None
+        self.sp: AxisGroup | None = None
         self.vocab_split = False
         if init:
             self.reset_parameters(generator or torch.Generator().manual_seed(0))
@@ -451,6 +481,35 @@ class TransformerLM(nn.Module):
         for layer in self.layers:
             layer.set_tp(tp)
 
+    def set_ep(self, ep: AxisGroup, shards: AxisGroup | None = None) -> None:
+        """Run each MoE layer on this rank's ``E / ep`` experts (the weights
+        already cut by ``shard_init``); ``shards``: the group of the tp and
+        ep ranks (``parallel/tp.py:shards_of``; needed after ``set_tp``).
+        A dense model has none to split."""
+        if not self.cfg.moe_experts:
+            raise ValueError("the ep axis needs an MoE model (moe_experts > 0)")
+        self.ep = ep
+        for layer in self.layers:
+            layer.moe.set_ep(ep, shards)
+
+    def set_sp(self, sp: AxisGroup) -> None:
+        """Run on this ``sp`` rank's chunk of every sequence.  Not with MoE:
+        its capacity counts run over each row's whole sequence (ROADMAP.md,
+        Queue 1, MoE x sp)."""
+        if self.cfg.moe_experts:
+            raise NotImplementedError("MoE with sp > 1 is not ported (ROADMAP.md, Queue 1: "
+                                      "MoE x sp)")
+        self.sp = sp
+        for layer in self.layers:
+            layer.sp = sp
+
+    def set_data(self, data: AxisGroup | None) -> None:
+        """The ranks that hold other rows of the batch: an MoE model's aux
+        loss, when asked for, is the global batch's over them."""
+        if self.cfg.moe_experts:
+            for layer in self.layers:
+                layer.moe.data = data
+
     def fsdp_units(self) -> list[nn.Module]:
         """FSDP2's units below the root: one per decoder layer."""
         return list(self.layers)
@@ -463,47 +522,70 @@ class TransformerLM(nn.Module):
                 _lecun_normal_(mod.weight, mod.weight.shape[1], gen)
             elif isinstance(mod, RMSNorm):
                 mod.scale.fill_(1.0)
+            elif isinstance(mod, MoEMLP):
+                # a [E, in, out] kernel's fan-in is E * in (flax's receptive field)
+                E = mod.num_experts
+                _lecun_normal_(mod.gate, mod.gate.shape[0], gen)
+                _lecun_normal_(mod.w_in, E * mod.w_in.shape[1], gen)
+                _lecun_normal_(mod.w_out, E * mod.w_out.shape[1], gen)
 
     def forward(self, ids, positions=None, return_hidden: bool = False,
                 with_aux: bool = False, cache: KVCache | None = None, token_mask=None,
-                targets=None, ce_block: int = 4096):
+                targets=None, ce_block: int = 4096, drops: torch.Tensor | None = None):
         """Logits [B, L, V] f32, or with ``return_hidden`` the final-norm
         hidden states [B, L, D] for :func:`lm_loss_fused` (or for
         :meth:`head` on the rows a sampler reads).  ``with_aux`` also
-        returns the auxiliary loss (0: no MoE).  In decode mode ``cache``
-        is required: the ids' keys and values are written at
-        ``cache.index``, which then advances by L.  ``token_mask`` marks
-        the real tokens of a padded batch; it steers only MoE routing, so
-        it has no effect here.  ``targets`` (``[B, L]`` ids): the per-token
-        NLL of the fused loss instead (:func:`lm_loss_fused`, ``ce_block``
-        wide), computed inside the forward, where FSDP2 has gathered the
-        head's weight."""
+        returns the auxiliary loss: the mean over layers of the MoE layers'
+        (0 for a dense model), the global batch's over the data group
+        (:meth:`set_data`).  In decode mode ``cache`` is required: the ids'
+        keys and values are written at ``cache.index``, which then advances
+        by L.  ``token_mask`` ([B, L] bool) marks the real tokens of a
+        padded batch: pad tokens take no part in MoE routing.  ``drops``:
+        an int32 device scalar the MoE layers' overflow count is added to.
+        ``targets`` (``[B, L]`` ids): the per-token NLL of the fused loss
+        instead (:func:`lm_loss_fused`, ``ce_block`` wide), computed inside
+        the forward, where FSDP2 has gathered the head's weight (with
+        ``with_aux``: ``(nll, aux)``).  Under sp, ``ids`` is this rank's
+        chunk and the positions default to its global ones."""
         cfg = self.cfg
-        del token_mask
         if cfg.decode != (cache is not None):
             raise ValueError("a KVCache is passed exactly in decode mode "
                              f"(cfg.decode={cfg.decode})")
         ids = ids.long()
         if positions is None:
-            positions = torch.arange(ids.shape[1], device=ids.device).expand(ids.shape)
+            first = 0 if self.sp is None else self.sp.rank * ids.shape[1]
+            positions = torch.arange(first, first + ids.shape[1],
+                                     device=ids.device).expand(ids.shape)
         x = self._embed(ids)
         if cache is not None:
             shared = (rope_tables(positions, cfg.head_dim, cfg.rope_theta),
                       future_mask(cache.index, ids.shape[1], cache.length))
+        auxes, counts = [], []
         for i, layer in enumerate(self.layers):
-            if cache is not None:
-                x = layer(x, positions, (cache.keys[i], cache.values[i], cache.index, *shared))
-            elif cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, positions, use_reentrant=False,
-                               context_fn=_REMAT_CONTEXTS)
+            kv = None if cache is None else (cache.keys[i], cache.values[i], cache.index,
+                                             *shared)
+            if cache is None and cfg.remat and torch.is_grad_enabled():
+                # the recompute routes the same tokens: the same inputs
+                out = checkpoint(layer, x, positions, None, token_mask, with_aux,
+                                 use_reentrant=False, context_fn=_REMAT_CONTEXTS)
             else:
-                x = layer(x, positions)
+                out = layer(x, positions, kv, token_mask, with_aux)
+            if cfg.moe_experts:
+                x, aux_i, drops_i = out
+                auxes.append(aux_i)
+                counts.append(drops_i)
+            else:
+                x = out
         if cache is not None:
             cache.index += ids.shape[1]
+        if drops is not None and counts:
+            drops += torch.stack(counts).sum().to(drops.dtype)
         x = self.final_norm(x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = (torch.stack(auxes).mean() if auxes
+               else torch.zeros((), dtype=torch.float32, device=x.device))
         if targets is not None:
-            return self.fused_nll(x, targets, ce_block)
+            nll = self.fused_nll(x, targets, ce_block)
+            return (nll, aux) if with_aux else nll
         if return_hidden:
             return (x, aux) if with_aux else x
         logits = self.head(x)
@@ -519,13 +601,13 @@ class TransformerLM(nn.Module):
         local = ids - tp.rank * w.shape[0]
         inside = (local >= 0) & (local < w.shape[0])
         x = F.embedding(local.clamp(0, w.shape[0] - 1), w) * inside[..., None].to(w.dtype)
-        return reduce_from_tp(x, tp).to(self.cfg.dtype)
+        return reduce_from(x, tp).to(self.cfg.dtype)
 
     def head(self, x):
         """f32 logits of final-norm hidden states ``[..., D]`` (under tp,
         every rank's vocab columns gathered by an all-reduce)."""
         cfg = self.cfg
-        x = copy_to_tp(x, self.tp)
+        x = copy_to(x, self.tp)
         if cfg.tie_embeddings:
             w = self.tok_embed.weight.to(cfg.dtype)
             w = w.to(torch.promote_types(x.dtype, w.dtype))
@@ -570,14 +652,14 @@ def decode_model(model: TransformerLM, decode_scatter: bool = False) -> Transfor
 
 @torch.no_grad()
 def rebuilt(model: TransformerLM, cfg: TransformerConfig) -> TransformerLM:
-    """A new module of ``cfg`` over ``model``'s tensors, its weight matrices
-    and embedding cast to the compute dtype (shared where the dtype is
-    already that).  A tensor-parallel model's pieces, its tp and its
-    layouts carry over."""
+    """A new module of ``cfg`` over ``model``'s tensors, its weight matrices,
+    experts and embedding cast to the compute dtype (shared where the dtype
+    is already that; an MoE router stays f32).  A tensor-parallel model's
+    pieces, its tp and its layouts carry over."""
     with torch.device("meta"):
         out = TransformerLM(cfg, init=False)
-    sd = {name: t.detach().to(cfg.dtype) if name.endswith(".weight") else t.detach()
-          for name, t in model.state_dict().items()}
+    sd = {name: t.detach().to(cfg.dtype) if name.endswith((".weight", ".w_in", ".w_out"))
+          else t.detach() for name, t in model.state_dict().items()}
     if model.tp is None:
         out.load_state_dict(sd, assign=True)
     else:

@@ -18,7 +18,10 @@
 - ``splash`` and ``flash`` on CUDA tensors the kernels do not take (not
   bf16) compute the same function through ``dense_attention`` with the
   top-left mask given explicitly (:func:`dense_topleft_attention`);
-- ``ring``: not ported yet (``NotImplementedError``);
+- ``ring``: the sequence split over an ``sp`` group, its k/v blocks
+  rotated around the ring (``ops/ring.py``, plain torch per hop, as the
+  JAX ring is jnp); with ``sp`` and another impl the whole sequence is
+  gathered over the group first;
 - ``auto``: the choice the JAX package makes on its accelerator
   (:func:`choose_impl`), for CUDA tensors; CPU tensors take dense.
 
@@ -524,10 +527,35 @@ def _warn_downgrade(q, k, why: str) -> None:
 
 def dot_product_attention(q, k, v, *, causal: bool = False,
                           sm_scale: float | None = None, mask=None,
-                          impl: str = "auto"):
+                          impl: str = "auto", sp=None, ring_kv_chunk: int = 1024):
     """``[B, L, H, D]`` attention with implementation dispatch (see the
     module docstring).  ``mask`` (dense only) broadcasts against
-    ``[B, H, Lq, Lk]``."""
+    ``[B, H, Lq, Lk]``.
+
+    ``sp`` (a ``parallel/tp.py:SP`` group, or None): q, k and v are this
+    rank's chunk of a sequence split over it.  ``impl="ring"`` runs
+    ``ops/ring.py`` over it (the GQA groups expanded first, as the JAX
+    dispatch does; ``ring_kv_chunk`` keys a fold); every other impl
+    gathers the whole sequence's q, k and v over it, attends, and keeps
+    this rank's query rows, so it computes what it computes unsplit."""
+    if impl == "ring":
+        if mask is not None:
+            raise ValueError("impl='ring' takes no mask")
+        if k.shape[2] != q.shape[2]:
+            groups = q.shape[2] // k.shape[2]
+            k = k.repeat_interleave(groups, dim=2)
+            v = v.repeat_interleave(groups, dim=2)
+        from edl_tpu_torch.ops.ring import ring_attention
+        return ring_attention(q, k, v, sp, causal=causal, sm_scale=sm_scale,
+                              kv_chunk=ring_kv_chunk)
+    if sp is not None:
+        if mask is not None:
+            raise ValueError("a mask is not taken over a sequence split by sp")
+        from edl_tpu_torch.parallel.tp import gather_seq
+        L, H, Hk = q.shape[1], q.shape[2], k.shape[2]
+        qf, kf, vf = gather_seq(torch.cat([q, k, v], dim=2), sp).split([H, Hk, Hk], dim=2)
+        out = dot_product_attention(qf, kf, vf, causal=causal, sm_scale=sm_scale, impl=impl)
+        return out[:, sp.rank * L:(sp.rank + 1) * L]
     if impl == "auto":
         impl = choose_impl(q.shape[1], k.shape[1], q.shape[3], q.dtype, causal,
                            mask is not None, q.device.type)
@@ -536,9 +564,6 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
                             else "shape or dtype not taken by the kernels")
     if impl == "dense":
         return dense_attention(q, k, v, causal=causal, sm_scale=sm_scale, mask=mask)
-    if impl == "ring":
-        raise NotImplementedError("ring attention is not ported yet "
-                                  "(ROADMAP.md, Queue 1, item 7)")
     if impl not in ("splash", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if mask is not None:

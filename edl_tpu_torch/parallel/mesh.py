@@ -13,9 +13,10 @@ Canonical axis names (outermost -> innermost):
 - ``dp``   pure data parallelism (params replicated)
 - ``fsdp`` data parallelism with parameter sharding (FSDP2)
 - ``pp``   pipeline stages (not ported)
-- ``sp``   sequence/context parallelism (not ported)
+- ``sp``   sequence/context parallelism (a chunk of every sequence a rank;
+  ``ops/ring.py``)
 - ``tp``   tensor parallelism (Megatron-style, ``parallel/tp.py``)
-- ``ep``   expert parallelism (not ported)
+- ``ep``   expert parallelism (``ops/moe.py``)
 
 The rank layout is a pure function, :func:`mesh_layout`, of the spec, the
 world size and the number of slices (ranks are numbered pod by pod), so it
@@ -160,8 +161,8 @@ def batch_divisor(mesh) -> int:
 
 def data_index(mesh, rank: int) -> int:
     """``rank``'s position along the batch axes (dp-major, then fsdp):
-    which rows of the global batch it reads.  The tp ranks of one data
-    coordinate read the same rows."""
+    which rows of the global batch it reads.  The sp, tp and ep ranks of
+    one data coordinate read the same rows."""
     c, sizes = coordinate(mesh, rank), mesh_sizes(mesh)
     return c["dp"] * sizes["fsdp"] + c["fsdp"]
 

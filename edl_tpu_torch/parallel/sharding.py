@@ -9,18 +9,22 @@ pure-DP, FSDP, TP or a mix by swapping the rules.  Where JAX resolves a
 
 - :meth:`ShardingRules.spec` gives DTensor placements, one per mesh dim;
 - :func:`shard_init` builds a module from its seed (born full), cuts every
-  ``tp`` dim to this rank's slice (the module's forward then runs the
-  ``parallel/tp.py`` collectives) and hands the ``fsdp`` dim to FSDP2
+  ``tp`` and ``ep`` dim to this rank's slice (the module's forward then
+  runs the ``parallel/tp.py`` collectives; an ``ep`` dim is split evenly,
+  rank r holding the r-th run of experts), tells the module its ``sp``
+  group (each rank then runs its chunk of the sequence,
+  :func:`seq_chunk`) and hands the ``fsdp`` dim to FSDP2
   (``fully_shard``, HSDP with ``dp``), whose ``shard_placement_fn`` follows
   the rules' "embed" dim; a leaf with no such dim (a norm scale) is
   sharded on dim 0, where JAX keeps it replicated;
 - the JAX module's ``allgather_flag`` is ``train/distributed.py``'s;
 - a :class:`LeafLayout` records, per parameter, its global shape and how
-  its ``tp`` dim is cut: a dim may hold segments that are each split over
-  the ranks (the fused q|k|v weight is split by heads: rank r holds its q,
-  k and v rows, three boxes of the global leaf).  :func:`local_boxes`,
-  :func:`to_full` and :func:`from_full` move between a rank's local tensor
-  and the global leaf, for the checkpoint and the peer cache.
+  its ``tp`` and ``ep`` dims are cut: a tp dim may hold segments that are
+  each split over the ranks (the fused q|k|v weight is split by heads: rank
+  r holds its q, k and v rows, three boxes of the global leaf).
+  :func:`local_boxes`, :func:`to_full` and :func:`from_full` move between a
+  rank's local tensor and the global leaf, for the checkpoint and the peer
+  cache, so a checkpoint written at one tp or ep resumes at another.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from edl_tpu_torch.parallel.mesh import AXIS_ORDER, coordinate, mesh_sizes
-from edl_tpu_torch.parallel.tp import TP
+from edl_tpu_torch.parallel.tp import EP, SP, TP, AxisGroup, shards_of
 
 # Default logical->mesh table.  A logical name may map to a mesh axis, a
 # tuple of mesh axes (sharded over both), or None (replicated).
@@ -128,13 +132,15 @@ class LeafLayout:
     """A parameter's global shape, its ``tp`` dim (None: replicated over
     tp) with that dim's segments (global lengths, each split evenly over
     the tp ranks, but for the indices in ``whole``, which every rank holds
-    whole), and its ``fsdp`` dim (None: the rules give it none)."""
+    whole), its ``fsdp`` dim (None: the rules give it none), and its ``ep``
+    dim (None: replicated over ep; else split evenly over the ep ranks)."""
 
     gshape: tuple[int, ...]
     tp_dim: int | None = None
     segments: tuple[int, ...] = ()
     fsdp_dim: int | None = None
     whole: tuple[int, ...] = ()
+    ep_dim: int | None = None
 
 
 def _axes(entry) -> tuple:
@@ -150,12 +156,16 @@ def param_layouts(module: torch.nn.Module, logical: dict, mesh,
     ``tp_whole(name, tp)``.  Raises when a tp-split segment does not
     divide."""
     rules = rules or ShardingRules()
-    tp = mesh_sizes(mesh)["tp"]
+    tp, ep = mesh_sizes(mesh)["tp"], mesh_sizes(mesh)["ep"]
     out = {}
     for name, p in module.named_parameters():
         axes = logical.get(name, (None,) * p.ndim)
-        tp_dim = next((d for d, e in enumerate(rules.partition(axes, mesh))
-                       if "tp" in (e if isinstance(e, tuple) else (e,))), None)
+        part = rules.partition(axes, mesh)
+        tp_dim = next((d for d, e in enumerate(part) if "tp" in _axes(e)), None)
+        ep_dim = next((d for d, e in enumerate(part) if "ep" in _axes(e)), None)
+        if ep_dim is not None and p.shape[ep_dim] % ep:
+            raise ValueError(f"{name}: dim {ep_dim} of {p.shape[ep_dim]} does not divide "
+                             f"over ep = {ep}")
         # the fsdp dim is named whatever the axis's size (FSDP2 may be forced
         # on an fsdp axis of 1)
         fsdp_dim = next((d for d, n in enumerate(axes) if n and "fsdp" in _axes(rules.rules.get(n))),
@@ -171,7 +181,7 @@ def param_layouts(module: torch.nn.Module, logical: dict, mesh,
                 if i not in whole and s % tp:
                     raise ValueError(f"{name}: dim {tp_dim} segment of {s} does not divide "
                                      f"over tp = {tp}")
-        out[name] = LeafLayout(tuple(p.shape), tp_dim, segments, fsdp_dim, whole)
+        out[name] = LeafLayout(tuple(p.shape), tp_dim, segments, fsdp_dim, whole, ep_dim)
     return out
 
 
@@ -190,9 +200,22 @@ def tp_ranges(layout: LeafLayout, rank: int, size: int) -> list[tuple[int, int, 
     return out
 
 
-def tp_slice(full: torch.Tensor, layout: LeafLayout, tp: TP | None) -> torch.Tensor:
-    """``tp``'s rank's slice of the full leaf (the leaf itself when it is
-    not split over tp)."""
+def _ep_run(layout: LeafLayout, ep: AxisGroup | None) -> tuple[int, int] | None:
+    """``(start, length)`` along the ep dim of the experts ``ep``'s rank
+    holds, or None when the leaf is not split over ep."""
+    if ep is None or layout is None or layout.ep_dim is None:
+        return None
+    n = layout.gshape[layout.ep_dim] // ep.size
+    return ep.rank * n, n
+
+
+def tp_slice(full: torch.Tensor, layout: LeafLayout, tp: TP | None,
+             ep: AxisGroup | None = None) -> torch.Tensor:
+    """This rank's slice of the full leaf: its ``ep`` run of experts and its
+    ``tp`` rows (the leaf itself when it is split over neither)."""
+    run = _ep_run(layout, ep)
+    if run is not None:
+        full = full.narrow(layout.ep_dim, *run)
     if tp is None or layout.tp_dim is None:
         return full
     d = layout.tp_dim
@@ -212,10 +235,22 @@ def _fsdp_region(t) -> tuple[torch.Tensor, list[int], list[int]]:
     return t, list(t.shape), [0] * t.ndim
 
 
-def local_boxes(t, layout: LeafLayout | None, tp: TP | None) -> list[tuple[list, tuple]]:
+def local_boxes(t, layout: LeafLayout | None, tp: TP | None,
+                ep: AxisGroup | None = None) -> list[tuple[list, tuple]]:
     """``[(global box, local index)]`` of this rank's piece of a leaf: each
     box ``[[start, end], ...]`` in the global leaf, each index the slices of
-    the local tensor that hold it.  A head-split q|k|v weight gives three."""
+    the local tensor that hold it.  A head-split q|k|v weight gives three;
+    an ep-split leaf's boxes lie in this rank's run of experts."""
+    run = _ep_run(layout, ep)
+    boxes = _tp_boxes(t, layout, tp)
+    if run is not None:
+        for box, _ in boxes:
+            box[layout.ep_dim] = [run[0] + box[layout.ep_dim][0], run[0] + box[layout.ep_dim][1]]
+    return boxes
+
+
+def _tp_boxes(t, layout: LeafLayout | None, tp: TP | None) -> list[tuple[list, tuple]]:
+    """:func:`local_boxes` in the leaf of this rank's experts."""
     local, shape, off = _fsdp_region(t)
     if any(n == 0 for n in shape):
         return []
@@ -237,33 +272,46 @@ def local_boxes(t, layout: LeafLayout | None, tp: TP | None) -> list[tuple[list,
     return out
 
 
-def to_full(t, layout: LeafLayout | None, tp: TP | None) -> torch.Tensor:
+def to_full(t, layout: LeafLayout | None, tp: TP | None,
+            ep: AxisGroup | None = None) -> torch.Tensor:
     """The global leaf of ``t`` on every rank (collective over fsdp for a
-    DTensor, over tp for a tp-split leaf: each rank's rows written into
-    zeros and all-reduced, so tp uses only all-reduce)."""
+    DTensor, over tp for a tp-split leaf and over ep for an ep-split one:
+    each rank's rows written into zeros and all-reduced, so tp and ep use
+    only all-reduce)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     if isinstance(t, DTensor):
         t = t.full_tensor()
-    if tp is None or layout is None or layout.tp_dim is None:
+    if layout is None:
         return t
-    d = layout.tp_dim
-    full = t.new_zeros(layout.gshape)
-    for i, (g, lo, n) in enumerate(tp_ranges(layout, tp.rank, tp.size)):
-        if i not in layout.whole or tp.rank == 0:     # a whole segment added once
-            full.narrow(d, g, n).copy_(t.narrow(d, lo, n))
-    dist.all_reduce(full, group=tp.group)
-    return full
+    run = _ep_run(layout, ep)
+    if tp is not None and layout.tp_dim is not None:
+        d = layout.tp_dim
+        shape = list(layout.gshape)
+        if run is not None:
+            shape[layout.ep_dim] = run[1]
+        full = t.new_zeros(shape)
+        for i, (g, lo, n) in enumerate(tp_ranges(layout, tp.rank, tp.size)):
+            if i not in layout.whole or tp.rank == 0:     # a whole segment added once
+                full.narrow(d, g, n).copy_(t.narrow(d, lo, n))
+        dist.all_reduce(full, group=tp.group)
+        t = full
+    if run is not None:
+        full = t.new_zeros(layout.gshape)
+        full.narrow(layout.ep_dim, *run).copy_(t)
+        dist.all_reduce(full, group=ep.group)
+        t = full
+    return t
 
 
 def from_full(full: torch.Tensor, like, layout: LeafLayout | None,
-              tp: TP | None) -> torch.Tensor:
+              tp: TP | None, ep: AxisGroup | None = None) -> torch.Tensor:
     """This rank's piece of the global leaf ``full``, placed as ``like``
     (a DTensor of the same spec, or a plain tensor) on ``like``'s device."""
     from torch.distributed.tensor import DTensor
 
-    piece = tp_slice(full, layout, tp) if layout is not None else full
+    piece = tp_slice(full, layout, tp, ep) if layout is not None else full
     if isinstance(like, DTensor):
         from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
         shape, off = compute_local_shape_and_global_offset(like.shape, like.device_mesh,
@@ -277,13 +325,16 @@ def from_full(full: torch.Tensor, like, layout: LeafLayout | None,
 
 def pushes(t, layout: LeafLayout | None, coord: dict[str, int]) -> bool:
     """Whether the rank at mesh ``coord`` is the one replica that pushes its
-    piece of a leaf (JAX's ``replica_id == 0``): dp coordinate 0, fsdp 0
-    unless the leaf is an FSDP2 shard, tp 0 unless it is split over tp."""
+    piece of a leaf (JAX's ``replica_id == 0``): dp and sp coordinate 0,
+    fsdp 0 unless the leaf is an FSDP2 shard, ep 0 unless it is split over
+    ep, tp 0 unless it is split over tp."""
     from torch.distributed.tensor import DTensor
 
-    if coord["dp"] != 0:
+    if coord["dp"] != 0 or coord["sp"] != 0:
         return False
     if coord["fsdp"] != 0 and not isinstance(t, DTensor):
+        return False
+    if coord["ep"] != 0 and (layout is None or layout.ep_dim is None):
         return False
     return coord["tp"] == 0 or (layout is not None and layout.tp_dim is not None)
 
@@ -293,31 +344,35 @@ def pushes(t, layout: LeafLayout | None, coord: dict[str, int]) -> bool:
 def shard_init(init_fn, logical_rules, mesh, rules: ShardingRules | None = None,
                fsdp: bool | None = None) -> torch.nn.Module:
     """``init_fn()`` (a module built from its seed, full) placed on ``mesh``
-    under ``logical_rules`` (a model's ``LOGICAL_RULES``): its tp dims cut
-    to this rank's rows (the module must offer ``set_tp``), then FSDP2 on
-    the ``fsdp`` dim when that dim is wider than 1 or ``fsdp`` forces it.
-    The module's ``param_layouts`` and ``tp`` are set."""
+    under ``logical_rules`` (a model's ``LOGICAL_RULES``): its tp and ep dims
+    cut to this rank's rows (the module must offer ``set_tp`` and
+    ``set_ep``), its ``sp`` group given to ``set_sp``, then FSDP2 on the
+    ``fsdp`` dim when that dim is wider than 1 or ``fsdp`` forces it.  The
+    module's ``param_layouts``, ``tp``, ``ep`` and ``sp`` are set."""
     from edl_tpu_torch.models.logical import logical_axes_from_paths
 
     module = init_fn()
     sizes = mesh_sizes(mesh)
-    for axis in ("pp", "sp", "ep"):
-        if sizes[axis] > 1:
-            raise NotImplementedError(f"the {axis} mesh axis is not ported to edl_tpu_torch "
-                                      f"yet (ROADMAP.md Queue 1 item 7)")
+    if sizes["pp"] > 1:
+        raise NotImplementedError("the pp mesh axis is not ported to edl_tpu_torch "
+                                  "yet (ROADMAP.md Queue 1 item 7)")
     layouts = param_layouts(module, logical_axes_from_paths(module, logical_rules), mesh, rules)
-    tp = TP.of(mesh)
-    if tp is not None:
-        if not hasattr(module, "set_tp"):
-            raise NotImplementedError(f"{type(module).__name__} has no tensor-parallel form")
-        module.set_tp(tp)       # validates the widths before any weight is cut
+    tp, ep, sp = TP.of(mesh), EP.of(mesh), SP.of(mesh)
+    # ep's setter also takes the one group of the tp and ep ranks
+    for group, setter, more in ((tp, "set_tp", ()), (ep, "set_ep", (shards_of(mesh),)),
+                                (sp, "set_sp", ())):
+        if group is not None:
+            if not hasattr(module, setter):
+                raise NotImplementedError(f"{type(module).__name__} has no {setter}")
+            getattr(module, setter)(group, *more)   # validates the widths before any cut
+    if tp is not None or ep is not None:
         with torch.no_grad():
             for name, p in module.named_parameters():
-                p.data = tp_slice(p.data, layouts[name], tp).contiguous()
+                p.data = tp_slice(p.data, layouts[name], tp, ep).contiguous()
     if fsdp or (fsdp is None and sizes["fsdp"] > 1):
         _fully_shard(module, mesh, layouts)
     module.param_layouts = layouts
-    module.tp = tp
+    module.tp, module.ep, module.sp = tp, ep, sp
     return module
 
 
@@ -341,10 +396,24 @@ def _fully_shard(module: torch.nn.Module, mesh, layouts: dict[str, LeafLayout]) 
     fully_shard(module, mesh=sub, shard_placement_fn=placement)
 
 
+def seq_chunk(x, sp: AxisGroup | None, dim: int = 1):
+    """This ``sp`` rank's contiguous chunk of ``x`` (a tensor or an array)
+    along the sequence dim ``dim`` (``x`` itself without sp)."""
+    if sp is None:
+        return x
+    n = x.shape[dim]
+    if n % sp.size:
+        raise ValueError(f"a sequence of {n} does not split {sp.size} ways over sp")
+    c = n // sp.size
+    index = [slice(None)] * x.ndim
+    index[dim] = slice(sp.rank * c, (sp.rank + 1) * c)
+    return x[tuple(index)]
+
+
 def shard_host_batch(batch, mesh, rank: int, rules: ShardingRules | None = None):
     """This rank's rows of a global host batch (``{name: array}``), split
-    on the batch axes only: the tp ranks of one data coordinate get the
-    same rows."""
+    on the batch axes only: the sp, tp and ep ranks of one data coordinate
+    get the same rows (an sp rank then takes its :func:`seq_chunk`)."""
     rules = rules or ShardingRules()
     sizes, coord = mesh_sizes(mesh), coordinate(mesh, rank)
     entry = rules.partition(("batch",), mesh)

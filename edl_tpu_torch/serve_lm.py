@@ -13,9 +13,14 @@ requests.  Batch-at-a-time by default (a ``TeacherServer`` coalescing
 same-shape requests into one :func:`generate`); with ``--continuous
 SLOTS`` a :class:`ContinuousBatcher` whose running decode batch requests
 join and leave at token granularity, prompts over
-``EDL_TPU_PREFILL_CHUNK`` tokens prefilled in chunks.
+``EDL_TPU_PREFILL_CHUNK`` tokens prefilled in chunks.  For an MoE model
+both paths report ``moe_prefill_drops`` in the stats RPC: the assignments
+the prompt passes dropped over capacity (an under-provisioned capacity
+factor degrades long prompts silently otherwise).
 
-Same flags as the JAX example minus ``--moe*``, plus ``--device``
+Same flags as the JAX example, ``--moe``/``--moe_top_k`` (an MoE
+checkpoint's experts, which must match training) among them, plus
+``--device``
 (default ``cuda``: without a card it raises ``NoCardError`` unless given
 ``--device cpu``).  Compute is bf16 on the card and f32 on the CPU, as
 ``train_lm``'s.  ``--checkpoint_dir`` restores the newest checkpoint that
@@ -64,14 +69,17 @@ def build_predict_fn(model, max_new_tokens: int, temperature: float, top_k: int,
     temperature sampling differs between identical requests.  The decode
     copy of the model is built once here.  ``mesh``: this process leads
     the mesh's tp group (the others run :func:`follow_generate`); each
-    call goes to every rank, and ``predict.close()`` stops them."""
+    call goes to every rank, and ``predict.close()`` stops them.
+    ``predict.stats()``: for an MoE model the cumulative
+    ``moe_prefill_drops`` (else nothing)."""
     from edl_tpu_torch.models.generate import generate, shard_decode_model
     from edl_tpu_torch.serving.spmd import OP_GENERATE, Channel
 
     dmodel = shard_decode_model(model, mesh)
     device = dmodel.tok_embed.weight.device
     chan = Channel(mesh, device) if dmodel.tp is not None else None
-    counter = {"n": 0}
+    moe = bool(dmodel.cfg.moe_experts)
+    counter = {"n": 0, "drops": 0}
     lock = threading.Lock()
 
     def predict(feed: dict) -> dict:
@@ -82,11 +90,20 @@ def build_predict_fn(model, max_new_tokens: int, temperature: float, top_k: int,
         if chan is not None:
             chan.send(OP_GENERATE, arrays=[ids])
         gen = torch.Generator(device=device).manual_seed(20_26 * 1_000_003 + n)
-        toks = generate(dmodel, torch.from_numpy(ids), max_new_tokens, generator=gen,
-                        temperature=temperature, top_k=top_k, top_p=top_p)
+        toks, drops = generate(dmodel, torch.from_numpy(ids), max_new_tokens, generator=gen,
+                               temperature=temperature, top_k=top_k, top_p=top_p,
+                               return_drops=True)
+        if moe:
+            with lock:
+                counter["drops"] += int(drops)
         return {"tokens": toks.cpu().numpy()}
 
+    def stats() -> dict:
+        with lock:
+            return {"moe_prefill_drops": counter["drops"]} if moe else {}
+
     predict.close = chan.close if chan is not None else (lambda: None)
+    predict.stats = stats
     return predict
 
 
@@ -173,6 +190,11 @@ def parse_args(argv=None):
     p.add_argument("--kv_heads", type=int, default=0, help="must match training (GQA)")
     p.add_argument("--mlp", type=int, default=256)
     p.add_argument("--max_len", type=int, default=512)
+    p.add_argument("--moe", type=int, default=0,
+                   help="serve an MoE checkpoint: experts per block (must match training)")
+    p.add_argument("--moe_top_k", type=int, default=2,
+                   help="experts combined per token (must match training: the parameters "
+                        "cannot catch a mismatch)")
     p.add_argument("--max_new_tokens", type=int, default=32)
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top_k", type=int, default=0)
@@ -189,7 +211,11 @@ def parse_args(argv=None):
                         "on cuda); 0 or 1 = one process")
     p.add_argument("--tp_rank", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--tp_addr", default="", help=argparse.SUPPRESS)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.moe and args.moe_top_k > args.moe:
+        raise SystemExit(f"--moe_top_k {args.moe_top_k} cannot exceed "
+                         f"--moe {args.moe} experts")
+    return args
 
 
 def build_model(args, device: torch.device, mesh=None):
@@ -203,7 +229,8 @@ def build_model(args, device: torch.device, mesh=None):
     cfg = TransformerConfig(vocab_size=args.vocab, num_layers=args.layers,
                             embed_dim=args.embed, num_heads=args.heads,
                             num_kv_heads=args.kv_heads, mlp_dim=args.mlp,
-                            max_len=args.max_len, remat=False,
+                            max_len=args.max_len, moe_experts=args.moe,
+                            moe_top_k=args.moe_top_k, remat=False,
                             dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
     model = TransformerLM(cfg, torch.Generator().manual_seed(0)).to(device)
     if args.checkpoint_dir:
@@ -269,9 +296,10 @@ def serve(args, mesh=None):
                                    eos_id=None if args.eos_id < 0 else args.eos_id, mesh=mesh)
         server = _ContinuousServer(engine, args.max_new_tokens, port=args.port)
     else:
-        server = TeacherServer(build_predict_fn(model, args.max_new_tokens, args.temperature,
-                                                args.top_k, args.top_p, mesh=mesh),
-                               port=args.port, device=device)
+        predict = build_predict_fn(model, args.max_new_tokens, args.temperature,
+                                   args.top_k, args.top_p, mesh=mesh)
+        server = TeacherServer(predict, port=args.port, device=device,
+                               extra_stats=predict.stats)
     if args.coord_endpoints:
         from edl_tpu_torch.coord.client import connect
 

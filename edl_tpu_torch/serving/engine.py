@@ -33,7 +33,13 @@ A fixed pool of ``slots`` decode lanes shares ONE persistent
   and keeps the longest prefix equal to its own argmax plus its next
   token, so the emitted stream is the plain greedy one;
 - a finished slot (token budget or ``eos_id``) frees at once and the next
-  queued request takes it.
+  queued request takes it;
+- **mixture of experts**: every bucket-padded prompt pass (a prefill, the
+  last chunk, a reuse suffix) masks its pads out of routing, and the
+  prompt passes' capacity overflow is read back with the tick's tokens
+  into ``stats()["moe_prefill_drops"]`` (0 for a dense model); decode
+  steps never drop, and a verify pass of k+1 tokens takes the capacity
+  path uncounted, as the JAX engine's.
 
 Each slot's position and mask advance alone (the per-example cache index),
 so a slot is the same computation as its request decoded alone; with
@@ -233,6 +239,7 @@ class ContinuousBatcher:
         self._gen = torch.Generator(device=self._device).manual_seed(rng_seed)
         self._toks = torch.zeros(slots, dtype=torch.int32, device=self._device)
         self._exported: list | None = None
+        self._moe_drops = 0           # MoE prefill capacity overflow, added up
         self._kv_hits = 0
         self._kv_misses = 0
         self._prefill_tokens = 0
@@ -282,6 +289,12 @@ class ContinuousBatcher:
         self._cache_len = cache_len
         self._T = steps
         self._cache = self._new_cache(slots)
+        # an MoE model's prefill passes add their capacity overflow here,
+        # read back with the tick's tokens and zeroed (the leader's; None on
+        # a follower and for a dense model)
+        self._drops = (torch.zeros((), dtype=torch.int32, device=self._device)
+                       if model.cfg.moe_experts and (self._chan is None or self._chan.leader)
+                       else None)
         # -- the paged KV pool and its prefix index (kv_cache.py); with
         # kv_block=0 the engine runs exactly the unpaged path
         self._kv: PagedKVCache | None = None
@@ -482,10 +495,12 @@ class ContinuousBatcher:
                     self._chunk_final(slab, np.ones(Pb, np.int32), self._kv.block, gen)
         if self._spec_k:
             for K in self.PREFILL_KS:
-                self._draft_prefill(np.zeros((K, P), np.int32))
+                self._draft_prefill(np.zeros((K, P), np.int32), np.ones(K, np.int32))
             B = len(self._slots)
             self._spec(self._slab(B), KVCache.zeros(self._dcfg, B, self._cache_len, self._device),
                        torch.zeros(B, dtype=torch.int32, device=self._device))
+        if self._drops is not None:
+            self._drops.zero_()           # the warm-up's passes are not traffic
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
 
@@ -509,6 +524,8 @@ class ContinuousBatcher:
                 "prefill_chunk": self._chunk_tokens,
                 "prefill_chunks": self._prefill_chunks,
                 "chunked_admissions": self._chunked_admissions,
+                # MoE capacity overflow on the prompt passes (0 for dense)
+                "moe_prefill_drops": self._moe_drops,
                 **self._kv_stats(),
                 **self._spec_stats(),
             }
@@ -635,10 +652,16 @@ class ContinuousBatcher:
         self._cmd(spmd.OP_PREFILL, [slab], arrays=[ids, lens])
         return slab, self._prefill_into(slab, ids, lens, gen)
 
+    def _real(self, P: int, lens) -> torch.Tensor:
+        """``[K, P]`` bool: the real tokens of prompts ``lens`` long padded to
+        P (pad tokens take no part in MoE routing)."""
+        return self._to_device(np.arange(P)[None, :] < np.asarray(lens)[:, None])
+
     def _prefill_into(self, slab: KVCache, ids: np.ndarray, lens: np.ndarray,
                       gen) -> torch.Tensor:
         K = ids.shape[0]
-        hidden = self._model(self._to_device(ids), cache=slab, return_hidden=True)
+        hidden = self._model(self._to_device(ids), cache=slab, return_hidden=True,
+                             token_mask=self._real(ids.shape[1], lens), drops=self._drops)
         last = self._to_device(lens.astype(np.int64) - 1)
         rows = torch.arange(K, device=self._device)
         return self._sample(hidden[rows, last], gen)
@@ -657,11 +680,13 @@ class ContinuousBatcher:
             out.append(toks)
         return torch.stack(out, dim=1), toks
 
-    def _draft_prefill(self, ids: np.ndarray) -> KVCache:
-        """The draft's cache of the padded prompts ``ids [K, P]`` (no
-        sampling: the draft always continues from the target's token)."""
+    def _draft_prefill(self, ids: np.ndarray, lens: np.ndarray) -> KVCache:
+        """The draft's cache of the prompts ``ids [K, P]``, ``lens`` long
+        and padded (no sampling: the draft always continues from the
+        target's token; its drops are not counted, as the JAX engine's)."""
         slab = KVCache.zeros(self._dcfg, ids.shape[0], self._cache_len, self._device)
-        self._draft(self._to_device(ids), cache=slab, return_hidden=True)
+        self._draft(self._to_device(ids), cache=slab, return_hidden=True,
+                    token_mask=self._real(ids.shape[1], lens))
         return slab
 
     def _draft_slab_for(self, req: _Request) -> KVCache:
@@ -670,7 +695,7 @@ class ContinuousBatcher:
         has no pool: its state moves the accept rate, never the tokens."""
         ids = np.zeros((1, self._bucket(len(req.ids))), np.int32)
         ids[0, :len(req.ids)] = req.ids
-        return self._draft_prefill(ids)
+        return self._draft_prefill(ids, np.asarray([len(req.ids)]))
 
     def _spec(self, cache: KVCache, dcache: KVCache, toks: torch.Tensor):
         """``_spec_rounds`` draft-k / verify-once rounds for every lane, on
@@ -750,7 +775,7 @@ class ContinuousBatcher:
         self._cmd(spmd.OP_CHUNK_MID, [slab], [offset], [ids])
         positions = torch.arange(offset, offset + len(ids), device=self._device)[None]
         self._model(self._to_device(ids[None]), positions=positions, cache=slab,
-                    return_hidden=True)
+                    return_hidden=True, drops=self._drops)
 
     def _chunk_final(self, slab: KVCache, rest: np.ndarray, offset: int, gen,
                      P: int | None = None) -> torch.Tensor:
@@ -762,7 +787,8 @@ class ContinuousBatcher:
         tail[0, :len(rest)] = rest
         positions = torch.arange(offset, offset + P, device=self._device)[None]
         hidden = self._model(self._to_device(tail), positions=positions, cache=slab,
-                             return_hidden=True)
+                             return_hidden=True, token_mask=self._real(P, [len(rest)]),
+                             drops=self._drops)
         return self._sample(hidden[:, len(rest) - 1], gen)
 
     # -- the loop ------------------------------------------------------------
@@ -867,6 +893,8 @@ class ContinuousBatcher:
             # speculative counts) and every admission's first tokens
             parts = [t.reshape(-1) for t in (dec, counts) if t is not None]
             parts += [a.toks for a in pres]
+            if parts and self._drops is not None:
+                parts.append(self._drops.reshape(1))      # the drops since the last read
             host = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
         except Exception as e:  # noqa: BLE001
             for adm in pres:
@@ -887,6 +915,12 @@ class ContinuousBatcher:
         for adm in pres:
             self._finish_prefill(adm.slots, adm.reqs, host[at:at + len(adm.reqs)])
             at += len(adm.reqs)
+        if at < len(host):
+            # a tick's count is added up on the host, as the JAX engine's
+            # are: no device counter that a long life could overflow
+            self._drops.zero_()
+            with self._stats_lock:
+                self._moe_drops += int(host[at])
 
     def _fail_all(self, e: Exception) -> None:
         n = 0
@@ -944,7 +978,7 @@ class ContinuousBatcher:
                 ids[i, :len(req.ids)] = req.ids
                 lens[i] = len(req.ids)
             slab, toks = self._prefill(ids, lens, self._gen)
-            dslab = self._draft_prefill(ids) if self._spec_k else None
+            dslab = self._draft_prefill(ids, lens) if self._spec_k else None
             return _Admission(slab, toks, slots, reqs, lens.tolist(), dslab)
         except Exception as e:  # noqa: BLE001 — fail THIS group only
             if not self._local_failure(sent):

@@ -171,8 +171,8 @@ class TrainState:
         if not self.sharded:
             return sd
         from edl_tpu_torch.parallel.sharding import to_full
-        tp = self.model.tp
-        return self._map_sharded(sd, lambda t, _p, lay: to_full(t, lay, tp))
+        tp, ep = self.model.tp, getattr(self.model, "ep", None)
+        return self._map_sharded(sd, lambda t, _p, lay: to_full(t, lay, tp, ep))
 
     def global_shapes(self) -> dict[str, tuple[int, ...]]:
         """``{model state name: global shape}``."""
@@ -187,8 +187,8 @@ class TrainState:
         not sharded), placing each leaf on the current mesh."""
         if self.sharded:
             from edl_tpu_torch.parallel.sharding import from_full
-            tp = self.model.tp
-            sd = self._map_sharded(sd, lambda t, p, lay: from_full(t, p, lay, tp))
+            tp, ep = self.model.tp, getattr(self.model, "ep", None)
+            sd = self._map_sharded(sd, lambda t, p, lay: from_full(t, p, lay, tp, ep))
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         self.step = int(sd["step"])

@@ -15,8 +15,14 @@ The port of the JAX package's ``train/trainer.py``, one process per card:
   more than data parallelism: the parameters placed by their logical axes
   (``create_state(param_logical=...)``), ``tp`` in the model's forward,
   ``fsdp`` as FSDP2 (HSDP with ``dp``), which reduces the gradients
-  itself; at tp > 1 without fsdp the gradients are averaged over the data
-  ranks of each tp coordinate.  ``world_size`` is the mesh's batch divisor
+  itself, ``ep`` (each rank this run of an MoE model's experts) and ``sp``
+  (each rank a chunk of every sequence, the loss function's
+  ``seq_chunk``); without fsdp the gradients are averaged over the data
+  ranks of each (tp, ep) coordinate, dp x fsdp x sp of them (an ep-cut
+  expert only over its replicas; an sp rank's partial sums with the
+  others'), and under fsdp FSDP2's mean is followed by one over sp.  An
+  MoE model's aux loss is the global batch's over those ranks
+  (``TransformerLM.set_data``).  ``world_size`` is the mesh's batch divisor
   (dp x fsdp), the JAX trainer's for one process on a mesh of devices: the
   global batch, the LR rescale and the epoch records follow it;
 - input staged one batch ahead (``data/elastic_input.py:device_put_stream``:
@@ -82,6 +88,7 @@ from edl_tpu_torch.cluster.train_status import TrainStatus, save_train_status
 from edl_tpu_torch.data.elastic_input import device_put_stream, sync_checkpoint
 from edl_tpu_torch.parallel import mesh as mesh_mod
 from edl_tpu_torch.parallel.sharding import ShardingRules, shard_init
+from edl_tpu_torch.parallel.tp import AxisGroup
 from edl_tpu_torch.train import distributed as edl_dist
 from edl_tpu_torch.train import lr as lr_mod
 from edl_tpu_torch.train.checkpoint import CheckpointManager
@@ -209,20 +216,30 @@ class ElasticTrainer:
         pods = mesh_mod.pod_ranks() if world > 1 else [0]
         self.layout = mesh_mod.world_layout(spec, pods)
         sizes = mesh_mod.mesh_sizes(self.layout)
-        self.mesh = self._data_group = None
+        self.mesh = self._data_group = self._sp_group = None
+        # the ranks that train other rows or other chunks of them: the
+        # step's gradient mean runs over them
+        self._data_ways = sizes["dp"] * sizes["fsdp"] * sizes["sp"]
+        self._data = (None if not dist.is_initialized() or self._data_ways == 1
+                      else AxisGroup(None, dist.get_rank(), self._data_ways))
         if not dist.is_initialized() or not (self.cfg.force_fsdp or any(
                 n > 1 for a, n in sizes.items() if a != "dp")):
             return
         self.mesh = mesh_mod.build_mesh(spec, pods, self.device.type)
-        if sizes["tp"] > 1 and sizes["dp"] * sizes["fsdp"] > 1:
-            # the data ranks of each tp coordinate, one group each (every rank
-            # makes every group, in the same order): the step's gradient mean
-            # when FSDP2 does not take it
+        if sizes["sp"] > 1:
+            self._sp_group = self.mesh.get_group("sp")
+        if sizes["tp"] * sizes["ep"] > 1 and self._data_ways > 1:
+            # the data ranks of each (tp, ep) coordinate, one group each
+            # (every rank makes every group, in the same order): the step's
+            # gradient mean when FSDP2 does not take it
             for t in range(sizes["tp"]):
-                ranks = sorted(int(r) for r in self.layout[..., t, :].reshape(-1))
-                group = dist.new_group(ranks)
-                if dist.get_rank() in ranks:
-                    self._data_group = group
+                for e in range(sizes["ep"]):
+                    ranks = sorted(int(r) for r in self.layout[..., t, e].reshape(-1))
+                    group = dist.new_group(ranks)
+                    if dist.get_rank() in ranks:
+                        self._data_group = group
+                        self._data = AxisGroup(group, ranks.index(dist.get_rank()),
+                                               len(ranks))
         logger.info("mesh %s (rank %d: data rank %d)", sizes, dist.get_rank(), self.data_rank)
 
     def _build_ckpt(self) -> CheckpointManager | None:
@@ -266,6 +283,8 @@ class ElasticTrainer:
             model = shard_init(lambda: model, param_logical, self.mesh, self.cfg.rules,
                                fsdp=self.cfg.force_fsdp or None)
             model.mesh = self.mesh
+        if hasattr(model, "set_data"):
+            model.set_data(self._data)
         return TrainState.create(model, tx, extra)
 
     def restore_or_create(self, init_fn, tx, param_logical=None) -> tuple[TrainState, State]:
@@ -401,10 +420,12 @@ class ElasticTrainer:
         loss, (new_extra, metrics) = self.loss_fn(state.model, state.extra, batch, gen)
         loss.backward()
         loss = loss.detach()
-        if not dist.is_initialized() or self.world_size == 1 < self.processes:
-            pass   # no group, or tp over the whole world: every rank trained the same rows
+        if not dist.is_initialized() or self._data_ways == 1 < self.processes:
+            pass   # no group, or tp/ep over the whole world: every rank trained the same rows
         elif _is_fsdp(state.model):
-            loss = _mean_over_world(None, loss)        # FSDP2 reduced the gradients
+            loss = _mean_over_world(None, loss)        # FSDP2 reduced the gradients over
+            if self._sp_group is not None:             # dp x fsdp; the sp ranks' next
+                _mean_over_world(state.model, None, self._sp_group)
         else:
             loss = _mean_over_world(state.model, loss, self._data_group)
         state.apply_gradients(new_extra)
@@ -979,16 +1000,19 @@ def _is_fsdp(model: torch.nn.Module) -> bool:
     return any(hasattr(p, "to_local") for p in model.parameters())
 
 
-def _mean_over_world(model: torch.nn.Module | None, loss: torch.Tensor,
-                     pg=None) -> torch.Tensor:
-    """Replace every parameter gradient of ``model`` (none for None), and
-    ``loss``, by its mean over the process group ``pg`` (default: the
-    world): one all-reduce per dtype of a flat buffer.  NCCL averages in
-    the collective (its one-rank form premultiplies by 1, so a group of
-    one changes no bit); gloo has no average, so it sums and divides.
-    Every rank must hold gradients for the same parameters."""
-    grads = [] if model is None else [p.grad for p in model.parameters() if p.grad is not None]
-    tensors = grads + [loss.reshape(1)]
+def _mean_over_world(model: torch.nn.Module | None, loss: torch.Tensor | None,
+                     pg=None) -> torch.Tensor | None:
+    """Replace every parameter gradient of ``model`` (none for None; an
+    FSDP2 shard's local tensor), and ``loss`` (none for None), by its mean
+    over the process group ``pg`` (default: the world): one all-reduce per
+    dtype of a flat buffer.  NCCL averages in the collective (its one-rank
+    form premultiplies by 1, so a group of one changes no bit); gloo has no
+    average, so it sums and divides.  Every rank must hold gradients for
+    the same parameters."""
+    grads = [] if model is None else [
+        p.grad.to_local() if hasattr(p.grad, "to_local") else p.grad
+        for p in model.parameters() if p.grad is not None]
+    tensors = grads + ([] if loss is None else [loss.reshape(1)])
     average = dist.get_backend(pg) == "nccl"
     world = dist.get_world_size(pg)
     for dtype in dict.fromkeys(t.dtype for t in tensors):

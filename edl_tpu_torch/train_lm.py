@@ -5,13 +5,19 @@
 
 Same flags as the JAX example minus ``--scan_layers`` (layers are a Python
 loop here), plus ``--device`` (default ``cuda``; ``cpu`` only when asked);
-``--sp``, ``--pp``, ``--ep``, ``--moe`` and ``--attention ring`` raise (not
-ported yet).  The mesh flags are the JAX example's: ``--fsdp`` (FSDP2),
-``--tp`` (0 = auto: 2 when the ranks left by fsdp are even, else 1, chosen
+``--pp`` raises (not ported yet), and so does ``--moe`` with ``--sp`` > 1.
+The mesh flags are the JAX example's: ``--fsdp`` (FSDP2), ``--sp``
+(sequence parallelism: each rank trains a chunk of every sequence, with
+``--attention ring`` over the ring, else with the sequence gathered for
+attention), ``--ep`` (expert parallelism, with ``--moe``), ``--tp`` (0 =
+auto: 2 when the ranks left by fsdp x sp x ep are even, else 1, chosen
 again at each live reshard) and ``--dcn_dp`` (data-parallel replica groups
 across pods; 0 = one per pod when each pod holds the rest of the mesh).
-One process drives one card, so a mesh is over the world's ranks, and the
-tp ranks of one data coordinate read the same rows.  Under the elastic
+``--moe E`` makes every block's MLP E routed experts (``--moe_top_k`` of
+them per token); the loss adds ``--moe_aux_weight`` times the aux loss,
+reported as the metric ``moe_aux``.  One process drives one card, so a
+mesh is over the world's ranks, and the sp, tp and ep ranks of one data
+coordinate read the same rows.  Under the elastic
 launcher (``python -m edl_tpu.collective.launch ...
 edl_tpu_torch/train_lm.py``) one process runs per trainer: the launcher's
 env forms the world (NCCL on the card, gloo on the CPU), names the
@@ -60,10 +66,16 @@ def parse_args(argv=None):
                    help="zero-style parameter sharding axis size (FSDP2)")
     p.add_argument("--dcn_dp", type=int, default=0,
                    help="data-parallel replica groups across pods; 0 = auto (one group per pod)")
-    p.add_argument("--sp", type=int, default=1, help="not ported")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel axis size (each rank a chunk of the sequence)")
     p.add_argument("--pp", type=int, default=1, help="not ported")
-    p.add_argument("--ep", type=int, default=1, help="not ported")
-    p.add_argument("--moe", type=int, default=0, help="not ported")
+    p.add_argument("--moe", type=int, default=0,
+                   help=">0 replaces each block's FFN with this many routed experts, "
+                        "sharded over the ep mesh axis")
+    p.add_argument("--moe_top_k", type=int, default=2)
+    p.add_argument("--moe_aux_weight", type=float, default=0.01)
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel mesh axis size (use with --moe)")
     p.add_argument("--attention", default="auto",
                    choices=["auto", "dense", "splash", "flash", "ring"])
     p.add_argument("--remat", nargs="?", const="on", default="auto",
@@ -76,27 +88,37 @@ def parse_args(argv=None):
     p.add_argument("--ce_block", type=int, default=4096)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    unported = [(args.sp != 1, "--sp"), (args.pp != 1, "--pp"), (args.ep != 1, "--ep"),
-                (args.moe != 0, "--moe"), (args.attention == "ring", "--attention ring")]
-    for asked, flag in unported:
-        if asked:
-            raise NotImplementedError(f"{flag} is not ported to edl_tpu_torch yet "
-                                      f"(ROADMAP.md Queue 1 item 7)")
-    if args.fsdp < 1 or args.tp < 0:
-        raise SystemExit("--fsdp must be >= 1 and --tp >= 0")
+    if args.pp != 1:
+        raise NotImplementedError("--pp is not ported to edl_tpu_torch yet "
+                                  "(ROADMAP.md Queue 1 item 7)")
+    # the JAX example's exits, in its order
+    if args.fsdp < 1 or args.sp < 1 or args.ep < 1:
+        raise SystemExit("--fsdp, --sp and --ep must be >= 1")
+    if args.tp < 0:
+        raise SystemExit("--tp must be >= 0")
+    if args.ep > 1 and not args.moe:
+        raise SystemExit("--ep needs --moe (no expert weights to shard)")
+    if args.moe and args.moe_top_k > args.moe:
+        raise SystemExit(f"--moe_top_k {args.moe_top_k} cannot exceed "
+                         f"--moe {args.moe} experts")
+    if args.moe and args.sp > 1:
+        raise NotImplementedError("--moe with --sp > 1 is not ported: the capacity counts "
+                                  "run over each row's whole sequence (ROADMAP.md Queue 1, "
+                                  "MoE x sp)")
     return args
 
 
 def mesh_spec(args):
     """``world -> MeshSpec``: the JAX example's rule, ``tp`` auto from the
-    ranks left once fsdp takes its share (2 if even), over a world size
-    that a live reshard may change."""
+    ranks left once fsdp, sp and ep take their share (2 if even), over a
+    world size that a live reshard may change."""
     from edl_tpu_torch.parallel.mesh import MeshSpec
 
     def spec(world: int) -> MeshSpec:
-        free = max(1, world // args.fsdp)
+        free = max(1, world // (args.fsdp * args.sp * args.ep))
         tp = args.tp or (2 if free % 2 == 0 else 1)
-        return MeshSpec(dp=-1, fsdp=args.fsdp, tp=tp, dcn_dp=args.dcn_dp)
+        return MeshSpec(dp=-1, fsdp=args.fsdp, tp=tp, sp=args.sp, ep=args.ep,
+                        dcn_dp=args.dcn_dp)
 
     return spec
 
@@ -132,6 +154,7 @@ def build_config(args, device: torch.device):
                             embed_dim=args.embed, num_heads=args.heads,
                             num_kv_heads=args.kv_heads, mlp_dim=args.mlp,
                             max_len=args.seq_len, attention_impl=args.attention,
+                            moe_experts=args.moe, moe_top_k=args.moe_top_k,
                             dtype=torch.bfloat16 if device.type == "cuda"
                             else torch.float32)
     auto = auto_layout(cfg, args.batch_size, args.seq_len, device=device)
@@ -139,28 +162,45 @@ def build_config(args, device: torch.device):
         auto.remat if args.remat == "auto" else args.remat == "on"))
 
 
+def _inputs(model, ids):
+    """``(inputs, targets)`` of next-token prediction on ``ids [B, L+1]``:
+    under sp this rank's chunk of each (``parallel/sharding.py:seq_chunk``)."""
+    from edl_tpu_torch.parallel.sharding import seq_chunk
+
+    sp = getattr(model, "sp", None)
+    return seq_chunk(ids[:, :-1], sp), seq_chunk(ids[:, 1:], sp)
+
+
 def make_loss_fn(args):
     """``loss_fn(model, extra, batch, gen)`` for the trainer: next-token CE
-    of ``batch["ids"]``, fused or over the full logits."""
+    of ``batch["ids"]``, fused or over the full logits, plus
+    ``--moe_aux_weight`` times the MoE aux loss (metric ``moe_aux``)."""
     from edl_tpu_torch.models.transformer import lm_loss
 
     def loss_fn(model, extra, batch, gen):
-        ids = batch["ids"]
+        ids, targets = _inputs(model, batch["ids"])
         if args.fused_ce:
             # the fused loss inside the forward, where FSDP2 gathered the head
-            loss = model(ids[:, :-1], targets=ids[:, 1:], ce_block=args.ce_block).mean()
+            nll, aux = model(ids, targets=targets, ce_block=args.ce_block, with_aux=True)
+            loss = nll.mean()
         else:
-            loss = lm_loss(model(ids[:, :-1]), ids[:, 1:])
-        return loss, (extra, {})
+            logits, aux = model(ids, with_aux=True)
+            loss = lm_loss(logits, targets)
+        metrics = {}
+        if args.moe:
+            loss = loss + args.moe_aux_weight * aux
+            metrics["moe_aux"] = aux.detach()
+        return loss, (extra, metrics)
 
     return loss_fn
 
 
 def metric_fn(model, extra, batch):
-    """Per-example mean token NLL over the full logits."""
-    ids = batch["ids"]
-    logp = torch.log_softmax(model(ids[:, :-1]).float(), dim=-1)
-    tok = logp.gather(-1, ids[:, 1:].long()[..., None])[..., 0]
+    """Per-example mean token NLL over the full logits (under sp, of this
+    rank's chunk: the ranks' means average to the whole's)."""
+    ids, targets = _inputs(model, batch["ids"])
+    logp = torch.log_softmax(model(ids).float(), dim=-1)
+    tok = logp.gather(-1, targets.long()[..., None])[..., 0]
     return {"nll": -tok.mean(dim=-1)}
 
 

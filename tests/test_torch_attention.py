@@ -233,8 +233,11 @@ def test_impl_names_rejected_like_jax():
     # flash runs (its plain versions on CPU tensors), as the JAX package's does
     flash = tattn.dot_product_attention(q, q, q, impl="flash")
     torch.testing.assert_close(flash, tattn.dense_attention(q, q, q), atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tattn.dot_product_attention(q, q, q, impl="ring")
+    # ring runs (ops/ring.py); with no sp group it is a ring of one rank,
+    # the JAX ring over an sp axis of 1
+    ring = tattn.dot_product_attention(q, q, q, causal=True, impl="ring")
+    torch.testing.assert_close(ring, tattn.dense_attention(q, q, q, causal=True),
+                               atol=1e-6, rtol=0)
 
 
 def test_kernel_gate():

@@ -74,6 +74,8 @@ MESH_MODULES = (
 # channel (the engine, the paged pool, the teacher and the entry points that
 # drive it are listed above)
 SERVING_TP_MODULES = ("edl_tpu_torch.serving.spmd",)
+# the modules of the MoE and sequence-parallel slice
+MOE_SP_MODULES = ("edl_tpu_torch.ops.moe", "edl_tpu_torch.ops.ring")
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -107,7 +109,7 @@ print(sorted(set(bad()) - before))
                                     + DATA_SERVICE_MODULES + DISTILL_MODULES
                                     + FLEET_MODULES + RESHARD_MODULES
                                     + FLEET_LEADER_MODULES + MESH_MODULES
-                                    + SERVING_TP_MODULES) <= set(names), names
+                                    + SERVING_TP_MODULES + MOE_SP_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 

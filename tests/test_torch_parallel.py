@@ -111,7 +111,7 @@ def test_shard_host_batch_and_constraint():
 def test_matmul_psum_over_tp_mesh():
     """A tp-split contraction: each rank's partial product over its slice of
     the contracted dim sums to the single-device product (the all-reduce
-    that reduce_from_tp runs)."""
+    that reduce_from runs)."""
     layout = mesh_layout(MeshSpec(dp=1, tp=8), 8)
     x = np.random.default_rng(0).normal(size=(4, 16)).astype(np.float32)
     w = np.random.default_rng(1).normal(size=(16, 32)).astype(np.float32)
@@ -189,10 +189,20 @@ def test_lm_logical_rules_and_head_split_boxes():
 @pytest.mark.parametrize("flag", [["--sp", "2"], ["--pp", "2"], ["--ep", "2"], ["--moe", "4"],
                                   ["--attention", "ring"]])
 def test_train_lm_unported_mesh_flags_raise(flag):
+    """``--pp`` is the one mesh flag still refused; ``--ep`` without
+    ``--moe`` exits with the JAX example's message; the others parse."""
     from edl_tpu_torch import train_lm
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        train_lm.parse_args(["--device", "cpu"] + flag)
+    argv = ["--device", "cpu"] + flag
+    if flag[0] == "--pp":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+            train_lm.parse_args(argv)
+    elif flag[0] == "--ep":
+        with pytest.raises(SystemExit, match="--ep needs --moe"):
+            train_lm.parse_args(argv)
+    else:
+        args = train_lm.parse_args(argv)
+        assert (args.sp, args.moe, args.attention) != (1, 0, "auto")
 
 
 @pytest.mark.parametrize("flags,world,want", [

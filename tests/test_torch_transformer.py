@@ -16,6 +16,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from edl_tpu.models import transformer as jtf
 from edl_tpu_torch.models import transformer as ttf
 from edl_tpu_torch.models.convert import params_from_jax, params_to_jax
+from edl_tpu_torch.parallel.tp import SP
 
 SMALL = dict(num_layers=2, embed_dim=128, num_heads=2, mlp_dim=256, max_len=64)
 
@@ -211,5 +212,7 @@ def test_unported_modes_raise():
     decode = ttf.TransformerLM(ttf.TransformerConfig(decode=True, vocab_size=64, **SMALL))
     with pytest.raises(ValueError, match="KVCache"):
         decode(torch.zeros((1, 4), dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        ttf.TransformerLM(ttf.TransformerConfig(moe_experts=4))
+    # MoE is ported (tests/test_torch_moe.py); MoE over sp is not
+    moe = ttf.TransformerLM(ttf.TransformerConfig(moe_experts=4, vocab_size=64, **SMALL))
+    with pytest.raises(NotImplementedError, match="MoE x sp"):
+        moe.set_sp(SP(None, 0, 2))
