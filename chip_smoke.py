@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases build,mesh
     python3 chip_smoke.py --phases build,meshserve
     python3 chip_smoke.py --phases build,moe,ring
+    python3 chip_smoke.py --phases build,pp
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -47,7 +48,8 @@ failure exits non-zero:
    phase's ``[8, 1024, 3, 256]``, at the ``d384`` phase's ``[8, 1024,
    2, 384]``, at the ``d768`` phase's ``[8, 1024, 1, 768]`` and at the
    ``meshserve`` phase's tp-2 teacher's ``[8, 1024, 3, 128]`` a rank; and,
-   untimed, at the ``ring`` phase's gathered sequence, ``[4, 2048, 6, 128]``.
+   untimed, at the ``ring`` phase's gathered sequence, ``[4, 2048, 6, 128]``,
+   and at the ``pp`` phase's microbatch, ``[2, 1024, 6, 128]``.
 3. ``parity``: one training step of small bf16 configs on the card (with
    the kernels) and on the CPU (plain path) from the same weights: the
    splash path at head dims 128, 192, 256, 384 and 768, and the flash path
@@ -93,6 +95,10 @@ failure exits non-zero:
    (losses, BN running stats, parameters; cuDNN deterministic for both),
    and a step's profile holds only the gradient reduction's NCCL kernels;
    img/s with and without the group.
+   ``--dgc 0.99``: one step's gradients through the DGC transform on the
+   card and on the CPU (the sent, residual and momentum tensors to
+   ``DGC_TOL``, sent + residual equal to the accumulation), then img/s over
+   5 timed steps beside the plain SGD's.
    The native record library builds and round-trips 1,000 records; the
    JPEG pipeline's host img/s is timed only where ``cv2`` imports.
 10. ``resume``: save at an epoch's end, drop the trainer, restore a new one
@@ -288,7 +294,20 @@ failure exits non-zero:
    whole sequence), 3 steps each against one process's splash run (the
    losses to ``SPLIT_LOSS_RTOL``, the step-1 gradients to
    ``SP_GRAD_RTOL``, bf16), and a step with each hop of the ring and
-   each gloo all-reduce timed: ms a hop, bytes rotated a step.
+   each gloo all-reduce timed: ms a hop, bytes rotated a step.  (c) The
+   MoE flagship (``--moe 8 --moe_top_k 2``) at sp 2 on the gathered path
+   against one process: the losses (``SPLIT_LOSS_RTOL``), both runs' drops
+   (to ``MOE_SP_DROPS_RTOL`` of each other) and aux.
+21. ``pp``: the flagship's blocks pipelined over pp = 2 (GPipe, 4
+   microbatches): two processes on the one card over gloo, 6 layers each,
+   against the same model in one process at pp 1: 3 steps' losses
+   (``SPLIT_LOSS_RTOL``), step 1's gradients of the stage-cut leaves, the
+   embedding and the head (``SP_GRAD_RTOL``), 24 splash launches of each
+   kernel a rank a step and no library attention, wall and device ms a
+   step and the bytes handed between stages; then the pp-2 checkpoint
+   resumed at pp 1: the step, every restored parameter and AdamW moment
+   equal to the pp-2 ranks' saved ones, and the next loss within
+   ``PP_RESUME_ATOL`` of theirs.
 
 It then prints the card's ``nvidia-smi`` name and power limit, one line
 ``{"kernels": [...]}``, and, last, ``{"ok": true, "device": {...}}``.
@@ -309,7 +328,7 @@ from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
           "resume", "data", "elastic", "serve", "fleet", "distill", "reshard", "mesh",
-          "meshserve", "moe", "ring")
+          "meshserve", "moe", "ring", "pp")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -323,6 +342,7 @@ D384_SHAPE = (8, 1024, 2, 384)         # the d384 phase's attention
 D768_SHAPE = (8, 1024, 1, 768)         # the d768 phase's attention
 TP_SHAPE = (8, 1024, 3, 128)           # the meshserve phase's tp-2 teacher, a rank's heads
 RING_SHAPE = (4, 2048, 6, 128)         # the ring phase's gathered sp path: the whole sequence
+PP_MICROBATCH_SHAPE = (2, 1024, 6, 128)  # the pp phase: one of a stage's 4 microbatches
 RAGGED_SHAPES = ((2, 200, 4, 64), (1, 77, 2, 128), (1, 17, 2, 64),
                  (2, 256, 4, 192), (2, 256, 4, 256), (1, 77, 2, 192), (1, 77, 2, 256),
                  (2, 256, 2, 320), (1, 77, 2, 320), (1, 200, 2, 320),
@@ -831,6 +851,8 @@ def phase_kernels(ctx) -> None:
     tp = check_kernels(TP_SHAPE, seed=6, timed=True)
     record(check_kernels(RING_SHAPE, seed=7, timed=False), RING_SHAPE, path="splash",
            used_by="ring (b): sp 2 with the sequence gathered")
+    record(check_kernels(PP_MICROBATCH_SHAPE, seed=99, timed=False), PP_MICROBATCH_SHAPE,
+           path="splash", used_by="pp: a stage's microbatch of 2 rows")
     for path, r, causal, shape in (("splash", res, True, FLAGSHIP_SHAPE),
                                    ("flash", flash, False, FLAGSHIP_SHAPE),
                                    ("splash", d256, True, D256_SHAPE),
@@ -1263,6 +1285,108 @@ def _resnet_steps() -> dict:
     return out
 
 
+DGC_SPARSITY = 0.99
+DGC_TOL = 1e-6       # the card's sent, residual and momentum against the CPU's
+DGC_WARMUP, DGC_TIMED = 2, 5
+
+
+def _dgc_card_vs_cpu(model, wd: float, momentum: float) -> dict:
+    """One ResNet50 step's gradients (in ``model``'s ``.grad``) through the
+    DGC transform twice (the second sees a residual and a momentum), on the
+    card and on the CPU from the same tensors: the largest difference of
+    the sent, residual and momentum tensors, and whether ``sent + residual``
+    is the accumulation exactly on the card."""
+    import torch
+
+    from edl_tpu_torch.train.compress import DGC, _effective_sparsity
+
+    named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+
+    def copy(dev):
+        out = []
+        for _, p in named:
+            q = torch.nn.Parameter(p.detach().float().to(dev, copy=True))
+            q.grad = p.grad.detach().float().to(dev, copy=True)
+            out.append(q)
+        return out
+
+    card, cpu = copy("cuda"), copy("cpu")
+    opts = [DGC(ps, lr=0.1, sparsity=DGC_SPARSITY, momentum=momentum, weight_decay=wd)
+            for ps in (card, cpu)]
+    denom = torch.tensor(DGC_SPARSITY, dtype=torch.float32)
+    errs = {"sent": 0.0, "residual": 0.0, "momentum": 0.0}
+    exact, sent_frac, t_card = True, [], 0.0
+    torch.set_grad_enabled(False)       # as in the optimizer's step
+    for step in (1, 2):
+        eff = _effective_sparsity(DGC_SPARSITY, 0, step)
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            sa = opts[0].state[a]
+            res0, mom0 = (sa["residual"].clone(), sa["momentum"].clone()) if sa else (
+                torch.zeros_like(a), torch.zeros_like(a))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sent_a = opts[0]._compress(a, opts[0].param_groups[0], eff.cuda(), denom.cuda())
+            torch.cuda.synchronize()
+            t_card += time.perf_counter() - t0
+            sent_b = opts[1]._compress(b, opts[1].param_groups[0], eff, denom)
+            acc = res0 + (mom0 * momentum + (a.grad + a * wd))
+            if a.numel() >= 129:
+                exact &= bool(torch.equal(sent_a + opts[0].state[a]["residual"], acc))
+            sent_frac.append(float((sent_a != 0).float().mean()))
+            for key, x, y in (("sent", sent_a, sent_b),
+                              ("residual", opts[0].state[a]["residual"], opts[1].state[b]["residual"]),
+                              ("momentum", opts[0].state[a]["momentum"], opts[1].state[b]["momentum"])):
+                errs[key] = max(errs[key], float((x.cpu() - y).abs().max()))
+    torch.set_grad_enabled(True)
+    return {"max_abs_err": errs, "sent_plus_residual_is_acc": exact, "leaves": len(named),
+            "sent_share_max": max(sent_frac), "card_transform_ms": t_card / 2 * 1e3}
+
+
+def _resnet_dgc(plain_img_s: float) -> dict:
+    """``train_resnet --dgc 0.99``'s chain on ResNet50 at bs 128: one step,
+    its gradients through the DGC transform on the card and on the CPU
+    (:func:`_dgc_card_vs_cpu`), then 2 warm-up and 5 timed steps, img/s
+    beside the plain SGD's."""
+    import torch
+
+    from edl_tpu_torch import train_resnet
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+
+    args = train_resnet.parse_args(RESNET_ARGS + ["--dgc", str(DGC_SPARSITY)])
+    device = torch.device("cuda")
+    init_fn, trainer, tx, _ = train_resnet.build_trainer(args, device, steps_per_epoch=100)
+    state = trainer.create_state(init_fn, tx)
+    batch = _resnet_batch(args.batch_size, args.image_size, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(3)
+    state, metrics = trainer.step_fn(state, batch, gen)
+    check = _dgc_card_vs_cpu(state.model, args.weight_decay, args.momentum)
+    losses = [float(metrics["loss"])]
+    for _ in range(DGC_WARMUP):
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DGC_TIMED):
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    out = {"nvidia_smi": smi_name_and_power_limit(), "sparsity": DGC_SPARSITY,
+           "optimizer": type(state.optimizer).__name__, "tol": DGC_TOL, **check,
+           "img_s_per_card": args.batch_size * DGC_TIMED / dt,
+           "wall_ms_per_step": dt / DGC_TIMED * 1e3, "plain_sgd_img_s_per_card": plain_img_s,
+           "losses": losses}
+    log("resnet_dgc", **out)
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    if max(check["max_abs_err"].values()) > DGC_TOL or not check["sent_plus_residual_is_acc"]:
+        raise AssertionError(f"DGC on the card is not the CPU's: {check}")
+    if out["optimizer"] != "DGC" or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_resnet --dgc: {out['optimizer']}, losses {losses}")
+    return out
+
+
 def _resnet_remat(plain: dict) -> dict:
     """``--remat``: one step from the same weights on the same batch with and
     without it (the same loss, the same BN running stats: the recomputed
@@ -1646,14 +1770,16 @@ def _resnet_native(root) -> dict:
 
 
 def phase_resnet(ctx) -> None:
-    """ResNet50 training on the card: step timing, the uint8 path, BN in an
-    NCCL group of one, ``--remat``, the card against the CPU, a checkpoint
-    round trip, and the native record library."""
+    """ResNet50 training on the card: step timing, ``--dgc`` (its transform
+    against the CPU's, its steps timed), the uint8 path, BN in an NCCL
+    group of one, ``--remat``, the card against the CPU, a checkpoint round
+    trip, and the native record library."""
     import shutil
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_resnet"
     shutil.rmtree(root, ignore_errors=True)
     try:
         ctx["resnet"] = _resnet_steps()
+        _resnet_dgc(ctx["resnet"]["img_s_per_card"])
         _resnet_group_of_one(ctx["resnet"]["img_s_per_card"])
         _resnet_remat(ctx["resnet"])
         _resnet_card_vs_cpu()
@@ -4883,34 +5009,39 @@ def _pair_world(rank: int, port: int):
 
 
 def _train_steps(args, device, batch, steps, timed_step=None, logical=True,
-                 on_grads=None) -> dict:
+                 on_grads=None, probe=None) -> dict:
     """``steps`` steps of train_lm's trainer on a fixed batch: the losses,
-    wall ms and launch counts; ``timed_step(step_fn)`` runs one more step
-    its own way and its result is kept; ``on_grads(grads)`` is given the
-    step-1 gradients of every parameter (f32 on the host, whole: for
-    models that no tp, ep or fsdp cuts) and its result kept."""
+    wall ms, launch counts and the ``moe_aux`` metric of each step (MoE);
+    ``timed_step(step_fn)`` runs one more step its own way and its result
+    is kept; ``on_grads(grads)`` is given the step-1 gradients of every
+    parameter (f32 on the host, whole: for models that no tp, ep or fsdp
+    cuts) and its result kept; ``probe(model, batch)`` runs before the
+    first step and its result is kept."""
     import torch
 
     from edl_tpu_torch import train_lm
-    from edl_tpu_torch.models.transformer import LOGICAL_RULES
     from edl_tpu_torch.ops import attention as A
     _, trainer, init_fn, tx = train_lm.build_trainer(args, device)
-    state = trainer.create_state(init_fn, tx, LOGICAL_RULES if logical else None)
+    state = trainer.create_state(init_fn, tx, train_lm.logical_rules(args) if logical else None)
     gen = torch.Generator(device=device).manual_seed(3)
+    probed = probe(state.model, batch) if probe is not None else None
     A.reset_launch_counts()
-    losses, wall, step1 = [], [], None
+    losses, wall, auxes, step1 = [], [], [], None
     for step in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = trainer.step_fn(state, batch, gen)
         losses.append(float(metrics["loss"]))
         wall.append((time.perf_counter() - t0) * 1e3)
+        if "moe_aux" in metrics:
+            auxes.append(float(metrics["moe_aux"]))
         if step == 0 and on_grads is not None:
             step1 = on_grads({n: p.grad.float().cpu()
                               for n, p in state.model.named_parameters()})
     out = {"losses": losses, "wall_ms": wall, "launches": A.launch_counts(),
-           "mesh": train_lm._mesh(trainer), "step1_grads": step1}
-    if state.model.layers[0].cfg.moe_experts:
+           "mesh": train_lm._mesh(trainer), "step1_grads": step1, "moe_aux": auxes,
+           "probe": probed}
+    if state.model.cfg.moe_experts:
         out["w_in_local"] = list(state.model.layers[0].moe.w_in.shape)
     if timed_step is not None:
         out["timed"] = timed_step(lambda: trainer.step_fn(state, batch, gen))
@@ -5138,6 +5269,26 @@ RING_STEPS = 3
 # is rounded to bf16 before the all-reduce adds them), the embedding's
 # both times (PERF.md §6); 3e-2 is twice the larger
 SP_GRAD_RTOL = 3e-2
+# (c): the MoE flagship at the ring phase's shape; the MoE layers' dropped
+# assignments on the batch before the first step, sp 2 against one process,
+# to 1% of each other (the router reads hidden states that bf16 rounds
+# differently on the two paths, so a choice near a tie may flip)
+MOE_SP_ARGS = ["--moe", str(MOE_E), "--moe_top_k", str(MOE_K)]
+MOE_SP_DROPS_RTOL = 1e-2
+
+
+def _moe_drops(model, batch) -> int:
+    """The MoE layers' dropped assignments on ``batch``'s inputs, one
+    forward without gradients (under sp, the whole sequence's, the same on
+    every sp rank)."""
+    import torch
+
+    from edl_tpu_torch import train_lm
+    ids, _ = train_lm._inputs(model, batch["ids"])
+    drops = torch.zeros((), dtype=torch.int32, device=ids.device)
+    with torch.no_grad():
+        model(ids, return_hidden=True, drops=drops)
+    return int(drops)
 
 
 def _grads_against(path: str):
@@ -5159,7 +5310,9 @@ def _ring_rank(rank: int, port: int, root: str) -> None:
     """One rank of sp = 2 over gloo on cuda:0: (a) ring attention, then (b)
     the gathered sequence through the splash kernels, 3 steps each (rank
     0 holds the step-1 gradients against one process's) and one more with
-    its collectives timed.  Writes ``root/ring<rank>.json``."""
+    its collectives timed, then (c) the MoE LM on the gathered path (its
+    drops before the first step, its aux each step).  Writes
+    ``root/ring<rank>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -5167,7 +5320,8 @@ def _ring_rank(rank: int, port: int, root: str) -> None:
     from edl_tpu_torch.ops import ring
     device = _pair_world(rank, port)
     out = {}
-    for mode, extra in (("ring", ["--attention", "ring"]), ("gathered", [])):
+    for mode, extra in (("ring", ["--attention", "ring"]), ("gathered", []),
+                        ("moe", MOE_SP_ARGS)):
         args = train_lm.parse_args(RING_ARGS + ["--sp", "2"] + extra)
         batch = {"ids": torch.from_numpy(_moe_batch(args)).to(device)}
 
@@ -5198,9 +5352,11 @@ def _ring_rank(rank: int, port: int, root: str) -> None:
                     "bytes_rotated": hops[2], "gloo_all_reduce_ms": spent["all_reduce"][0] * 1e3,
                     "all_reduces": spent["all_reduce"][1]}
 
+        moe = mode == "moe"
         out[mode] = _train_steps(args, device, batch, RING_STEPS, timed,
                                  on_grads=_grads_against(f"{root}/plain_grads.pt")
-                                 if rank == 0 else None)
+                                 if rank == 0 and not moe else None,
+                                 probe=_moe_drops if moe else None)
     with open(f"{root}/ring{rank}.json", "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -5210,7 +5366,10 @@ def phase_ring(ctx) -> None:
     """Sequence parallelism at the flagship's width, seq 2048, batch 4, 2
     layers: sp = 2 over gloo on the one card with (a) ring attention and
     (b) the gathered sequence, each against one process's splash run: the
-    losses of 3 steps and the step-1 gradients."""
+    losses of 3 steps and the step-1 gradients; (c) the MoE flagship
+    (``--moe 8 --moe_top_k 2``) at sp 2 on the gathered path against one
+    process: the losses, the drops (the capacity counts of the whole
+    sequence) and the aux."""
     import shutil
 
     import torch
@@ -5226,6 +5385,10 @@ def phase_ring(ctx) -> None:
                            {"ids": torch.from_numpy(_moe_batch(args)).cuda()}, RING_STEPS,
                            logical=False,
                            on_grads=lambda g: torch.save(g, root / "plain_grads.pt"))
+        margs = train_lm.parse_args(RING_ARGS + MOE_SP_ARGS)
+        one_moe = _train_steps(margs, torch.device("cuda", 0),
+                               {"ids": torch.from_numpy(_moe_batch(margs)).cuda()}, RING_STEPS,
+                               logical=False, probe=_moe_drops)
         _spawn_pair("_ring_rank", root)
         ranks = [json.loads((root / f"ring{r}.json").read_text()) for r in range(2)]
         out = {"nvidia_smi": smi_name_and_power_limit(), "splash_losses": one["losses"],
@@ -5254,6 +5417,296 @@ def phase_ring(ctx) -> None:
                 raise AssertionError(f"sp 2 ({mode}) kernel launches: {launches}")
         if out["ring"]["timed_step"][0]["hops"] == 0:
             raise AssertionError("the ring rotated nothing")
+        runs = [r["moe"] for r in ranks]
+        rel = max(abs(a - b) / abs(b) for r in runs for a, b in zip(r["losses"], one_moe["losses"]))
+        drops = [r["probe"] for r in runs]
+        moe = {"losses": [r["losses"] for r in runs], "one_losses": one_moe["losses"],
+               "loss_rel_max": rel, "drops": drops, "one_drops": one_moe["probe"],
+               "drops_rtol": MOE_SP_DROPS_RTOL, "aux": [r["moe_aux"] for r in runs],
+               "one_aux": one_moe["moe_aux"], "wall_ms": [r["wall_ms"] for r in runs],
+               "one_wall_ms": one_moe["wall_ms"], "launches": runs[0]["launches"],
+               "mesh": runs[0]["mesh"], "timed_step": [r["timed"] for r in runs]}
+        log("ring", moe_sp=moe)
+        if rel > SPLIT_LOSS_RTOL or moe["losses"][0] != moe["losses"][1]:
+            raise AssertionError(f"MoE at sp 2: the losses are not one process's: {moe}")
+        if drops[0] != drops[1] or abs(drops[0] - one_moe["probe"]) > \
+                MOE_SP_DROPS_RTOL * max(drops[0], one_moe["probe"]):
+            raise AssertionError(f"MoE at sp 2: the drops are not one process's: {moe}")
+        want = RING_STEPS * 2
+        if moe["mesh"]["sp"] != 2 or moe["launches"] != {
+                n: want if n in SPLASH_WRAPPERS else 0 for n in moe["launches"]}:
+            raise AssertionError(f"MoE at sp 2: mesh {moe['mesh']}, launches {moe['launches']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# -- phase 21 --------------------------------------------------------------------
+
+# the flagship pipelined over pp = 2: the unfused loss (the pp adapter's head)
+PP_ARGS = [a for a in FLAGSHIP_ARGS if a != "--fused_ce"] + ["--pp_microbatches", "4"]
+PP_STEPS = 3
+PP_M = 4
+# the next loss at pp 1 against pp 2's, from the same weights and moments:
+# each row goes through the same kernels (at pp 1 on the whole batch), and
+# runs on the H100 read them equal to the bit, 5.9924235343933105 (a
+# loss near 6: the limit is about two f32 ulps)
+PP_RESUME_ATOL = 1e-6
+
+
+def _pp_step1(state, ref_path: str, rank: int, stages: int) -> dict:
+    """This pp rank's step-1 gradients against the one process's (saved at
+    ``ref_path``), in relative norm: its run of each stage-cut leaf, and
+    the embedding and the head whole."""
+    import torch
+    want = torch.load(ref_path, weights_only=True)
+    errs = {}
+    for n, p in state.model.named_parameters():
+        g = p.grad.float().cpu()
+        ref = want[n]
+        if n.startswith("layers."):
+            per = ref.shape[0] // stages
+            ref = ref[rank * per:(rank + 1) * per]
+        if n.startswith(("layers.", "embed.", "head.")):
+            errs[n] = rel_err(g, ref)
+    return {"grad_rel_err_max": max(errs.values()),
+            "grad_rel_err_worst": sorted(errs.items(), key=lambda kv: -kv[1])[:3],
+            "grad_leaves": len(errs)}
+
+
+def _pp_digests(state, rank: int | None = None, stages: int = 1) -> dict:
+    """A SHA-256 of every parameter and of each tensor of its optimizer
+    state (AdamW's moments and count), by leaf name.  With ``rank``, a
+    stage-cut leaf (``layers.*``) of a pp-1 model is cut to that rank's
+    stage first, so a restore compares with what each pp rank saved."""
+    import hashlib
+
+    import torch
+
+    def digest(t, cut):
+        if cut and rank is not None and t.dim() > 0:
+            per = t.shape[0] // stages
+            t = t[rank * per:(rank + 1) * per]
+        raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()
+        return hashlib.sha256(raw.tobytes()).hexdigest()
+
+    out = {}
+    for n, p in state.model.named_parameters():
+        cut = n.startswith("layers.")
+        out[n] = {"param": digest(p, cut)}
+        for k, v in sorted(state.optimizer.state.get(p, {}).items()):
+            if torch.is_tensor(v):
+                out[n][k] = digest(v, cut)
+    return out
+
+
+def _pp_rank(rank: int, port: int, root: str) -> None:
+    """One stage of pp = 2 over gloo on cuda:0 (6 of the 12 layers): 3
+    steps (step 1's gradients against one process's), one more with the
+    bytes and time of the stage hand-offs and of the gloo calls, a
+    profiled step, then a checkpoint and the loss of the step after it.
+    Writes ``root/pp<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.cluster.state import State
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.ops import pipeline
+    from edl_tpu_torch.train.checkpoint import CheckpointManager
+    device = _pair_world(rank, port)
+    args = train_lm.parse_args(PP_ARGS + ["--pp", "2"])
+    cfg, trainer, init_fn, tx = train_lm.build_trainer(args, device)
+    state = trainer.create_state(init_fn, tx, train_lm.PIPELINE_LOGICAL_RULES)
+    batch = {"ids": torch.from_numpy(_mesh_batch(args)).to(device)}
+    gen = torch.Generator(device=device).manual_seed(3)
+    out = {"rank": rank, "mesh": train_lm._mesh(trainer), "remat": cfg.remat,
+           "microbatches": args.pp_microbatches,
+           "qkv_local": list(state.model.layers.attn_qkv.weight.shape)}
+    A.reset_launch_counts()
+    losses, wall = [], []
+    for step in range(PP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if step == 0:
+            out["step1"] = _pp_step1(state, f"{root}/pp_plain_grads.pt", rank, 2)
+    out["launches"], out["losses"], out["wall_ms"] = A.launch_counts(), losses, wall
+    # one step with the hand-offs (stage to stage, each way) counted and timed
+    sent = [0.0, 0, 0]
+    plain = pipeline.exchange
+
+    def exchange(group, send=None, dst=None, like=None, src=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = plain(group, send, dst, like, src)
+        torch.cuda.synchronize()
+        sent[0] += time.perf_counter() - t0
+        sent[1] += 1
+        sent[2] += 0 if send is None else send.numel() * send.element_size()
+        return got
+
+    pipeline.exchange = exchange
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, spent = _timed_collectives(lambda: trainer.step_fn(state, batch, gen),
+                                      names=("all_reduce", "broadcast"))
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pipeline.exchange = plain
+    out["timed_step"] = {"wall_ms": step_ms, "handoffs": sent[1],
+                         "handoff_ms": sent[0] * 1e3, "bytes_sent_between_stages": sent[2],
+                         "gloo_broadcast_ms": spent["broadcast"][0] * 1e3,
+                         "broadcasts": spent["broadcast"][1],
+                         "gloo_all_reduce_ms": spent["all_reduce"][0] * 1e3,
+                         "all_reduces": spent["all_reduce"][1]}
+    rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=1)
+    out["profile_attention_calls_per_step"] = {
+        k: sum(n for _, key, n in rows if re.search(rf"::{k}[<(]", key))
+        for k in A.device_kernels(cfg.head_dim)}
+    out["profile_library_attention"] = [r[1][:100] for r in rows
+                                        if any(t in r[1].lower() for t in LIBRARY_ATTENTION)]
+    out["device_busy_ms_per_step"] = sum(us for us, _, _ in rows) / 1e3
+    meta = State(total_batch_size=trainer.cfg.global_batch_size)
+    meta.record_epoch(0, trainer.world_size, state.step, 0.0)
+    out["saved"] = CheckpointManager(f"{root}/ckpt").save(state.step, state, meta)
+    out["saved_step"] = state.step
+    out["saved_digests"] = _pp_digests(state)
+    out["loss_next"] = float(trainer.step_fn(state, batch, gen)[1]["loss"])
+    with open(f"{root}/pp{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _pp1_init(cfg, args):
+    """The pipelined LM from seed-0 weights at pp 1 (``build_trainer``
+    builds a ``TransformerLM`` there, as the JAX example does)."""
+    import torch
+
+    from edl_tpu_torch import train_lm
+
+    def init_fn():
+        return train_lm.PipelinedLM(cfg, args.pp_microbatches,
+                                    torch.Generator().manual_seed(0)), None
+    return init_fn
+
+
+def _pp_plain(root) -> dict:
+    """The pipelined LM in one process at pp 1 (its stages in sequence, the
+    batch whole): 3 steps' losses, the step-1 gradients (written for the
+    ranks) and wall ms a step."""
+    import torch
+
+    from edl_tpu_torch import train_lm
+    args = train_lm.parse_args(PP_ARGS)
+    device = torch.device("cuda", 0)
+    cfg, trainer, _, tx = train_lm.build_trainer(args, device)
+    state = trainer.create_state(_pp1_init(cfg, args), tx)
+    batch = {"ids": torch.from_numpy(_mesh_batch(args)).to(device)}
+    gen = torch.Generator(device=device).manual_seed(3)
+    losses, wall = [], []
+    for step in range(PP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if step == 0:
+            torch.save({n: p.grad.float().cpu() for n, p in state.model.named_parameters()},
+                       root / "pp_plain_grads.pt")
+    rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=1)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "wall_ms": wall,
+            "device_busy_ms_per_step": sum(us for us, _, _ in rows) / 1e3}
+
+
+def _pp_resume(root, ranks, digests) -> dict:
+    """The pp-2 checkpoint restored by one process at pp 1: its step, every
+    parameter and optimizer-state tensor against what the pp-2 ranks held
+    when they saved (``digests``: each rank's stage of a stage-cut leaf,
+    rank 0's of a replicated one), and the next step's loss against the
+    pp-2 ranks'."""
+    import torch
+
+    from edl_tpu_torch import train_lm
+    args = train_lm.parse_args(PP_ARGS)
+    device = torch.device("cuda", 0)
+    cfg, trainer, _, tx = train_lm.build_trainer(args, device, str(root / "ckpt"))
+    state, _ = trainer.restore_or_create(_pp1_init(cfg, args), tx,
+                                         train_lm.PIPELINE_LOGICAL_RULES)
+    restored = state.step
+    got = [_pp_digests(state, r, 2) for r in range(2)]
+    differ = sorted(f"{n}.{k}@rank{r}" for r in range(2)
+                    for n, want in digests[r].items()
+                    for k, h in want.items()
+                    if (n.startswith("layers.") or r == 0) and got[r].get(n, {}).get(k) != h)
+    leaves = sum(len(v) for v in digests[0].values())
+    # a leaf the pp ranks both hold must be equal on both
+    replicas_differ = sorted(n for n, want in digests[0].items()
+                             if not n.startswith("layers.") and digests[1].get(n) != want)
+    batch = {"ids": torch.from_numpy(_mesh_batch(args)).to(device)}
+    loss = float(trainer.step_fn(state, batch, torch.Generator(device=device).manual_seed(3))[1]
+                 ["loss"])
+    out = {"step": restored, "sharded": state.sharded, "tensors_saved_by_rank_0": leaves,
+           "tensors_differ": differ, "replicated_leaves_differ": replicas_differ,
+           "loss_next_pp1": loss, "loss_next_pp2": ranks[0]["loss_next"],
+           "atol": PP_RESUME_ATOL}
+    del trainer, state
+    torch.cuda.empty_cache()
+    if out["step"] != ranks[0]["saved_step"] or not leaves or differ or replicas_differ \
+            or abs(loss - ranks[0]["loss_next"]) > PP_RESUME_ATOL:
+        raise AssertionError(f"the pp-2 checkpoint did not resume at pp 1: {out}")
+    return out
+
+
+def phase_pp(ctx) -> None:
+    """The flagship's blocks pipelined over pp = 2 (GPipe, 4 microbatches):
+    two processes on the one card over gloo, 6 layers each, against the
+    same model in one process (pp 1): 3 steps' losses, the step-1
+    gradients of the stage-cut leaves and of the embedding and head, the
+    splash launches per rank (4 microbatches x 6 layers a step each, no
+    library attention), then the pp-2 checkpoint resumed at pp 1."""
+    import shutil
+
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_pp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        plain = _pp_plain(root)
+        _spawn_pair("_pp_rank", root)
+        ranks = [json.loads((root / f"pp{r}.json").read_text()) for r in range(2)]
+        digests = [r.pop("saved_digests") for r in ranks]
+        rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], plain["losses"]))
+        out = {"nvidia_smi": smi_name_and_power_limit(), "plain": plain, "ranks": ranks,
+               "loss_rel_max": rel, "rtol": SPLIT_LOSS_RTOL, "grad_rtol": SP_GRAD_RTOL}
+        log("pp", **out)
+        per_step = PP_M * 6
+        for r in ranks:
+            want = {n: per_step * PP_STEPS * (2 if r["remat"] and n == "attention_fwd" else 1)
+                    if n in SPLASH_WRAPPERS else 0 for n in r["launches"]}
+            if r["mesh"]["pp"] != 2 or r["qkv_local"] != [6, 3 * 6 * 128, 768]:
+                raise AssertionError(f"rank {r['rank']} is not a pp-2 stage: {r['mesh']}, "
+                                     f"qkv {r['qkv_local']}")
+            if r["launches"] != want:
+                raise AssertionError(f"rank {r['rank']} launches {r['launches']}, want {want}")
+            if set(r["profile_attention_calls_per_step"].values()) != {per_step} \
+                    or r["profile_library_attention"]:
+                raise AssertionError(f"rank {r['rank']} profile "
+                                     f"{r['profile_attention_calls_per_step']}, library "
+                                     f"{r['profile_library_attention']}")
+            if r["step1"]["grad_rel_err_max"] > SP_GRAD_RTOL:
+                raise AssertionError(f"pp 2 rank {r['rank']}'s gradients are not one "
+                                     f"process's: {r['step1']}")
+            if not r["saved"] or r["timed_step"]["bytes_sent_between_stages"] <= 0:
+                raise AssertionError(f"rank {r['rank']}: saved {r['saved']}, "
+                                     f"{r['timed_step']}")
+        if rel > SPLIT_LOSS_RTOL or ranks[0]["losses"] != ranks[1]["losses"]:
+            raise AssertionError(f"pp 2's losses are not one process's: {out}")
+        log("pp", resume=_pp_resume(root, ranks, digests))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5288,7 +5741,8 @@ def main(argv=None) -> int:
                "resume": phase_resume, "data": phase_data,
                "elastic": phase_elastic, "serve": phase_serve, "fleet": phase_fleet,
                "distill": phase_distill, "reshard": phase_reshard, "mesh": phase_mesh,
-               "meshserve": phase_meshserve, "moe": phase_moe, "ring": phase_ring}
+               "meshserve": phase_meshserve, "moe": phase_moe, "ring": phase_ring,
+               "pp": phase_pp}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

@@ -214,13 +214,13 @@ def _needed(target) -> dict[str, list]:
     whole."""
     if not target.sharded:
         return {}
-    from edl_tpu_torch.parallel.sharding import local_boxes
-    tp, ep = target.model.tp, getattr(target.model, "ep", None)
+    from edl_tpu_torch.parallel.sharding import local_boxes, model_groups
+    tp, ep, pp = model_groups(target.model)
     named = dict(target.model.named_parameters())
     layouts = target.model.param_layouts
     params = [p for g in target.optimizer.param_groups for p in g["params"]]
     name_of = {id(p): n for n, p in named.items()}
-    by_param = {n: [box for box, _ in local_boxes(p, layouts[n], tp, ep)] for n, p in named.items()}
+    by_param = {n: [box for box, _ in local_boxes(p, layouts[n], tp, ep, pp)] for n, p in named.items()}
     out = {f"model/{n}": boxes for n, boxes in by_param.items()}
     out["optimizer/state/"] = [(i, by_param[name_of[id(p)]]) for i, p in enumerate(params)]
     return out

@@ -206,8 +206,8 @@ def _pieces(state, own_copy: bool):
         if not (own_copy or is_producer()):
             return [], None
         return [whole(name, t) for name, t in leaves], skeleton
-    from edl_tpu_torch.parallel.sharding import local_boxes, pushes
-    sharded, tp, ep = state.leaf_params(), state.model.tp, getattr(state.model, "ep", None)
+    from edl_tpu_torch.parallel.sharding import local_boxes, model_groups, pushes
+    sharded, (tp, ep, pp) = state.leaf_params(), model_groups(state.model)
     coord = _coordinate(state)
     first = not any(coord.values())
     out = []
@@ -217,7 +217,7 @@ def _pieces(state, own_copy: bool):
             if not (own_copy or pushes(t, lay, coord)):
                 continue
             local = t.to_local() if isinstance(t, DTensor) else t
-            for box, index in local_boxes(t, lay, tp, ep):
+            for box, index in local_boxes(t, lay, tp, ep, pp):
                 out.append((shard_key(name, box), name, box, list(lay.gshape), local[index]))
         elif own_copy or first:
             out.append(whole(name, t))

@@ -16,6 +16,13 @@ a leading ``num_layers`` dim, as training writes them) or split
 transposed; the fused q|k|v kernel keeps its column order as the row order
 of ``attn_qkv.weight``, and the model splits its output the same way.
 
+The pipelined LM (``train_lm.PipelinedLM``, the JAX example's
+``_PipelinedLM``): ``embed/embedding`` ``[V, D]`` is ``embed.weight``; the
+stacked ``layers/<module>/<param>`` ``[N, ...]`` are ``layers.<module>.
+<weight|scale>`` with the same leading dim, each kernel's last two dims
+transposed; ``norm/scale`` is ``norm.scale``; ``head/kernel`` ``[D, V]`` is
+``head.weight`` transposed.
+
 A ResNet's names are flax's module paths joined by dots (``stem``,
 ``stage{i}_block{j}/conv1``, ``bn_shortcut``, ``head``, ...).  flax conv
 kernels are HWIO and PyTorch's OIHW (``transpose(3, 2, 0, 1)``); the head's
@@ -117,6 +124,39 @@ def params_to_jax(state_dict: dict[str, torch.Tensor], cfg: TransformerConfig,
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"kernel": arr("lm_head.weight", True)}
     return tree
+
+
+def pipelined_from_jax(tree: dict[str, Any], cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    """A ``PipelinedLM`` state dict (f32 CPU tensors) from the JAX
+    ``_PipelinedLM``'s flax params tree of numpy arrays."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+
+    def stacked(a, transpose):
+        a = np.asarray(a, dtype=np.float32)
+        return torch.from_numpy(np.array(np.swapaxes(a, -1, -2) if transpose else a, order="C"))
+
+    sd = {"embed.weight": _tensor(tree["embed"]["embedding"], False)}
+    for mod, (param, transpose) in _layer_params(cfg).items():
+        sd[f"layers.{mod}.{_torch_name(param)}"] = stacked(tree["layers"][mod][param], transpose)
+    sd["norm.scale"] = _tensor(tree["norm"]["scale"], False)
+    sd["head.weight"] = _tensor(tree["head"]["kernel"], True)
+    return sd
+
+
+def pipelined_to_jax(state_dict: dict[str, torch.Tensor], cfg: TransformerConfig
+                     ) -> dict[str, Any]:
+    """The JAX ``_PipelinedLM``'s flax params tree (numpy f32) of a
+    ``PipelinedLM`` state dict."""
+    def arr(name: str, transpose: bool) -> np.ndarray:
+        a = state_dict[name].detach().to("cpu", torch.float32).numpy()
+        return np.ascontiguousarray(np.swapaxes(a, -1, -2) if transpose else a)
+
+    return {"embed": {"embedding": arr("embed.weight", False)},
+            "layers": {mod: {param: arr(f"layers.{mod}.{_torch_name(param)}", transpose)}
+                       for mod, (param, transpose) in _layer_params(cfg).items()},
+            "norm": {"scale": arr("norm.scale", False)},
+            "head": {"kernel": arr("head.weight", True)}}
 
 
 # ResNet: flax leaf name -> PyTorch name, by collection

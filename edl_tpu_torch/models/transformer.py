@@ -47,7 +47,8 @@ their mean over layers and its drop count their sum (``drops=``).
 of every sequence (``parallel/sharding.py:seq_chunk``); RoPE takes global
 positions ``sp_rank * L + i``, and attention is the ring over the ``sp``
 group (``attention_impl="ring"``) or, for the other impls, the full
-sequence's q, k and v gathered over it (``ops/attention.py``).
+sequence's q, k and v gathered over it (``ops/attention.py``); an MoE
+layer's capacity, slots, drops and aux are the whole sequence's.
 """
 
 from __future__ import annotations
@@ -417,6 +418,19 @@ class Block(nn.Module):
         return x + reduce_from(self.mlp_out(y), tp)
 
 
+def embed_tokens(ids, w, tp: TP | None, dtype):
+    """The token embeddings of ``ids`` in ``dtype`` from the table ``w``;
+    vocab-parallel under ``tp`` (``w`` this rank's rows): this rank's rows
+    looked up, the others' zero, then all-reduced (one nonzero term per
+    token: exact)."""
+    if tp is None:
+        return F.embedding(ids, w).to(dtype)
+    local = ids - tp.rank * w.shape[0]
+    inside = (local >= 0) & (local < w.shape[0])
+    x = F.embedding(local.clamp(0, w.shape[0] - 1), w) * inside[..., None].to(w.dtype)
+    return reduce_from(x, tp).to(dtype)
+
+
 class TransformerLM(nn.Module):
     """Decoder-only LM.  Parameters are f32 and initialised on the CPU from
     ``generator`` (default: seed 0) with flax's default families
@@ -493,15 +507,13 @@ class TransformerLM(nn.Module):
             layer.moe.set_ep(ep, shards)
 
     def set_sp(self, sp: AxisGroup) -> None:
-        """Run on this ``sp`` rank's chunk of every sequence.  Not with MoE:
-        its capacity counts run over each row's whole sequence (ROADMAP.md,
-        Queue 1, MoE x sp)."""
-        if self.cfg.moe_experts:
-            raise NotImplementedError("MoE with sp > 1 is not ported (ROADMAP.md, Queue 1: "
-                                      "MoE x sp)")
+        """Run on this ``sp`` rank's chunk of every sequence; an MoE layer
+        routes over each row's whole sequence (``ops/moe.py``)."""
         self.sp = sp
         for layer in self.layers:
             layer.sp = sp
+            if self.cfg.moe_experts:
+                layer.moe.sp = sp
 
     def set_data(self, data: AxisGroup | None) -> None:
         """The ranks that hold other rows of the batch: an MoE model's aux
@@ -592,16 +604,8 @@ class TransformerLM(nn.Module):
         return (logits, aux) if with_aux else logits
 
     def _embed(self, ids):
-        """The token embeddings in the compute dtype; vocab-parallel under
-        tp: this rank's rows looked up, the others' zero, then all-reduced
-        (one nonzero term per token: exact)."""
-        w, tp = self.tok_embed.weight, self.tp
-        if tp is None or not self.vocab_split:
-            return F.embedding(ids, w).to(self.cfg.dtype)
-        local = ids - tp.rank * w.shape[0]
-        inside = (local >= 0) & (local < w.shape[0])
-        x = F.embedding(local.clamp(0, w.shape[0] - 1), w) * inside[..., None].to(w.dtype)
-        return reduce_from(x, tp).to(self.cfg.dtype)
+        return embed_tokens(ids, self.tok_embed.weight, self.tp if self.vocab_split else None,
+                            self.cfg.dtype)
 
     def head(self, x):
         """f32 logits of final-norm hidden states ``[..., D]`` (under tp,

@@ -23,6 +23,21 @@ static S.  Assignments past an expert's capacity are dropped (combine weight
 0), and counted: the forward returns the count beside the output and the
 aux loss (the JAX package sows it as ``moe_drops``).  The aux loss is the
 Switch form ``E * sum_e f_e * P_e``.
+
+Under sequence parallelism (``MoEMLP.sp``: each rank a chunk of ``S / sp``
+tokens of every row) the routing is the whole sequence's, as GSPMD computes
+it in JAX: ``C`` from the whole ``S``; a token's slot for choice k at expert
+e is its cumsum within the chunk plus every rank's count of choices k' < k
+at e plus the lower sp ranks' count of choice k at e (slots are k-major over
+the whole sequence), from one all-reduce of the ``[sp, B, K, E]`` counts;
+the drop count is the whole sequence's (from the same counts), and ``f``
+and ``P`` are summed over sp before the product.  The expert buffer ``[E,
+B, C, M]`` needs no reduction over sp: each slot holds at most one token,
+and its rank alone writes it and reads it back (the other ranks' copies of
+that slot are zero, and the expert MLP maps a zero slot to zero), so each
+rank computes the experts on its own tokens' slots; under ``ep`` the
+partial sums of one chunk's tokens add up over the layer's tp and ep ranks,
+which share an sp coordinate, as before.
 """
 
 from __future__ import annotations
@@ -63,8 +78,24 @@ class _AllReduceData(torch.autograd.Function):
         return g * ctx.size, None
 
 
+def _slot_offsets(counts, sp: AxisGroup | None):
+    """``(offsets [B, K, E], totals [B, K, E])`` of the local k-major choice
+    counts ``[B, K, E]``: where this rank's first choice k at expert e
+    lands in e's slots, and the whole sequence's counts (over ``sp``'s
+    ranks, this rank's chunk last among the lower ones)."""
+    if sp is None:
+        totals, lower = counts, torch.zeros_like(counts)
+    else:
+        every = counts.new_zeros((sp.size,) + counts.shape)
+        every[sp.rank] = counts
+        dist.all_reduce(every, group=sp.group)      # small integers in f32: exact
+        totals, lower = every.sum(0), every[:sp.rank].sum(0)
+    before_k = torch.cumsum(totals, dim=1) - totals
+    return before_k + lower, totals
+
+
 def compute_routing(probs, top_k: int, capacity: int, valid=None, gate_probs=None,
-                    data: AxisGroup | None = None):
+                    data: AxisGroup | None = None, sp: AxisGroup | None = None):
     """Routing tensors from router probabilities ``[B, S, E]``.
 
     Returns ``(dispatch [B, S, E, C] in {0, 1}, combine [B, S, E, C] f32,
@@ -79,7 +110,11 @@ def compute_routing(probs, top_k: int, capacity: int, valid=None, gate_probs=Non
     ``probs``; :class:`MoEMLP` passes them through the backward all-reduce
     of its groups).  ``data``: a group over which ``f`` and ``P`` are the
     global batch's (their sums and the token count all-reduced before the
-    product)."""
+    product; under sp it holds the sp ranks too, as the trainer's does).
+    ``sp``: the group whose ranks hold the other chunks of each row
+    (``probs`` is this rank's chunk, ``capacity`` the whole sequence's): the
+    slots, drops and, without ``data``, ``f`` and ``P`` are the whole
+    sequence's (module docstring)."""
     B, S, E = probs.shape
     K = top_k
     idx = top_k_indices(probs.detach(), K)                   # [B, S, K]
@@ -89,12 +124,20 @@ def compute_routing(probs, top_k: int, capacity: int, valid=None, gate_probs=Non
     if valid is not None:
         onehot = onehot * valid[:, :, None, None].to(torch.float32)
 
-    # k-major slot order: [B, K*S, E]
-    slots = onehot.transpose(1, 2).reshape(B, K * S, E)
-    pos = (torch.cumsum(slots, dim=1) * slots).to(torch.int32) - 1
+    # k-major slot order: [B, K, S, E], each choice k's slots after every
+    # choice k' < k of the whole sequence and after the lower sp ranks'
+    slots = onehot.transpose(1, 2)
+    offsets, totals = _slot_offsets(slots.sum(dim=2), sp)
+    pos = ((torch.cumsum(slots, dim=2) + offsets[:, :, None]) * slots).to(torch.int32) - 1
+    pos = pos.reshape(B, K * S, E)
     kept = (pos >= 0) & (pos < capacity)
-    n_real = B * S if valid is None else valid.sum()
-    drops = (n_real * K - kept.sum()).to(torch.int32)
+    if sp is None:
+        n_real = B * S if valid is None else valid.sum()
+        drops = (n_real * K - kept.sum()).to(torch.int32)
+    else:
+        # the whole sequence's: each (k, e) keeps what fits after its offset
+        fits = (capacity - (torch.cumsum(totals, dim=1) - totals)).clamp(min=0)
+        drops = (totals.sum() - torch.minimum(totals, fits).sum()).to(torch.int32)
     pos_c = F.one_hot(pos.clamp(0, capacity - 1).long(), capacity).to(torch.float32)
     pos_c = pos_c * kept[..., None]
     # back to token-major [B, S, K, E, C]; merge k (a distinct (e, c) each)
@@ -110,8 +153,9 @@ def compute_routing(probs, top_k: int, capacity: int, valid=None, gate_probs=Non
         v = valid.to(torch.float32)[..., None]
     sums = torch.cat([(top1 * v).sum(dim=(0, 1)), (probs * v).sum(dim=(0, 1)),
                       v.sum().reshape(1)])
-    if data is not None and data.size > 1:
-        sums = _AllReduceData.apply(sums, data)
+    group = data if data is not None and data.size > 1 else sp
+    if group is not None:
+        sums = _AllReduceData.apply(sums, group)
     n = sums[-1].clamp_min(1.0)
     aux = E * torch.sum((sums[:E] / n) * (sums[E:2 * E] / n))
     return dispatch, combine, aux, drops
@@ -152,6 +196,9 @@ class MoEMLP(nn.Module):
         # the ranks that hold other rows of the batch: the aux loss's f and
         # P are taken over all of them when the caller asks for the aux
         self.data: AxisGroup | None = None
+        # the ranks that hold the other chunks of every row (sequence
+        # parallelism): the routing is the whole sequence's
+        self.sp: AxisGroup | None = None
 
     def set_ep(self, ep: AxisGroup | None, shards: AxisGroup | None = None) -> None:
         """Hold experts ``[r E/ep, (r+1) E/ep)`` of ``ep``'s rank r;
@@ -168,7 +215,8 @@ class MoEMLP(nn.Module):
 
     def forward(self, x, token_mask=None, global_aux: bool = False):
         """``(y, aux, drops)``: ``drops`` (an int32 scalar) is the capacity
-        path's overflow count, 0 on a decode step.  ``global_aux``: reduce
+        path's overflow count (under sp, the whole sequence's), 0 on a
+        decode step.  ``global_aux``: reduce
         ``f`` and ``P`` over the data group (``self.data``); collective, so
         every rank of it must call."""
         B, S, M = x.shape
@@ -178,10 +226,10 @@ class MoEMLP(nn.Module):
         if self.decode and S <= 2:
             zero = torch.zeros((), dtype=torch.float32, device=x.device)
             return self._gather(x, gate_probs), zero, zero.to(torch.int32)
-        C = capacity_of(K, S, self.capacity_factor, E)
+        C = capacity_of(K, S * (1 if self.sp is None else self.sp.size), self.capacity_factor, E)
         dispatch, combine, aux, n_drop = compute_routing(
             probs, K, C, valid=token_mask, gate_probs=gate_probs,
-            data=self.data if global_aux else None)
+            data=self.data if global_aux else None, sp=self.sp)
         lo, hi = self._experts()
         xe = copy_to(x, self.shards).to(dtype)
         expert_in = torch.einsum("bsec,bsm->ebcm", dispatch[:, :, lo:hi].to(dtype), xe)

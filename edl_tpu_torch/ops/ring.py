@@ -29,24 +29,42 @@ from edl_tpu_torch.parallel.tp import AxisGroup
 NEG_INF = -1e30   # large but finite: no inf - inf = nan in the recurrence
 
 
+def exchange(group, send: torch.Tensor | None = None, dst: int | None = None,
+             like: torch.Tensor | None = None, src: int | None = None) -> torch.Tensor | None:
+    """Post a send of ``send`` to global rank ``dst`` and a receive of a
+    tensor shaped, typed and placed like ``like`` from global rank ``src``
+    together (either may be left out), wait for both, and return what was
+    received (None when nothing was asked).  A gloo group moves a CUDA
+    tensor's bytes through pinned host buffers, so the same code runs on
+    NCCL across cards and on gloo with two ranks on one card; any failure
+    raises."""
+    ref = send if send is not None else like
+    staged = ref.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    ops, recv = [], None
+    if send is not None:
+        send = send.contiguous()
+        if staged:
+            send = torch.empty(send.shape, dtype=send.dtype, pin_memory=True).copy_(send)
+        ops.append(dist.P2POp(dist.isend, send, dst, group))
+    if like is not None:
+        recv = (torch.empty(like.shape, dtype=like.dtype, pin_memory=True) if staged
+                else torch.empty(like.shape, dtype=like.dtype, device=like.device))
+        ops.append(dist.P2POp(dist.irecv, recv, src, group))
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if recv is not None and staged:
+        recv = recv.to(like.device, non_blocking=False)
+    return recv
+
+
 def _shift(x: torch.Tensor, group: AxisGroup, step: int) -> torch.Tensor:
     """``x`` sent to the rank ``step`` ahead in the ring, and the block of
     the rank ``step`` behind received (one send and one receive posted
-    together, so a two-rank ring cannot deadlock).  A gloo group moves a
-    CUDA tensor's bytes through pinned host buffers; any failure raises."""
+    together, so a two-rank ring cannot deadlock)."""
     n, me = group.size, group.rank
     dst = dist.get_global_rank(group.group, (me + step) % n)
     src = dist.get_global_rank(group.group, (me - step) % n)
-    staged = x.device.type == "cuda" and dist.get_backend(group.group) == "gloo"
-    send = x.contiguous()
-    if staged:
-        send = torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(send)
-    recv = torch.empty_like(send)
-    works = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group.group),
-                                    dist.P2POp(dist.irecv, recv, src, group.group)])
-    for w in works:
-        w.wait()
-    return recv.to(x.device, non_blocking=False) if staged else recv
+    return exchange(group.group, x, dst, x, src)
 
 
 class _Rotate(torch.autograd.Function):

@@ -12,7 +12,8 @@ Canonical axis names (outermost -> innermost):
 
 - ``dp``   pure data parallelism (params replicated)
 - ``fsdp`` data parallelism with parameter sharding (FSDP2)
-- ``pp``   pipeline stages (not ported)
+- ``pp``   pipeline stages (a run of the stacked layers a rank;
+  ``ops/pipeline.py``)
 - ``sp``   sequence/context parallelism (a chunk of every sequence a rank;
   ``ops/ring.py``)
 - ``tp``   tensor parallelism (Megatron-style, ``parallel/tp.py``)

@@ -9,9 +9,11 @@ pure-DP, FSDP, TP or a mix by swapping the rules.  Where JAX resolves a
 
 - :meth:`ShardingRules.spec` gives DTensor placements, one per mesh dim;
 - :func:`shard_init` builds a module from its seed (born full), cuts every
-  ``tp`` and ``ep`` dim to this rank's slice (the module's forward then
-  runs the ``parallel/tp.py`` collectives; an ``ep`` dim is split evenly,
-  rank r holding the r-th run of experts), tells the module its ``sp``
+  ``tp``, ``ep`` and ``pp`` dim to this rank's slice (the module's forward
+  then runs the ``parallel/tp.py`` collectives; an ``ep`` dim is split
+  evenly, rank r holding the r-th run of experts, and a ``pp`` dim, the
+  stacked layers' "stage" dim, the same way: stage r holds the r-th run
+  of layers, ``ops/pipeline.py``), tells the module its ``sp``
   group (each rank then runs its chunk of the sequence,
   :func:`seq_chunk`) and hands the ``fsdp`` dim to FSDP2
   (``fully_shard``, HSDP with ``dp``), whose ``shard_placement_fn`` follows
@@ -19,12 +21,12 @@ pure-DP, FSDP, TP or a mix by swapping the rules.  Where JAX resolves a
   sharded on dim 0, where JAX keeps it replicated;
 - the JAX module's ``allgather_flag`` is ``train/distributed.py``'s;
 - a :class:`LeafLayout` records, per parameter, its global shape and how
-  its ``tp`` and ``ep`` dims are cut: a tp dim may hold segments that are
+  its ``tp``, ``ep`` and ``pp`` dims are cut: a tp dim may hold segments that are
   each split over the ranks (the fused q|k|v weight is split by heads: rank
   r holds its q, k and v rows, three boxes of the global leaf).
   :func:`local_boxes`, :func:`to_full` and :func:`from_full` move between a
   rank's local tensor and the global leaf, for the checkpoint and the peer
-  cache, so a checkpoint written at one tp or ep resumes at another.
+  cache, so a checkpoint written at one tp, ep or pp resumes at another.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from edl_tpu_torch.parallel.mesh import AXIS_ORDER, coordinate, mesh_sizes
-from edl_tpu_torch.parallel.tp import EP, SP, TP, AxisGroup, shards_of
+from edl_tpu_torch.parallel.tp import EP, PP, SP, TP, AxisGroup, shards_of
 
 # Default logical->mesh table.  A logical name may map to a mesh axis, a
 # tuple of mesh axes (sharded over both), or None (replicated).
@@ -132,8 +134,9 @@ class LeafLayout:
     """A parameter's global shape, its ``tp`` dim (None: replicated over
     tp) with that dim's segments (global lengths, each split evenly over
     the tp ranks, but for the indices in ``whole``, which every rank holds
-    whole), its ``fsdp`` dim (None: the rules give it none), and its ``ep``
-    dim (None: replicated over ep; else split evenly over the ep ranks)."""
+    whole), its ``fsdp`` dim (None: the rules give it none), its ``ep``
+    dim (None: replicated over ep; else split evenly over the ep ranks) and
+    its ``pp`` dim (the same over the pipeline stages)."""
 
     gshape: tuple[int, ...]
     tp_dim: int | None = None
@@ -141,6 +144,7 @@ class LeafLayout:
     fsdp_dim: int | None = None
     whole: tuple[int, ...] = ()
     ep_dim: int | None = None
+    pp_dim: int | None = None
 
 
 def _axes(entry) -> tuple:
@@ -156,16 +160,19 @@ def param_layouts(module: torch.nn.Module, logical: dict, mesh,
     ``tp_whole(name, tp)``.  Raises when a tp-split segment does not
     divide."""
     rules = rules or ShardingRules()
-    tp, ep = mesh_sizes(mesh)["tp"], mesh_sizes(mesh)["ep"]
+    sizes = mesh_sizes(mesh)
+    tp = sizes["tp"]
     out = {}
     for name, p in module.named_parameters():
         axes = logical.get(name, (None,) * p.ndim)
         part = rules.partition(axes, mesh)
         tp_dim = next((d for d, e in enumerate(part) if "tp" in _axes(e)), None)
-        ep_dim = next((d for d, e in enumerate(part) if "ep" in _axes(e)), None)
-        if ep_dim is not None and p.shape[ep_dim] % ep:
-            raise ValueError(f"{name}: dim {ep_dim} of {p.shape[ep_dim]} does not divide "
-                             f"over ep = {ep}")
+        even = {a: next((d for d, e in enumerate(part) if a in _axes(e)), None)
+                for a in ("ep", "pp")}
+        for a, d in even.items():
+            if d is not None and p.shape[d] % sizes[a]:
+                raise ValueError(f"{name}: dim {d} of {p.shape[d]} does not divide "
+                                 f"over {a} = {sizes[a]}")
         # the fsdp dim is named whatever the axis's size (FSDP2 may be forced
         # on an fsdp axis of 1)
         fsdp_dim = next((d for d, n in enumerate(axes) if n and "fsdp" in _axes(rules.rules.get(n))),
@@ -181,7 +188,8 @@ def param_layouts(module: torch.nn.Module, logical: dict, mesh,
                 if i not in whole and s % tp:
                     raise ValueError(f"{name}: dim {tp_dim} segment of {s} does not divide "
                                      f"over tp = {tp}")
-        out[name] = LeafLayout(tuple(p.shape), tp_dim, segments, fsdp_dim, whole, ep_dim)
+        out[name] = LeafLayout(tuple(p.shape), tp_dim, segments, fsdp_dim, whole, even["ep"],
+                               even["pp"])
     return out
 
 
@@ -200,22 +208,34 @@ def tp_ranges(layout: LeafLayout, rank: int, size: int) -> list[tuple[int, int, 
     return out
 
 
-def _ep_run(layout: LeafLayout, ep: AxisGroup | None) -> tuple[int, int] | None:
-    """``(start, length)`` along the ep dim of the experts ``ep``'s rank
-    holds, or None when the leaf is not split over ep."""
-    if ep is None or layout is None or layout.ep_dim is None:
-        return None
-    n = layout.gshape[layout.ep_dim] // ep.size
-    return ep.rank * n, n
+def _runs(layout: LeafLayout | None, ep: AxisGroup | None,
+          pp: AxisGroup | None) -> list[tuple[int, int, int, AxisGroup]]:
+    """``[(dim, start, length, group)]`` of the even cuts of a leaf that
+    this rank holds: its run of experts along the ep dim, its run of
+    layers along the pp dim (empty when the leaf is split over neither)."""
+    if layout is None:
+        return []
+    out = []
+    for d, group in ((layout.ep_dim, ep), (layout.pp_dim, pp)):
+        if group is not None and d is not None:
+            n = layout.gshape[d] // group.size
+            out.append((d, group.rank * n, n, group))
+    return out
+
+
+def model_groups(model) -> tuple:
+    """``(tp, ep, pp)``: the groups a placed module's leaves are cut over
+    (None for each axis it is not cut on)."""
+    return tuple(getattr(model, a, None) for a in ("tp", "ep", "pp"))
 
 
 def tp_slice(full: torch.Tensor, layout: LeafLayout, tp: TP | None,
-             ep: AxisGroup | None = None) -> torch.Tensor:
-    """This rank's slice of the full leaf: its ``ep`` run of experts and its
-    ``tp`` rows (the leaf itself when it is split over neither)."""
-    run = _ep_run(layout, ep)
-    if run is not None:
-        full = full.narrow(layout.ep_dim, *run)
+             ep: AxisGroup | None = None, pp: AxisGroup | None = None) -> torch.Tensor:
+    """This rank's slice of the full leaf: its ``ep`` run of experts, its
+    ``pp`` run of layers and its ``tp`` rows (the leaf itself when it is
+    split over none)."""
+    for d, start, n, _ in _runs(layout, ep, pp):
+        full = full.narrow(d, start, n)
     if tp is None or layout.tp_dim is None:
         return full
     d = layout.tp_dim
@@ -236,16 +256,17 @@ def _fsdp_region(t) -> tuple[torch.Tensor, list[int], list[int]]:
 
 
 def local_boxes(t, layout: LeafLayout | None, tp: TP | None,
-                ep: AxisGroup | None = None) -> list[tuple[list, tuple]]:
+                ep: AxisGroup | None = None, pp: AxisGroup | None = None
+                ) -> list[tuple[list, tuple]]:
     """``[(global box, local index)]`` of this rank's piece of a leaf: each
     box ``[[start, end], ...]`` in the global leaf, each index the slices of
     the local tensor that hold it.  A head-split q|k|v weight gives three;
-    an ep-split leaf's boxes lie in this rank's run of experts."""
-    run = _ep_run(layout, ep)
+    an ep-split leaf's boxes lie in this rank's run of experts, a pp-split
+    one's in its run of layers."""
     boxes = _tp_boxes(t, layout, tp)
-    if run is not None:
+    for d, start, _, _ in _runs(layout, ep, pp):
         for box, _ in boxes:
-            box[layout.ep_dim] = [run[0] + box[layout.ep_dim][0], run[0] + box[layout.ep_dim][1]]
+            box[d] = [start + box[d][0], start + box[d][1]]
     return boxes
 
 
@@ -273,11 +294,11 @@ def _tp_boxes(t, layout: LeafLayout | None, tp: TP | None) -> list[tuple[list, t
 
 
 def to_full(t, layout: LeafLayout | None, tp: TP | None,
-            ep: AxisGroup | None = None) -> torch.Tensor:
+            ep: AxisGroup | None = None, pp: AxisGroup | None = None) -> torch.Tensor:
     """The global leaf of ``t`` on every rank (collective over fsdp for a
-    DTensor, over tp for a tp-split leaf and over ep for an ep-split one:
-    each rank's rows written into zeros and all-reduced, so tp and ep use
-    only all-reduce)."""
+    DTensor, over tp for a tp-split leaf, over ep for an ep-split one and
+    over pp for a stage-cut one: each rank's rows written into zeros and
+    all-reduced, so tp, ep and pp use only all-reduce)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -285,33 +306,35 @@ def to_full(t, layout: LeafLayout | None, tp: TP | None,
         t = t.full_tensor()
     if layout is None:
         return t
-    run = _ep_run(layout, ep)
+    runs = _runs(layout, ep, pp)
+    shape = list(layout.gshape)
+    for d, _, n, _ in runs:
+        shape[d] = n
     if tp is not None and layout.tp_dim is not None:
         d = layout.tp_dim
-        shape = list(layout.gshape)
-        if run is not None:
-            shape[layout.ep_dim] = run[1]
         full = t.new_zeros(shape)
         for i, (g, lo, n) in enumerate(tp_ranges(layout, tp.rank, tp.size)):
             if i not in layout.whole or tp.rank == 0:     # a whole segment added once
                 full.narrow(d, g, n).copy_(t.narrow(d, lo, n))
         dist.all_reduce(full, group=tp.group)
         t = full
-    if run is not None:
-        full = t.new_zeros(layout.gshape)
-        full.narrow(layout.ep_dim, *run).copy_(t)
-        dist.all_reduce(full, group=ep.group)
+    for d, start, n, group in runs:
+        shape[d] = layout.gshape[d]
+        full = t.new_zeros(shape)
+        full.narrow(d, start, n).copy_(t)
+        dist.all_reduce(full, group=group.group)
         t = full
     return t
 
 
 def from_full(full: torch.Tensor, like, layout: LeafLayout | None,
-              tp: TP | None, ep: AxisGroup | None = None) -> torch.Tensor:
+              tp: TP | None, ep: AxisGroup | None = None,
+              pp: AxisGroup | None = None) -> torch.Tensor:
     """This rank's piece of the global leaf ``full``, placed as ``like``
     (a DTensor of the same spec, or a plain tensor) on ``like``'s device."""
     from torch.distributed.tensor import DTensor
 
-    piece = tp_slice(full, layout, tp, ep) if layout is not None else full
+    piece = tp_slice(full, layout, tp, ep, pp) if layout is not None else full
     if isinstance(like, DTensor):
         from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
         shape, off = compute_local_shape_and_global_offset(like.shape, like.device_mesh,
@@ -327,7 +350,7 @@ def pushes(t, layout: LeafLayout | None, coord: dict[str, int]) -> bool:
     """Whether the rank at mesh ``coord`` is the one replica that pushes its
     piece of a leaf (JAX's ``replica_id == 0``): dp and sp coordinate 0,
     fsdp 0 unless the leaf is an FSDP2 shard, ep 0 unless it is split over
-    ep, tp 0 unless it is split over tp."""
+    ep, pp 0 unless it is cut by stage, tp 0 unless it is split over tp."""
     from torch.distributed.tensor import DTensor
 
     if coord["dp"] != 0 or coord["sp"] != 0:
@@ -335,6 +358,8 @@ def pushes(t, layout: LeafLayout | None, coord: dict[str, int]) -> bool:
     if coord["fsdp"] != 0 and not isinstance(t, DTensor):
         return False
     if coord["ep"] != 0 and (layout is None or layout.ep_dim is None):
+        return False
+    if coord["pp"] != 0 and (layout is None or layout.pp_dim is None):
         return False
     return coord["tp"] == 0 or (layout is not None and layout.tp_dim is not None)
 
@@ -344,35 +369,33 @@ def pushes(t, layout: LeafLayout | None, coord: dict[str, int]) -> bool:
 def shard_init(init_fn, logical_rules, mesh, rules: ShardingRules | None = None,
                fsdp: bool | None = None) -> torch.nn.Module:
     """``init_fn()`` (a module built from its seed, full) placed on ``mesh``
-    under ``logical_rules`` (a model's ``LOGICAL_RULES``): its tp and ep dims
-    cut to this rank's rows (the module must offer ``set_tp`` and
-    ``set_ep``), its ``sp`` group given to ``set_sp``, then FSDP2 on the
-    ``fsdp`` dim when that dim is wider than 1 or ``fsdp`` forces it.  The
-    module's ``param_layouts``, ``tp``, ``ep`` and ``sp`` are set."""
+    under ``logical_rules`` (a model's ``LOGICAL_RULES``): its tp, ep and pp
+    dims cut to this rank's rows (the module must offer ``set_tp``,
+    ``set_ep`` and ``set_pp``), its ``sp`` group given to ``set_sp``, then
+    FSDP2 on the ``fsdp`` dim when that dim is wider than 1 or ``fsdp``
+    forces it.  The module's ``param_layouts``, ``tp``, ``ep``, ``sp`` and
+    ``pp`` are set."""
     from edl_tpu_torch.models.logical import logical_axes_from_paths
 
     module = init_fn()
     sizes = mesh_sizes(mesh)
-    if sizes["pp"] > 1:
-        raise NotImplementedError("the pp mesh axis is not ported to edl_tpu_torch "
-                                  "yet (ROADMAP.md Queue 1 item 7)")
     layouts = param_layouts(module, logical_axes_from_paths(module, logical_rules), mesh, rules)
-    tp, ep, sp = TP.of(mesh), EP.of(mesh), SP.of(mesh)
+    tp, ep, sp, pp = TP.of(mesh), EP.of(mesh), SP.of(mesh), PP.of(mesh)
     # ep's setter also takes the one group of the tp and ep ranks
     for group, setter, more in ((tp, "set_tp", ()), (ep, "set_ep", (shards_of(mesh),)),
-                                (sp, "set_sp", ())):
+                                (sp, "set_sp", ()), (pp, "set_pp", ())):
         if group is not None:
             if not hasattr(module, setter):
                 raise NotImplementedError(f"{type(module).__name__} has no {setter}")
             getattr(module, setter)(group, *more)   # validates the widths before any cut
-    if tp is not None or ep is not None:
+    if tp is not None or ep is not None or pp is not None:
         with torch.no_grad():
             for name, p in module.named_parameters():
-                p.data = tp_slice(p.data, layouts[name], tp, ep).contiguous()
+                p.data = tp_slice(p.data, layouts[name], tp, ep, pp).contiguous()
     if fsdp or (fsdp is None and sizes["fsdp"] > 1):
         _fully_shard(module, mesh, layouts)
     module.param_layouts = layouts
-    module.tp, module.ep, module.sp = tp, ep, sp
+    module.tp, module.ep, module.sp, module.pp = tp, ep, sp, pp
     return module
 
 

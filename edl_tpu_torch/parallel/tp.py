@@ -1,5 +1,5 @@
 """Megatron-style tensor parallelism on a mesh's ``tp`` group, and the
-groups of the other model axes (``ep``, ``sp``).
+groups of the other model axes (``ep``, ``sp``, ``pp``).
 
 A column-parallel layer holds a slice of its output features, a
 row-parallel one a slice of its input features; a column-parallel layer
@@ -72,6 +72,26 @@ class SP(AxisGroup):
     """A sequence-parallel group (``ops/ring.py``, ``seq_chunk``)."""
 
     axis = "sp"
+
+
+class PP(AxisGroup):
+    """A pipeline group (``ops/pipeline.py``): ``rank`` is this rank's
+    stage, of ``size``, along ``AXIS_ORDER``'s pp dim."""
+
+    axis = "pp"
+
+    @property
+    def prev(self) -> int | None:
+        """The global rank of the stage before this one (None at stage 0)."""
+        return None if self.rank == 0 else self.global_rank(self.rank - 1)
+
+    @property
+    def next(self) -> int | None:
+        """The global rank of the stage after this one (None at the last)."""
+        return None if self.rank == self.size - 1 else self.global_rank(self.rank + 1)
+
+    def global_rank(self, stage: int) -> int:
+        return stage if self.group is None else dist.get_global_rank(self.group, stage)
 
 
 def all_reduce_f32(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:

@@ -170,9 +170,9 @@ class TrainState:
         sd = self.state_dict()
         if not self.sharded:
             return sd
-        from edl_tpu_torch.parallel.sharding import to_full
-        tp, ep = self.model.tp, getattr(self.model, "ep", None)
-        return self._map_sharded(sd, lambda t, _p, lay: to_full(t, lay, tp, ep))
+        from edl_tpu_torch.parallel.sharding import model_groups, to_full
+        tp, ep, pp = model_groups(self.model)
+        return self._map_sharded(sd, lambda t, _p, lay: to_full(t, lay, tp, ep, pp))
 
     def global_shapes(self) -> dict[str, tuple[int, ...]]:
         """``{model state name: global shape}``."""
@@ -186,9 +186,9 @@ class TrainState:
         """Load a state dict of global leaves (a local one when the state is
         not sharded), placing each leaf on the current mesh."""
         if self.sharded:
-            from edl_tpu_torch.parallel.sharding import from_full
-            tp, ep = self.model.tp, getattr(self.model, "ep", None)
-            sd = self._map_sharded(sd, lambda t, p, lay: from_full(t, p, lay, tp, ep))
+            from edl_tpu_torch.parallel.sharding import from_full, model_groups
+            tp, ep, pp = model_groups(self.model)
+            sd = self._map_sharded(sd, lambda t, p, lay: from_full(t, p, lay, tp, ep, pp))
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         self.step = int(sd["step"])

@@ -15,12 +15,16 @@ The port of the JAX package's ``train/trainer.py``, one process per card:
   more than data parallelism: the parameters placed by their logical axes
   (``create_state(param_logical=...)``), ``tp`` in the model's forward,
   ``fsdp`` as FSDP2 (HSDP with ``dp``), which reduces the gradients
-  itself, ``ep`` (each rank this run of an MoE model's experts) and ``sp``
+  itself, ``ep`` (each rank this run of an MoE model's experts), ``sp``
   (each rank a chunk of every sequence, the loss function's
-  ``seq_chunk``); without fsdp the gradients are averaged over the data
-  ranks of each (tp, ep) coordinate, dp x fsdp x sp of them (an ep-cut
-  expert only over its replicas; an sp rank's partial sums with the
-  others'), and under fsdp FSDP2's mean is followed by one over sp.  An
+  ``seq_chunk``) and ``pp`` (each rank a stage's run of the stacked
+  layers, ``ops/pipeline.py``); without fsdp the gradients are averaged
+  over the data ranks of each (pp, tp, ep) coordinate, dp x fsdp x sp of
+  them (an ep-cut expert or a stage-cut layer only over its replicas; an
+  sp rank's partial sums with the others'; a leaf replicated over pp,
+  whose gradient the pipeline makes equal on every stage, over the data
+  ranks of each stage alike), and under fsdp FSDP2's mean is followed by
+  one over sp.  An
   MoE model's aux loss is the global batch's over those ranks
   (``TransformerLM.set_data``).  ``world_size`` is the mesh's batch divisor
   (dp x fsdp), the JAX trainer's for one process on a mesh of devices: the
@@ -228,18 +232,19 @@ class ElasticTrainer:
         self.mesh = mesh_mod.build_mesh(spec, pods, self.device.type)
         if sizes["sp"] > 1:
             self._sp_group = self.mesh.get_group("sp")
-        if sizes["tp"] * sizes["ep"] > 1 and self._data_ways > 1:
-            # the data ranks of each (tp, ep) coordinate, one group each
+        if sizes["pp"] * sizes["tp"] * sizes["ep"] > 1 and self._data_ways > 1:
+            # the data ranks of each (pp, tp, ep) coordinate, one group each
             # (every rank makes every group, in the same order): the step's
             # gradient mean when FSDP2 does not take it
-            for t in range(sizes["tp"]):
-                for e in range(sizes["ep"]):
-                    ranks = sorted(int(r) for r in self.layout[..., t, e].reshape(-1))
-                    group = dist.new_group(ranks)
-                    if dist.get_rank() in ranks:
-                        self._data_group = group
-                        self._data = AxisGroup(group, ranks.index(dist.get_rank()),
-                                               len(ranks))
+            for p in range(sizes["pp"]):
+                for t in range(sizes["tp"]):
+                    for e in range(sizes["ep"]):
+                        ranks = sorted(int(r) for r in self.layout[:, :, p, :, t, e].reshape(-1))
+                        group = dist.new_group(ranks)
+                        if dist.get_rank() in ranks:
+                            self._data_group = group
+                            self._data = AxisGroup(group, ranks.index(dist.get_rank()),
+                                                   len(ranks))
         logger.info("mesh %s (rank %d: data rank %d)", sizes, dist.get_rank(), self.data_rank)
 
     def _build_ckpt(self) -> CheckpointManager | None:
@@ -421,7 +426,7 @@ class ElasticTrainer:
         loss.backward()
         loss = loss.detach()
         if not dist.is_initialized() or self._data_ways == 1 < self.processes:
-            pass   # no group, or tp/ep over the whole world: every rank trained the same rows
+            pass   # no group, or pp/tp/ep over the whole world: every rank trained the same rows
         elif _is_fsdp(state.model):
             loss = _mean_over_world(None, loss)        # FSDP2 reduced the gradients over
             if self._sp_group is not None:             # dp x fsdp; the sp ranks' next

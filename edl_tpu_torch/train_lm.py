@@ -4,20 +4,25 @@
         --mlp 3072 --vocab 32000 --seq_len 1024 --fused_ce
 
 Same flags as the JAX example minus ``--scan_layers`` (layers are a Python
-loop here), plus ``--device`` (default ``cuda``; ``cpu`` only when asked);
-``--pp`` raises (not ported yet), and so does ``--moe`` with ``--sp`` > 1.
+loop here), plus ``--device`` (default ``cuda``; ``cpu`` only when asked).
 The mesh flags are the JAX example's: ``--fsdp`` (FSDP2), ``--sp``
 (sequence parallelism: each rank trains a chunk of every sequence, with
 ``--attention ring`` over the ring, else with the sequence gathered for
-attention), ``--ep`` (expert parallelism, with ``--moe``), ``--tp`` (0 =
-auto: 2 when the ranks left by fsdp x sp x ep are even, else 1, chosen
-again at each live reshard) and ``--dcn_dp`` (data-parallel replica groups
-across pods; 0 = one per pod when each pod holds the rest of the mesh).
+attention), ``--ep`` (expert parallelism, with ``--moe``), ``--pp`` (the
+decoder blocks pipelined over that many stages, GPipe with
+``--pp_microbatches`` microbatches: :class:`PipelinedLM`, whose loss is the
+unfused CE on the full logits; not with ``--sp``, ring attention, ``--moe``
+or ``--fused_ce``), ``--tp`` (0 = auto: 2 when the ranks left by fsdp x sp x
+ep, or by pp x fsdp under ``--pp``, are even, else 1, chosen again at each
+live reshard) and ``--dcn_dp`` (data-parallel replica groups across pods;
+0 = one per pod when each pod holds the rest of the mesh).
 ``--moe E`` makes every block's MLP E routed experts (``--moe_top_k`` of
-them per token); the loss adds ``--moe_aux_weight`` times the aux loss,
+them per token, the capacity counts over each row's whole sequence, also
+under ``--sp``); the loss adds ``--moe_aux_weight`` times the aux loss,
 reported as the metric ``moe_aux``.  One process drives one card, so a
 mesh is over the world's ranks, and the sp, tp and ep ranks of one data
-coordinate read the same rows.  Under the elastic
+coordinate read the same rows (the pp ranks too: each runs its stage on
+them, and the last stage's outputs reach every stage).  Under the elastic
 launcher (``python -m edl_tpu.collective.launch ...
 edl_tpu_torch/train_lm.py``) one process runs per trainer: the launcher's
 env forms the world (NCCL on the card, gloo on the CPU), names the
@@ -45,6 +50,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 
 def parse_args(argv=None):
@@ -68,7 +74,10 @@ def parse_args(argv=None):
                    help="data-parallel replica groups across pods; 0 = auto (one group per pod)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel axis size (each rank a chunk of the sequence)")
-    p.add_argument("--pp", type=int, default=1, help="not ported")
+    p.add_argument("--pp", type=int, default=1,
+                   help=">1 pipelines the decoder blocks over the pp mesh axis "
+                        "(GPipe; composes with --tp and --fsdp)")
+    p.add_argument("--pp_microbatches", type=int, default=4)
     p.add_argument("--moe", type=int, default=0,
                    help=">0 replaces each block's FFN with this many routed experts, "
                         "sharded over the ep mesh axis")
@@ -88,33 +97,57 @@ def parse_args(argv=None):
     p.add_argument("--ce_block", type=int, default=4096)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.pp != 1:
-        raise NotImplementedError("--pp is not ported to edl_tpu_torch yet "
-                                  "(ROADMAP.md Queue 1 item 7)")
     # the JAX example's exits, in its order
-    if args.fsdp < 1 or args.sp < 1 or args.ep < 1:
+    if args.pp > 1:
+        if args.sp > 1 or args.attention == "ring":
+            raise SystemExit("--pp cannot combine with --sp/--attention "
+                             "ring: ring applies its own shard_map over "
+                             "sp and nesting it inside the pipeline's "
+                             "manual-over-pp shard_map fails jax's nested "
+                             "axis checks (measured attempt in doc/perf.md "
+                             "'Pipeline schedule'); use auto/dense/flash")
+        if args.layers % args.pp:
+            raise SystemExit(f"--layers {args.layers} must divide evenly "
+                             f"over --pp {args.pp} stages")
+        # microbatches must divide the batch: clamp to the largest divisor
+        m = min(args.pp_microbatches, args.batch_size)
+        while args.batch_size % m:
+            m -= 1
+        if m != args.pp_microbatches:
+            print(f"[train_lm] pp_microbatches clamped {args.pp_microbatches}"
+                  f" -> {m} (global batch {args.batch_size})", flush=True)
+        args.pp_microbatches = m
+    elif args.fsdp < 1 or args.sp < 1 or args.ep < 1:
         raise SystemExit("--fsdp, --sp and --ep must be >= 1")
+    if args.pp < 1:
+        raise SystemExit("--pp must be >= 1")
     if args.tp < 0:
         raise SystemExit("--tp must be >= 0")
     if args.ep > 1 and not args.moe:
         raise SystemExit("--ep needs --moe (no expert weights to shard)")
+    if args.moe and args.pp > 1:
+        raise SystemExit("--moe is not supported by the --pp adapter")
     if args.moe and args.moe_top_k > args.moe:
         raise SystemExit(f"--moe_top_k {args.moe_top_k} cannot exceed "
                          f"--moe {args.moe} experts")
-    if args.moe and args.sp > 1:
-        raise NotImplementedError("--moe with --sp > 1 is not ported: the capacity counts "
-                                  "run over each row's whole sequence (ROADMAP.md Queue 1, "
-                                  "MoE x sp)")
+    if args.fused_ce and args.pp > 1:
+        raise SystemExit("--fused_ce applies to the TransformerLM head; "
+                         "the --pp adapter computes its own head")
     return args
 
 
 def mesh_spec(args):
     """``world -> MeshSpec``: the JAX example's rule, ``tp`` auto from the
-    ranks left once fsdp, sp and ep take their share (2 if even), over a
-    world size that a live reshard may change."""
+    ranks left once fsdp, sp and ep take their share (under ``--pp``, once
+    pp and fsdp do), 2 if even, over a world size that a live reshard may
+    change."""
     from edl_tpu_torch.parallel.mesh import MeshSpec
 
     def spec(world: int) -> MeshSpec:
+        if args.pp > 1:
+            free = max(1, world // (args.pp * args.fsdp))
+            tp = args.tp or (2 if free % 2 == 0 else 1)
+            return MeshSpec(dp=-1, pp=args.pp, tp=tp, fsdp=args.fsdp, dcn_dp=args.dcn_dp)
         free = max(1, world // (args.fsdp * args.sp * args.ep))
         tp = args.tp or (2 if free % 2 == 0 else 1)
         return MeshSpec(dp=-1, fsdp=args.fsdp, tp=tp, sp=args.sp, ep=args.ep,
@@ -162,6 +195,150 @@ def build_config(args, device: torch.device):
         auto.remat if args.remat == "auto" else args.remat == "on"))
 
 
+class StackedBlocks(nn.Module):
+    """``n`` decoder blocks with their parameters stacked on a leading dim
+    (the "stage" dim; under ``pp``, this rank's run of layers): each is
+    ``Block``'s parameter with ``n`` in front (``attn_qkv.weight [n, (H +
+    2Hk) Dh, D]``, ...).  ``forward(h)`` is the superstage: the blocks in
+    order, each through ``Block.forward`` on its slice of the stack, at
+    positions ``arange(L)``, recomputed in the backward with
+    ``TransformerLM``'s policy when ``cfg.remat`` is set."""
+
+    def __init__(self, cfg, n: int):
+        super().__init__()
+        from edl_tpu_torch.models.transformer import Block
+
+        with torch.device("meta"):
+            block = Block(cfg)
+        for name, p in block.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            if owner not in self._modules:
+                self.add_module(owner, nn.Module())
+            self._modules[owner].register_parameter(
+                leaf, nn.Parameter(torch.empty(n, *p.shape)))
+        object.__setattr__(self, "block", block)    # code, not parameters
+        self.cfg = cfg
+
+    def forward(self, h):
+        from torch.func import functional_call
+        from torch.utils.checkpoint import checkpoint
+
+        from edl_tpu_torch.models.transformer import _REMAT_CONTEXTS
+
+        stacked = dict(self.named_parameters())
+        pos = torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+        for j in range(len(next(iter(stacked.values())))):
+            params = {name: p[j] for name, p in stacked.items()}
+
+            def layer(x, params=params):
+                return functional_call(self.block, params, (x, pos))
+
+            if self.cfg.remat and torch.is_grad_enabled():
+                h = checkpoint(layer, h, use_reentrant=False, context_fn=_REMAT_CONTEXTS)
+            else:
+                h = layer(h)
+        return h
+
+
+class PipelinedLM(nn.Module):
+    """``TransformerLM`` with its decoder blocks pipelined over the pp mesh
+    axis: the counterpart of the JAX example's ``_PipelinedLM``, with the
+    same submodules (``embed``, the stacked blocks ``layers`` run through
+    ``ops/pipeline.py``, ``norm``, an untied bias-free ``head``) and f32
+    logits.  Parameters are f32, initialised on the CPU from ``generator``
+    (default seed 0) with ``TransformerLM``'s families;
+    ``models/convert.py:pipelined_from_jax`` loads the flax tree.  Placed on
+    a mesh by :data:`PIPELINE_LOGICAL_RULES`: ``set_pp`` runs this rank's
+    stage of ``num_layers / pp`` layers, ``set_tp`` the blocks' heads and
+    MLP columns and a vocab-parallel embedding and head, as
+    ``TransformerLM``'s.  Dense blocks only (the JAX adapter refuses MoE)."""
+
+    def __init__(self, cfg, n_microbatches: int, generator: torch.Generator | None = None):
+        super().__init__()
+        from edl_tpu_torch.models.transformer import Dense, RMSNorm
+
+        if cfg.moe_experts:
+            raise ValueError("--moe is not supported by the --pp adapter")
+        D, V = cfg.embed_dim, cfg.vocab_size
+        self.cfg, self.M = cfg, n_microbatches
+        self.embed = nn.Embedding(V, D, _weight=torch.empty(V, D))
+        self.layers = StackedBlocks(cfg, cfg.num_layers)
+        self.norm = RMSNorm(D, cfg.dtype)
+        self.head = Dense(D, V, cfg.dtype)
+        self.tp = self.pp = None
+        self.reset_parameters(generator or torch.Generator().manual_seed(0))
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        from edl_tpu_torch.models.transformer import _lecun_normal_
+
+        self.embed.weight.normal_(0.0, self.cfg.embed_dim ** -0.5, generator=gen)
+        for name, p in self.layers.named_parameters():
+            if name.endswith("norm.scale"):
+                p.fill_(1.0)
+            else:
+                for w in p:
+                    _lecun_normal_(w, w.shape[1], gen)
+        self.norm.scale.fill_(1.0)
+        _lecun_normal_(self.head.weight, self.head.weight.shape[1], gen)
+
+    def tp_segments(self, name: str):
+        """The fused q|k|v weight's head dim holds three tensors."""
+        if name.endswith("attn_qkv.weight"):
+            c = self.cfg
+            return (c.num_heads * c.head_dim, c.kv_heads * c.head_dim, c.kv_heads * c.head_dim)
+        return None
+
+    def set_tp(self, tp) -> None:
+        c = self.cfg
+        for what, n in (("num_heads", c.num_heads), ("mlp_dim", c.mlp_dim),
+                        ("kv heads", c.kv_heads), ("vocab_size", c.vocab_size)):
+            if n % tp.size:
+                raise ValueError(f"{what} {n} does not divide over tp = {tp.size}")
+        self.tp = tp
+        self.layers.block.set_tp(tp)
+
+    def set_pp(self, pp) -> None:
+        if self.cfg.num_layers % pp.size:
+            raise ValueError(f"{self.cfg.num_layers} layers do not divide over pp = {pp.size}")
+        self.pp = pp
+
+    def fsdp_units(self) -> list[nn.Module]:
+        return [self.layers]
+
+    def forward(self, ids):
+        """f32 logits ``[B, L, V]`` of ``ids [B, L]``, on every pp rank."""
+        from edl_tpu_torch.models.transformer import embed_tokens
+        from edl_tpu_torch.ops.pipeline import pipeline
+        from edl_tpu_torch.parallel.tp import copy_to, gather_from_tp
+
+        x = embed_tokens(ids.long(), self.embed.weight, self.tp, self.cfg.dtype)
+        x = pipeline(self.layers, x, self.pp, self.M)
+        x = copy_to(self.norm(x), self.tp)
+        return gather_from_tp(self.head(x).float(), self.tp)
+
+
+def _pipeline_rules() -> list[tuple[str, tuple]]:
+    from edl_tpu_torch.models.transformer import LOGICAL_RULES
+
+    block = [(r"^layers\..*" + pat, ("stage",) + axes) for pat, axes in LOGICAL_RULES
+             if not pat.startswith(("tok_embed", "lm_head", r"moe"))]
+    return [(r"^embed\.weight$", ("vocab", "embed")), (r"^head\.weight$", ("vocab", "embed")),
+            (r"^norm\.scale$", (None,))] + block
+
+
+# :class:`PipelinedLM`'s parameter-name regex -> logical axes: "stage" first
+# on the stacked blocks, then each block weight's own axes
+PIPELINE_LOGICAL_RULES = _pipeline_rules()
+
+
+def logical_rules(args) -> list[tuple[str, tuple]]:
+    """The rules that place ``args``'s model on a mesh."""
+    from edl_tpu_torch.models.transformer import LOGICAL_RULES
+
+    return PIPELINE_LOGICAL_RULES if args.pp > 1 else LOGICAL_RULES
+
+
 def _inputs(model, ids):
     """``(inputs, targets)`` of next-token prediction on ``ids [B, L+1]``:
     under sp this rank's chunk of each (``parallel/sharding.py:seq_chunk``)."""
@@ -179,6 +356,8 @@ def make_loss_fn(args):
 
     def loss_fn(model, extra, batch, gen):
         ids, targets = _inputs(model, batch["ids"])
+        if isinstance(model, PipelinedLM):
+            return lm_loss(model(ids), targets), (extra, {})
         if args.fused_ce:
             # the fused loss inside the forward, where FSDP2 gathered the head
             nll, aux = model(ids, targets=targets, ce_block=args.ce_block, with_aux=True)
@@ -209,8 +388,12 @@ def build_trainer(args, device: torch.device, checkpoint_dir: str = "", store=No
     """``(cfg, trainer, init_fn, tx)`` for ``args`` on ``device``, on the
     mesh of ``args`` over the formed world (collective); the global batch
     is ``--batch_size`` times the mesh's batch divisor.  ``force_fsdp``:
-    FSDP2 even on an fsdp axis of 1.  Place the model by passing
-    ``LOGICAL_RULES`` to ``create_state``/``restore_or_create``."""
+    FSDP2 even on an fsdp axis of 1.  The model is a :class:`PipelinedLM`
+    under ``--pp`` > 1, else a ``TransformerLM``, as in the JAX example (a
+    ``PipelinedLM`` at pp 1 runs its stages in sequence, so a caller that
+    passes its own ``init_fn`` resumes a pipelined checkpoint in one
+    process).  Place the model by passing ``logical_rules(args)`` to
+    ``create_state``/``restore_or_create``."""
     from edl_tpu_torch.models.transformer import TransformerLM
     from edl_tpu_torch.train.state import adamw
     from edl_tpu_torch.train.trainer import ElasticTrainer, TrainConfig
@@ -223,8 +406,12 @@ def build_trainer(args, device: torch.device, checkpoint_dir: str = "", store=No
         store=store, tenv=tenv, device=device)
     trainer.cfg.global_batch_size = args.batch_size * trainer.world_size
 
-    def init_fn():
-        return TransformerLM(cfg, torch.Generator().manual_seed(0)), None
+    if args.pp > 1:
+        def init_fn():
+            return PipelinedLM(cfg, args.pp_microbatches, torch.Generator().manual_seed(0)), None
+    else:
+        def init_fn():
+            return TransformerLM(cfg, torch.Generator().manual_seed(0)), None
 
     return cfg, trainer, init_fn, adamw(args.lr)
 
@@ -255,12 +442,10 @@ def _mesh(trainer) -> dict:
 
 
 def _train(args, device, tenv, store):
-    from edl_tpu_torch.models.transformer import LOGICAL_RULES
-
     rank = tenv.global_rank
     cfg, trainer, init_fn, tx = build_trainer(args, device, tenv.checkpoint_dir, store, tenv)
     world = trainer.processes
-    state, meta = trainer.restore_or_create(init_fn, tx, LOGICAL_RULES)
+    state, meta = trainer.restore_or_create(init_fn, tx, logical_rules(args))
     print(f"[train_lm] rank={rank}/{world} device={device} mesh={_mesh(trainer)} "
           f"attn={args.attention} remat={cfg.remat} resume_epoch={meta.next_epoch}", flush=True)
     step_sleep = float(os.environ.get("EDL_TPU_DEMO_STEP_SLEEP", "0"))

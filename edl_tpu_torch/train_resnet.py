@@ -37,8 +37,15 @@ elastic launcher one process runs per trainer, as with ``train_lm``.
 data-parallel replica groups across pods merged pod-major into ``dp``; a
 rank's position on that axis picks its file shard and its batches' seed.
 
-Not ported yet, each raising ``NotImplementedError``: ``--dgc`` (ROADMAP.md
-Queue 1 item 7) and ``--profile_steps`` (item 8).
+``--dgc S`` builds the JAX example's chain instead of the Nesterov SGD: the
+coupled weight decay, then Deep Gradient Compression at sparsity S with
+``--momentum`` as its momentum correction and a rampup of
+``--dgc_rampup_epochs`` epochs, then SGD on the schedule with no momentum
+(``train/compress.py``); its residual and momentum ride the optimizer's
+state into every checkpoint.
+
+Not ported yet, raising ``NotImplementedError``: ``--profile_steps``
+(ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -83,7 +90,8 @@ def parse_args(argv=None):
                         "the peak memory does not fall, the step is slower)")
     p.add_argument("--save_every_steps", type=int, default=0,
                    help="mid-epoch checkpoint cadence (0 = per-epoch only)")
-    p.add_argument("--dgc", type=float, default=0.0, help="not ported")
+    p.add_argument("--dgc", type=float, default=0.0,
+                   help=">0: deep gradient compression at this sparsity (train/compress.py)")
     p.add_argument("--dgc_rampup_epochs", type=float, default=1.0)
     p.add_argument("--steps_per_epoch", type=int, default=0,
                    help="cap steps per epoch (0 = full dataset)")
@@ -103,12 +111,9 @@ def parse_args(argv=None):
                         "data leader (python -m edl_tpu_torch.data.leader) instead")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    unported = [(args.dgc > 0, "--dgc", "item 7 (train/compress.py)"),
-                (bool(args.profile_steps), "--profile_steps", "item 8 (obs/profile.py)")]
-    for asked, flag, item in unported:
-        if asked:
-            raise NotImplementedError(f"{flag} is not ported to edl_tpu_torch yet "
-                                      f"(ROADMAP.md Queue 1 {item})")
+    if args.profile_steps:
+        raise NotImplementedError("--profile_steps is not ported to edl_tpu_torch yet "
+                                  "(ROADMAP.md Queue 1 item 8 (obs/profile.py))")
     return args
 
 
@@ -246,7 +251,15 @@ def build_trainer(args, device: torch.device, steps_per_epoch: int = 1,
     lr = scale_lr_for_batch(args.base_lr, global_batch, base_batch=256)
     schedule = cosine_warmup(lr, total_steps=args.epochs * steps_per_epoch,
                              warmup_steps=int(args.warmup_epochs * steps_per_epoch))
-    tx = sgd(schedule, momentum=args.momentum, nesterov=True, weight_decay=args.weight_decay)
+    if args.dgc > 0:
+        # DGC carries its own momentum correction; the SGD after it has none
+        from edl_tpu_torch.train.compress import dgc
+        tx = dgc(schedule, sparsity=args.dgc, momentum=args.momentum,
+                 rampup_steps=int(args.dgc_rampup_epochs * steps_per_epoch),
+                 weight_decay=args.weight_decay)
+    else:
+        tx = sgd(schedule, momentum=args.momentum, nesterov=True,
+                 weight_decay=args.weight_decay)
     trainer = ElasticTrainer(
         make_loss_fn(args),
         TrainConfig(checkpoint_dir=checkpoint_dir, save_every_steps=args.save_every_steps,

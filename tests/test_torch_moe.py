@@ -421,13 +421,19 @@ JAX_SERVE_LM = (ROOT / "examples" / "lm" / "serve_lm.py").read_text()
      "--fsdp, --sp and --ep must be >= 1"),
     (["--moe", "4", "--moe_top_k", "5"], SystemExit, "--moe_top_k 5 cannot exceed --moe 4 experts",
      'f"--moe_top_k {args.moe_top_k} cannot exceed "'),
-    (["--moe", "4", "--sp", "2"], NotImplementedError, "ROADMAP.md Queue 1, MoE x sp", None),
-    (["--pp", "2"], NotImplementedError, "ROADMAP.md Queue 1 item 7", None),
-], ids=["ep_without_moe", "sp_zero", "top_k_over_experts", "moe_with_sp", "pp"])
+    (["--moe", "4", "--pp", "2"], SystemExit, "--moe is not supported by the --pp adapter",
+     '"--moe is not supported by the --pp adapter"'),
+    (["--pp", "2", "--sp", "2"], SystemExit, "--pp cannot combine with --sp/--attention ring",
+     '"--pp cannot combine with --sp/--attention "'),
+    (["--pp", "3", "--layers", "4"], SystemExit, "--layers 4 must divide evenly over --pp 3",
+     'f"--layers {args.layers} must divide evenly "'),
+], ids=["ep_without_moe", "sp_zero", "top_k_over_experts", "moe_with_pp", "pp_with_sp",
+        "layers_over_pp"])
 def test_train_lm_cli_exits(argv, exc, message, jax_text):
     """The JAX example's exits with its messages (``jax_text``: the message
-    in its source); the two it does not refuse name ROADMAP.md.
-    ``serve_lm`` shares the top-k exit, as the JAX example's does."""
+    in its source).  ``serve_lm`` shares the top-k exit, as the JAX
+    example's does.  ``--moe`` with ``--sp`` trains
+    (``tests/test_torch_moe_sp.py``)."""
     with pytest.raises(exc) as err:
         train_lm.parse_args(["--device", "cpu", *argv])
     assert message in str(err.value)

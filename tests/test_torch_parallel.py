@@ -189,14 +189,16 @@ def test_lm_logical_rules_and_head_split_boxes():
 @pytest.mark.parametrize("flag", [["--sp", "2"], ["--pp", "2"], ["--ep", "2"], ["--moe", "4"],
                                   ["--attention", "ring"]])
 def test_train_lm_unported_mesh_flags_raise(flag):
-    """``--pp`` is the one mesh flag still refused; ``--ep`` without
-    ``--moe`` exits with the JAX example's message; the others parse."""
+    """Every mesh flag is ported: ``--pp`` parses with its microbatch count
+    (``tests/test_torch_pipeline.py`` trains it); ``--ep`` without ``--moe``
+    exits with the JAX example's message; the others parse."""
     from edl_tpu_torch import train_lm
 
     argv = ["--device", "cpu"] + flag
     if flag[0] == "--pp":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-            train_lm.parse_args(argv)
+        args = train_lm.parse_args(argv)
+        assert (args.pp, args.pp_microbatches) == (2, 4)
+        assert train_lm.mesh_spec(args)(2).pp == 2
     elif flag[0] == "--ep":
         with pytest.raises(SystemExit, match="--ep needs --moe"):
             train_lm.parse_args(argv)

@@ -135,6 +135,20 @@ def test_metric_fn_is_per_example_ce_and_top1():
 
 @pytest.mark.parametrize("flag", [["--dgc", "0.99"], ["--profile_steps", "3:5"]])
 def test_unported_flags_raise(flag):
+    """``--profile_steps`` is still refused; ``--dgc`` builds the JAX
+    example's chain (``tests/test_torch_compress.py`` holds it to optax)."""
+    if flag[0] == "--dgc":
+        from edl_tpu_torch.train.compress import DGC
+        args = train_resnet.parse_args(ARGV + flag + ["--dgc_rampup_epochs", "0.5"])
+        init_fn, trainer, tx, _ = train_resnet.build_trainer(args, torch.device("cpu"),
+                                                             steps_per_epoch=8)
+        model, _ = init_fn()
+        opt = tx(model.parameters())
+        assert isinstance(opt, DGC)
+        group = opt.param_groups[0]
+        assert (group["sparsity"], group["momentum"], group["rampup_steps"],
+                group["weight_decay"]) == (0.99, args.momentum, 4, args.weight_decay)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         train_resnet.parse_args(ARGV + flag)
 

@@ -212,7 +212,9 @@ def test_unported_modes_raise():
     decode = ttf.TransformerLM(ttf.TransformerConfig(decode=True, vocab_size=64, **SMALL))
     with pytest.raises(ValueError, match="KVCache"):
         decode(torch.zeros((1, 4), dtype=torch.int64))
-    # MoE is ported (tests/test_torch_moe.py); MoE over sp is not
+    # MoE is ported (tests/test_torch_moe.py), over sp too
+    # (tests/test_torch_moe_sp.py): every MoE layer routes over the group
     moe = ttf.TransformerLM(ttf.TransformerConfig(moe_experts=4, vocab_size=64, **SMALL))
-    with pytest.raises(NotImplementedError, match="MoE x sp"):
-        moe.set_sp(SP(None, 0, 2))
+    sp = SP(None, 0, 2)
+    moe.set_sp(sp)
+    assert all(layer.moe.sp is sp for layer in moe.layers)
