@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases build,meshserve
     python3 chip_smoke.py --phases build,moe,ring
     python3 chip_smoke.py --phases build,pp
+    python3 chip_smoke.py --phases models
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -297,7 +298,8 @@ failure exits non-zero:
    each gloo all-reduce timed: ms a hop, bytes rotated a step.  (c) The
    MoE flagship (``--moe 8 --moe_top_k 2``) at sp 2 on the gathered path
    against one process: the losses (``SPLIT_LOSS_RTOL``), both runs' drops
-   (to ``MOE_SP_DROPS_RTOL`` of each other) and aux.
+   (to ``MOE_SP_DROPS_RTOL`` of each other) and each step's aux (to
+   ``MOE_SP_AUX_RTOL``).
 21. ``pp``: the flagship's blocks pipelined over pp = 2 (GPipe, 4
    microbatches): two processes on the one card over gloo, 6 layers each,
    against the same model in one process at pp 1: 3 steps' losses
@@ -308,6 +310,24 @@ failure exits non-zero:
    resumed at pp 1: the step, every restored parameter and AdamW moment
    equal to the pp-2 ranks' saved ones, and the next loss within
    ``PP_RESUME_ATOL`` of theirs.
+
+22. ``models``: the last five models through their entry points, no kernel
+   of this repo: (a) ``train_linear`` for 2 epochs, then
+   again with ``--epochs 4``: it resumes at epoch 2, ``w_err`` falls, and the
+   final ``w`` equals the same two runs on the CPU (``LINEAR_W_ATOL``); (b)
+   ``train_wide_deep`` in bf16 with the JAX test's arguments (test AUC at
+   least 0.8) and at its defaults (AUC logged), its f32 first loss against
+   the CPU's (``WIDE_DEEP_CPU_RTOL``), ep 2 over gloo in two processes on
+   the card (each rank 500 rows of every table, 3 losses to
+   ``SPLIT_LOSS_RTOL`` of one process's) and the ep-2 checkpoint resumed at
+   ep 1 (every table equal to the ranks' rows); (c) ``train_mnist_distill
+   --role local`` and (d) ``train_nlp_distill --role local`` with both
+   students, the teachers served from the card, to the JAX slow tests'
+   bars; (e) VGG16 at 224², 1,000 classes, bf16 ``channels_last``, batch 64
+   with train_resnet's SGD step (at ``VGG_LR``): img/s, device ms by group
+   (the three dense layers timed alone between CUDA events), busy share, peak memory,
+   the loss falling; and an f32 train-mode forward at [2, 64, 64, 3] on the
+   card against the CPU (logits and running stats, ``VGG_CPU_TOL``).
 
 It then prints the card's ``nvidia-smi`` name and power limit, one line
 ``{"kernels": [...]}``, and, last, ``{"ok": true, "device": {...}}``.
@@ -328,7 +348,7 @@ from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
           "resume", "data", "elastic", "serve", "fleet", "distill", "reshard", "mesh",
-          "meshserve", "moe", "ring", "pp")
+          "meshserve", "moe", "ring", "pp", "models")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -5275,6 +5295,11 @@ SP_GRAD_RTOL = 3e-2
 # differently on the two paths, so a choice near a tie may flip)
 MOE_SP_ARGS = ["--moe", str(MOE_E), "--moe_top_k", str(MOE_K)]
 MOE_SP_DROPS_RTOL = 1e-2
+# (c): each step's aux loss at sp 2 against one process's, relative: the H100
+# read 1.2576/1.3270/1.2032 against 1.2576/1.3272/1.2061 (PERF.md §6),
+# 2.4e-3 apart by step 3 and growing a step at a time as bf16 routing near a
+# tie flips (the drops' cause); 1e-2 is four times that reading
+MOE_SP_AUX_RTOL = 1e-2
 
 
 def _moe_drops(model, batch) -> int:
@@ -5369,7 +5394,7 @@ def phase_ring(ctx) -> None:
     losses of 3 steps and the step-1 gradients; (c) the MoE flagship
     (``--moe 8 --moe_top_k 2``) at sp 2 on the gathered path against one
     process: the losses, the drops (the capacity counts of the whole
-    sequence) and the aux."""
+    sequence) and each step's aux."""
     import shutil
 
     import torch
@@ -5420,10 +5445,13 @@ def phase_ring(ctx) -> None:
         runs = [r["moe"] for r in ranks]
         rel = max(abs(a - b) / abs(b) for r in runs for a, b in zip(r["losses"], one_moe["losses"]))
         drops = [r["probe"] for r in runs]
+        aux_rel = max(abs(a - b) / abs(b) for r in runs
+                      for a, b in zip(r["moe_aux"], one_moe["moe_aux"]))
         moe = {"losses": [r["losses"] for r in runs], "one_losses": one_moe["losses"],
                "loss_rel_max": rel, "drops": drops, "one_drops": one_moe["probe"],
                "drops_rtol": MOE_SP_DROPS_RTOL, "aux": [r["moe_aux"] for r in runs],
-               "one_aux": one_moe["moe_aux"], "wall_ms": [r["wall_ms"] for r in runs],
+               "one_aux": one_moe["moe_aux"], "aux_rel_max": aux_rel,
+               "aux_rtol": MOE_SP_AUX_RTOL, "wall_ms": [r["wall_ms"] for r in runs],
                "one_wall_ms": one_moe["wall_ms"], "launches": runs[0]["launches"],
                "mesh": runs[0]["mesh"], "timed_step": [r["timed"] for r in runs]}
         log("ring", moe_sp=moe)
@@ -5432,6 +5460,9 @@ def phase_ring(ctx) -> None:
         if drops[0] != drops[1] or abs(drops[0] - one_moe["probe"]) > \
                 MOE_SP_DROPS_RTOL * max(drops[0], one_moe["probe"]):
             raise AssertionError(f"MoE at sp 2: the drops are not one process's: {moe}")
+        if len(moe["one_aux"]) != RING_STEPS or any(len(r) != RING_STEPS for r in moe["aux"]) \
+                or aux_rel > MOE_SP_AUX_RTOL:
+            raise AssertionError(f"MoE at sp 2: the aux is not one process's: {moe}")
         want = RING_STEPS * 2
         if moe["mesh"]["sp"] != 2 or moe["launches"] != {
                 n: want if n in SPLASH_WRAPPERS else 0 for n in moe["launches"]}:
@@ -5711,6 +5742,364 @@ def phase_pp(ctx) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 22 --------------------------------------------------------------------
+
+# (a) train_linear: 2 epochs, then a resume to 4; the final w against the CPU's
+LINEAR_W_ATOL = 1e-5
+# (b) train_wide_deep: the AUC bar and arguments of tests/test_ctr_example.py:19
+# (the example's defaults read 0.7589 in the JAX example itself on the CPU,
+# so its 0.8 belongs to these arguments); the f32 first loss on the card
+# against the CPU's; ep 2 over gloo on the one card against one process
+WIDE_DEEP_AUC_ARGS = ["--epochs", "2", "--steps_per_epoch", "40", "--batch_size", "128",
+                      "--vocab", "100", "--lr", "0.01"]
+WIDE_DEEP_AUC_MIN = 0.8
+WIDE_DEEP_CPU_RTOL = 1e-4
+WIDE_DEEP_EP_STEPS = 3
+# (c), (d): the distill examples' local roles with the JAX slow tests' arguments
+# and bars (tests/test_distill_e2e.py:19, tests/test_nlp_distill.py:25)
+MNIST_ARGS = ["--role", "local", "--classes", "6", "--train_n", "256", "--label_noise", "0.7",
+              "--student_epochs", "20"]
+# (e) VGG16 at its published width: 224², 1,000 classes, bf16 channels_last,
+# batch 64, train_resnet's SGD step (Nesterov 0.9, coupled L2 1e-4) at the VGG
+# paper's initial LR of 1e-2 (train_resnet's rule gives 0.025 at batch 64: the
+# loss rose from 4.6 to 19.6 in steps 3-5 on the H100 before it fell); a
+# train-mode forward in f32 at [2, 64, 64, 3] on the card against the CPU:
+# logits and running stats within VGG_CPU_TOL of each tensor's largest
+# magnitude (ResNet's RESNET_CPU_TOL)
+VGG_BATCH, VGG_WARMUP, VGG_TIMED, VGG_PROFILED = 64, 2, 5, 2
+VGG_LR = 1e-2
+VGG_CPU_TOL = 1e-4
+
+
+def _models_linear(root: Path) -> dict:
+    """(a) ``train_linear`` in this process for 2 epochs, then again with
+    ``--epochs 4``: the resume at epoch 2, w_err falling, the final w and b
+    against the same two runs on the CPU."""
+    from unittest import mock
+
+    import numpy as np
+
+    from edl_tpu_torch import train_linear
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with mock.patch.dict("os.environ", {"EDL_TPU_CKPT_DIR": str(root / f"linear-{dev}")}):
+            t0 = time.perf_counter()
+            first = train_linear.main(["--device", dev, "--epochs", "2"])
+            second = train_linear.main(["--device", dev, "--epochs", "4"])
+            runs[dev] = (first, second, time.perf_counter() - t0)
+    (first, second, seconds), (_, cpu, _) = runs["cuda"], runs["cpu"]
+    err = max(float(np.abs(second["w"] - cpu["w"]).max()), float(np.abs(second["b"] - cpu["b"]).max()))
+    out = {"w_err": [first["w_err"], second["w_err"]], "resume_epoch": second["resume_epoch"],
+           "epochs": second["epochs"], "w_vs_cpu_max_abs": err, "atol": LINEAR_W_ATOL,
+           "seconds_card": seconds}
+    log("models", linear=out)
+    if second["resume_epoch"] != 2 or second["epochs"] != [0, 1, 2, 3]:
+        raise AssertionError(f"train_linear did not resume at epoch 2: {out}")
+    if not second["w_err"] < first["w_err"] or err > LINEAR_W_ATOL:
+        raise AssertionError(f"train_linear: w_err did not fall or w is not the CPU's: {out}")
+    return out
+
+
+def _wd_batches(args, device):
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch import train_wide_deep as twd
+    rng = np.random.default_rng(1000)
+    return [{k: torch.from_numpy(v).to(device)
+             for k, v in twd.click_model(args, rng, args.batch_size).items()}
+            for _ in range(WIDE_DEEP_EP_STEPS)]
+
+
+def _wd_steps(trainer, state, batches, device) -> tuple[list, list]:
+    import torch
+    gen = torch.Generator(device=device).manual_seed(3)
+    losses, wall = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.step_fn(state, b, gen)
+        losses.append(float(metrics["loss"]))
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return losses, wall
+
+
+def _models_ep_rank(rank: int, port: int, root: str) -> None:
+    """(b) one rank of Wide&Deep at ep = 2 over gloo on cuda:0, the
+    example's defaults (bf16): 3 steps, then a checkpoint.  Writes
+    ``root/wd<rank>.json`` and this rank's tables to ``root/wd-tables<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch import train_wide_deep as twd
+    from edl_tpu_torch.models.wide_deep import LOGICAL_RULES
+    from edl_tpu_torch.parallel.mesh import mesh_sizes
+    device = _pair_world(rank, port)
+    args = twd.parse_args([])
+    trainer, init_fn, tx = twd.build_trainer(args, device, f"{root}/wd-ep-ckpt")
+    state, meta = trainer.restore_or_create(init_fn, tx, LOGICAL_RULES)
+    losses, wall = _wd_steps(trainer, state, _wd_batches(args, device), device)
+    meta.step = state.step
+    trainer.ckpt.save(state.step, state, meta, force=True)
+    trainer.ckpt.wait()
+    tables = {n: p.detach().cpu() for n, p in state.model.named_parameters()
+              if n.startswith(("embed_", "wide_"))}
+    torch.save(tables, f"{root}/wd-tables{rank}.pt")
+    with open(f"{root}/wd{rank}.json", "w") as f:
+        json.dump({"losses": losses, "wall_ms": wall, "mesh": mesh_sizes(trainer.layout),
+                   "data_rank": trainer.data_rank,
+                   "rows": {n: t.shape[0] for n, t in tables.items()}}, f)
+    dist.destroy_process_group()
+
+
+def _models_wide_deep(root: Path) -> dict:
+    """(b) ``train_wide_deep`` on the card in bf16 with the JAX test's
+    arguments (AUC at least 0.8) and at its defaults (AUC logged); the f32
+    first loss against the CPU's; ep 2 in two processes against one process
+    (3 steps' losses to ``SPLIT_LOSS_RTOL``, each rank 500 rows of every
+    table); the ep-2 checkpoint resumed at ep 1, every table equal to the
+    ranks' rows to the bit."""
+    from unittest import mock
+
+    import torch
+
+    from edl_tpu_torch import train_wide_deep as twd
+    out = {}
+    for name, argv in (("auc_run", WIDE_DEEP_AUC_ARGS), ("defaults_run", [])):
+        with mock.patch.dict("os.environ", {"EDL_TPU_CKPT_DIR": str(root / f"wd-{name}")}):
+            t0 = time.perf_counter()
+            rec = twd.main(argv)
+            out[name] = {"auc": rec["auc"], "epochs": rec["epochs"],
+                         "seconds": time.perf_counter() - t0}
+    args = twd.parse_args([])
+    first = {}
+    for dev in ("cuda", "cpu"):
+        device = torch.device(dev)
+        trainer, init_fn, tx = twd.build_trainer(args, device, dtype=torch.float32)
+        state = trainer.create_state(init_fn, tx)
+        first[dev] = float(trainer.step_fn(state, _wd_batches(args, device)[0],
+                                           torch.Generator(device=device))[1]["loss"])
+    out["f32_first_loss"] = first
+    out["f32_first_loss_rel"] = abs(first["cuda"] - first["cpu"]) / abs(first["cpu"])
+    device = torch.device("cuda", 0)
+    trainer, init_fn, tx = twd.build_trainer(args, device)
+    one, one_wall = _wd_steps(trainer, trainer.create_state(init_fn, tx),
+                              _wd_batches(args, device), device)
+    del trainer
+    t0 = time.perf_counter()
+    _spawn_pair("_models_ep_rank", root)
+    ranks = [json.loads((root / f"wd{r}.json").read_text()) for r in range(2)]
+    rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], one))
+    out["ep2"] = {"ep1_losses": one, "ep2_losses": [r["losses"] for r in ranks],
+                  "loss_rel_max": rel, "rtol": SPLIT_LOSS_RTOL, "ep1_wall_ms": one_wall,
+                  "ep2_wall_ms": [r["wall_ms"] for r in ranks], "mesh": ranks[0]["mesh"],
+                  "rows": ranks[0]["rows"]["embed_0.weight"], "seconds": time.perf_counter() - t0}
+    # the ep-2 checkpoint at ep 1, in this process
+    resumed, init_fn, tx = twd.build_trainer(args, device, str(root / "wd-ep-ckpt"))
+    rstate, _ = resumed.restore_or_create(init_fn, tx)
+    saved = [torch.load(root / f"wd-tables{r}.pt", weights_only=True) for r in range(2)]
+    params = dict(rstate.model.named_parameters())
+    unequal = [n for n in saved[0] if not torch.equal(
+        params[n].detach().cpu(), torch.cat([saved[0][n], saved[1][n]]))]
+    out["ep2_resume_at_ep1"] = {"step": rstate.step, "tables": len(saved[0]),
+                                "tables_not_equal": unequal}
+    del resumed, rstate
+    torch.cuda.empty_cache()
+    log("models", wide_deep=out)
+    if out["auc_run"]["auc"] < WIDE_DEEP_AUC_MIN:
+        raise AssertionError(f"Wide&Deep AUC below {WIDE_DEEP_AUC_MIN}: {out['auc_run']}")
+    if out["f32_first_loss_rel"] > WIDE_DEEP_CPU_RTOL:
+        raise AssertionError(f"Wide&Deep f32 first loss is not the CPU's: {first}")
+    if rel > SPLIT_LOSS_RTOL or ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"Wide&Deep ep 2's losses are not ep 1's: {out['ep2']}")
+    if ranks[0]["mesh"]["ep"] != 2 or set(ranks[0]["rows"].values()) != {args.vocab // 2} \
+            or ranks[0]["data_rank"] != ranks[1]["data_rank"]:
+        raise AssertionError(f"a rank does not hold half of every table: {ranks}")
+    if out["ep2_resume_at_ep1"]["step"] != WIDE_DEEP_EP_STEPS or unequal:
+        raise AssertionError(f"the ep-2 checkpoint at ep 1: {out['ep2_resume_at_ep1']}")
+    return out
+
+
+def _models_distill() -> dict:
+    """(c) ``train_mnist_distill --role local`` with the JAX slow test's
+    arguments and bars; (d) ``train_nlp_distill --role local`` with each
+    student and the JAX slow test's bars.  The teachers are served from the
+    card."""
+    from edl_tpu_torch import train_mnist_distill, train_nlp_distill
+    out = {}
+    t0 = time.perf_counter()
+    out["mnist"] = train_mnist_distill.main(MNIST_ARGS)
+    out["mnist"]["seconds"] = time.perf_counter() - t0
+    for student in ("bow", "cnn"):
+        t0 = time.perf_counter()
+        out[f"nlp_{student}"] = train_nlp_distill.main(["--student", student])
+        out[f"nlp_{student}"]["seconds"] = time.perf_counter() - t0
+    log("models", distill=out)
+    m = out["mnist"]
+    if not (m["teacher_acc"] > 0.95 and m["distill_acc"] > 0.9 and m["gain"] >= 0.05):
+        raise AssertionError(f"MNIST distillation missed the JAX test's bars: {m}")
+    for student in ("bow", "cnn"):
+        s = out[f"nlp_{student}"]
+        if not (s["teacher_acc"] >= 0.9 and s["distill_acc"] >= 0.8 and s["gain"] >= 0.2
+                and s["teacher_rows"] > 0):
+            raise AssertionError(f"NLP distillation ({student}) missed the JAX test's bars: {s}")
+    return out
+
+
+def _vgg_group(name: str) -> str:
+    low = name.lower()
+    if "batch_norm" in low:
+        return "batch norm"
+    if "multi_tensor_apply" in low:
+        return "optimizer"
+    if "elementwise" in low or "reduce" in low or "pool" in low:
+        return "elementwise, reductions and pools"
+    if any(tag in low for tag in ("conv", "xmma", "implicit", "cutlass", "cudnn", "wgrad",
+                                  "dgrad", "fprop", "gemm", "nvjet", "cublas")):
+        return "convolution and matmul"
+    return "other"
+
+
+def _vgg_dense_ms(model, batch: int) -> float:
+    """Ms of the three dense layers' forward and backward alone, on a
+    [batch, 25088] bf16 input, between CUDA events (their GEMMs dominate; a
+    profile of so short a window lost records on the H100)."""
+    import torch
+    import torch.nn.functional as F
+    x = torch.randn(batch, model.fc0.weight.shape[1], device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    params = [x] + [p for m in (model.fc0, model.fc1, model.head) for p in m.parameters()]
+
+    def fc():
+        y = model.head(F.relu(model.fc1(F.relu(model.fc0(x)))))
+        torch.autograd.grad(y.float().sum(), params)
+
+    return event_ms(fc, reps=10, warmup=3)
+
+
+def _models_vgg() -> dict:
+    """(e) VGG16 at 224², 1,000 classes, bf16 ``channels_last``, batch 64,
+    train_resnet's SGD step at ``VGG_LR``: 2 warm-up and 5 timed steps
+    (img/s), device ms by group from 2 profiled steps (the dense layers
+    timed alone between CUDA events and taken from the GEMM-named
+    kernels), the busy
+    share, peak memory, the loss falling on the fixed batch; then one f32
+    train-mode forward at [2, 64, 64, 3] on the card against the CPU's
+    (logits and running stats)."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from edl_tpu_torch.models.vgg import VGG16
+    from edl_tpu_torch.train.state import sgd
+    from edl_tpu_torch.train.trainer import ElasticTrainer, TrainConfig
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+
+    device = torch.device("cuda")
+
+    def loss_fn(model, extra, batch, gen):
+        return F.cross_entropy(model(batch["image"]), batch["label"].long()), (extra, {})
+
+    with torch.device(device):     # 138M parameters: drawn on the card
+        model = VGG16(num_classes=1000, image_size=224, dtype=torch.bfloat16,
+                      generator=torch.Generator(device).manual_seed(0))
+    trainer = ElasticTrainer(loss_fn, TrainConfig(log_every=0), device=device)
+    state = trainer.create_state(lambda: (model, None), sgd(
+        VGG_LR, momentum=0.9, nesterov=True, weight_decay=1e-4))
+    batch = _resnet_batch(VGG_BATCH, 224, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(3)
+    losses = []
+    for _ in range(VGG_WARMUP):
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(VGG_TIMED):
+        state, metrics = trainer.step_fn(state, batch, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    rows = kernel_times(lambda: trainer.step_fn(state, batch, gen), reps=VGG_PROFILED)
+    groups: dict[str, float] = {}
+    for us, key, _ in rows:
+        g = _vgg_group(key)
+        groups[g] = groups.get(g, 0.0) + us / VGG_PROFILED / 1e3
+    busy = sum(r[0] for r in rows) / VGG_PROFILED / 1e3
+    wall_ms = dt / VGG_TIMED * 1e3
+    # the GEMM-named kernels split into the convolutions and the dense layers
+    # (timed alone)
+    dense = _vgg_dense_ms(state.model, VGG_BATCH)
+    both = groups.pop("convolution and matmul", 0.0)
+    groups["matmul (the three dense layers)"] = dense
+    groups["convolution"] = both - dense
+    params = sum(p.numel() for p in state.model.parameters())
+    del trainer, state, model, batch
+    torch.cuda.empty_cache()
+
+    # f32 at [2, 64, 64, 3]: one train-mode forward on the card and the CPU
+    cpu_model = VGG16(num_classes=1000, image_size=64, dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(device)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 64, 64, 3))
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = cpu_model.train()(x)
+        got = card_model.train()(x.to(device)).cpu()
+    errs = {"logits": float((got - want).abs().max() / want.abs().max())}
+    for (n, a), (_, b) in zip(cpu_model.named_buffers(), card_model.named_buffers()):
+        errs[n] = float((b.cpu() - a).abs().max() / a.abs().max().clamp_min(1e-30))
+    del card_model
+    torch.cuda.empty_cache()
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    out = {"nvidia_smi": smi_name_and_power_limit(), "batch": VGG_BATCH, "image_size": 224,
+           "dtype": "bfloat16", "parameters": params, "img_s": VGG_BATCH * VGG_TIMED / dt,
+           "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
+           "busy_share": busy / wall_ms, "device_ms_per_step_by_group": groups,
+           "max_memory_allocated": peak_mem, "losses": losses,
+           "f32_card_vs_cpu_worst": worst, "f32_card_vs_cpu_tol": VGG_CPU_TOL}
+    log("models", vgg=out)
+    total = sum(r[0] for r in rows)
+    for us, key, count in rows[:25]:
+        log("models_vgg_profile", kernel=key[:100], group=_vgg_group(key),
+            ms_per_step=us / VGG_PROFILED / 1e3, share=us / total,
+            calls_per_step=count / VGG_PROFILED)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the VGG16 loss did not fall on a fixed batch: {losses}")
+    if worst[1] > VGG_CPU_TOL:
+        raise AssertionError(f"VGG16 f32 on the card is not the CPU's: {errs}")
+    return out
+
+
+def phase_models(ctx) -> None:
+    """The last five models through their entry points on the card: (a)
+    ``train_linear``'s stop-resume; (b) ``train_wide_deep``'s AUC, its f32
+    first loss against the CPU, ep 2 against ep 1 and the ep-2 checkpoint at
+    ep 1; (c) ``train_mnist_distill`` and (d) ``train_nlp_distill`` (both
+    students), teachers served from the card, to the JAX tests' bars; (e)
+    VGG16 at full width, timed, and f32 against the CPU."""
+    import shutil
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_models"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        seconds = {}
+        for part, run in (("linear", lambda: _models_linear(root)),
+                          ("wide_deep", lambda: _models_wide_deep(root)),
+                          ("distill", _models_distill), ("vgg", _models_vgg)):
+            t0 = time.perf_counter()
+            run()
+            seconds[part] = time.perf_counter() - t0
+        log("models", part_seconds=seconds)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -5742,7 +6131,7 @@ def main(argv=None) -> int:
                "elastic": phase_elastic, "serve": phase_serve, "fleet": phase_fleet,
                "distill": phase_distill, "reshard": phase_reshard, "mesh": phase_mesh,
                "meshserve": phase_meshserve, "moe": phase_moe, "ring": phase_ring,
-               "pp": phase_pp}
+               "pp": phase_pp, "models": phase_models}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

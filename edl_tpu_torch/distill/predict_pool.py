@@ -20,7 +20,10 @@ Thread-model port of the reference's concurrency core
 
 Unlike the JAX pool, a worker also ends when the pool halts, so a worker
 the manager attaches during the consumer's shutdown does not outlive the
-pool (a pool is built per epoch).
+pool (a pool is built per epoch); and while it holds no teacher, the
+manager looks again every ``FIRST_ATTACH_PERIOD`` seconds, not every
+``manage_period``: a reader built per epoch over discovery otherwise waits
+a whole period (2 s) for the discovery client's first list.
 
 Threads, not processes: the workers are network-bound (the GIL is
 released in socket IO), which removes the reference's fork-vs-logging
@@ -45,6 +48,7 @@ from edl_tpu_torch.distill.timeline import timeline
 logger = logging.getLogger(__name__)
 
 MAX_TASK_RETRIES = 8
+FIRST_ATTACH_PERIOD = 0.05   # s: the manager's period while no teacher is attached
 
 
 class PoolError(RuntimeError):
@@ -179,7 +183,8 @@ class PredictPool:
                         self._workers[ep] = w
                     logger.info("attached teacher %s", ep)
                     w.start()
-            self._halt.wait(self._manage_period)
+            self._halt.wait(self._manage_period if self._live_workers()
+                            else min(self._manage_period, FIRST_ATTACH_PERIOD))
 
     # -- reader --------------------------------------------------------------
     def _read(self, stream: Iterable[tuple[int, list[tuple]]],

@@ -1,5 +1,7 @@
-"""Carry ``TransformerLM`` and ``ResNet`` weights between the flax tree and
-the PyTorch state dict.
+"""Carry model weights between the flax tree and the PyTorch state dict:
+``TransformerLM``, ``PipelinedLM``, ``ResNet`` and the small models
+(``LinearRegression``, ``WideDeep``, ``MnistCNN``, the text models,
+``VGG``).
 
 The flax tree follows the JAX package's ``LOGICAL_RULES`` paths:
 ``tok_embed/embedding`` ``[V, D]``; per layer ``attn_norm/scale``,
@@ -28,12 +30,19 @@ A ResNet's names are flax's module paths joined by dots (``stem``,
 kernels are HWIO and PyTorch's OIHW (``transpose(3, 2, 0, 1)``); the head's
 ``[in, out]`` kernel is transposed; a BN's ``scale`` and ``bias`` are the
 module's ``weight`` and ``bias``, and its ``batch_stats`` ``mean`` and
-``var`` the ``running_mean`` and ``running_var`` buffers.  Both directions
-only permute, so a round trip is bit-identical.
+``var`` the ``running_mean`` and ``running_var`` buffers.  The small
+models name their modules as flax does too (``fc``, ``embed_{i}``,
+``conv{i}_{j}``, ``attn_{i}.query``, ...) and map the same way
+(:func:`module_from_jax`, :func:`module_to_jax`): a 1-D conv's LIO kernel
+is the OIL weight, an ``embedding`` the ``weight`` as it is; a text
+attention's ``DenseGeneral`` kernels are reshaped (:func:`text_from_jax`).
+Every direction only permutes and reshapes, so a round trip is
+bit-identical.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any
 
 import numpy as np
@@ -159,9 +168,13 @@ def pipelined_to_jax(state_dict: dict[str, torch.Tensor], cfg: TransformerConfig
             "head": {"kernel": arr("head.weight", True)}}
 
 
-# ResNet: flax leaf name -> PyTorch name, by collection
-_RESNET_PARAMS = {"kernel": "weight", "scale": "weight", "bias": "bias"}
-_RESNET_STATS = {"mean": "running_mean", "var": "running_var"}
+# flax leaf name -> PyTorch name, by collection
+_PARAMS = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
+_STATS = {"mean": "running_mean", "var": "running_var"}
+# a flax kernel's dims -> the PyTorch weight's: Dense [in, out] -> [out, in],
+# a 1-D conv's LIO -> OIL, a 2-D conv's HWIO -> OIHW
+_KERNEL_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_KERNEL_TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
 def _flat(tree: dict[str, Any], prefix: str = ""):
@@ -172,27 +185,35 @@ def _flat(tree: dict[str, Any], prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
-def resnet_from_jax(params: dict[str, Any], batch_stats: dict[str, Any]
+def module_from_jax(params: dict[str, Any], batch_stats: dict[str, Any] | None = None
                     ) -> dict[str, torch.Tensor]:
-    """A ``ResNet`` state dict (f32 CPU tensors) from the flax ``params``
-    and ``batch_stats`` trees."""
+    """A state dict (f32 CPU tensors) from flax ``params`` (and
+    ``batch_stats``) trees of modules named as the PyTorch ones: a kernel is
+    the ``weight`` with its dims permuted (``_KERNEL_TO_TORCH``), a
+    ``scale`` or an ``embedding`` the ``weight`` as it is, a BN's ``mean``
+    and ``var`` the ``running_mean`` and ``running_var`` buffers."""
+    if set(params) == {"params"}:
+        params = params["params"]
     sd = {}
     for path, leaf in _flat(params):
         mod, name = path.rsplit(".", 1)
         a = np.asarray(leaf, dtype=np.float32)
         if name == "kernel":
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-        sd[f"{mod}.{_RESNET_PARAMS[name]}"] = torch.from_numpy(np.array(a, order="C"))
-    for path, leaf in _flat(batch_stats):
+            a = a.transpose(_KERNEL_TO_TORCH[a.ndim])
+        sd[f"{mod}.{_PARAMS[name]}"] = torch.from_numpy(np.array(a, order="C"))
+    for path, leaf in _flat(batch_stats or {}):
         mod, name = path.rsplit(".", 1)
-        sd[f"{mod}.{_RESNET_STATS[name]}"] = torch.from_numpy(
+        sd[f"{mod}.{_STATS[name]}"] = torch.from_numpy(
             np.array(np.asarray(leaf, dtype=np.float32), order="C"))
     return sd
 
 
-def resnet_to_jax(state_dict: dict[str, torch.Tensor]) -> tuple[dict[str, Any], dict[str, Any]]:
-    """``(params, batch_stats)``, flax trees of numpy f32 arrays, of a
-    ``ResNet`` state dict."""
+def module_to_jax(state_dict: dict[str, torch.Tensor], embeds: str = r"$^"
+                  ) -> tuple[dict[str, Any], dict[str, Any]]:
+    """``(params, batch_stats)``, flax trees of numpy f32 arrays, of a state
+    dict (or any dict of its names: gradients, buffers): a ``weight`` is a
+    ``scale`` when 1-D, an ``embedding`` when its module's name matches
+    ``embeds`` (a regex), else a kernel."""
     params: dict[str, Any] = {}
     stats: dict[str, Any] = {}
     for key, t in state_dict.items():
@@ -202,13 +223,125 @@ def resnet_to_jax(state_dict: dict[str, torch.Tensor]) -> tuple[dict[str, Any], 
             tree, leaf = stats, "mean" if name == "running_mean" else "var"
         elif name == "bias":
             tree, leaf = params, "bias"
+        elif re.search(embeds, mod):
+            tree, leaf = params, "embedding"
         elif a.ndim == 1:
             tree, leaf = params, "scale"
         else:
             tree, leaf = params, "kernel"
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            a = a.transpose(_KERNEL_TO_FLAX[a.ndim])
         node = tree
         for part in mod.split("."):
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(a)
+        node[leaf] = np.array(a, order="C")    # a copy: never a view of the module's memory
     return params, stats
+
+
+def resnet_from_jax(params: dict[str, Any], batch_stats: dict[str, Any]
+                    ) -> dict[str, torch.Tensor]:
+    """A ``ResNet`` state dict (f32 CPU tensors) from the flax ``params``
+    and ``batch_stats`` trees."""
+    return module_from_jax(params, batch_stats)
+
+
+def resnet_to_jax(state_dict: dict[str, torch.Tensor]) -> tuple[dict[str, Any], dict[str, Any]]:
+    """``(params, batch_stats)``, flax trees of numpy f32 arrays, of a
+    ``ResNet`` state dict."""
+    return module_to_jax(state_dict)
+
+
+# the small models (``models/{linear,wide_deep,mnist,text,vgg}.py``): module
+# names are flax's, so each map is the generic one; the tables and
+# embeddings are named here
+_WIDE_DEEP_TABLES = r"^(embed|wide)_\d+$"
+_TEXT_EMBEDS = r"^(embed|tok_embed|pos_embed)$"
+_ATTENTION_IN = r"^attn_\d+\.(query|key|value)$"
+_ATTENTION_OUT = r"^attn_\d+\.out$"
+
+
+def linear_from_jax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """A ``LinearRegression`` state dict from its flax params."""
+    return module_from_jax(params)
+
+
+def linear_to_jax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """The flax params of a ``LinearRegression`` state dict."""
+    return module_to_jax(state_dict)[0]
+
+
+def wide_deep_from_jax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """A ``WideDeep`` state dict from its flax params (global tables)."""
+    return module_from_jax(params)
+
+
+def wide_deep_to_jax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """The flax params of a ``WideDeep`` state dict of global tables."""
+    return module_to_jax(state_dict, _WIDE_DEEP_TABLES)[0]
+
+
+def mnist_from_jax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """An ``MnistCNN`` state dict from its flax params (``fc``'s kernel keeps
+    its NHWC-flatten rows: the port flattens NHWC)."""
+    return module_from_jax(params)
+
+
+def mnist_to_jax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """The flax params of an ``MnistCNN`` state dict."""
+    return module_to_jax(state_dict)[0]
+
+
+def vgg_from_jax(params: dict[str, Any], batch_stats: dict[str, Any]
+                 ) -> dict[str, torch.Tensor]:
+    """A ``VGG`` state dict from its flax ``params`` and ``batch_stats``."""
+    return module_from_jax(params, batch_stats)
+
+
+def vgg_to_jax(state_dict: dict[str, torch.Tensor]) -> tuple[dict[str, Any], dict[str, Any]]:
+    """``(params, batch_stats)`` of a ``VGG`` state dict."""
+    return module_to_jax(state_dict)
+
+
+def text_from_jax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """A ``BowClassifier``, ``CnnClassifier`` or ``TextTransformer`` state
+    dict from its flax params.  An attention's q, k and v ``DenseGeneral``
+    kernels ``[D, H, Dh]`` become ``[H Dh, D]`` weights (biases ``[H, Dh]``
+    flattened), its output kernel ``[H, Dh, D]`` a ``[D, H Dh]`` weight."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    flat = {}
+    for path, leaf in _flat(params):
+        mod, name = path.rsplit(".", 1)
+        a = np.asarray(leaf, dtype=np.float32)
+        if re.search(_ATTENTION_IN, mod):
+            a = a.reshape(a.shape[0], -1) if name == "kernel" else a.reshape(-1)
+        elif re.search(_ATTENTION_OUT, mod) and name == "kernel":
+            a = a.reshape(-1, a.shape[-1])
+        flat[path] = a
+    tree: dict[str, Any] = {}
+    for path, a in flat.items():
+        node = tree
+        *mods, leaf = path.split(".")
+        for part in mods:
+            node = node.setdefault(part, {})
+        node[leaf] = a
+    return module_from_jax(tree)
+
+
+def text_to_jax(state_dict: dict[str, torch.Tensor], num_heads: int = 1) -> dict[str, Any]:
+    """The flax params of a text model's state dict; ``num_heads``: a
+    ``TextTransformer``'s, whose attention kernels get back their ``[D, H,
+    Dh]`` and ``[H, Dh, D]`` shapes."""
+    params = module_to_jax(state_dict, _TEXT_EMBEDS)[0]
+    for path, a in list(_flat(params)):
+        mod, name = path.rsplit(".", 1)
+        if re.search(_ATTENTION_IN, mod):
+            shape = (a.shape[0], num_heads, -1) if name == "kernel" else (num_heads, -1)
+        elif re.search(_ATTENTION_OUT, mod) and name == "kernel":
+            shape = (num_heads, -1, a.shape[-1])
+        else:
+            continue
+        node = params
+        for part in mod.split("."):
+            node = node[part]
+        node[name] = np.ascontiguousarray(a.reshape(shape))
+    return params

@@ -76,6 +76,13 @@ MESH_MODULES = (
 SERVING_TP_MODULES = ("edl_tpu_torch.serving.spmd",)
 # the modules of the MoE and sequence-parallel slice
 MOE_SP_MODULES = ("edl_tpu_torch.ops.moe", "edl_tpu_torch.ops.ring")
+# the modules of the last models slice: five models and four entry points
+SMALL_MODELS_MODULES = (
+    "edl_tpu_torch.models.layers", "edl_tpu_torch.models.linear",
+    "edl_tpu_torch.models.wide_deep", "edl_tpu_torch.models.mnist",
+    "edl_tpu_torch.models.text", "edl_tpu_torch.models.vgg", "edl_tpu_torch.models.convert",
+    "edl_tpu_torch.train_linear", "edl_tpu_torch.train_wide_deep",
+    "edl_tpu_torch.train_mnist_distill", "edl_tpu_torch.train_nlp_distill")
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -109,7 +116,8 @@ print(sorted(set(bad()) - before))
                                     + DATA_SERVICE_MODULES + DISTILL_MODULES
                                     + FLEET_MODULES + RESHARD_MODULES
                                     + FLEET_LEADER_MODULES + MESH_MODULES
-                                    + SERVING_TP_MODULES + MOE_SP_MODULES) <= set(names), names
+                                    + SERVING_TP_MODULES + MOE_SP_MODULES
+                                    + SMALL_MODELS_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 
@@ -222,6 +230,18 @@ def test_importing_the_fleet_and_leader_slice_loads_no_jax():
     package."""
     code = ("import sys, importlib; [importlib.import_module(m) for m in "
             + repr(FLEET_LEADER_MODULES) + "]; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_models_slice_loads_no_jax():
+    """The linear, Wide&Deep, MNIST, text and VGG models, their converters
+    and the four example trainers load no JAX and nothing of the JAX
+    package."""
+    code = ("import sys, importlib; [importlib.import_module(m) for m in "
+            + repr(SMALL_MODELS_MODULES) + "]; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in " + repr(FORBIDDEN) + "))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
