@@ -18,6 +18,7 @@
     python3 chip_smoke.py --phases build,moe,ring
     python3 chip_smoke.py --phases build,pp
     python3 chip_smoke.py --phases models
+    python3 chip_smoke.py --phases build,obs
 
 Phases, in order; each prints its numbers on a line of its own, and any
 failure exits non-zero:
@@ -328,6 +329,38 @@ failure exits non-zero:
    (the three dense layers timed alone between CUDA events), busy share, peak memory,
    the loss falling; and an f32 train-mode forward at [2, 64, 64, 3] on the
    card against the CPU (logits and running stats, ``VGG_CPU_TOL``).
+23. ``obs``: the trainer's observability at the flagship's widths (bf16,
+   splash) through ``trainer.fit``, with ``EDL_TPU_METRICS_PORT=0``,
+   ``EDL_TPU_TRACE_DIR``, ``EDL_TPU_PROFILE_DIR`` and a trace context in the
+   env, while (d) ``train_resnet --profile_steps 2:4`` at the resnet phase's
+   arguments, 4 steps on synthetic records, runs as a subprocess: its trace
+   must hold cuDNN convolution kernels.  (a) A fresh trainer's epoch of
+   ``OBS_STEPS`` steps, ``/metrics`` read over HTTP before and after:
+   ``edl_train_steps_total`` and ``edl_train_examples_total`` grow by the
+   steps and their rows, ``edl_train_step_seconds_count`` by one less,
+   ``edl_train_epochs_total`` by 1, every ledger phase by one sample a step
+   after the first, coverage at least ``OBS_COVERAGE_MIN``,
+   ``edl_tflops_per_chip`` > 0 and, where the card's peak is known,
+   ``0 < edl_mfu < 1`` within ``OBS_MFU_FACTOR`` of the epoch's wall-clock
+   MFU.  (c) ``GET /profile`` during its next epoch, one capture: the
+   manifest's kind is ``torch_profiler``, its ``trace_id`` the phase's, and
+   ``whole`` (no captured step launched a kernel that the trace lacks,
+   ``obs/profile.py``; the lead of uncounted steps takes the window's lost
+   start), each captured step
+   (``ProfilerStep#1`` to ``#steps``) launched the splash forward, dQ and
+   dK/dV 12 times, a second trigger in the window answers busy, and one
+   asked for inside ``kernel_times``' profiler is refused and counted while
+   the epoch runs on; the lead and its lost launches are printed.  (e) The
+   JSONL trace holds ``train/epoch`` events, and for each ``profile/capture``
+   event one per-step ``train/step_phases`` event with its counters a
+   captured step.  (b) A second trainer from the same weights with the
+   ledger, the tracer and the flight recorder off runs the same steps; each
+   trainer profiles two 1-step epochs after a lead of uncounted ones, as a
+   capture leads (``_kernel_rows``), and, once (d) has ended, runs two
+   more timed epochs alone on the card, in turns (on, off, off, on; the
+   first trainer with everything on again): every loss equal to the bit,
+   the launch counters equal (12 a step each), the profiled kernel names
+   and counts equal; tokens/s on and off printed.  No timing is gated.
 
 It then prints the card's ``nvidia-smi`` name and power limit, one line
 ``{"kernels": [...]}``, and, last, ``{"ok": true, "device": {...}}``.
@@ -348,7 +381,7 @@ from pathlib import Path
 
 PHASES = ("build", "kernels", "parity", "flagship", "flash", "d256", "d384", "d768", "resnet",
           "resume", "data", "elastic", "serve", "fleet", "distill", "reshard", "mesh",
-          "meshserve", "moe", "ring", "pp", "models")
+          "meshserve", "moe", "ring", "pp", "models", "obs")
 
 # card peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores, f32
 # outside them, and HBM bandwidth
@@ -451,6 +484,9 @@ KERNEL_INSTANTIATIONS = 2 * (4 + 4 + 4) + 2 * (4 + 2) + 2 * (4 + 1) + 2 * (2 + 2
 
 def log(phase: str, **nums) -> None:
     print(f"[{phase}] " + json.dumps(nums, sort_keys=True), flush=True)
+
+
+STARTED = time.monotonic()
 
 
 def kernel_times(fn, reps: int) -> list[tuple[float, str, int]]:
@@ -6100,6 +6136,431 @@ def phase_models(ctx) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 23 --------------------------------------------------------------------
+
+OBS_STEPS = 12                   # (a), (b): one epoch of the flagship through trainer.fit
+OBS_PROFILE_S = 0.25             # (c): the capture's window, 2 flagship steps (and one each side)
+OBS_COVERAGE_MIN = 0.9           # (a): the ledger's coverage EMA
+OBS_MFU_FACTOR = 2.0             # (a): edl_mfu within this factor of the wall-clock MFU
+OBS_RESNET_ARGS = RESNET_ARGS + ["--synthetic", "10", "--synthetic_files", "4",
+                                 "--synthetic_per_file", "128", "--epochs", "1",
+                                 "--steps_per_epoch", "4", "--warmup_epochs", "0",
+                                 "--no-eval", "--profile_steps", "2:4"]
+CONV_TAGS = ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad", "xmma")
+
+
+def _scrape(port: int) -> dict:
+    import urllib.request
+
+    from edl_tpu_torch.obs.metrics import parse_exposition
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as resp:
+        return parse_exposition(resp.read().decode())
+
+
+def _get_json(port: int, path: str) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as resp:
+        return json.loads(resp.read().decode())
+
+
+def _delta(after: dict, before: dict, name: str, **labels) -> float:
+    key = (name, tuple(sorted(labels.items())))
+    return after.get(key, 0.0) - before.get(key, 0.0)
+
+
+def _kernel_rows(fn, reps: int, path: Path) -> tuple[dict[str, int], dict]:
+    """The card's kernels, copies and sets by name over ``reps`` calls of
+    ``fn``, each call a ``ProfilerStep`` range of one ``torch.profiler``
+    session, counted by the call that launched them (``obs/profile.py``):
+    the session leads with uncounted calls for ``lead_s()`` and makes one
+    call more after them.  Every call launches the same kernels, so calls
+    that differ fail, as does a counted call that launched a kernel the
+    trace lacks.  Returns the rows and what the lead was."""
+    from edl_tpu_torch.obs.profile import TorchProfilerSession
+    session = TorchProfilerSession("cuda")
+    if not session.start():
+        raise RuntimeError("a profiler is already active in this process")
+    lead_calls = 0
+    while not lead_calls or session.leading():
+        fn()
+        lead_calls += 1
+    for _ in range(reps + 1):
+        session.step()
+        fn()
+    if session.stop(str(path)) is None or session.by_step is None:
+        raise RuntimeError("the profiler's trace was not exported or not read")
+    path.unlink()
+    lead = {"lead_calls": lead_calls, "lead_ms": session.lead_ms,
+            "unrecorded_launches": session.unrecorded, "lost_ms": session.lost_ms,
+            "outside": sum(session.by_step.get(-1, {}).values())}
+    calls = [session.by_step.get(i, {}) for i in range(1, reps + 1)]
+    if not session.whole(reps) or not calls[0] or any(c != calls[0] for c in calls):
+        diff = {k: [c.get(k) for c in calls] for k in set().union(*calls)
+                if len({c.get(k) for c in calls}) > 1}
+        raise AssertionError(f"the profiled calls differ or the lead was short {lead}: {diff}")
+    return {k: n * reps for k, n in calls[0].items()}, lead
+
+
+def _obs_resnet(root: Path, t0: float):
+    """(d): ``python -m edl_tpu_torch.train_resnet --profile_steps 2:4`` at the
+    resnet phase's arguments, cut to 4 steps, as a subprocess (output to a
+    file).  Returns the process, its log's path and a dict that a watcher
+    thread fills with the seconds from ``t0`` to its model's first line
+    (``start``), its epoch record (``epoch``) and its exit (``exit``)."""
+    import os
+    import subprocess
+    import threading
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_TPU_")}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
+    log_path = root / "train_resnet.log"
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "edl_tpu_torch.train_resnet", *OBS_RESNET_ARGS,
+             "--data_dir", str(root / "rn-data"), "--profile_dir", str(root / "rn-profile")],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=out, stderr=subprocess.STDOUT)
+    seen: dict[str, float] = {}
+
+    def watch():
+        while True:
+            done = proc.poll() is not None
+            text = log_path.read_text(errors="replace")
+            for key, mark in (("data", "[train_resnet] resnet50"), ("epoch", '{"epoch": 0')):
+                if mark in text:
+                    seen.setdefault(key, time.perf_counter() - t0)
+            if done:
+                seen["exit"] = time.perf_counter() - t0
+                return
+            time.sleep(0.2)
+
+    threading.Thread(target=watch, daemon=True).start()
+    return proc, log_path, seen
+
+
+def phase_obs(ctx) -> None:
+    """The trainer's observability on the card, at the flagship's widths
+    through ``trainer.fit`` with a /metrics endpoint in the process, while
+    (d) ``train_resnet --profile_steps 2:4`` runs in a subprocess: (a) a
+    fresh trainer's epoch of ``OBS_STEPS`` steps: the scrape's deltas, the
+    ledger's coverage and live MFU; (c) ``GET /profile`` during its next
+    epoch, each captured step's attention kernels counted by the step that
+    launched them, a busy second trigger, and a capture refused inside
+    ``kernel_times``' profiler; (e) the trace file; (b) a second trainer
+    from the same weights with the ledger, the tracer and the flight
+    recorder off: the same steps, each trainer's kernels over a profiled
+    pair of 1-step epochs (``_kernel_rows``), then, alone on the card, two
+    more timed epochs of each in turns: losses, launch counts and profiled
+    kernels equal, tokens/s on and off.  Gates only on what the card
+    repeats exactly; times are printed."""
+    import os
+    import shutil
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch import train_lm
+    from edl_tpu_torch.cluster.state import State
+    from edl_tpu_torch.obs import context as obs_context
+    from edl_tpu_torch.obs import exposition, flightrec, ledger as obs_ledger
+    from edl_tpu_torch.obs import trace as obs_trace
+    from edl_tpu_torch.obs.flops import peak_tflops
+    from edl_tpu_torch.obs.profile import events_by_step
+    from edl_tpu_torch.ops import attention as A
+    from edl_tpu_torch.utils.device import smi_name_and_power_limit
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_obs"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    phase_ctx = obs_context.new_trace(phase="obs")
+    knobs = {"EDL_TPU_METRICS_PORT": "0", "EDL_TPU_TRACE_DIR": str(root / "trace"),
+             "EDL_TPU_PROFILE_DIR": str(root / "profile"),
+             "EDL_TPU_TRACE_CONTEXT": phase_ctx.to_env()}
+    off_knobs = {"EDL_TPU_STEP_LEDGER": "0", "EDL_TPU_FLIGHTREC": "0"}
+    saved = {k: os.environ.get(k) for k in (*knobs, *off_knobs)}
+    recorder_was_on = flightrec.installed() is not None
+    args = train_lm.parse_args(FLAGSHIP_ARGS)
+    device = torch.device("cuda")
+    ids = np.random.default_rng(2).integers(0, args.vocab, (args.batch_size,
+                                                           args.seq_len + 1)).astype(np.int32)
+    device_kernels = A.device_kernels(args.embed // args.heads)
+    names = {w: KERNELS[w][0] for w in SPLASH_WRAPPERS}
+    times: dict[str, float] = {}
+    resnet = None
+
+    def data(steps, on_batch=None):
+        def data_fn(epoch):
+            for i in range(steps):
+                if on_batch is not None:
+                    on_batch(i)
+                yield {"ids": ids}
+        return data_fn
+
+    def build():
+        """A flagship trainer (seed-0 weights) whose steps' losses are kept
+        on the device, in a box with its state after 2 warm-up steps."""
+        cfg, trainer, init_fn, tx = train_lm.build_trainer(args, device)
+        state = trainer.create_state(init_fn, tx)
+        losses = []
+        step_fn = trainer.step_fn
+
+        def recording(state, batch, gen):
+            state, metrics = step_fn(state, batch, gen)
+            losses.append(metrics["loss"])
+            return state, metrics
+
+        trainer.step_fn = recording
+        gen = torch.Generator(device=device).manual_seed(3)
+        batch = {"ids": torch.from_numpy(ids).to(device)}
+        for _ in range(WARMUP_STEPS):
+            state, _ = trainer.step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        return cfg, trainer, [state], losses
+
+    def epoch(trainer, box, steps, on_batch=None):
+        """One ``fit`` epoch of ``steps``: (wall seconds, launches)."""
+        A.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box[0], _ = trainer.fit(box[0], State(), data(steps, on_batch), epochs=1)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, A.launch_counts()
+
+    def one_step(trainer, box, on_batch=None):
+        return lambda: epoch(trainer, box, 1, on_batch)
+
+    def attention_counts(row: dict) -> dict:
+        return {names[w]: sum(n for key, n in row.items() if re.search(rf"::{k}[<(]", key))
+                for w, k in zip(SPLASH_WRAPPERS, device_kernels)}
+
+    try:
+        t_phase = time.perf_counter()
+        resnet, resnet_log, resnet_s = _obs_resnet(root, t_phase)
+        os.environ.update(knobs)
+        for k in off_knobs:
+            os.environ.pop(k, None)
+
+        # -- (a): a fresh trainer's first epoch, everything on -------------
+        t0 = time.perf_counter()
+        cfg, trainer_on, box_on, losses_on = build()
+        times["a_build"] = time.perf_counter() - t0
+        srv = exposition.installed_server()
+        if srv is None:
+            raise AssertionError("EDL_TPU_METRICS_PORT=0 started no /metrics endpoint")
+        before = _scrape(srv.port)
+        wall_a, _ = epoch(trainer_on, box_on, OBS_STEPS)
+        after = _scrape(srv.port)
+        tok_s_a = args.batch_size * args.seq_len * OBS_STEPS / wall_a
+        flops_tok = trainer_on.cfg.flops_per_example / args.seq_len
+        peak = peak_tflops(torch.cuda.get_device_name(0))
+        wall_mfu = tok_s_a * flops_tok / 1e12 / peak if peak else None
+        gauges = {n: after.get((n, ())) for n in ("edl_tflops_per_chip", "edl_mfu",
+                                                  "edl_step_ledger_coverage_ratio")}
+        phases = {p: {"count": _delta(after, before, "edl_step_phase_seconds_count", phase=p),
+                      "ms_per_step": _delta(after, before, "edl_step_phase_seconds_sum",
+                                            phase=p) / (OBS_STEPS - 1) * 1e3}
+                  for p in obs_ledger.PHASES}
+        counts = {n: _delta(after, before, n) for n in (
+            "edl_train_steps_total", "edl_train_step_seconds_count", "edl_train_epochs_total",
+            "edl_train_examples_total")}
+        mfu_ratio = gauges["edl_mfu"] / wall_mfu if (wall_mfu and gauges["edl_mfu"]) else None
+        log("obs", nvidia_smi=smi_name_and_power_limit(), part="a", steps=OBS_STEPS,
+            scrape_deltas=counts, phases=phases, gauges=gauges, wall_mfu=wall_mfu,
+            mfu_ratio=mfu_ratio, tokens_per_s=tok_s_a, wall_ms_per_step=wall_a / OBS_STEPS * 1e3,
+            resnet_process_running=resnet.poll() is None)
+        want = {"edl_train_steps_total": OBS_STEPS, "edl_train_step_seconds_count": OBS_STEPS - 1,
+                "edl_train_epochs_total": 1,
+                "edl_train_examples_total": OBS_STEPS * args.batch_size}
+        if counts != want:
+            raise AssertionError(f"(a) scrape deltas {counts} != {want}")
+        if any(v["count"] != OBS_STEPS - 1 for v in phases.values()) or not all(
+                phases[p]["ms_per_step"] > 0 for p in ("data_wait", "compute", "hooks")):
+            raise AssertionError(f"(a) ledger phases without samples: {phases}")
+        if not gauges["edl_step_ledger_coverage_ratio"] >= OBS_COVERAGE_MIN:
+            raise AssertionError(f"(a) ledger coverage {gauges['edl_step_ledger_coverage_ratio']}"
+                                 f" < {OBS_COVERAGE_MIN}")
+        if not (gauges["edl_tflops_per_chip"] or 0) > 0:
+            raise AssertionError(f"(a) edl_tflops_per_chip {gauges['edl_tflops_per_chip']}")
+        if peak and not (0 < gauges["edl_mfu"] < 1 and 1 / OBS_MFU_FACTOR <= mfu_ratio
+                         <= OBS_MFU_FACTOR):
+            raise AssertionError(f"(a) edl_mfu {gauges['edl_mfu']} against the wall-clock "
+                                 f"{wall_mfu} (ratio {mfu_ratio})")
+        times["a"] = time.perf_counter() - t0
+
+        # -- (c): GET /profile during the next epoch and a second trigger in
+        # its window; the captured steps' kernels, counted by the step that
+        # launched them; then one asked for inside kernel_times' profiler;
+        # then (b)'s profiled pair of steps with observability on
+        t0 = time.perf_counter()
+        replies, inside = {}, {}
+
+        def ask(i):
+            if i == 3:
+                replies["first"] = _get_json(srv.port, f"/profile?duration_s={OBS_PROFILE_S}")
+                replies["second"] = _get_json(srv.port, f"/profile?duration_s={OBS_PROFILE_S}")
+
+        def ask_inside(i):
+            if i == 0 and not inside:
+                inside["reply"] = _get_json(srv.port, f"/profile?duration_s={OBS_PROFILE_S}")
+
+        wall_c, _ = epoch(trainer_on, box_on, OBS_STEPS, ask)
+        first = replies.get("first", {})
+        manifest_path = Path(first.get("manifest", root / "missing"))
+        manifest = json.loads(manifest_path.read_text()) if manifest_path.exists() else {}
+        steps_c = manifest.get("steps", 0)
+        by_step = events_by_step(manifest["artifact"]) if manifest.get("artifact") else {}
+        per_step = [attention_counts(by_step.get(i, {})) for i in range(1, steps_c + 1)]
+        times["c_capture"] = time.perf_counter() - t0
+        mid = _scrape(srv.port)
+        kernel_times(one_step(trainer_on, box_on, ask_inside), reps=1)
+        prof_after = _scrape(srv.port)
+        rows_on, lead_on = _kernel_rows(one_step(trainer_on, box_on), 2, root / "rows-on.json")
+        captures = {k: _delta(prof_after, before, "edl_profile_captures_total",
+                              kind=k, trigger="http") for k in ("torch_profiler", "refused")}
+        refused = _delta(prof_after, mid, "edl_profile_captures_total", kind="refused",
+                         trigger="http")
+        artifact = manifest.get("artifact")
+        log("obs", nvidia_smi=smi_name_and_power_limit(), part="c",
+            first_reply=first.get("kind"), second_busy=replies.get("second", {}).get("busy"),
+            manifest={k: manifest.get(k) for k in (
+                "kind", "trace_id", "steps", "traced_s", "captured_s", "duration_s",
+                "lead_steps", "lead_ms", "whole", "unrecorded_launches", "lost_ms")},
+            trace_mb=os.path.getsize(artifact) / 2 ** 20 if artifact else None,
+            attention_kernels_by_captured_step=per_step,
+            attention_kernels_lead=attention_counts(by_step.get(0, {})),
+            attention_kernels_step_after=attention_counts(by_step.get(steps_c + 1, {})),
+            attention_kernels_outside_steps=attention_counts(by_step.get(-1, {})),
+            process_seconds=time.monotonic() - STARTED, rows_lead_on=lead_on,
+            captures=captures, refused_inside_kernel_times=refused,
+            inside_reply=inside.get("reply", {}).get("started"), wall_s=wall_c)
+        if manifest.get("kind") != "torch_profiler" or manifest.get(
+                "trace_id") != phase_ctx.trace_id or not steps_c or manifest.get(
+                "whole") is not True:
+            raise AssertionError(f"(c) the capture's manifest {manifest} (trace "
+                                 f"{phase_ctx.trace_id})")
+        if replies.get("second", {}).get("busy") is not True:
+            raise AssertionError(f"(c) a second trigger in the window answered {replies}")
+        if any(n != cfg.num_layers for row in per_step for n in row.values()):
+            raise AssertionError(f"(c) the captured steps hold attention kernels {per_step}, "
+                                 f"want {cfg.num_layers} of each a step")
+        if captures != {"torch_profiler": 1, "refused": 1} or refused != 1:
+            raise AssertionError(f"(c) captures {captures}, refused inside kernel_times "
+                                 f"{refused}")
+
+        # (e): the trace file: the epochs, and each capture's per-step
+        # train/step_phases events (steps 1) since the epoch or the capture
+        # before it
+        trace_files = sorted((root / "trace").glob("trace-trainer-*.jsonl"))
+        events = [json.loads(line) for f in trace_files for line in f.read_text().splitlines()]
+        ends = [i for i, e in enumerate(events) if e["name"] == "profile/capture"]
+        marks = [i for i, e in enumerate(events) if e["name"] in ("profile/capture", "train/epoch")]
+        windows = [[e for e in events[max([-1, *(j for j in marks if j < hi)]) + 1:hi]
+                    if e["name"] == "train/step_phases" and e.get("steps") == 1] for hi in ends]
+        epochs = [e for e in events if e["name"] == "train/epoch"]
+        log("obs", part="e", trace_files=[f.name for f in trace_files], events=len(events),
+            epoch_events=len(epochs), capture_events=len(ends),
+            window_events=[len(w) for w in windows], captured_steps=steps_c)
+        if len(epochs) < 2 or [len(w) for w in windows] != [steps_c] or any(
+                set(e["counters"]) != set(obs_ledger.PHASES) for w in windows for e in w):
+            raise AssertionError(f"(e) the trace holds {len(epochs)} train/epoch events and "
+                                 f"per-step train/step_phases events {windows} for captures "
+                                 f"of {steps_c} steps")
+        times["c_e"] = time.perf_counter() - t0
+
+        # -- (b): the same steps from the same weights on a second trainer
+        # with the ledger (read when it is built), the tracer and the flight
+        # recorder off --------------------------------------------------------
+        t0 = time.perf_counter()
+        os.environ.update(off_knobs)
+        _, trainer_off, box_off, losses_off = build()
+        for k in off_knobs:
+            os.environ.pop(k)
+        tracer = obs_trace.install(obs_trace.NullTracer())
+        flightrec.uninstall()
+        epoch(trainer_off, box_off, OBS_STEPS)
+        rows_off, lead_off = _kernel_rows(one_step(trainer_off, box_off), 2,
+                                          root / "rows-off.json")
+        times["b"] = time.perf_counter() - t0
+
+        # -- (d): train_resnet --profile_steps 2:4, waited for before the
+        # timed epochs so that they run alone
+        t0 = time.perf_counter()
+        try:
+            resnet.wait(timeout=SUBPROCESS_TIMEOUT)
+        finally:
+            tail = resnet_log.read_text()[-3000:]
+        traces = sorted((root / "rn-profile").glob("*.pt.trace.json"))
+        kernels = (sum((Counter(row) for row in events_by_step(traces[0]).values()), Counter())
+                   if traces else {})
+        conv = {k: n for k, n in kernels.items() if any(t in k.lower() for t in CONV_TAGS)}
+        log("obs", part="d", returncode=resnet.returncode, traces=[t.name for t in traces],
+            kernel_names=len(kernels), conv_kernel_names=len(conv),
+            conv_launches=sum(conv.values()), process_seconds=resnet_s,
+            epoch=[line for line in tail.splitlines() if line.startswith("[train_resnet] {")])
+        if resnet.returncode != 0 or not conv:
+            raise AssertionError(f"(d) train_resnet --profile_steps exited {resnet.returncode}, "
+                                 f"traces {traces}, conv kernels {len(conv)}:\n{tail}")
+        times["d_wait"] = time.perf_counter() - t0
+
+        # -- (b), timed: two more epochs of each trainer alone on the card, in
+        # turns (on, off, off, on), the tracer and the flight recorder on
+        # again for the first trainer's ------------------------------------
+        t0 = time.perf_counter()
+        walls = {"on": [], "off": []}
+        for side in ("on", "off", "off", "on"):
+            if side == "on":
+                obs_trace.install(tracer)
+                flightrec.install("trainer")
+                wall, launches_on = epoch(trainer_on, box_on, OBS_STEPS)
+            else:
+                obs_trace.install(obs_trace.NullTracer())
+                flightrec.uninstall()
+                wall, launches_off = epoch(trainer_off, box_off, OBS_STEPS)
+            walls[side].append(wall)
+        tok_s_on, tok_s_off = (args.batch_size * args.seq_len * OBS_STEPS * 2 / sum(walls[k])
+                               for k in ("on", "off"))
+        # every step trains the same batch, so a longer lead only adds
+        # steps: the runs' common steps are compared
+        n = min(len(losses_on), len(losses_off))
+        losses_on = [float(x) for x in losses_on[:n]]
+        losses_off = [float(x) for x in losses_off[:n]]
+        log("obs", part="b", tokens_per_s_on=tok_s_on, tokens_per_s_off=tok_s_off,
+            wall_s_an_epoch=walls,
+            on_vs_off_pct=(tok_s_on / tok_s_off - 1) * 100, losses_compared=n,
+            losses_equal=losses_on == losses_off, launches_on=launches_on,
+            launches_off=launches_off, profiled_kernels=len(rows_on),
+            profiled_rows_equal=rows_on == rows_off, rows_lead_off=lead_off)
+        del trainer_on, trainer_off, box_on, box_off
+        torch.cuda.empty_cache()
+        if losses_on != losses_off:
+            raise AssertionError(f"(b) losses with observability {losses_on} != without "
+                                 f"{losses_off}")
+        if launches_on != launches_off or launches_on != {
+                w: cfg.num_layers * OBS_STEPS if w in SPLASH_WRAPPERS else 0
+                for w in launches_on}:
+            raise AssertionError(f"(b) launches {launches_on} on, {launches_off} off")
+        if rows_on != rows_off:
+            diff = {k: (rows_on.get(k), rows_off.get(k)) for k in set(rows_on) | set(rows_off)
+                    if rows_on.get(k) != rows_off.get(k)}
+            raise AssertionError(f"(b) profiled kernels differ on/off: {diff}")
+        times["b_timed"] = time.perf_counter() - t0
+        log("obs", part_seconds=times, seconds=time.perf_counter() - t_phase)
+    finally:
+        if resnet is not None and resnet.poll() is None:
+            resnet.kill()
+            resnet.wait()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        exposition.shutdown_installed()
+        obs_trace.install(obs_trace.NullTracer()).close()
+        obs_context.set_process_root(None)
+        if recorder_was_on:
+            flightrec.install("trainer")
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -6131,7 +6592,7 @@ def main(argv=None) -> int:
                "elastic": phase_elastic, "serve": phase_serve, "fleet": phase_fleet,
                "distill": phase_distill, "reshard": phase_reshard, "mesh": phase_mesh,
                "meshserve": phase_meshserve, "moe": phase_moe, "ring": phase_ring,
-               "pp": phase_pp, "models": phase_models}
+               "pp": phase_pp, "models": phase_models, "obs": phase_obs}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

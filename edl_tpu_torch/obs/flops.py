@@ -3,12 +3,21 @@
 ``analytic_lm_flops_per_token`` is a copy of the JAX package's
 ``obs/flops.py`` formula; ``analytic_resnet_flops_per_image`` counts a
 ResNet's convolutions and head from its own layers; the peak table holds
-the cards this port has run on, keyed by ``torch.cuda.get_device_name()``.
+the cards this port has run on, keyed by ``torch.cuda.get_device_name()``,
+and ``EDL_TPU_PEAK_TFLOPS`` overrides it (as in the JAX package: the only
+way to an MFU on the CPU or an unknown card).
+
+The trainer's live ``edl_mfu`` takes its FLOPs from these analytic counts,
+as the JAX bench does (``edl_tpu/bench.py:_bench_lm``), not from a compiled
+program's cost analysis (the JAX trainer's ``xla_cost_flops``): the port has
+no XLA, and a FLOP counter over PyTorch's dispatcher cannot see the
+attention kernels launched through ctypes.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 # bf16 dense tensor-core peak, TFLOP/s, from NVIDIA's data sheet (SXM
 # part, at its full 700 W power limit)
@@ -18,7 +27,15 @@ PEAK_TFLOPS = {
 
 
 def peak_tflops(device_name: str) -> float | None:
-    """Known bf16 peak for a device name (longest match wins), or None."""
+    """Known bf16 peak for a device name (longest match wins), or None.
+    ``EDL_TPU_PEAK_TFLOPS`` overrides unconditionally; a malformed value
+    gives None (no MFU), never a crash."""
+    env = os.environ.get("EDL_TPU_PEAK_TFLOPS")
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            return None
     best = None
     for name, peak in PEAK_TFLOPS.items():
         if name in device_name and (best is None or len(name) > len(best[0])):

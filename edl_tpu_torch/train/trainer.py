@@ -66,9 +66,22 @@ The port of the JAX package's ``train/trainer.py``, one process per card:
   the launcher's barrier, and any failure exits nonzero, which the
   launcher answers with stop-resume.  Survivors and joiners run the same
   collectives in the same order: the checkpoint's latest step, the delta
-  target agreement, the restore, the all-ok vote.
-
-The step metrics wait for the port's observability modules.
+  target agreement, the restore, the all-ok vote;
+- observability, as the JAX trainer wires it (``obs/``): the env-gated
+  surfaces (``EDL_TPU_METRICS_PORT``, ``EDL_TPU_TRACE_DIR``, the trace
+  context, the flight recorder; with none set no server starts and no file
+  is written), the step metrics (``edl_train_step_seconds``,
+  ``edl_train_steps_total``, ``edl_train_examples_total`` counted by rank 0
+  in global rows, ``edl_train_epochs_total``), the step-phase ledger
+  (``obs/ledger.py``), live MFU (``edl_tflops_per_chip``, ``edl_mfu``) from
+  ``TrainConfig.flops_per_example``, the restore, epoch and reshard spans,
+  ``GET /profile`` (``obs/profile.py``) and the rank-0 ``torch.profiler``
+  window ``TrainConfig.profile_window``, both started and stopped at step
+  boundaries on the training thread.  Every hook reads host values only
+  (the clocks, a batch's shape, counters): none launches work on the card
+  or waits for it, except a profiler's start and stop, which wait for the
+  card so that a trace holds whole steps.  Under the launcher with a store
+  the /metrics endpoint is advertised for the JAX aggregator.
 """
 
 from __future__ import annotations
@@ -77,6 +90,7 @@ import gc
 import logging
 import os
 import sys
+import tempfile
 import time
 import traceback
 from dataclasses import dataclass, field
@@ -90,6 +104,11 @@ from edl_tpu_torch.cluster.env import TrainerEnv
 from edl_tpu_torch.cluster.state import AdjustRegistry, DataCheckpoint, State
 from edl_tpu_torch.cluster.train_status import TrainStatus, save_train_status
 from edl_tpu_torch.data.elastic_input import device_put_stream, sync_checkpoint
+from edl_tpu_torch.obs import flops as obs_flops
+from edl_tpu_torch.obs import ledger as obs_ledger
+from edl_tpu_torch.obs import metrics as obs_metrics
+from edl_tpu_torch.obs import profile as obs_profile
+from edl_tpu_torch.obs import trace as obs_trace
 from edl_tpu_torch.parallel import mesh as mesh_mod
 from edl_tpu_torch.parallel.sharding import ShardingRules, shard_init
 from edl_tpu_torch.parallel.tp import AxisGroup
@@ -101,6 +120,31 @@ from edl_tpu_torch.utils import constants
 from edl_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
+
+# step latency is the wall time between completed-step observations: the
+# card's queue is bounded, so the loop's steady rate is the card's step rate
+# and the histogram converges on the true step time without a sync a step
+_STEP_SECONDS = obs_metrics.histogram(
+    "edl_train_step_seconds", "Wall time between completed train steps")
+_STEPS_TOTAL = obs_metrics.counter(
+    "edl_train_steps_total", "Completed train steps")
+_EXAMPLES_TOTAL = obs_metrics.counter(
+    "edl_train_examples_total", "Examples consumed (global batch rows)")
+_EPOCHS_TOTAL = obs_metrics.counter(
+    "edl_train_epochs_total", "Completed epochs")
+
+# live MFU: the analytic FLOPs of a step (obs/flops.py, the JAX bench's
+# count; not a compiled program's cost analysis, which the port has no XLA
+# for) over the step-time EMA
+_TFLOPS_G = obs_metrics.gauge(
+    "edl_tflops_per_chip",
+    "Achieved TFLOP/s per chip from the analytic FLOPs of a step "
+    "(obs/flops.py, as the bench counts them) over the step-time EMA")
+_MFU_G = obs_metrics.gauge(
+    "edl_mfu",
+    "Model FLOPs utilization: edl_tflops_per_chip / the chip's known "
+    "bf16 peak (EDL_TPU_PEAK_TFLOPS overrides; absent when the device "
+    "kind is unknown)")
 
 # loss_fn(model, extra, batch, generator) -> (loss, (new_extra, metrics))
 LossFn = Callable[[torch.nn.Module, Any, Any, torch.Generator],
@@ -148,6 +192,13 @@ class TrainConfig:
     rules: ShardingRules = field(default_factory=ShardingRules)
     # FSDP2 even on an fsdp axis of 1 (an NCCL group of one shows its cost)
     force_fsdp: bool = False
+    # rank-0 torch.profiler window [start_step, stop_step] (train_resnet
+    # --profile_steps), its Chrome trace written into profile_dir
+    profile_window: tuple[int, int] | None = None
+    profile_dir: str = ""
+    # analytic train FLOPs of one example (obs/flops.py), which the live MFU
+    # gauges multiply by the global batch; 0 = unknown: the gauges stay unset
+    flops_per_example: float = 0.0
 
 
 class ElasticTrainer:
@@ -165,9 +216,41 @@ class ElasticTrainer:
                  device: str | torch.device = "cuda"):
         self.cfg = config or TrainConfig()
         self.loss_fn = loss_fn
+        # env-gated (EDL_TPU_METRICS_PORT, EDL_TPU_TRACE_DIR, ...): trainers
+        # are user scripts, so the trainer is where the per-process
+        # observability surfaces attach
+        from edl_tpu_torch import obs
+        obs.install_from_env("trainer")
+        # SIGUSR1 -> every thread's stack on stderr (the workerlog): the
+        # first diagnostic for a trainer that hangs in a collective
+        try:
+            import faulthandler
+            import signal
+            faulthandler.register(signal.SIGUSR1, all_threads=True)
+        except (ImportError, AttributeError, ValueError):
+            pass  # not the main thread, or no SIGUSR1 here
         if tenv is not None and tenv.pod_id:
             _log_to_stderr()   # under the launcher stderr is the workerlog
         self.device = resolve_device(device)
+        # under the launcher (a store and a pod id): advertise this
+        # trainer's /metrics endpoint for the JAX aggregator (coord/ is
+        # imported only here: a run without a store never loads it)
+        self._obs_register = None
+        if store is not None and tenv is not None and tenv.pod_id:
+            from edl_tpu_torch.obs import advert as obs_advert
+            self._obs_register = obs_advert.advertise_installed(
+                store, tenv.job_id, "trainer", extra={"pod": tenv.pod_id})
+        # the step-phase ledger (EDL_TPU_STEP_LEDGER) and GET /profile on the
+        # endpoint the process already serves /metrics from
+        self._ledger = obs_ledger.StepPhaseLedger(component="trainer")
+        self._profiler = obs_profile.ProfileCapture("trainer", ledger=self._ledger,
+                                                    device=self.device)
+        obs_profile.install_route(self._profiler)
+        self._window: obs_profile.TorchProfilerSession | None = None  # profile_window's
+        self._peak_tflops = obs_flops.peak_tflops(
+            torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+            else self.device.type)
+        self._rows = 0                         # the last step's batch rows on this rank
         self.store = store
         self.tenv = tenv
         self.adjust = AdjustRegistry()
@@ -305,7 +388,8 @@ class ElasticTrainer:
         restored, saved_meta = self._cache_first_restore(state, latest)
         if restored is None:
             t0 = time.perf_counter()
-            state, saved_meta = self.ckpt.restore(state, step=latest)
+            with obs_trace.get_tracer().span("train/restore", step=latest):
+                state, saved_meta = self.ckpt.restore(state, step=latest)
             self._note_restore("storage", time.perf_counter() - t0, latest)
         self._t_restored = time.time()  # the recovery record's "restored"
         if saved_meta is not None:
@@ -348,8 +432,9 @@ class ElasticTrainer:
         res = None
         if delta_step is not None:
             try:
-                res = ms_restore.try_restore(self.store, self.tenv.job_id, state,
-                                             expect_step=latest, delta_step=delta_step)
+                with obs_trace.get_tracer().span("train/restore_delta", step=delta_step):
+                    res = ms_restore.try_restore(self.store, self.tenv.job_id, state,
+                                                 expect_step=latest, delta_step=delta_step)
             except Exception:  # noqa: BLE001 — every rank demotes to the base restore
                 logger.exception("delta-chain restore errored")
             if not self._agree_flag(res is not None):
@@ -357,8 +442,9 @@ class ElasticTrainer:
         source = "delta" if res is not None else "peer"
         if res is None:
             try:
-                res = ms_restore.try_restore(self.store, self.tenv.job_id, state,
-                                             expect_step=latest)
+                with obs_trace.get_tracer().span("train/restore_peer", step=latest):
+                    res = ms_restore.try_restore(self.store, self.tenv.job_id, state,
+                                                 expect_step=latest)
             except Exception:  # noqa: BLE001 — the cache never fails a restore
                 logger.exception("peer-cache restore errored; restoring from storage")
                 res = None
@@ -482,6 +568,7 @@ class ElasticTrainer:
                     link.__cause__ = link.__context__ = None
                     link, hops = nxt, hops + 1
                 crash_exc = exc
+            self._end_profiles()
             # the old state's memory goes before the restore builds the new
             # one, even where a caller still holds the object
             _release(state)
@@ -503,46 +590,65 @@ class ElasticTrainer:
             meta.in_epoch = epoch
             meta.epoch_start_step = start_step
             meta.data_checkpoint = DataCheckpoint()
+        ledger = self._ledger
         stream = device_put_stream(data_fn(epoch), self.device)
         batches = iter(stream)
         while True:
-            t0, h2d0 = time.perf_counter(), stream.h2d_wait_s
-            item = next(batches, None)
-            self.input_stats["input_wait_s"] += (time.perf_counter() - t0
-                                                 - (stream.h2d_wait_s - h2d0))
-            self.input_stats["h2d_wait_s"] += stream.h2d_wait_s - h2d0
+            # blocked obtaining the batch: input-bound time, less the wait for
+            # the staged copy, which is credited to h2d and deducted
+            with ledger.phase("data_wait"):
+                t0, h2d0 = time.perf_counter(), stream.h2d_wait_s
+                item = next(batches, None)
+                h2d = stream.h2d_wait_s - h2d0
+                ledger.add("h2d", h2d)
+                self.input_stats["input_wait_s"] += time.perf_counter() - t0 - h2d
+                self.input_stats["h2d_wait_s"] += h2d
             if item is None:
                 break
             batch, spans = item
-            # marked when the batch is trained, so a save holds exactly the
-            # trained records whatever the staging depth
-            for fi, b, e in spans or ():
-                meta.data_checkpoint.mark_processed(fi, b, e)
-            state, metrics = self.step_fn(state, batch, gen)
+            with ledger.phase("hooks"):
+                # marked when the batch is trained, so a save holds exactly
+                # the trained records whatever the staging depth
+                for fi, b, e in spans or ():
+                    meta.data_checkpoint.mark_processed(fi, b, e)
+                self._rows = _batch_rows(batch)
+                self._profile_hook(start_step + n_steps + 1)
+            with ledger.phase("compute"):
+                state, metrics = self.step_fn(state, batch, gen)
             n_steps += 1
             step = start_step + n_steps
-            self._observe_step_time()
-            if self._t_restored is not None:
-                self._report_recovery(metrics)
-            self._heartbeat()
-            self._maybe_preempt(state, meta, step)
-            if self.cfg.log_every and step % self.cfg.log_every == 0:
-                logger.info("epoch %d step %d: %s", epoch, step,
-                            {k: float(v) for k, v in metrics.items()})
+            self._observe_step_time(step)
+            with ledger.phase("hooks"):
+                _STEPS_TOTAL.inc()
+                # global rows, counted by rank 0 only: scrapes are per process
+                # and a scraper sums across targets
+                if not dist.is_initialized() or dist.get_rank() == 0:
+                    _EXAMPLES_TOTAL.inc(self._rows * self.world_size)
+                if self._t_restored is not None:
+                    self._report_recovery(metrics)
+                self._heartbeat()
+                self._maybe_preempt(state, meta, step)
+                if self.cfg.log_every and step % self.cfg.log_every == 0:
+                    logger.info("epoch %d step %d: %s", epoch, step,
+                                {k: float(v) for k, v in metrics.items()})
+                if self._window is not None and step >= self.cfg.profile_window[1]:
+                    self._stop_window()
             saving = (self.ckpt is not None and self.cfg.save_every_steps
                       and step % self.cfg.save_every_steps == 0)
             if not saving and self._delta_rep is not None and self._delta_rep.want(step):
                 # a delta record of this step: the host snapshot starts here,
                 # the diff and the push run on the replicator's thread
-                meta.step = step
-                self._sync_data_checkpoint(meta)
-                self._delta_rep.stage(step, state, meta)
+                with ledger.phase("hooks"):
+                    meta.step = step
+                    self._sync_data_checkpoint(meta)
+                    self._delta_rep.stage(step, state, meta)
             if saving:
-                meta.step = step
-                self._sync_data_checkpoint(meta)
-                self.ckpt.save(step, state, meta)
-                if self._delta_rep is not None:
-                    self._delta_rep.rebase(step, state)   # a new base: re-anchor
+                with ledger.phase("checkpoint"):
+                    meta.step = step
+                    self._sync_data_checkpoint(meta)
+                    self.ckpt.save(step, state, meta)
+                    if self._delta_rep is not None:
+                        self._delta_rep.rebase(step, state)   # a new base: re-anchor
         dt = time.monotonic() - t_epoch
         # step_num covers the whole epoch, including segments trained
         # before a mid-epoch stop-resume; avg time reflects this segment
@@ -551,37 +657,108 @@ class ElasticTrainer:
         meta.step = start_step + n_steps
         meta.epoch_no = epoch
         meta.in_epoch = -1  # epoch complete: next resume starts the next one
+        # a capture the epoch ended inside holds its last step, not the save
+        self._end_profiles()
+        ledger.flush(step=start_step + n_steps)
         if self.ckpt is not None:
-            self._sync_data_checkpoint(meta)
-            if self.cfg.save_every_steps and self.ckpt.latest_step() == state.step:
-                # the last mid-epoch save already holds this step's arrays
-                self.ckpt.save_meta(state.step, meta)
-            else:
-                self.ckpt.save(state.step, state, meta, force=True)
-                if self._delta_rep is not None:
-                    self._delta_rep.rebase(state.step, state)
-            if self.tenv is not None and self.tenv.pod_id:
-                # seal the epoch's sets in the cache: a resize between epochs
-                # then restores this step from the surviving pods' RAM
-                self.ckpt.wait()
+            with ledger.phase("checkpoint"):
+                self._sync_data_checkpoint(meta)
+                if self.cfg.save_every_steps and self.ckpt.latest_step() == state.step:
+                    # the last mid-epoch save already holds this step's arrays
+                    self.ckpt.save_meta(state.step, meta)
+                else:
+                    self.ckpt.save(state.step, state, meta, force=True)
+                    if self._delta_rep is not None:
+                        self._delta_rep.rebase(state.step, state)
+                if self.tenv is not None and self.tenv.pod_id:
+                    # seal the epoch's sets in the cache: a resize between
+                    # epochs then restores this step from the surviving pods' RAM
+                    self.ckpt.wait()
         if on_epoch_end is not None:
             before = meta.to_json()
             on_epoch_end(epoch, state, meta)
             if self.ckpt is not None and meta.to_json() != before:
                 self.ckpt.save_meta(state.step, meta)
+        _EPOCHS_TOTAL.inc()
+        obs_trace.emit("train/epoch", dur=dt, epoch=epoch, steps=n_steps,
+                       world=self.world_size)
         logger.info("epoch %d done: %d steps in %.1fs", epoch, n_steps, dt)
         return state, meta
 
+    # -- profiler windows ----------------------------------------------------
+    def _profile_hook(self, upcoming_step: int) -> None:
+        """At a step boundary on the training thread: a ``/profile``
+        capture's start or stop, and rank 0's ``profile_window`` start or
+        next step (its trace's ``ProfilerStep#N`` is step ``start + N``)."""
+        self._profiler.step_boundary()
+        if self._window is not None:
+            self._window.step()
+            return
+        w = self.cfg.profile_window
+        if (w is None or upcoming_step != w[0]
+                or (dist.is_initialized() and dist.get_rank() != 0)):
+            return
+        session = obs_profile.TorchProfilerSession(self.device.type)
+        if not session.start():
+            obs_profile.count_refusal("window", f"of steps {w[0]}-{w[1]}")
+            return
+        logger.info("profiler: tracing steps %d-%d", w[0], w[1])
+        self._window = session
+
+    def _end_profiles(self) -> None:
+        """Stop a running ``/profile`` capture and ``profile_window`` trace:
+        at an epoch's end, or when a reshard unwinds the loop."""
+        self._profiler.end_window()
+        if self._window is not None:
+            self._stop_window()
+
+    def _stop_window(self) -> None:
+        """End the ``profile_window`` trace and write its Chrome trace into
+        ``profile_dir``; a failed stop is logged, never raised."""
+        session, self._window = self._window, None
+        w = self.cfg.profile_window
+        out = self.cfg.profile_dir or os.path.join(tempfile.gettempdir(), "edl-tpu-profile")
+        path = session.stop(os.path.join(out, f"trace-trainer-{os.getpid()}-steps-"
+                                              f"{w[0]}-{w[1]}.pt.trace.json"))
+        if path is not None:
+            # the window starts at its first step, as the JAX trainer's: a
+            # window's lost start (obs/profile.py) shows in that step
+            logger.info("profiler: steps %d-%d traced to %s (kernel launches without a "
+                        "record, by step: %s)", w[0], w[1], path, session.unrecorded)
+
     # -- liveness and status -------------------------------------------------
-    def _observe_step_time(self) -> None:
+    def _observe_step_time(self, step: int | None = None) -> None:
         """EMA of the wall time between completed-step observations.  Steps
         are queued on the card asynchronously, but the queue is bounded,
-        so the loop's steady rate is the card's step rate."""
+        so the loop's steady rate is the card's step rate.  Also closes the
+        step's phase ledger against the interval and refreshes the live MFU
+        gauges; the first observation (a fresh run, or after a reshard) has
+        no interval, so the phases gathered so far are dropped."""
         now = time.monotonic()
         if self._last_step_t is not None:
             dt = now - self._last_step_t
             self._step_ema = dt if self._step_ema is None else 0.9 * self._step_ema + 0.1 * dt
+            _STEP_SECONDS.observe(dt)
+            self._ledger.step_done(dt, step=step)
+            self._publish_mfu()
+        else:
+            self._ledger.reset()
         self._last_step_t = now
+
+    def _publish_mfu(self) -> None:
+        """``edl_tflops_per_chip`` and, with a known peak, ``edl_mfu``: the
+        analytic FLOPs of the global batch (``cfg.flops_per_example`` x this
+        rank's rows x the batch divisor) over the step EMA, per process.
+        Gated with the ledger (``EDL_TPU_STEP_LEDGER=0`` turns every
+        continuous-profiling surface off), as in the JAX trainer."""
+        if not (self.cfg.flops_per_example and self._step_ema and self._rows
+                and self._ledger.enabled):
+            return
+        flops = self.cfg.flops_per_example * self._rows * self.world_size
+        tflops = flops / self._step_ema / self.processes / 1e12
+        _TFLOPS_G.set(tflops)
+        if self._peak_tflops:
+            _MFU_G.set(tflops / self._peak_tflops)
 
     def _heartbeat(self) -> None:
         """Throttled liveness beat after a completed step (rank 0 in the
@@ -846,58 +1023,59 @@ class ElasticTrainer:
             raise RuntimeError(f"cluster record never reached go stage {go['new_stage'][:8]}")
 
         # 2. the new world, then the new manager (and replicator) in it
-        if self.ckpt is not None:
-            self.ckpt.close()
-        edl_dist.reform_world(self.tenv, self.store, cluster, self.device)
-        self._form_mesh()
-        self.ckpt = self._build_ckpt()
-        target = self.create_state(*self._build_fns)
+        with obs_trace.get_tracer().span("train/reshard", mode=payload.mode):
+            if self.ckpt is not None:
+                self.ckpt.close()
+            edl_dist.reform_world(self.tenv, self.store, cluster, self.device)
+            self._form_mesh()
+            self.ckpt = self._build_ckpt()
+            target = self.create_state(*self._build_fns)
 
-        # 3. the restore: local snapshot, own pod's cache, then peers; the
-        # collectives in the joiners' order (restore_or_create): the latest
-        # step, the delta target, the restore, the all-ok vote
-        t_restore = time.monotonic()
-        expect = self.ckpt.latest_step()
-        delta_step = self._agree_delta_target(expect)
-        res = None
-        if delta_step is not None:
-            try:
-                res = ms_restore.try_restore(self.store, self.tenv.job_id, target,
-                                             expect_step=expect, local=payload.local,
-                                             prefer_pod=self.tenv.pod_id,
-                                             delta_step=delta_step)
-            except Exception:  # noqa: BLE001 — demote to the base
-                logger.exception("reshard delta-chain restore errored")
-            if not self._agree_flag(res is not None):
-                res = None
-        if res is None:
-            try:
-                res = ms_restore.try_restore(self.store, self.tenv.job_id, target,
-                                             expect_step=expect, local=payload.local,
-                                             prefer_pod=self.tenv.pod_id)
-            except Exception:  # noqa: BLE001 — storage below
-                logger.exception("reshard cache restore errored")
-                res = None
-        payload.local = None
-        if res is not None:
-            state, meta_json, info = res
-            meta = State().from_json(meta_json)
-            source = "delta"
-        else:
-            # a cache miss demotes the restore to storage, not the reshard
-            self.restore_fallbacks += 1
-            if expect is None:
-                raise RuntimeError("no checkpoint to reshard from")
-            state, saved_meta = self.ckpt.restore(target, step=expect)
-            meta = saved_meta if saved_meta is not None else meta
-            source, info = "storage", {"step": expect}
-        if (os.environ.get("EDL_TPU_MEMSTATE_VERIFY") == "1" and source == "delta"
-                and delta_step is None):
-            stored, _ = self.ckpt.restore(self.create_state(*self._build_fns), step=expect)
-            ms_restore.assert_bit_identical(state, stored)
-            del stored
-            logger.info("reshard restore verified bit-identical to storage (step %s)", expect)
-        self._note_restore(source, time.monotonic() - t_restore, info["step"], info)
+            # 3. the restore: local snapshot, own pod's cache, then peers; the
+            # collectives in the joiners' order (restore_or_create): the latest
+            # step, the delta target, the restore, the all-ok vote
+            t_restore = time.monotonic()
+            expect = self.ckpt.latest_step()
+            delta_step = self._agree_delta_target(expect)
+            res = None
+            if delta_step is not None:
+                try:
+                    res = ms_restore.try_restore(self.store, self.tenv.job_id, target,
+                                                 expect_step=expect, local=payload.local,
+                                                 prefer_pod=self.tenv.pod_id,
+                                                 delta_step=delta_step)
+                except Exception:  # noqa: BLE001 — demote to the base
+                    logger.exception("reshard delta-chain restore errored")
+                if not self._agree_flag(res is not None):
+                    res = None
+            if res is None:
+                try:
+                    res = ms_restore.try_restore(self.store, self.tenv.job_id, target,
+                                                 expect_step=expect, local=payload.local,
+                                                 prefer_pod=self.tenv.pod_id)
+                except Exception:  # noqa: BLE001 — storage below
+                    logger.exception("reshard cache restore errored")
+                    res = None
+            payload.local = None
+            if res is not None:
+                state, meta_json, info = res
+                meta = State().from_json(meta_json)
+                source = "delta"
+            else:
+                # a cache miss demotes the restore to storage, not the reshard
+                self.restore_fallbacks += 1
+                if expect is None:
+                    raise RuntimeError("no checkpoint to reshard from")
+                state, saved_meta = self.ckpt.restore(target, step=expect)
+                meta = saved_meta if saved_meta is not None else meta
+                source, info = "storage", {"step": expect}
+            if (os.environ.get("EDL_TPU_MEMSTATE_VERIFY") == "1" and source == "delta"
+                    and delta_step is None):
+                stored, _ = self.ckpt.restore(self.create_state(*self._build_fns), step=expect)
+                ms_restore.assert_bit_identical(state, stored)
+                del stored
+                logger.info("reshard restore verified bit-identical to storage (step %s)", expect)
+            self._note_restore(source, time.monotonic() - t_restore, info["step"], info)
 
         # 4. bookkeeping: adjust hooks, cadence state (joiners start fresh),
         # the recovery record's times, the done record for the launcher
@@ -994,11 +1172,21 @@ def _log_to_stderr() -> None:
     """The port's INFO lines (restores and their source, reshards, the
     cache) on stderr, once per process."""
     root = logging.getLogger("edl_tpu_torch")
-    if not root.handlers:
+    # the flight recorder's ring hangs on this logger too: look for a stream
+    if not any(isinstance(h, logging.StreamHandler) for h in root.handlers):
         handler = logging.StreamHandler(sys.stderr)
         handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s [%(name)s] %(message)s"))
         root.addHandler(handler)
         root.setLevel(logging.INFO)
+
+
+def _batch_rows(batch) -> int:
+    """A batch's rows on this rank: the leading dimension of its first
+    tensor (host metadata; 0 for a batch with none)."""
+    while isinstance(batch, (dict, list, tuple)) and batch:
+        batch = next(iter(batch.values())) if isinstance(batch, dict) else batch[0]
+    shape = getattr(batch, "shape", None)
+    return int(shape[0]) if shape else 0
 
 
 def _is_fsdp(model: torch.nn.Module) -> bool:

@@ -383,6 +383,18 @@ def metric_fn(model, extra, batch):
     return {"nll": -tok.mean(dim=-1)}
 
 
+def flops_per_example(args, cfg) -> float:
+    """The analytic train FLOPs of one sequence (``obs/flops.py``, the JAX
+    bench's count), for the trainer's live MFU; 0 (no MFU) for an MoE model,
+    whose dense count would take every expert."""
+    from edl_tpu_torch.obs.flops import analytic_lm_flops_per_token
+
+    if args.moe:
+        return 0.0
+    return args.seq_len * analytic_lm_flops_per_token(cfg.num_layers, cfg.embed_dim, cfg.mlp_dim,
+                                                      cfg.vocab_size, args.seq_len)
+
+
 def build_trainer(args, device: torch.device, checkpoint_dir: str = "", store=None,
                   tenv=None, force_fsdp: bool = False):
     """``(cfg, trainer, init_fn, tx)`` for ``args`` on ``device``, on the
@@ -402,7 +414,7 @@ def build_trainer(args, device: torch.device, checkpoint_dir: str = "", store=No
     trainer = ElasticTrainer(
         make_loss_fn(args),
         TrainConfig(checkpoint_dir=checkpoint_dir, log_every=0, mesh_spec=mesh_spec(args),
-                    force_fsdp=force_fsdp),
+                    force_fsdp=force_fsdp, flops_per_example=flops_per_example(args, cfg)),
         store=store, tenv=tenv, device=device)
     trainer.cfg.global_batch_size = args.batch_size * trainer.world_size
 

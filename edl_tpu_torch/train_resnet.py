@@ -44,8 +44,12 @@ coupled weight decay, then Deep Gradient Compression at sparsity S with
 (``train/compress.py``); its residual and momentum ride the optimizer's
 state into every checkpoint.
 
-Not ported yet, raising ``NotImplementedError``: ``--profile_steps``
-(ROADMAP.md Queue 1 item 8).
+``--profile_steps START:STOP`` traces steps START to STOP (``START`` alone:
+five steps) on rank 0 with ``torch.profiler`` (the CPU activity, and the
+card's kernels on the card) into a Chrome trace in ``--profile_dir`` (default
+``<checkpoint dir>/profile``), as the JAX example's ``jax.profiler`` window.
+The trainer publishes live MFU (``edl_mfu``) from the model's analytic FLOPs
+an image (``obs/flops.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ import contextlib
 import glob
 import json
 import os
+import tempfile
 import time
 
 import numpy as np
@@ -100,8 +105,10 @@ def parse_args(argv=None):
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--bench_dump", type=str, default="",
                    help="write per-epoch benchmark JSON here")
-    p.add_argument("--profile_steps", type=str, default="", help="not ported")
-    p.add_argument("--profile_dir", type=str, default="")
+    p.add_argument("--profile_steps", type=str, default="",
+                   help="START:STOP steps to trace on rank 0 (torch.profiler)")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="the trace's directory (default <checkpoint dir>/profile)")
     p.add_argument("--dcn_dp", type=int, default=0,
                    help="data-parallel replica groups across pods; 0 = auto (one group per pod)")
     p.add_argument("--data_service", action="store_true",
@@ -110,11 +117,7 @@ def parse_args(argv=None):
                    help="with --data_service, take them from the job's standalone elected "
                         "data leader (python -m edl_tpu_torch.data.leader) instead")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
-    if args.profile_steps:
-        raise NotImplementedError("--profile_steps is not ported to edl_tpu_torch yet "
-                                  "(ROADMAP.md Queue 1 item 8 (obs/profile.py))")
-    return args
+    return p.parse_args(argv)
 
 
 def _generate_synthetic_once(images, data_dir: str, args) -> str:
@@ -260,11 +263,17 @@ def build_trainer(args, device: torch.device, steps_per_epoch: int = 1,
     else:
         tx = sgd(schedule, momentum=args.momentum, nesterov=True,
                  weight_decay=args.weight_decay)
+    profile_window = None
+    if args.profile_steps:
+        lo, _, hi = args.profile_steps.partition(":")
+        profile_window = (int(lo), int(hi or int(lo) + 5))
     trainer = ElasticTrainer(
         make_loss_fn(args),
         TrainConfig(checkpoint_dir=checkpoint_dir, save_every_steps=args.save_every_steps,
                     global_batch_size=global_batch, log_every=50,
-                    mesh_spec=MeshSpec(dcn_dp=args.dcn_dp)),
+                    mesh_spec=MeshSpec(dcn_dp=args.dcn_dp), profile_window=profile_window,
+                    profile_dir=args.profile_dir or os.path.join(
+                        checkpoint_dir or tempfile.gettempdir(), "profile")),
         store=store, tenv=tenv, device=device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model_cls = getattr(resnet, MODELS[args.model])
@@ -342,6 +351,7 @@ def train(args, device, tenv, store):
     launcher's env), ``store`` (the coordination store, or None); returns
     ``(TrainState, State)``."""
     from edl_tpu_torch.data import images
+    from edl_tpu_torch.obs.flops import analytic_resnet_flops_per_image
     from edl_tpu_torch.parallel import mesh as mesh_mod
 
     rank = tenv.global_rank
@@ -375,6 +385,7 @@ def train(args, device, tenv, store):
     trainer.adjust.register(lambda old, new, st: print(
         f"[adjust] world {old} -> {new}; lr now {lr:.4f}", flush=True))
     state, meta = trainer.restore_or_create(init_fn, tx)
+    trainer.cfg.flops_per_example = analytic_resnet_flops_per_image(state.model, args.image_size)
     resumed_spans = sum(r.end - r.begin for r in meta.data_checkpoint.processed)
     print(f"[train_resnet] {args.model} rank={rank}/{world} data_rank={data_rank} device={device} "
           f"resume_epoch={meta.next_epoch} in_epoch={meta.in_epoch} "

@@ -23,6 +23,7 @@ ETCD_RESHARD = "reshard"            # live-reshard handshake (flag/go/done/world
 ETCD_TORCH_WORLD = "torchworld"     # the port's process-group rendezvous keys
 ETCD_SCALE = "scale"                # desired size, range, spec, demand, backlogs
 ETCD_DIST_READER = "dist_reader"    # the data service's generation journal
+ETCD_OBS = "obs"                    # leased /metrics endpoint adverts (obs agg)
 LEADER_KEY = "0"                    # rank table key seized by the leader
 TTL_REFRESH_FRACTION = 0.5          # a leased key's keep-alive runs at ttl/2
 # the exit code of a trainer after its preemption-point checkpoint: the

@@ -83,6 +83,12 @@ SMALL_MODELS_MODULES = (
     "edl_tpu_torch.models.text", "edl_tpu_torch.models.vgg", "edl_tpu_torch.models.convert",
     "edl_tpu_torch.train_linear", "edl_tpu_torch.train_wide_deep",
     "edl_tpu_torch.train_mnist_distill", "edl_tpu_torch.train_nlp_distill")
+# the modules of the trainer's observability slice
+OBS_MODULES = (
+    "edl_tpu_torch.obs", "edl_tpu_torch.obs.metrics", "edl_tpu_torch.obs.context",
+    "edl_tpu_torch.obs.trace", "edl_tpu_torch.obs.exposition", "edl_tpu_torch.obs.flightrec",
+    "edl_tpu_torch.obs.ledger", "edl_tpu_torch.obs.profile", "edl_tpu_torch.obs.flops",
+    "edl_tpu_torch.obs.advert")
 MSGPACK_IMPORTERS = ["edl_tpu_torch/rpc/framing.py"]
 
 
@@ -117,7 +123,7 @@ print(sorted(set(bad()) - before))
                                     + FLEET_MODULES + RESHARD_MODULES
                                     + FLEET_LEADER_MODULES + MESH_MODULES
                                     + SERVING_TP_MODULES + MOE_SP_MODULES
-                                    + SMALL_MODELS_MODULES) <= set(names), names
+                                    + SMALL_MODELS_MODULES + OBS_MODULES) <= set(names), names
     assert out[-1] == "[]", f"the port loaded {out[-1]}"
 
 
@@ -246,6 +252,20 @@ def test_importing_the_models_slice_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_obs_slice_loads_no_jax_and_no_msgpack():
+    """The observability modules load no JAX, nothing of the JAX package and
+    no ``msgpack``; the trainer and ``obs/`` itself leave the advert, and so
+    the coordination layer, unloaded until a store asks for it."""
+    code = ("import sys, importlib; importlib.import_module('edl_tpu_torch.train.trainer'); "
+            "print(sorted(m for m in sys.modules if m.startswith(('edl_tpu_torch.coord', "
+            "'edl_tpu_torch.obs.advert')))); [importlib.import_module(m) for m in "
+            + repr(OBS_MODULES) + "]; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('msgpack',) + " + repr(FORBIDDEN) + "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.splitlines() == ["[]", "[]"]
 
 
 def test_standalone_train_lm_run_imports_no_msgpack(tmp_path):

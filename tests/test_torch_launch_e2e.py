@@ -36,6 +36,7 @@ import re
 import subprocess
 import sys
 import time
+import urllib.request
 
 import pytest
 
@@ -171,11 +172,40 @@ def test_torch_trainers_reshard_live_under_the_launcher_defaults(coord_server, t
     assert rec["world"] == 1 and rec["val_nll"] < rec["unigram_nll"], rec
 
 
+def _scrape_trainers(mdir, procs, want, deadline_s=240):
+    """Scrape the torch trainers' addr files in ``mdir`` until every
+    ``want`` series has a nonzero sample (or every proc exits); the set seen
+    (``tests/test_elastic_training_e2e.py``'s live scrape)."""
+    from edl_tpu.obs.metrics import parse_exposition
+
+    seen: set[str] = set()
+    deadline = time.time() + deadline_s
+    while time.time() < deadline and not want <= seen:
+        for f in mdir.glob("metrics-trainer-*.addr"):
+            try:
+                with urllib.request.urlopen(f"http://{f.read_text().strip()}/metrics",
+                                            timeout=5) as resp:
+                    text = resp.read().decode()
+            except OSError:
+                continue  # that trainer restarted or exited; others carry on
+            seen |= {name for (name, _), v in parse_exposition(text).items()
+                     if name in want and v > 0}
+        if all(p.poll() is not None for p in procs):
+            break
+        time.sleep(1.0)
+    return seen
+
+
 @pytest.mark.slow
 def test_torch_trainers_join_and_resume_under_the_launcher(coord_server, tmp_path):
     ep = f"127.0.0.1:{coord_server.port}"
     ckpt = str(tmp_path / "ckpt")
-    pa = spawn("torch-e2e", ep, str(tmp_path), "a", ckpt)
+    mdir = tmp_path / "metrics"
+    mdir.mkdir()
+    # every process (launchers and torch trainers) serves /metrics on a free
+    # port and writes its address into an addr file
+    obs_env = {"EDL_TPU_METRICS_PORT": "0", "EDL_TPU_METRICS_DIR": str(mdir)}
+    pa = spawn("torch-e2e", ep, str(tmp_path), "a", ckpt, extra_env=obs_env)
     pb = None
     try:
         deadline = time.time() + 180
@@ -183,7 +213,12 @@ def test_torch_trainers_join_and_resume_under_the_launcher(coord_server, tmp_pat
             assert time.time() < deadline, "pod A never committed 2 epoch checkpoints"
             assert pa.poll() is None, "pod A died during solo warmup"
             time.sleep(0.25)
-        pb = spawn("torch-e2e", ep, str(tmp_path), "b", ckpt)
+        pb = spawn("torch-e2e", ep, str(tmp_path), "b", ckpt, extra_env=obs_env)
+        # while the job runs, a torch trainer's live /metrics serves valid
+        # Prometheus text with step-latency samples
+        want = {"edl_train_step_seconds_count"}
+        seen = _scrape_trainers(mdir, [pa, pb], want)
+        assert want <= seen, f"missing live metrics series: {want - seen}"
         assert finish(pa, 300) == 0
         assert finish(pb, 300) == 0
     finally:

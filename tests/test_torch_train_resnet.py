@@ -134,9 +134,11 @@ def test_metric_fn_is_per_example_ce_and_top1():
 
 
 @pytest.mark.parametrize("flag", [["--dgc", "0.99"], ["--profile_steps", "3:5"]])
-def test_unported_flags_raise(flag):
-    """``--profile_steps`` is still refused; ``--dgc`` builds the JAX
-    example's chain (``tests/test_torch_compress.py`` holds it to optax)."""
+def test_unported_flags_raise(flag, tmp_path):
+    """Both flags once raised.  ``--dgc`` builds the JAX example's chain
+    (``tests/test_torch_compress.py`` holds it to optax); ``--profile_steps``
+    sets the trainer's rank-0 profiler window, as the JAX example's
+    ``START:STOP`` (``tests/test_torch_trainer_obs.py`` runs it)."""
     if flag[0] == "--dgc":
         from edl_tpu_torch.train.compress import DGC
         args = train_resnet.parse_args(ARGV + flag + ["--dgc_rampup_epochs", "0.5"])
@@ -149,8 +151,15 @@ def test_unported_flags_raise(flag):
         assert (group["sparsity"], group["momentum"], group["rampup_steps"],
                 group["weight_decay"]) == (0.99, args.momentum, 4, args.weight_decay)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        train_resnet.parse_args(ARGV + flag)
+    args = train_resnet.parse_args(ARGV + flag)
+    ckpt = str(tmp_path / "ck")
+    _, trainer, _, _ = train_resnet.build_trainer(args, torch.device("cpu"), steps_per_epoch=8,
+                                                  checkpoint_dir=ckpt)
+    assert trainer.cfg.profile_window == (3, 5)
+    assert trainer.cfg.profile_dir == os.path.join(ckpt, "profile")
+    args = train_resnet.parse_args(ARGV + ["--profile_steps", "7", "--profile_dir", "/p"])
+    _, trainer, _, _ = train_resnet.build_trainer(args, torch.device("cpu"))
+    assert (trainer.cfg.profile_window, trainer.cfg.profile_dir) == ((7, 12), "/p")
 
 
 def test_synthetic_run_learns_resumes_and_dumps_every_epoch(tmp_path, monkeypatch, capsys):
